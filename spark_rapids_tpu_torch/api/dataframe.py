@@ -1,0 +1,100 @@
+"""DataFrame and session frontend.
+
+A DataFrame builds a logical plan; ``collect`` plans the device operators
+and runs them on the session's device, returning a ``HostBatch`` (numpy
+buffers; ``.to_arrow()`` converts it where pyarrow is installed).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+from spark_rapids_tpu_torch import device as device_mod
+from spark_rapids_tpu_torch.api.column import Column
+from spark_rapids_tpu_torch.columnar.host import HostBatch, concat_host_batches
+from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.exchange_execs import ShuffleBlocks
+from spark_rapids_tpu_torch.exprs import Alias, SortOrder, UnresolvedAttribute
+from spark_rapids_tpu_torch.plan import logical as lp
+from spark_rapids_tpu_torch.plan.planner import plan_physical
+
+
+def _to_expr(c: Union[str, Column]):
+    return UnresolvedAttribute(c) if isinstance(c, str) else c.expr
+
+
+class DataFrame:
+    def __init__(self, logical: lp.LogicalPlan, session: "TpuSession"):
+        self._plan = logical
+        self.session = session
+
+    def filter(self, cond: Column) -> "DataFrame":
+        return DataFrame(lp.Filter(cond.expr, self._plan), self.session)
+
+    def groupBy(self, *cols: Union[str, Column]) -> "GroupedData":
+        return GroupedData(self, tuple(_to_expr(c) for c in cols))
+
+    def agg(self, *cols: Column) -> "DataFrame":
+        return GroupedData(self, ()).agg(*cols)
+
+    def sort(self, *cols: Union[str, Column]) -> "DataFrame":
+        orders = []
+        for c in cols:
+            e = _to_expr(c)
+            orders.append(e if isinstance(e, SortOrder) else SortOrder(e))
+        return DataFrame(lp.Sort(tuple(orders), self._plan), self.session)
+
+    def repartition(self, n: int, *cols: Union[str, Column]) -> "DataFrame":
+        return DataFrame(
+            lp.Repartition(n, self._plan, tuple(_to_expr(c) for c in cols)),
+            self.session)
+
+    def schema(self):
+        return self._plan.schema()
+
+    def physical_plan(self) -> PhysicalExec:
+        return plan_physical(self._plan, self.session.conf)
+
+    def collect(self) -> HostBatch:
+        """Run the query on the session's device -> the result rows."""
+        final = self.physical_plan()
+        self.session.last_plan = final
+        blocks = ShuffleBlocks()      # the action's map outputs
+        out = []
+        for p in range(final.num_partitions):
+            ctx = ExecContext(self.session.conf, self.session.device, p,
+                              final.num_partitions, blocks)
+            out.extend(final.execute(ctx))
+        return concat_host_batches(out, final.output)
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, grouping):
+        self._df = df
+        self._grouping = grouping
+
+    def agg(self, *cols: Column) -> DataFrame:
+        aggs = tuple(c.expr if isinstance(c.expr, Alias)
+                     else Alias(c.expr, c.expr.name_hint) for c in cols)
+        return DataFrame(lp.Aggregate(self._grouping, aggs, self._df._plan),
+                         self._df.session)
+
+
+class TpuSession:
+    """Session: the conf (the JAX package's ``spark.rapids.tpu.*`` keys) and
+    the device every query runs on. The device is the GPU unless the caller
+    passes ``device="cpu"``; without a GPU the default raises."""
+
+    def __init__(self, conf: Optional[Dict[str, Any]] = None,
+                 device: device_mod.DeviceLike = None):
+        self.conf = TpuConf(conf or {})
+        self.device = device_mod.resolve(device)
+        #: the physical plan of the last action
+        self.last_plan: Optional[PhysicalExec] = None
+
+    def create_dataframe(self, data) -> DataFrame:
+        """A DataFrame over a HostBatch, or over an arrow table (converted
+        here; pyarrow is needed only for that)."""
+        if not isinstance(data, HostBatch):
+            data = HostBatch.from_arrow(data, self.conf.string_max_bytes)
+        return DataFrame(lp.LocalRelation(data), self)

@@ -1,0 +1,17 @@
+"""Expressions of the port: the subset TPC-H Q1 uses."""
+from spark_rapids_tpu_torch.exprs.aggregates import (AggregateFunction, Average,
+                                                     BufferSpec, Count, Sum)
+from spark_rapids_tpu_torch.exprs.arithmetic import Add, Multiply, Subtract
+from spark_rapids_tpu_torch.exprs.core import (BoundReference, ColV, EvalCtx,
+                                               Expression, UnresolvedAttribute,
+                                               bind_expression)
+from spark_rapids_tpu_torch.exprs.literals import Literal
+from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
+from spark_rapids_tpu_torch.exprs.predicates import LessThanOrEqual
+
+__all__ = [
+    "AggregateFunction", "Average", "BufferSpec", "Count", "Sum", "Add",
+    "Multiply", "Subtract", "BoundReference", "ColV", "EvalCtx", "Expression",
+    "UnresolvedAttribute", "bind_expression", "Literal", "Alias", "SortOrder",
+    "LessThanOrEqual",
+]

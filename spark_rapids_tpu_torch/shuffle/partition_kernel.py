@@ -1,0 +1,338 @@
+"""Partition reorder: the map side of the device shuffle exchange.
+
+  pack       columns -> one (rows, L) byte matrix (torch views: every value's
+             little-endian bytes, then one validity byte per column)
+  reorder    per group of G x 512-row windows, each partition's live rows in
+             order into quota-padded per-(partition, group) staging pieces,
+             plus live counts and an overflow flag (``partition_reorder``:
+             the CUDA kernel csrc/partition_reorder.cu on a GPU, its plain
+             PyTorch version on the CPU)
+  gather     ``consolidate`` gathers one partition's pieces into an ordinary
+             DeviceBatch
+
+The geometry (``KernelGeom``), the staging layout and the overflow rule are
+the JAX package's, so the pieces are comparable byte for byte. An overflow
+sends the batch back to the sort path: correctness never depends on the fast
+path applying.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import cuda_build
+from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, pad_rows
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.dtypes import (DType, Schema,
+                                                    bucket_capacity)
+
+W = 512                    #: window rows
+GROUP_WINDOWS = 64         #: windows per group (one set of pieces each)
+MAX_PARTS = 32             #: wider fan-outs take the sort path
+STAT_LANES = 128           #: lanes of a stats row (0: count, 1: overflow)
+
+
+# ------------------------------------------------------------------ pack spec
+@dataclass(frozen=True)
+class _ColPlan:
+    dtype: DType
+    kind: str          # u32x1 | u32x2 | f64 | u8 | string
+    lane: int          # first byte lane of the data bytes
+    nbytes: int        # data byte lanes
+    smax: int = 0      # string byte width
+
+
+@dataclass(frozen=True)
+class PackSpec:
+    """Byte-matrix layout of one batch schema: each column's data lanes, then
+    one validity lane per column."""
+    plans: Tuple[_ColPlan, ...]
+    lanes: int
+
+    @staticmethod
+    def for_batch(batch: DeviceBatch) -> Optional["PackSpec"]:
+        plans: List[_ColPlan] = []
+        lane = 0
+        for f, c in zip(batch.schema, batch.columns):
+            dt = f.dtype
+            if dt is DType.STRING:
+                smax = int(c.data.shape[1])
+                plan = _ColPlan(dt, "string", lane, smax + 4, smax)
+            elif dt is DType.DOUBLE:
+                plan = _ColPlan(dt, "f64", lane, 8)
+            elif dt in (DType.LONG, DType.TIMESTAMP):
+                plan = _ColPlan(dt, "u32x2", lane, 8)
+            elif dt in (DType.INT, DType.DATE, DType.FLOAT, DType.SHORT):
+                plan = _ColPlan(dt, "u32x1", lane, 4)
+            elif dt in (DType.BOOLEAN, DType.BYTE):
+                plan = _ColPlan(dt, "u8", lane, 1)
+            else:
+                return None                      # NULL columns: sort path
+            plans.append(plan)
+            lane += plan.nbytes
+        return PackSpec(tuple(plans), lane + len(plans))
+
+
+def _le_bytes(t: torch.Tensor) -> torch.Tensor:
+    """[rows] tensor -> [rows, itemsize] uint8: the values' little-endian
+    bytes (every supported device is little-endian)."""
+    t = t.contiguous()
+    return t.view(torch.uint8).view(t.shape[0], t.element_size())
+
+
+def pack_matrix(spec: PackSpec, columns: Sequence[DeviceColumn]) -> torch.Tensor:
+    """Columns -> (rows, L) uint8 matrix, laid out as the JAX package's
+    (a double's 8 bytes are its ``f64bits`` lanes)."""
+    pieces = []
+    for plan, c in zip(spec.plans, columns):
+        if plan.kind == "string":
+            pieces += [c.data, _le_bytes(c.lengths.to(torch.int32))]
+        elif plan.kind == "u32x1" and plan.dtype is DType.SHORT:
+            pieces.append(_le_bytes(c.data.to(torch.int32)))
+        elif plan.kind == "u8":
+            pieces.append(c.data.to(torch.uint8)[:, None]
+                          if plan.dtype is DType.BOOLEAN
+                          else c.data.view(torch.uint8)[:, None])
+        else:
+            pieces.append(_le_bytes(c.data))
+    pieces += [c.validity.to(torch.uint8)[:, None] for c in columns]
+    return torch.cat(pieces, dim=1)
+
+
+def unpack_columns(spec: PackSpec, schema: Schema,
+                   mat: torch.Tensor) -> List[DeviceColumn]:
+    """(rows, L) uint8 matrix -> DeviceColumns (inverse of pack_matrix)."""
+    def lanes(lane: int, width: int, dtype: torch.dtype) -> torch.Tensor:
+        return mat[:, lane:lane + width].contiguous().view(dtype).view(-1)
+
+    nvals = len(spec.plans)
+    cols: List[DeviceColumn] = []
+    for i, (plan, f) in enumerate(zip(spec.plans, schema)):
+        validity = mat[:, spec.lanes - nvals + i] != 0
+        if plan.kind == "string":
+            cols.append(DeviceColumn(
+                f.dtype, mat[:, plan.lane:plan.lane + plan.smax].contiguous(),
+                validity, lanes(plan.lane + plan.smax, 4, torch.int32)))
+            continue
+        if plan.kind == "u8":
+            raw = mat[:, plan.lane]
+            data = (raw != 0) if f.dtype is DType.BOOLEAN \
+                else raw.contiguous().view(torch.int8)
+        elif f.dtype is DType.SHORT:
+            data = lanes(plan.lane, 4, torch.int32).to(torch.int16)
+        else:
+            data = lanes(plan.lane, plan.nbytes, f.dtype.torch_dtype())
+        cols.append(DeviceColumn(f.dtype, data, validity))
+    return cols
+
+
+# ------------------------------------------------------------------ geometry
+@dataclass(frozen=True)
+class KernelGeom:
+    cap: int          # padded row count = groups * G * W
+    groups: int
+    G: int
+    n: int
+    q_w: int          # per-window per-partition count bound
+    quota: int        # rows of one (partition, group) piece
+    L: int
+
+    @staticmethod
+    def plan(rows: int, n: int, L: int) -> "KernelGeom":
+        G = min(GROUP_WINDOWS, max(1, math.ceil(rows / W)))
+        gw = G * W
+        groups = max(1, math.ceil(rows / gw))
+        cap = groups * gw
+        q_w = min(W, max(64, 2 * math.ceil(W / n)))
+        q_w = (q_w + 7) // 8 * 8
+        seg = q_w + 32
+        quota = max(seg + 32, math.ceil(1.25 * gw / n))
+        quota = (quota + 511) // 512 * 512
+        return KernelGeom(cap, groups, G, n, q_w, quota, L)
+
+
+def _check_inputs(pids: torch.Tensor, data: torch.Tensor,
+                  geom: KernelGeom) -> None:
+    if not 1 <= geom.n <= MAX_PARTS:
+        raise ValueError(f"{geom.n} partitions: the reorder takes 1..{MAX_PARTS}")
+    want_p = (geom.groups, geom.G, W)
+    want_d = (geom.groups, geom.G * W, geom.L)
+    if pids.dtype != torch.int32 or tuple(pids.shape) != want_p:
+        raise ValueError(f"pids must be int32 {want_p}, got "
+                         f"{pids.dtype} {tuple(pids.shape)}")
+    if data.dtype != torch.uint8 or tuple(data.shape) != want_d:
+        raise ValueError(f"data must be uint8 {want_d}, got "
+                         f"{data.dtype} {tuple(data.shape)}")
+    if not (pids.is_contiguous() and data.is_contiguous()):
+        raise ValueError("pids and data must be contiguous")
+    if pids.device != data.device:
+        raise ValueError(f"pids on {pids.device}, data on {data.device}")
+
+
+# ------------------------------------------------------------------ reorder
+def partition_reorder(pids: torch.Tensor, data: torch.Tensor,
+                      geom: KernelGeom) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reorder -> (out uint8 [n, groups, quota, L], stats int32
+    [groups, n, 128]). CPU tensors take the plain version; any other device
+    goes to the CUDA kernel, which runs or raises."""
+    _check_inputs(pids, data, geom)
+    if pids.device.type == "cpu":
+        return partition_reorder_plain(pids, data, geom)
+    return REORDER_KERNEL(pids, data, geom)
+
+
+def partition_reorder_plain(pids: torch.Tensor, data: torch.Tensor,
+                            geom: KernelGeom
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reorder in plain PyTorch: per-window counts by ``bincount``, the
+    overflow rule, a stable sort on ``group * n + pid``, then a scatter of
+    the rows into their pieces."""
+    _check_inputs(pids, data, geom)
+    groups, G, n, quota, L = geom.groups, geom.G, geom.n, geom.quota, geom.L
+    dev = pids.device
+    p = pids.reshape(groups, G * W).to(torch.int64)
+    live = (p >= 0) & (p < n)
+    row_in_group = torch.arange(G * W, device=dev)
+    window = (torch.arange(groups, device=dev)[:, None] * G
+              + row_in_group[None, :] // W)
+    bins = torch.where(live, window * n + p, groups * G * n).view(-1)
+    cnt = torch.bincount(bins, minlength=groups * G * n + 1)[:-1]
+    cnt = cnt.view(groups, G, n)
+    run_before = torch.cumsum(cnt, dim=1) - cnt
+    over = (cnt > geom.q_w) | (run_before + cnt > quota - (geom.q_w + 32))
+    flag = over.view(groups, -1).any(dim=1)
+
+    group = torch.arange(groups, device=dev)[:, None]
+    key = torch.where(live, group * n + p, groups * n).view(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    per_key = torch.bincount(key, minlength=groups * n + 1)
+    first = torch.cumsum(per_key, 0) - per_key
+    rank = torch.arange(key.numel(), device=dev) - first[sorted_key]
+    keep = (sorted_key < groups * n) & (rank < quota)
+    sk = sorted_key[keep]
+    dest = ((sk % n) * groups + sk // n) * quota + rank[keep]
+    out = torch.empty((n, groups, quota, L), dtype=torch.uint8, device=dev)
+    out.view(-1, L)[dest] = data.view(-1, L)[order[keep]]
+
+    stats = torch.zeros((groups, n, STAT_LANES), dtype=torch.int32, device=dev)
+    stats[:, :, 0] = cnt.sum(dim=1).to(torch.int32)
+    stats[:, :, 1] = flag[:, None].to(torch.int32)
+    return out, stats
+
+
+class _ReorderKernel:
+    """ctypes binding of csrc/partition_reorder.cu. ``launches`` counts the
+    launches of the kernel (and nothing else)."""
+
+    SOURCE = "partition_reorder.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = cuda_build.load(self.SOURCE)
+            lib.partition_reorder.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            lib.partition_reorder.restype = ctypes.c_int
+            lib.partition_reorder_error.argtypes = [ctypes.c_int]
+            lib.partition_reorder_error.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, pids: torch.Tensor, data: torch.Tensor,
+                 geom: KernelGeom) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_inputs(pids, data, geom)
+        if pids.device.type != "cuda":
+            raise ValueError(f"the CUDA reorder kernel needs CUDA tensors, "
+                             f"got {pids.device}")
+        lib = self.load()
+        out = torch.empty((geom.n, geom.groups, geom.quota, geom.L),
+                          dtype=torch.uint8, device=pids.device)
+        stats = torch.empty((geom.groups, geom.n, STAT_LANES),
+                            dtype=torch.int32, device=pids.device)
+        vec4 = int(geom.L % 4 == 0 and data.data_ptr() % 4 == 0
+                   and out.data_ptr() % 4 == 0)
+        stream = torch.cuda.current_stream(pids.device).cuda_stream
+        err = lib.partition_reorder(
+            pids.data_ptr(), data.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            geom.groups, geom.G, geom.n, geom.q_w, geom.quota, geom.L, vec4,
+            stream)
+        if err != 0:
+            msg = lib.partition_reorder_error(err).decode()
+            raise RuntimeError(f"partition_reorder launch failed: CUDA error "
+                               f"{err} ({msg})")
+        self.launches += 1
+        return out, stats
+
+
+#: the process's binding of the CUDA reorder kernel
+REORDER_KERNEL = _ReorderKernel()
+
+
+# ------------------------------------------------------------------ batch split
+def kernel_inputs(batch: DeviceBatch, pids: torch.Tensor, spec: PackSpec,
+                  geom: KernelGeom) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a batch and shape it for the reorder: dead and padding rows get
+    pid -1, rows are zero-padded to ``geom.cap`` -> (pids [groups, G, W],
+    data [groups, G*W, L])."""
+    alive = torch.arange(batch.capacity, device=pids.device) < batch.num_rows
+    p = pad_rows(torch.where(alive, pids, -1).to(torch.int32), geom.cap)
+    p[batch.capacity:] = -1
+    mat = pad_rows(pack_matrix(spec, batch.columns), geom.cap)
+    return (p.view(geom.groups, geom.G, W),
+            mat.view(geom.groups, geom.G * W, geom.L))
+
+
+Split = Tuple[torch.Tensor, np.ndarray, PackSpec, KernelGeom]
+
+
+def split_batch_kernel(batch: DeviceBatch, pids: torch.Tensor,
+                       n: int) -> Optional[Split]:
+    """Pack + reorder one batch -> (out, stats_host, spec, geom), or None
+    when the batch is outside the fast path (n outside 2..MAX_PARTS, an
+    unpackable column, an overflow): the caller takes the sort path."""
+    if n < 2 or n > MAX_PARTS:
+        return None
+    spec = PackSpec.for_batch(batch)
+    if spec is None:
+        return None
+    geom = KernelGeom.plan(batch.capacity, n, spec.lanes)
+    out, stats = partition_reorder(*kernel_inputs(batch, pids, spec, geom),
+                                   geom)
+    return finalize_split(out, stats, spec, geom)
+
+
+def finalize_split(out: torch.Tensor, stats: torch.Tensor, spec: PackSpec,
+                   geom: KernelGeom) -> Optional[Split]:
+    """One small download of (count, flag) per piece; None on overflow."""
+    stats_host = stats[:, :, :2].cpu().numpy()
+    if stats_host[:, :, 1].max(initial=0) > 0:
+        return None
+    return out, stats_host, spec, geom
+
+
+def consolidate(out: torch.Tensor, stats_host: np.ndarray, j: int,
+                spec: PackSpec, schema: Schema,
+                geom: KernelGeom) -> Optional[DeviceBatch]:
+    """Partition j's pieces -> one DeviceBatch (None when empty): one row
+    gather over the pieces' live prefixes, group after group, so the rows
+    keep their original order."""
+    counts = stats_host[:, j, 0].astype(np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return None
+    dev = out.device
+    cnt = torch.from_numpy(counts).to(dev)
+    skip = torch.arange(geom.groups, device=dev) * geom.quota \
+        - (torch.cumsum(cnt, 0) - cnt)
+    rows = (torch.repeat_interleave(skip, cnt, output_size=total)
+            + torch.arange(total, device=dev))
+    mat = pad_rows(out[j].reshape(-1, geom.L)[rows], bucket_capacity(total))
+    return DeviceBatch(schema, tuple(unpack_columns(spec, schema, mat)), total)
