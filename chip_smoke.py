@@ -3,7 +3,7 @@
 
 Phases:
   1. require a CUDA device; print the card's name and power limit;
-  2. build every hand-written kernel from csrc/ with nvcc (in parallel);
+  2. build every hand-written kernel from csrc/ with nvcc;
   3. hold each kernel against its plain PyTorch version on the card: the
      partition-reorder kernel at the main path's shape (lineitem, 8 hash
      partitions on l_orderkey), at n = 2 and n = 32, on a ragged batch with
@@ -30,8 +30,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12          # HBM3 rate of one H100 SXM
@@ -65,8 +63,7 @@ def build_kernels():
     from spark_rapids_tpu_torch import cuda_build
     sources = sorted(p.name for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        logs = list(pool.map(cuda_build.build, sources))
+    logs = [cuda_build.build(src) for src in sources]
     secs = time.perf_counter() - t0
     for src, (so, log) in zip(sources, logs):
         print(f"built {src} -> {so.name}")
@@ -160,8 +157,10 @@ def phase_kernels(lineitem, device):
     del batch, pids
     err, k_ms, p_ms = check_reorder("main-path", p3, d3, geom,
                                     expect_flag=False, time_it=True)
-    live = int(lineitem.num_rows)
-    moved = (geom.cap * (geom.L + 4) + live * geom.L
+    # every pid is read; only live rows' data is read and written (no output
+    # depends on a dead or padding row's bytes); stats are written once
+    live = int((p3 >= 0).sum())
+    moved = (geom.cap * 4 + 2 * live * geom.L
              + geom.groups * geom.n * pk.STAT_LANES * 4)
     bound_ms = moved / H100_BYTES_PER_S * 1e3
     print(f"reorder main-path: bytes={moved} bound_ms={bound_ms:.4f} "
@@ -251,8 +250,9 @@ def check_q1(name, res, ref):
 
 def profile_q1(sess, lineitem, path, warm_s):
     """One more Q1 over the repartition, under torch.profiler: device time
-    by kernel (and copy), and the device's idle share of the unprofiled warm
-    wall time ``warm_s``."""
+    by kernel (and copy). Two idle shares are printed: of this run's own
+    wall (which the profiler's overhead inflates), and an estimate across
+    two runs, of the unprofiled warm wall ``warm_s``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -278,8 +278,10 @@ def profile_q1(sess, lineitem, path, warm_s):
             f.write(f"{e.self_device_time_total / 1e3:.4f}\t{e.count}\t"
                     f"{e.key}\n")
     print(f"profile q1 repartition(8): device_busy_ms={busy_ms:.2f} "
-          f"profiled_wall_ms={wall_ms:.2f} warm_wall_ms={warm_s * 1e3:.2f} "
-          f"idle_share_of_warm={1 - busy_ms / (warm_s * 1e3):.3f} "
+          f"profiled_wall_ms={wall_ms:.2f} "
+          f"idle_share_profiled_run={1 - busy_ms / wall_ms:.3f} "
+          f"warm_wall_ms={warm_s * 1e3:.2f} "
+          f"idle_share_est_of_warm={1 - busy_ms / (warm_s * 1e3):.3f} "
           f"table={path}")
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "

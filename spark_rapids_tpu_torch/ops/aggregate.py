@@ -5,8 +5,9 @@ mode of the JAX package's ``ops/aggregate.py``.
 distinct 64-bit key hashes give the group table and ``searchsorted`` gives
 each row its group id. The JAX package forms ``[capacity, 64]`` one-hot masks
 that XLA fuses away; eager torch would materialise them (cap x 64 x 8 bytes a
-buffer, ~34 GB at SF 10), so here every reduction goes by group id instead
-(``index_add_`` over the buffers of one dtype stacked together). The
+buffer, ~34 GB at SF 10), so here every reduction goes by group id instead:
+one ``index_add_`` per buffer into the sub-bins ``gid * SPREAD + row %
+SPREAD``, then a sum over each group's sub-bins. The
 collision/overflow flag is exact, as in the JAX package: every injective key
 word of a row must equal its group's first row's.
 
@@ -96,9 +97,13 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     gid = torch.searchsorted(cand, u)
     gid = torch.where(alive & (gid < num_groups), gid, num_groups)
     in_table = gid < num_groups
-    # each group's first row: its key output and the collision check's model
-    rep = torch.stack([torch.argmax((gid == g).to(torch.uint8))
-                       for g in range(num_groups)])
+    row = torch.arange(gid.shape[0], device=device)
+    spread = gid * SPREAD + row % SPREAD
+    # each group's first row: its key output and the collision check's model;
+    # one pass, its atomic mins spread over the same sub-bins as the sums
+    rep = torch.full(((num_groups + 1) * SPREAD,), gid.shape[0],
+                     dtype=torch.int64, device=device).scatter_reduce_(
+        0, spread, row, "amin").view(-1, SPREAD).amin(dim=1)[:num_groups]
     row_rep = rep[gid.clamp(max=num_groups - 1)]
     collided = torch.zeros_like(in_table)
     for w in [bk.validity_word(keys)] + [w for v in keys
@@ -106,8 +111,6 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
         collided |= w != w[row_rep]
     flagged = num_real > G or bool((collided & in_table).any())
     key_cols = [bk.take_padded(v, rep, out_cap) for v in keys]
-
-    spread = gid * SPREAD + torch.arange(gid.shape[0], device=device) % SPREAD
     reduced_per_fn = [[_group_sum(b, spread, num_groups, out_cap)
                        for b in bufs] for bufs in projections]
     return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
