@@ -3,29 +3,52 @@
 
 Phases:
   1. require a CUDA device; print the card's name and power limit;
-  2. build every hand-written kernel from csrc/ with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card: the
-     partition-reorder kernel at the main path's shape (lineitem, 8 hash
-     partitions on l_orderkey), at n = 2 and n = 32, on a ragged batch with
-     dead rows and an odd row width, and on an all-in-one-partition batch
-     that must raise the overflow flag; stats and every live staging row
-     must match exactly;
-  4. drive the main path: TPC-H Q1 over lineitem hash-repartitioned 8 ways
+  2. build every hand-written kernel from csrc/ with nvcc, one nvcc per
+     source, all started together;
+  3. hold each kernel against its plain PyTorch version on the card:
+     - the partition-reorder kernel at the main path's shape (lineitem, 8
+       hash partitions on l_orderkey), at n = 2 and n = 32, on a ragged
+       batch with dead rows and an odd row width, and on an
+       all-in-one-partition batch that must raise the overflow flag; stats
+       and every live staging row must match exactly;
+     - the compact kernel (dmaConsolidate) on the reorder kernel's real
+       output at the main path's shape, at n = 2 and n = 32, at L = 21 with
+       dead rows, with a partition that gets no row, and on a tiny batch;
+       every live row and every zero padding row must match exactly, and
+       the live rows must equal an index_select in the reference's order;
+       the kernel, its plain version and that index_select are timed;
+  4. the full exchange: lineitem uploaded once, TpuShuffleExchangeExec
+     (hash 8 on l_orderkey) over a resident leaf, all 8 partitions read
+     back through the spillable shuffle catalog, with dmaConsolidate off
+     and on: the partitions must be equal, each kernel must launch once
+     per map batch (the compact kernel only with dmaConsolidate), no batch
+     may take the sort path, and the stage statistics must count every
+     row; GB/s is the batch's logical bytes over the best of 3 warm runs;
+     then a round-robin repartition(8) through the kernels, on and off;
+  5. spill: at SF 1, a 256 MB device budget and a 256 MB host budget push
+     the map outputs onto all three tiers; the partitions read back must
+     equal the unspilled run's;
+  6. drive the main path: TPC-H Q1 over lineitem hash-repartitioned 8 ways
      on l_orderkey, through TpuSession on cuda, held against a plain numpy
      Q1 over the same host arrays (keys and count_order exact, sums and
      averages to relative 1e-9); the reorder kernel must have launched and
-     the exchange must not have taken the sort path; then plain Q1 (no
-     repartition) against the same reference.
+     the exchange must not have taken the sort path; then the same with
+     dmaConsolidate on (the compact kernel must have launched), then plain
+     Q1 (no repartition) against the same reference.
 
-Prints one JSON line of per-kernel numbers, then as its last line
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after; comparison launches are not counted. Prints one
+JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
-Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile PATH]
+Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import datetime
+import gc
 import json
 import subprocess
 import sys
@@ -63,7 +86,8 @@ def build_kernels():
     from spark_rapids_tpu_torch import cuda_build
     sources = sorted(p.name for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    logs = [cuda_build.build(src) for src in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        logs = list(pool.map(cuda_build.build, sources))
     secs = time.perf_counter() - t0
     for src, (so, log) in zip(sources, logs):
         print(f"built {src} -> {so.name}")
@@ -114,7 +138,10 @@ def check_reorder(name, pids, data, geom, expect_flag=None, time_it=False):
     return float(err), k_ms, p_ms
 
 
-def synthetic_case(rows, L, n, dead_frac, device, seed, one_partition=False):
+def synthetic_case(rows, L, n, dead_frac, device, seed, one_partition=False,
+                   empty=None):
+    """Random pids (partition ``empty`` gets no row: its rows spread over
+    the others) and random row bytes, in the reorder's input shape."""
     import torch
     from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
     g = torch.Generator(device=device).manual_seed(seed)
@@ -123,6 +150,10 @@ def synthetic_case(rows, L, n, dead_frac, device, seed, one_partition=False):
                          dtype=torch.int32)
     if one_partition:
         pids.zero_()
+    if empty is not None:
+        spread = torch.randint(1, n, (geom.cap,), generator=g, device=device,
+                               dtype=torch.int32)
+        pids = torch.where(pids == empty, (pids + spread) % n, pids)
     dead = torch.rand(geom.cap, generator=g, device=device) < dead_frac
     pids[dead] = -1
     pids[rows:] = -1
@@ -132,9 +163,86 @@ def synthetic_case(rows, L, n, dead_frac, device, seed, one_partition=False):
             data.view(geom.groups, geom.G * pk.W, L), geom)
 
 
+def reference_rows(counts, geom, device):
+    """Flat staging rows (into out.view(-1, L)) of every partition's live
+    rows in the reference's order, built from the counts alone: each
+    group's full 8-row blocks, group by group, then each group's
+    remainder rows, group by group."""
+    import torch
+    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+    base = torch.arange(geom.groups, device=device) * geom.quota
+    rows = []
+    for j in range(geom.n):
+        c = counts[:, j]
+        full = c // pk.BLOCK * pk.BLOCK
+        f = torch.from_numpy(full).to(device)
+        r = torch.from_numpy(c - full).to(device)
+        start = base + j * geom.groups * geom.quota
+        rows += [pk._runs(start, f, int(full.sum())),
+                 pk._runs(start + f, r, int((c - full).sum()))]
+    return torch.cat(rows)
+
+
+def check_compact(name, out, stats, geom, time_it=False):
+    """Run the CUDA compaction and its plain version on the reorder's
+    output and compare exactly: every live row, every zero padding row,
+    and the live rows against an index_select in the reference's order.
+    Returns (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)."""
+    import torch
+    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+    if bool(stats[:, :, 1].any()):
+        raise AssertionError(f"compact {name}: the reorder overflowed")
+    counts = stats[:, :, 0].cpu().numpy().astype(np.int64)
+    plan = pk.CompactPlan.of(counts, geom)
+    k = pk.COMPACT_KERNEL(out, plan, geom)
+    p = pk.dma_compact_plain(out, plan, geom)
+    flat = out.view(-1, geom.L)
+    idx = reference_rows(counts, geom, out.device)
+    lib = torch.index_select(flat, 0, idx)
+    torch.cuda.synchronize()
+    err, off = 0, 0
+    for j in range(geom.n):
+        t, f = int(plan.totals[j]), int(plan.fills[j])
+        diff = (k[j, :f].int() - p[j, :f].int()).abs()
+        err = max(err, int(diff.max()) if f else 0)
+        if err:
+            raise AssertionError(f"compact {name}: partition {j} differs "
+                                 f"from the plain version (max byte error "
+                                 f"{err}, rows {diff.any(1).nonzero()[:3]})")
+        if bool(k[j, t:f].any()):
+            raise AssertionError(f"compact {name}: partition {j}'s padding "
+                                 f"rows are not zero")
+        if not torch.equal(k[j, :t], lib[off:off + t]):
+            raise AssertionError(f"compact {name}: partition {j}'s rows are "
+                                 f"not in the reference's order")
+        off += t
+    if off != int(((stats[:, :, 0]).sum())):
+        raise AssertionError(f"compact {name}: rows lost")
+    del k, p, lib
+    # each live row read and written once, each padding row written once,
+    # the index array read once
+    live = int(plan.totals.astype(np.int64).sum())
+    pad = int((plan.fills.astype(np.int64) - plan.totals).sum())
+    moved = (2 * live + pad) * geom.L + plan.index_array().nbytes
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    k_ms = p_ms = lib_ms = None
+    if time_it:
+        k_ms = cuda_ms(lambda: pk.COMPACT_KERNEL(out, plan, geom), 10)
+        p_ms = cuda_ms(lambda: pk.dma_compact_plain(out, plan, geom), 3)
+        lib_ms = cuda_ms(lambda: torch.index_select(flat, 0, idx), 10)
+    print(f"compact {name}: groups={geom.groups} n={geom.n} L={geom.L} "
+          f"rows={live} padding_rows={pad} dst_rows={plan.dst_rows} "
+          f"empty_partitions={int((plan.totals == 0).sum())} exact=yes "
+          f"bytes={moved} bound_ms={bound_ms:.4f}"
+          + (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+             f"index_select_ms={lib_ms:.4f} "
+             f"roofline_share={bound_ms / k_ms:.3f}" if time_it else ""))
+    return float(err), k_ms, p_ms, lib_ms, bound_ms
+
+
 def phase_kernels(lineitem, device):
-    """Every kernel against its plain version; returns the kernel record
-    of the main-path shape."""
+    """Every kernel against its plain version; returns the kernel records
+    of the main-path shape (launches filled in later)."""
     import torch
     from spark_rapids_tpu_torch.columnar.transfer import upload
     from spark_rapids_tpu_torch.exprs.core import ColV
@@ -166,30 +274,235 @@ def phase_kernels(lineitem, device):
     print(f"reorder main-path: bytes={moved} bound_ms={bound_ms:.4f} "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
           f"roofline_share={bound_ms / k_ms:.3f}")
+    reorder = {"name": "partition_reorder", "route": "cuda",
+               "source": "spark_rapids_tpu_torch/csrc/partition_reorder.cu",
+               "replaces": "spark_rapids_tpu/shuffle/partition_kernel.py:261",
+               "launches": None, "max_abs_err": err, "ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": None}
+    out, stats = pk.REORDER_KERNEL(p3, d3, geom)
     del p3, d3
+    c_err, c_ms, c_plain, c_lib, c_bound = check_compact(
+        "main-path", out, stats, geom, time_it=True)
+    compact = {"name": "dma_compact", "route": "cuda",
+               "source": "spark_rapids_tpu_torch/csrc/dma_compact.cu",
+               "replaces": "spark_rapids_tpu/shuffle/partition_kernel.py:612",
+               "launches": None, "max_abs_err": c_err, "ms": c_ms,
+               "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": "bytes",
+               "library_ms": c_lib}
+    del out, stats
     torch.cuda.empty_cache()
 
     rows = 1 << 22
-    for name, args, flag in [
-            ("n=2", (rows, 76, 2, 0.0), False),
-            ("n=32", (rows, 76, 32, 0.0), False),
-            ("ragged+dead L=21", (3 * 32768 + 1000 + 77, 21, 5, 0.1), False),
-            ("tiny", (300, 13, 3, 0.2), False)]:
-        check_reorder(name, *synthetic_case(*args, device, seed=7),
-                      expect_flag=flag)
+    cases = [("n=2", (rows, 76, 2, 0.0), {}),
+             ("n=32", (rows, 76, 32, 0.0), {}),
+             ("ragged+dead L=21", (3 * 32768 + 1000 + 77, 21, 5, 0.1), {}),
+             ("empty partition", (rows, 76, 8, 0.05), {"empty": 3}),
+             ("tiny", (300, 13, 3, 0.2), {})]
+    for name, args, kw in cases:
+        case = synthetic_case(*args, device, seed=7, **kw)
+        check_reorder(name, *case, expect_flag=False)
+        out, stats = pk.REORDER_KERNEL(*case)
+        check_compact(name, out, stats, case[2])
+        del case, out, stats
     check_reorder("one-partition", *synthetic_case(rows, 76, 8, 0.0, device,
                                                    seed=9, one_partition=True),
                   expect_flag=True)
     torch.cuda.empty_cache()
-    return {"name": "partition_reorder", "route": "cuda",
-            "source": "spark_rapids_tpu_torch/csrc/partition_reorder.cu",
-            "replaces": "spark_rapids_tpu/shuffle/partition_kernel.py:261",
-            "launches": None, "max_abs_err": err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None}
+    return reorder, compact
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phases 4, 5
+def logical_bytes(batch) -> int:
+    """Column data + validity + lengths of a device batch (what bench.py's
+    full-exchange rate divides)."""
+    return sum(t.numel() * t.element_size() for c in batch.columns
+               for t in (c.data, c.validity, c.lengths) if t is not None)
+
+
+def reset_launches():
+    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+    pk.REORDER_KERNEL.launches = 0
+    pk.COMPACT_KERNEL.launches = 0
+
+
+def read_launches():
+    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+    return pk.REORDER_KERNEL.launches, pk.COMPACT_KERNEL.launches
+
+
+def run_exchange(batch, part, conf, device):
+    """One TpuShuffleExchangeExec over a resident one-batch leaf: every
+    reduce partition read back through the shuffle catalog, then the
+    action's cleanups. Returns (exec, partitions, seconds, tiers), where
+    tiers counts the map outputs on (device, host, disk) before the read."""
+    import torch
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
+    from spark_rapids_tpu_torch.execs.exchange_execs import \
+        TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+
+    class Resident(LeafExec):
+        # holds the batch on the instance, not in a closure: a class is
+        # freed only by the cycle collector, the instance with the exchange
+        def __init__(self, b):
+            super().__init__(b.schema)
+            self.batch = b
+
+        def execute(self, ctx):
+            yield self.batch
+
+    tconf = TpuConf(conf)
+    dm = DeviceManager.initialize(tconf, device)
+    ex = TpuShuffleExchangeExec(part, Resident(batch))
+    cleanups = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx = ExecContext(tconf, device, 0, ex.num_partitions, dm, cleanups)
+        ex.map_output_stats(ctx)              # runs the map side
+        tiers = (len(dm.device_store), len(dm.host_store),
+                 len(dm.disk_store))
+        parts = [list(ex.execute(ctx.for_partition(p, ex.num_partitions)))
+                 for p in range(ex.num_partitions)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for fn in cleanups:
+            fn()
+    if not dm.is_idle:
+        raise AssertionError("the exchange left buffers in the catalog")
+    return ex, parts, secs, tiers
+
+
+def assert_same_partitions(name, a, b):
+    import torch
+    if len(a) != len(b):
+        raise AssertionError(f"{name}: {len(a)} vs {len(b)} partitions")
+    for p, (xs, ys) in enumerate(zip(a, b)):
+        if [x.num_rows for x in xs] != [y.num_rows for y in ys]:
+            raise AssertionError(f"{name}: partition {p} row counts differ")
+        for x, y in zip(xs, ys):
+            for cx, cy in zip(x.columns, y.columns):
+                same = (torch.equal(cx.data, cy.data)
+                        and torch.equal(cx.validity, cy.validity)
+                        and (cx.lengths is None
+                             or torch.equal(cx.lengths, cy.lengths)))
+                if not same:
+                    raise AssertionError(f"{name}: partition {p} differs")
+
+
+def phase_exchange(lineitem, device, profile_dir=None):
+    """The full exchange at the run's scale, dmaConsolidate off and on.
+    Returns the compact kernel's launches in the dma-on exchange."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.transfer import upload
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, RoundRobinPartitioning)
+    from spark_rapids_tpu_torch.exprs.core import (UnresolvedAttribute,
+                                                   bind_expression)
+
+    batch = upload(lineitem, device)
+    key = bind_expression(UnresolvedAttribute("l_orderkey"), batch.schema)
+    dma_key = "spark.rapids.tpu.shuffle.kernel.dmaConsolidate.enabled"
+    results, compact_launches = {}, None
+    for dma in (False, True):
+        conf = {dma_key: str(dma).lower()}
+        reset_launches()
+        ex, parts, cold_s, _ = run_exchange(
+            batch, HashPartitioning(8, (key,)), conf, device)
+        reorder_n, compact_n = read_launches()
+        if (reorder_n, compact_n) != (1, int(dma)):
+            raise AssertionError(f"exchange dma={dma}: launches reorder="
+                                 f"{reorder_n} compact={compact_n}, want 1 "
+                                 f"and {int(dma)} for one map batch")
+        if (ex.kernel_splits, ex.sort_path_splits) != (1, 0):
+            raise AssertionError(f"exchange dma={dma}: splits "
+                                 f"{ex.kernel_splits}/{ex.sort_path_splits}")
+        stats = ex.stage_stats()
+        if stats.total_rows != lineitem.num_rows:
+            raise AssertionError(f"exchange dma={dma}: stage stats count "
+                                 f"{stats.total_rows} rows")
+        if dma:
+            compact_launches = compact_n
+        warm = [run_exchange(batch, HashPartitioning(8, (key,)), conf,
+                             device)[2] for _ in range(3)]
+        gbps = logical_bytes(batch) / min(warm) / 1e9
+        results[dma] = parts
+        if profile_dir:
+            profile_device(
+                f"exchange hash(8) dma={dma}",
+                lambda: run_exchange(batch, HashPartitioning(8, (key,)),
+                                     conf, device),
+                f"{profile_dir}/exchange_dma_{str(dma).lower()}.tsv",
+                min(warm))
+        print(f"exchange hash(8, l_orderkey) dma={dma}: rows="
+              f"{stats.total_rows} launches reorder={reorder_n} "
+              f"compact={compact_n} sort_path_splits=0 cold_s={cold_s:.4f} "
+              f"warm_s={' '.join(f'{w:.4f}' for w in warm)} "
+              f"gb_per_s={gbps:.3f} ({logical_bytes(batch)} logical bytes, "
+              f"best warm run) stats: {stats.describe()}")
+        del parts
+    assert_same_partitions("exchange dma off vs on", results[False],
+                           results[True])
+    del results
+    rr = {}
+    for dma in (False, True):
+        reset_launches()
+        ex, rr[dma], secs, _ = run_exchange(
+            batch, RoundRobinPartitioning(8), {dma_key: str(dma).lower()},
+            device)
+        reorder_n, compact_n = read_launches()
+        rows = ex.stage_stats().partition_rows
+        if (ex.kernel_splits, ex.sort_path_splits) != (1, 0) or \
+                (reorder_n, compact_n) != (1, int(dma)) or \
+                sum(rows) != lineitem.num_rows:
+            raise AssertionError(f"round robin dma={dma}: splits "
+                                 f"{ex.kernel_splits}/{ex.sort_path_splits} "
+                                 f"launches {reorder_n}/{compact_n} rows "
+                                 f"{rows}")
+        print(f"exchange roundrobin(8) dma={dma}: rows per partition {rows} "
+              f"launches reorder={reorder_n} compact={compact_n} "
+              f"cold_s={secs:.4f}")
+    assert_same_partitions("round robin dma off vs on", rr[False], rr[True])
+    del rr, batch
+    torch.cuda.empty_cache()
+    return compact_launches
+
+
+def phase_spill(seed, device, sf=1.0, budget=256 << 20):
+    """lineitem at ``sf`` through the exchange with device and host budgets
+    of ``budget`` bytes each: the map outputs must land on all three tiers
+    and read back equal to the unspilled run."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
+    from spark_rapids_tpu_torch.columnar.transfer import upload
+    from spark_rapids_tpu_torch.execs.exchange_execs import HashPartitioning
+    from spark_rapids_tpu_torch.exprs.core import (UnresolvedAttribute,
+                                                   bind_expression)
+
+    batch = upload(gen_lineitem(sf, seed=seed), device)
+    key = bind_expression(UnresolvedAttribute("l_orderkey"), batch.schema)
+    dma = {"spark.rapids.tpu.shuffle.kernel.dmaConsolidate.enabled": "true"}
+    _, want, _, tiers0 = run_exchange(batch, HashPartitioning(8, (key,)),
+                                      dma, device)
+    conf = {**dma, "spark.rapids.tpu.memory.tpu.poolSizeBytes": budget,
+            "spark.rapids.tpu.memory.host.spillStorageSize": budget}
+    _, got, secs, tiers = run_exchange(batch, HashPartitioning(8, (key,)),
+                                       conf, device)
+    if tiers0 != (8, 0, 0) or min(tiers) < 1 or sum(tiers) != 8:
+        raise AssertionError(f"spill: tiers {tiers0} unspilled, {tiers} "
+                             f"spilled; want every tier used")
+    assert_same_partitions("spill", got, want)
+    print(f"spill sf={sf} hash(8): device/host/disk pieces {tiers} (unspilled "
+          f"{tiers0}), budgets {budget} bytes each, read back equal, "
+          f"s={secs:.4f}")
+    del batch, want, got
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 6
 def q1_numpy(li):
     """Plain numpy TPC-H Q1 over the host arrays -> {(flag, status): row}."""
     cols = {f.name: c for f, c in zip(li.schema, li.columns)}
@@ -248,22 +561,20 @@ def check_q1(name, res, ref):
           f"(worst relative error {worst:.3e})")
 
 
-def profile_q1(sess, lineitem, path, warm_s):
-    """One more Q1 over the repartition, under torch.profiler: device time
-    by kernel (and copy). Two idle shares are printed: of this run's own
-    wall (which the profiler's overhead inflates), and an estimate across
-    two runs, of the unprofiled warm wall ``warm_s``."""
+def profile_device(label, fn, path, warm_s):
+    """Run ``fn`` once more under torch.profiler: device time by kernel
+    (and copy), written to ``path``. Two idle shares are printed: of this
+    run's own wall (which the profiler's overhead inflates), and an
+    estimate across two runs, of the unprofiled warm wall ``warm_s``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from spark_rapids_tpu_torch.benchmarks.tpch import q1
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        q1(sess.create_dataframe(lineitem)
-           .repartition(8, "l_orderkey")).collect()
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): the CPU-side operator rows
@@ -277,7 +588,7 @@ def profile_q1(sess, lineitem, path, warm_s):
         for e in events:
             f.write(f"{e.self_device_time_total / 1e3:.4f}\t{e.count}\t"
                     f"{e.key}\n")
-    print(f"profile q1 repartition(8): device_busy_ms={busy_ms:.2f} "
+    print(f"profile {label}: device_busy_ms={busy_ms:.2f} "
           f"profiled_wall_ms={wall_ms:.2f} "
           f"idle_share_profiled_run={1 - busy_ms / wall_ms:.3f} "
           f"warm_wall_ms={warm_s * 1e3:.2f} "
@@ -288,28 +599,17 @@ def profile_q1(sess, lineitem, path, warm_s):
               f"{e.key[:90]}")
 
 
-def phase_main_path(lineitem, reference, profile_path=None):
+def phase_main_path(lineitem, reference, profile_dir=None):
+    """Q1 over the hash repartition (cold, warm), then with dmaConsolidate
+    on, then without the repartition. Returns the reorder kernel's
+    launches in the first run."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, q1
     from spark_rapids_tpu_torch.execs.exchange_execs import (
         HashPartitioning, TpuShuffleExchangeExec)
-    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
 
-    sess = TpuSession(BENCH_CONF)                  # cuda: the default
-    if sess.device.type != "cuda":
-        raise AssertionError(f"session runs on {sess.device}")
-    times, launches = [], None
-    torch.cuda.reset_peak_memory_stats()
-    for attempt in ("cold", "warm"):
-        pk.REORDER_KERNEL.launches = 0
-        t0 = time.perf_counter()
-        res = q1(sess.create_dataframe(lineitem)
-                 .repartition(8, "l_orderkey")).collect()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if launches is None:
-            launches = pk.REORDER_KERNEL.launches
+    def hash_exchange(sess):
         hashed = [e for e in sess.last_plan.walk()
                   if isinstance(e, TpuShuffleExchangeExec)
                   and isinstance(e.partitioning, HashPartitioning)]
@@ -318,6 +618,24 @@ def phase_main_path(lineitem, reference, profile_path=None):
             raise AssertionError(
                 f"the hash exchange must split through the kernel: "
                 f"{[(e.kernel_splits, e.sort_path_splits) for e in hashed]}")
+
+    sess = TpuSession(BENCH_CONF)                  # cuda: the default
+    if sess.device.type != "cuda":
+        raise AssertionError(f"session runs on {sess.device}")
+    times, launches = [], None
+    gc.collect()              # nothing of the earlier phases stays allocated
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for attempt in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = q1(sess.create_dataframe(lineitem)
+                 .repartition(8, "l_orderkey")).collect()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = read_launches()[0]
+        hash_exchange(sess)
         check_q1(f"q1 repartition(8) {attempt}", res, reference)
     if launches < 1:
         raise AssertionError("the reorder kernel was not launched by Q1")
@@ -326,8 +644,28 @@ def phase_main_path(lineitem, reference, profile_path=None):
           f"warm_rows_per_s={lineitem.num_rows / times[1]:.4g} "
           f"reorder_launches={launches} sort_path_splits=0 peak_device_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    if profile_path:
-        profile_q1(sess, lineitem, profile_path, times[1])
+    if profile_dir:
+        profile_device(
+            "q1 repartition(8)",
+            lambda: q1(sess.create_dataframe(lineitem)
+                       .repartition(8, "l_orderkey")).collect(),
+            f"{profile_dir}/q1_profile.tsv", times[1])
+    dma = TpuSession({**BENCH_CONF, "spark.rapids.tpu.shuffle.kernel."
+                                    "dmaConsolidate.enabled": "true"})
+    reset_launches()
+    t0 = time.perf_counter()
+    res = q1(dma.create_dataframe(lineitem)
+             .repartition(8, "l_orderkey")).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    reorder_n, compact_n = read_launches()
+    hash_exchange(dma)
+    if reorder_n < 1 or compact_n < 1:
+        raise AssertionError(f"q1 dmaConsolidate: launches reorder="
+                             f"{reorder_n} compact={compact_n}")
+    check_q1("q1 repartition(8) dmaConsolidate", res, reference)
+    print(f"q1 repartition(8, l_orderkey) dmaConsolidate: s={secs:.4f} "
+          f"reorder_launches={reorder_n} compact_launches={compact_n}")
     t0 = time.perf_counter()
     res = q1(sess.create_dataframe(lineitem)).collect()
     torch.cuda.synchronize()
@@ -341,9 +679,10 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=10.0,
                     help="lineitem scale factor (1.0 = 6M rows)")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one Q1 run and write the per-kernel "
-                         "device times to PATH")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile one exchange run with dmaConsolidate "
+                         "off and on and one Q1 run, and write their "
+                         "per-kernel device times as tables to DIR")
     args = ap.parse_args()
 
     import torch
@@ -362,9 +701,11 @@ def main() -> int:
     reference = q1_numpy(lineitem)
     print(f"lineitem sf={args.sf}: {lineitem.num_rows} rows generated and "
           f"reference Q1 computed in {time.perf_counter() - t0:.2f} s")
-    record = phase_kernels(lineitem, device)
-    record["launches"] = phase_main_path(lineitem, reference, args.profile)
-    print(json.dumps({"kernels": [record]}))
+    reorder, compact = phase_kernels(lineitem, device)
+    compact["launches"] = phase_exchange(lineitem, device, args.profile)
+    phase_spill(args.seed, device)
+    reorder["launches"] = phase_main_path(lineitem, reference, args.profile)
+    print(json.dumps({"kernels": [reorder, compact]}))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,15 @@ buffers; ``.to_arrow()`` converts it where pyarrow is installed).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 from spark_rapids_tpu_torch import device as device_mod
 from spark_rapids_tpu_torch.api.column import Column
 from spark_rapids_tpu_torch.columnar.host import HostBatch, concat_host_batches
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
-from spark_rapids_tpu_torch.execs.exchange_execs import ShuffleBlocks
 from spark_rapids_tpu_torch.exprs import Alias, SortOrder, UnresolvedAttribute
+from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_physical
 
@@ -56,15 +56,22 @@ class DataFrame:
         return plan_physical(self._plan, self.session.conf)
 
     def collect(self) -> HostBatch:
-        """Run the query on the session's device -> the result rows."""
+        """Run the query on the session's device -> the result rows. The
+        action's cleanups (the exchanges' shuffle removal) run however it
+        ends, so it leaves the shuffle catalog empty."""
         final = self.physical_plan()
         self.session.last_plan = final
-        blocks = ShuffleBlocks()      # the action's map outputs
+        dm = DeviceManager.initialize(self.session.conf, self.session.device)
+        cleanups: List = []
         out = []
-        for p in range(final.num_partitions):
-            ctx = ExecContext(self.session.conf, self.session.device, p,
-                              final.num_partitions, blocks)
-            out.extend(final.execute(ctx))
+        try:
+            for p in range(final.num_partitions):
+                ctx = ExecContext(self.session.conf, self.session.device, p,
+                                  final.num_partitions, dm, cleanups)
+                out.extend(final.execute(ctx))
+        finally:
+            for fn in cleanups:
+                fn()
         return concat_host_batches(out, final.output)
 
 

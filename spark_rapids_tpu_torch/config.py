@@ -29,6 +29,8 @@ class ConfEntry:
             return str(raw).strip().lower() in ("true", "1", "yes", "on")
         if self.conf_type is int:
             return int(str(raw), 0) if isinstance(raw, str) else int(raw)
+        if self.conf_type is float:
+            return float(raw)
         return str(raw)
 
 
@@ -72,6 +74,33 @@ SHUFFLE_KERNEL_MODE = _conf(
     checker=lambda v: (None if v in ("auto", "interpret", "off")
                        else f"shuffle.kernel.mode must be auto | interpret"
                             f" | off, got {v!r}"))
+
+SHUFFLE_DMA_CONSOLIDATE = _conf(
+    "shuffle.kernel.dmaConsolidate.enabled", bool, False,
+    "Consolidate the partition-reorder kernel's quota-padded pieces with one "
+    "compaction launch for all partitions (the CUDA kernel "
+    "csrc/dma_compact.cu on a GPU, its plain PyTorch version on the CPU) "
+    "instead of one row gather per partition. Both give the same rows in "
+    "the same order. Off by default, as in the JAX package.")
+
+DEVICE_POOL_FRACTION = _conf(
+    "memory.tpu.allocFraction", float, 0.9,
+    "Fraction of the device's memory that the spillable buffer store may "
+    "hold (on a GPU, of torch.cuda.mem_get_info's total).",
+    checker=lambda v: (None if 0.0 < v <= 1.0
+                       else f"allocFraction must be in (0, 1], got {v}"))
+
+DEVICE_POOL_BYTES = _conf(
+    "memory.tpu.poolSizeBytes", int, 0,
+    "Explicit device store budget in bytes; 0 derives it from allocFraction "
+    "and the device's memory.")
+
+HOST_SPILL_STORAGE_SIZE = _conf(
+    "memory.host.spillStorageSize", int, 1 << 30,
+    "Bytes of host memory that hold batches spilled from the device; what "
+    "does not fit spills on to disk.",
+    checker=lambda v: (None if v > 0
+                       else f"spillStorageSize must be > 0, got {v}"))
 
 
 class TpuConf:

@@ -5,7 +5,7 @@ leaf and the download transition, ``DeviceBatch`` for everything between.
 """
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,14 +18,17 @@ class ExecContext:
 
     def __init__(self, conf: TpuConf, device: torch.device,
                  partition_id: int = 0, num_partitions: int = 1,
-                 shuffle_blocks=None):
+                 device_manager=None, cleanups: Optional[List] = None):
         self.conf = conf
         self.device = device
         self.partition_id = partition_id
         self.num_partitions = num_partitions
-        #: the action's shuffle map outputs (execs/exchange_execs.py
-        #: ShuffleBlocks); released with the action
-        self.shuffle_blocks = shuffle_blocks
+        #: the process's memory manager (memory/device_manager.py), whose
+        #: store chain holds the exchanges' map outputs
+        self.device_manager = device_manager
+        #: shared by the partitions of one action; the caller runs them when
+        #: the action finishes (shuffle removal)
+        self.cleanups = cleanups
 
     @property
     def string_max_bytes(self) -> int:
@@ -34,7 +37,7 @@ class ExecContext:
     def for_partition(self, partition_id: int,
                       num_partitions: int) -> "ExecContext":
         return ExecContext(self.conf, self.device, partition_id,
-                           num_partitions, self.shuffle_blocks)
+                           num_partitions, self.device_manager, self.cleanups)
 
 
 class PhysicalExec:

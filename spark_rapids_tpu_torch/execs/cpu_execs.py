@@ -4,8 +4,20 @@ from __future__ import annotations
 
 from typing import Iterator
 
+from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
+
+#: nominal bytes per value of each type (the JAX package's size estimates)
+_DTYPE_WIDTH = {DType.BOOLEAN: 1, DType.BYTE: 1, DType.SHORT: 2,
+                DType.INT: 4, DType.FLOAT: 4, DType.DATE: 4, DType.LONG: 8,
+                DType.DOUBLE: 8, DType.TIMESTAMP: 8, DType.STRING: 20,
+                DType.NULL: 1}
+
+
+def _row_width(schema: Schema) -> int:
+    """Nominal bytes per row: what a stage's statistics charge a row."""
+    return sum(_DTYPE_WIDTH.get(f.dtype, 8) for f in schema)
 
 
 class CpuLocalScanExec(LeafExec):

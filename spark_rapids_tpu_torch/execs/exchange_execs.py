@@ -1,31 +1,48 @@
-"""Shuffle exchange operator and its partitionings.
+"""Shuffle exchange operator, its partitionings and its stage statistics.
 
-The map side partitions each child batch on the device and stores the
-pieces in the action's in-memory block map (``ShuffleBlocks``, keyed
-(shuffle, map, partition)); the reduce side reads one partition's blocks
-back. A hash-partitioned batch with 2..32 partitions goes through the
-partition-reorder kernel (shuffle/partition_kernel.py); a wider fan-out, an
-unpackable batch or a quota overflow takes the sort path (``split_by_pid``).
+The map side partitions each child batch on the device and caches the
+pieces in the spillable shuffle catalog (shuffle/catalog.py over the
+process's store chain, memory/store.py: device -> host -> disk under the
+device budget), keyed (shuffle, map, partition); the reduce side reads one
+partition's blocks back through the catalog, and the action's cleanups
+remove the shuffle. A hash or round-robin batch with 2..32 partitions goes
+through the partition-reorder kernel (shuffle/partition_kernel.py), then
+one consolidation: ``consolidate_all`` (one compact launch for every
+partition) when ``shuffle.kernel.dmaConsolidate.enabled`` is set, else one
+``consolidate`` gather per partition; both give the same batches. A wider
+fan-out, an unpackable batch or a quota overflow takes the sort path
+(``split_by_pid``).
 
 Partition ids are bit-identical to the JAX package's: the same murmur3-style
-32-bit mix, held in int64 tensors with the wrap made explicit by masking.
+32-bit mix, held in int64 tensors with the wrap made explicit by masking,
+and the same round-robin start offsets.
 """
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema, bucket_capacity
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.cpu_execs import _row_width
 from spark_rapids_tpu_torch.execs.tpu_execs import batch_of, eval_ctx
-from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
+from spark_rapids_tpu_torch.exprs.core import ColV, Expression
+from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
 from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+from spark_rapids_tpu_torch.shuffle.catalog import (ShuffleBlockId,
+                                                    ShuffleBufferCatalog)
+from spark_rapids_tpu_torch.shuffle.table_meta import (DevicePackLayout,
+                                                       batch_string_max,
+                                                       layout_to_meta,
+                                                       uniform_string_batch)
 
 
 # ------------------------------------------------------------------ partitionings
@@ -38,6 +55,12 @@ class Partitioning:
 class SinglePartitioning(Partitioning):
     """Everything into one partition."""
     num_partitions: int = 1
+
+
+@dataclass(frozen=True)
+class RoundRobinPartitioning(Partitioning):
+    """Row-cycling distribution; the cycle's start varies per map partition
+    and batch, like Spark's per-partition start."""
 
 
 @dataclass(frozen=True)
@@ -84,26 +107,49 @@ def _column_hash(v: ColV) -> torch.Tensor:
     return _fmix32(_fmix32(lo) ^ hi)
 
 
-def hash_partition_ids(keys: Sequence[ColV], cap: int, n: int) -> torch.Tensor:
-    """Target partition id (int32) per row from the key columns."""
-    h = None
-    for v in keys:
-        v = bk.as_column(v, cap)
-        ch = torch.where(v.validity, _column_hash(v), _H_NULL)
-        if h is None:
-            h = torch.full_like(ch, _H_SEED)
-        h = _fmix32((h * 31 + ch) & _M32)
-    if h is None:
+def key_hashes(keys: Sequence[ColV], cap: int) -> List[torch.Tensor]:
+    """Per-row 32-bit hash of each key column (int64 tensors), nulls as
+    ``_H_NULL``: what a partition id mixes and what the stage's KMV sketch
+    keeps."""
+    return [torch.where(v.validity, _column_hash(v), _H_NULL)
+            for v in (bk.as_column(k, cap) for k in keys)]
+
+
+def _mix_partition_ids(hashes: Sequence[torch.Tensor],
+                       n: int) -> torch.Tensor:
+    if not hashes:
         raise ValueError("hash partitioning needs at least one key")
+    h = torch.full_like(hashes[0], _H_SEED)
+    for ch in hashes:
+        h = _fmix32((h * 31 + ch) & _M32)
     return (h % n).to(torch.int32)
 
 
-def _compute_pids(part: Partitioning, ectx: EvalCtx, cap: int) -> torch.Tensor:
+def hash_partition_ids(keys: Sequence[ColV], cap: int, n: int) -> torch.Tensor:
+    """Target partition id (int32) per row from the key columns."""
+    return _mix_partition_ids(key_hashes(keys, cap), n)
+
+
+def _round_robin_offset(part: Partitioning, map_partition: int,
+                        batch_index: int) -> int:
+    """Start of the row cycle; only round robin distinguishes batches."""
+    if isinstance(part, RoundRobinPartitioning):
+        return (map_partition * 7919 + batch_index) % part.num_partitions
+    return 0
+
+
+def _compute_pids(part: Partitioning, cap: int, offset: int,
+                  hashes: Sequence[torch.Tensor],
+                  device: torch.device) -> torch.Tensor:
+    """Partition id per row; a hash partitioning mixes ``hashes``, its
+    keys' ``key_hashes``."""
     if isinstance(part, SinglePartitioning) or part.num_partitions == 1:
-        return torch.zeros(cap, dtype=torch.int32, device=ectx.device)
+        return torch.zeros(cap, dtype=torch.int32, device=device)
+    if isinstance(part, RoundRobinPartitioning):
+        return ((torch.arange(cap, device=device) + offset)
+                % part.num_partitions).to(torch.int32)
     if isinstance(part, HashPartitioning):
-        return hash_partition_ids([e.eval(ectx) for e in part.keys], cap,
-                                  part.num_partitions)
+        return _mix_partition_ids(hashes, part.num_partitions)
     raise NotImplementedError(type(part).__name__)
 
 
@@ -126,78 +172,292 @@ def _slice_padded(colvs: Sequence[ColV], schema: Schema, start: int,
                              for v in colvs], cnt)
 
 
-# ------------------------------------------------------------------ exchange
-class ShuffleBlocks:
-    """One action's map outputs: device batches keyed (shuffle, map,
-    partition), released with the action."""
-
-    def __init__(self):
-        self._blocks: Dict[Tuple[int, int, int], List[DeviceBatch]] = {}
-        self._mapped: set = set()
-
-    def is_mapped(self, shuffle_id: int) -> bool:
-        return shuffle_id in self._mapped
-
-    def mark_mapped(self, shuffle_id: int) -> None:
-        self._mapped.add(shuffle_id)
-
-    def put(self, shuffle_id: int, map_id: int, partition: int,
-            batch: DeviceBatch) -> None:
-        self._blocks.setdefault((shuffle_id, map_id, partition), []).append(
-            batch)
-
-    def partition(self, shuffle_id: int, partition: int) -> List[DeviceBatch]:
-        keys = sorted(k for k in self._blocks
-                      if k[0] == shuffle_id and k[2] == partition)
-        return [b for k in keys for b in self._blocks[k]]
+# ------------------------------------------------------------------ stage stats
+#: k-minimum-values sketch width: the 64 smallest distinct key hashes bound
+#: the distinct estimate's error around 1/sqrt(k), ~12%
+_KMV_K = 64
 
 
-_SHUFFLE_IDS = itertools.count()
+def _kmv_candidates(hashes: torch.Tensor) -> torch.Tensor:
+    """The ``_KMV_K`` smallest distinct values of ``hashes`` (int64 holding
+    uint32), -1 in the slots left over, without a device-to-host sync."""
+    s = torch.sort(hashes).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    rank = torch.cumsum(first, 0) - 1
+    slot = torch.where(first & (rank < _KMV_K), rank, _KMV_K)
+    out = torch.full((_KMV_K + 1,), -1, dtype=torch.int64,
+                     device=hashes.device)
+    return out.scatter_(0, slot, s)[:_KMV_K]
 
 
-class TpuShuffleExchangeExec(PhysicalExec):
-    """Device exchange: partition each child batch on the device, keep the
-    pieces in the action's block map, read one reduce partition back."""
+def _kmv_merge(pool: np.ndarray, hashes: np.ndarray) -> np.ndarray:
+    """Fold uint32 hashes into a KMV pool: the ``_KMV_K`` smallest distinct
+    hashes seen so far, ascending. Deduplicates before truncating, so one
+    heavy hitter cannot evict every other hash."""
+    if hashes.size == 0:
+        return pool
+    return np.unique(np.concatenate([pool, np.unique(hashes)]))[:_KMV_K]
+
+
+def _kmv_estimate(pool: np.ndarray) -> int:
+    """Distinct count from a KMV pool: exact (up to hash collisions) while
+    the pool is not full, else the (k-1) / k-th-minimum density estimate."""
+    if pool.size < _KMV_K:
+        return int(pool.size)
+    kth = int(pool[_KMV_K - 1])
+    return int((_KMV_K - 1) * (1 << 32) / max(kth, 1))
+
+
+@dataclass(frozen=True)
+class StageStats:
+    """What one materialized shuffle map stage observed: exact rows per
+    reduce partition, bytes per partition (rows x the schema's nominal row
+    width) and a KMV distinct estimate per hash-partitioning key column."""
+    partition_rows: Tuple[int, ...]
+    partition_bytes: Tuple[int, ...]
+    #: distinct-count estimate per partitioning key (hash partitioning only)
+    key_distinct: Tuple[int, ...]
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.partition_rows)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.partition_bytes)
+
+    @property
+    def median_bytes(self) -> int:
+        sizes = sorted(self.partition_bytes)
+        return sizes[len(sizes) // 2] if sizes else 0
+
+    def describe(self) -> str:
+        nz = [s for s in self.partition_bytes if s]
+        out = (f"parts={len(self.partition_bytes)} rows={self.total_rows} "
+               f"bytes={self.total_bytes}"
+               + (f" max={max(nz)} median={self.median_bytes}" if nz else ""))
+        if self.key_distinct:
+            out += " ndv~" + "/".join(str(d) for d in self.key_distinct)
+        return out
+
+
+# ------------------------------------------------------------------ exec base
+class ShuffleExchangeExecBase(PhysicalExec):
+    """An exchange's map-side lifecycle (run once, shared by every reduce
+    read) and the statistics it observes."""
 
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         super().__init__((child,), child.output)
         self.partitioning = partitioning
-        self.shuffle_id = next(_SHUFFLE_IDS)
-        #: map batches split by the reorder kernel / by the sort path
-        self.kernel_splits = 0
-        self.sort_path_splits = 0
+        self._lock = threading.Lock()
+        self._map_done = False
+        #: rows written per reduce partition
+        self._part_rows: Dict[int, int] = {}
+        #: rows per (map partition, reduce partition)
+        self._map_part_rows: Dict[Tuple[int, int], int] = {}
+        #: KMV pool per hash-partitioning key column; None before the map
+        self._key_sketches: Optional[List[np.ndarray]] = None
+        #: per map batch, [keys, _KMV_K] candidates still on the device
+        self._pending_sketches: List[torch.Tensor] = []
 
     @property
     def num_partitions(self) -> int:
         return self.partitioning.num_partitions
 
-    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        blocks = ctx.shuffle_blocks
-        if not blocks.is_mapped(self.shuffle_id):
-            self._run_map(ctx)
-            blocks.mark_mapped(self.shuffle_id)
-        for batch in blocks.partition(self.shuffle_id, ctx.partition_id):
-            yield batch
-
     def _run_map(self, ctx: ExecContext) -> None:
+        raise NotImplementedError(self.name)
+
+    def _ensure_map(self, ctx: ExecContext) -> None:
+        """Run the map side exactly once."""
+        with self._lock:
+            if not self._map_done:
+                self._run_map(ctx)
+                self._map_done = True
+
+    def map_output_stats(self, ctx: ExecContext) -> List[int]:
+        """Estimated bytes per reduce partition, running the map side if it
+        has not run."""
+        self._ensure_map(ctx)
+        width = _row_width(self.output)
+        return [self._part_rows.get(p, 0) * width
+                for p in range(self.num_partitions)]
+
+    def stage_stats(self, ctx: Optional[ExecContext] = None
+                    ) -> Optional[StageStats]:
+        """The executed stage's statistics, or None when the map side has
+        not run and no ctx was given to run it."""
+        if not self._map_done:
+            if ctx is None:
+                return None
+            self._ensure_map(ctx)
+        width = _row_width(self.output)
+        rows = tuple(self._part_rows.get(p, 0)
+                     for p in range(self.num_partitions))
+        ndv = tuple(_kmv_estimate(pool) for pool in (self._key_sketches or ()))
+        return StageStats(rows, tuple(r * width for r in rows), ndv)
+
+    def _sketch_keys(self, hashes: Sequence[torch.Tensor],
+                     num_rows: int) -> None:
+        """Keep one batch's k smallest distinct hashes per key, on the
+        device (``_fold_sketches`` merges them into the KMV pools once the
+        map side has run). The batch's live rows are the union of its
+        pieces, so this equals sketching every piece."""
+        if num_rows > 0 and hashes:
+            self._pending_sketches.append(torch.stack(
+                [_kmv_candidates(h[:num_rows]) for h in hashes]))
+
+    def _fold_sketches(self) -> None:
+        """One download of every batch's candidates, merged per key."""
+        if not self._pending_sketches:
+            return
+        cand = torch.stack(self._pending_sketches).cpu().numpy()
+        self._pending_sketches = []
+        pools = self._key_sketches or [np.zeros(0, dtype=np.uint32)
+                                       for _ in range(cand.shape[1])]
+        for ki, pool in enumerate(pools):
+            vals = cand[:, ki].ravel()
+            pools[ki] = _kmv_merge(pool, vals[vals >= 0].astype(np.uint32))
+        self._key_sketches = pools
+
+    def map_slices(self, pid: int, num_slices: int) -> List[Tuple[int, ...]]:
+        """Contiguous map-id groups covering reduce partition ``pid``,
+        balanced by the observed rows per map task; fewer than
+        ``num_slices`` when too few map tasks contributed."""
+        contrib = sorted((m, r) for (m, p), r in self._map_part_rows.items()
+                         if p == pid and r > 0)
+        if not contrib:
+            return []
+        total = sum(r for _, r in contrib)
+        num_slices = max(1, min(num_slices, len(contrib)))
+        target = total / num_slices
+        slices: List[Tuple[int, ...]] = []
+        group: List[int] = []
+        acc = 0
+        for m, r in contrib:
+            group.append(m)
+            acc += r
+            if acc >= target * (len(slices) + 1) and \
+                    len(slices) + 1 < num_slices:
+                slices.append(tuple(group))
+                group = []
+        if group:
+            slices.append(tuple(group))
+        return slices
+
+    def execute_partial(self, ctx: ExecContext,
+                        map_ids: Tuple[int, ...]) -> Iterator:
+        """Read one reduce partition (``ctx.partition_id``) restricted to
+        the given map tasks' output."""
+        raise NotImplementedError(self.name)
+
+
+# ------------------------------------------------------------------ device exchange
+class _LocalShuffleEnv:
+    """The in-process shuffle environment: a shuffle catalog over the
+    device manager's spillable store chain."""
+
+    def __init__(self, device_manager: DeviceManager):
+        self.shuffle_catalog = ShuffleBufferCatalog(
+            device_manager.catalog, device_manager.device_store)
+
+
+def _local_shuffle_env(ctx: ExecContext) -> _LocalShuffleEnv:
+    dm = ctx.device_manager or DeviceManager.initialize(ctx.conf, ctx.device)
+    if dm.shuffle_env is None:
+        dm.shuffle_env = _LocalShuffleEnv(dm)
+    return dm.shuffle_env
+
+
+_SHUFFLE_IDS = itertools.count()
+
+
+class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
+    """Device exchange: partition each child batch on the device, cache the
+    pieces in the spillable shuffle catalog, read one reduce partition back
+    per consumer."""
+
+    def __init__(self, partitioning: Partitioning, child: PhysicalExec):
+        super().__init__(partitioning, child)
+        self._shuffle_id: Optional[int] = None
+        #: map batches split by the reorder kernel / by the sort path
+        self.kernel_splits = 0
+        self.sort_path_splits = 0
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        return self._read_partition(ctx, None)
+
+    def execute_partial(self, ctx: ExecContext,
+                        map_ids: Tuple[int, ...]) -> Iterator[DeviceBatch]:
+        return self._read_partition(ctx, set(map_ids))
+
+    def _read_partition(self, ctx: ExecContext,
+                        map_filter) -> Iterator[DeviceBatch]:
+        """One reduce partition's cached blocks, optionally restricted to a
+        set of map tasks (blocks are keyed by map task, so a map slice is a
+        filter)."""
+        self._ensure_map(ctx)
+        catalog = _local_shuffle_env(ctx).shuffle_catalog
+        for block in catalog.blocks_for_partition(self._shuffle_id,
+                                                  ctx.partition_id):
+            if map_filter is not None and block.map_id not in map_filter:
+                continue
+            for buf, _meta in catalog.acquire_buffers(block):
+                try:
+                    batch = buf.get_batch()
+                finally:
+                    buf.close()
+                yield batch
+
+    # ---- map side ------------------------------------------------------------
+    def iter_map_pieces(self, ctx: ExecContext, partition_ids=None
+                        ) -> Iterator[Tuple[int, int, DeviceBatch]]:
+        """(map partition, reduce partition, piece) triples: each child
+        batch is split as it is produced, so the peak footprint is one batch
+        plus the spillable shuffle cache."""
         child = self.children[0]
         for map_p in range(child.num_partitions):
+            if partition_ids is not None and map_p not in partition_ids:
+                continue
             cctx = ctx.for_partition(map_p, child.num_partitions)
-            for db in child.execute(cctx):
+            for bi, db in enumerate(child.execute(cctx)):
                 if db.num_rows == 0:
                     continue
-                for j, sub in self._split_batch(ctx, db):
-                    ctx.shuffle_blocks.put(self.shuffle_id, map_p, j, sub)
+                offset = _round_robin_offset(self.partitioning, map_p, bi)
+                for j, sub in self._split_batch(ctx, db, offset):
+                    yield map_p, j, sub
 
-    def _split_batch(self, ctx: ExecContext,
-                     db: DeviceBatch) -> List[Tuple[int, DeviceBatch]]:
+    def _run_map(self, ctx: ExecContext) -> None:
+        catalog = _local_shuffle_env(ctx).shuffle_catalog
+        sid = next(_SHUFFLE_IDS)
+        self._shuffle_id = sid
+        if ctx.cleanups is not None:
+            ctx.cleanups.append(lambda: catalog.remove_shuffle(sid))
+        for map_p, j, sub in self.iter_map_pieces(ctx):
+            sub = uniform_string_batch(sub)
+            layout = DevicePackLayout.for_batch_shape(
+                sub.schema, sub.capacity, batch_string_max(sub))
+            catalog.add_batch(ShuffleBlockId(sid, map_p, j), sub,
+                              layout_to_meta(layout, sub.num_rows))
+            self._part_rows[j] = self._part_rows.get(j, 0) + sub.num_rows
+            self._map_part_rows[(map_p, j)] = \
+                self._map_part_rows.get((map_p, j), 0) + sub.num_rows
+        self._fold_sketches()
+
+    def _split_batch(self, ctx: ExecContext, db: DeviceBatch,
+                     offset: int) -> List[Tuple[int, DeviceBatch]]:
         part, n = self.partitioning, self.partitioning.num_partitions
+        ectx = eval_ctx(db, ctx)
+        hashes: List[torch.Tensor] = []
+        if isinstance(part, HashPartitioning):
+            hashes = key_hashes([e.eval(ectx) for e in part.keys],
+                                db.capacity)
+            self._sketch_keys(hashes, db.num_rows)
         if isinstance(part, SinglePartitioning) or n == 1:
             return [(0, db)]
-        ectx = eval_ctx(db, ctx)
-        pids = _compute_pids(part, ectx, db.capacity)
+        pids = _compute_pids(part, db.capacity, offset, hashes, db.device)
         if ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off":
-            pieces = self._kernel_split(db, pids, n)
+            pieces = self._kernel_split(ctx, db, pids, n)
             if pieces is not None:
                 self.kernel_splits += 1
                 return pieces
@@ -212,16 +472,18 @@ class TpuShuffleExchangeExec(PhysicalExec):
         return pieces
 
     @staticmethod
-    def _kernel_split(db: DeviceBatch, pids: torch.Tensor, n: int):
-        """Reorder through the kernel and gather each partition into one
-        batch; None when the batch must take the sort path."""
+    def _kernel_split(ctx: ExecContext, db: DeviceBatch, pids: torch.Tensor,
+                      n: int) -> Optional[List[Tuple[int, DeviceBatch]]]:
+        """Reorder through the kernel, then consolidate every partition in
+        one compact launch (dmaConsolidate) or one gather each; None when
+        the batch must take the sort path."""
         res = pk.split_batch_kernel(db, pids, n)
         if res is None:
             return None
         out, stats, spec, geom = res
-        pieces = []
-        for j in range(n):
-            sub = pk.consolidate(out, stats, j, spec, db.schema, geom)
-            if sub is not None:
-                pieces.append((j, sub))
-        return pieces
+        if ctx.conf.get(cfg.SHUFFLE_DMA_CONSOLIDATE):
+            subs = pk.consolidate_all(out, stats, spec, db.schema, geom)
+        else:
+            subs = [pk.consolidate(out, stats, j, spec, db.schema, geom)
+                    for j in range(n)]
+        return [(j, sub) for j, sub in enumerate(subs) if sub is not None]

@@ -13,7 +13,8 @@ from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import PhysicalExec
 from spark_rapids_tpu_torch.execs.cpu_execs import CpuLocalScanExec
 from spark_rapids_tpu_torch.execs.exchange_execs import (
-    HashPartitioning, SinglePartitioning, TpuShuffleExchangeExec)
+    HashPartitioning, RoundRobinPartitioning, SinglePartitioning,
+    TpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.execs.tpu_execs import (
     DeviceToHostExec, HostToDeviceExec, TpuFilterExec, TpuHashAggregateExec,
     TpuSortExec)
@@ -82,10 +83,10 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
                        for o in plan.orders)
         return TpuSortExec(orders, child)
     if isinstance(plan, lp.Repartition):
-        if not plan.keys:
-            raise NotImplementedError(
-                "round-robin Repartition (no keys) in the PyTorch port")
         child = _plan_node(plan.child, conf)
+        if not plan.keys:
+            return TpuShuffleExchangeExec(
+                RoundRobinPartitioning(plan.num_partitions), child)
         part = HashPartitioning(
             plan.num_partitions,
             tuple(bind_expression(e, child.output) for e in plan.keys))

@@ -1,19 +1,27 @@
 """Partition reorder: the map side of the device shuffle exchange.
 
-  pack       columns -> one (rows, L) byte matrix (torch views: every value's
-             little-endian bytes, then one validity byte per column)
-  reorder    per group of G x 512-row windows, each partition's live rows in
-             order into quota-padded per-(partition, group) staging pieces,
-             plus live counts and an overflow flag (``partition_reorder``:
-             the CUDA kernel csrc/partition_reorder.cu on a GPU, its plain
-             PyTorch version on the CPU)
-  gather     ``consolidate`` gathers one partition's pieces into an ordinary
-             DeviceBatch
+  pack         columns -> one (rows, L) byte matrix (torch views: every
+               value's little-endian bytes, then one validity byte per column)
+  reorder      per group of G x 512-row windows, each partition's live rows
+               in order into quota-padded per-(partition, group) staging
+               pieces, plus live counts and an overflow flag
+               (``partition_reorder``: the CUDA kernel
+               csrc/partition_reorder.cu on a GPU, its plain PyTorch version
+               on the CPU)
+  consolidate  ``consolidate`` gathers one partition's pieces into an
+               ordinary DeviceBatch; ``consolidate_all`` compacts every
+               partition in one launch (``dma_compact``: the CUDA kernel
+               csrc/dma_compact.cu on a GPU, its plain version on the CPU)
+               and unpacks each partition from the compact
 
-The geometry (``KernelGeom``), the staging layout and the overflow rule are
-the JAX package's, so the pieces are comparable byte for byte. An overflow
-sends the batch back to the sort path: correctness never depends on the fast
-path applying.
+Both consolidations give a partition's rows in the JAX package's order:
+every group's full 8-row blocks (``BLOCK``), group after group, then every
+group's remainder rows, group after group.
+
+The geometry (``KernelGeom``), the staging layout, the overflow rule and the
+index plan are the JAX package's, so the pieces and the compact are
+comparable byte for byte. An overflow sends the batch back to the sort
+path: correctness never depends on the fast path applying.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ W = 512                    #: window rows
 GROUP_WINDOWS = 64         #: windows per group (one set of pieces each)
 MAX_PARTS = 32             #: wider fan-outs take the sort path
 STAT_LANES = 128           #: lanes of a stats row (0: count, 1: overflow)
+BLOCK = 8                  #: rows of a full block in the consolidated order
+TAIL_ROWS = 2048           #: rows per CTA of dma_compact's remainder/zero part
 
 
 # ------------------------------------------------------------------ pack spec
@@ -318,21 +328,230 @@ def finalize_split(out: torch.Tensor, stats: torch.Tensor, spec: PackSpec,
     return out, stats_host, spec, geom
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host index array on ``device``; on a GPU through pinned
+    memory and an asynchronous copy, so the stream is not synchronized."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _runs(starts: torch.Tensor, lengths: torch.Tensor,
+          size: int) -> torch.Tensor:
+    """Concatenated ranges [starts[i], starts[i] + lengths[i]) (int64;
+    ``size`` is the lengths' sum)."""
+    dev = starts.device
+    first = torch.cumsum(lengths, 0) - lengths
+    return (torch.repeat_interleave(starts - first, lengths, output_size=size)
+            + torch.arange(size, device=dev))
+
+
 def consolidate(out: torch.Tensor, stats_host: np.ndarray, j: int,
                 spec: PackSpec, schema: Schema,
                 geom: KernelGeom) -> Optional[DeviceBatch]:
     """Partition j's pieces -> one DeviceBatch (None when empty): one row
-    gather over the pieces' live prefixes, group after group, so the rows
-    keep their original order."""
+    gather in the reference's order (every group's full 8-row blocks, then
+    every group's remainder rows)."""
     counts = stats_host[:, j, 0].astype(np.int64)
     total = int(counts.sum())
     if total == 0:
         return None
+    full = counts // BLOCK * BLOCK
+    nb_tot = int(full.sum())
     dev = out.device
-    cnt = torch.from_numpy(counts).to(dev)
-    skip = torch.arange(geom.groups, device=dev) * geom.quota \
-        - (torch.cumsum(cnt, 0) - cnt)
-    rows = (torch.repeat_interleave(skip, cnt, output_size=total)
-            + torch.arange(total, device=dev))
+    base = torch.arange(geom.groups, device=dev) * geom.quota
+    full_t, rem_t = _upload(np.stack([full, counts - full]), dev)
+    rows = torch.cat([_runs(base, full_t, nb_tot),
+                      _runs(base + full_t, rem_t, total - nb_tot)])
     mat = pad_rows(out[j].reshape(-1, geom.L)[rows], bucket_capacity(total))
     return DeviceBatch(schema, tuple(unpack_columns(spec, schema, mat)), total)
+
+
+# ------------------------------------------------------------------ compact
+def dma_index_plan(counts: np.ndarray, geom: KernelGeom):
+    """Host index math of the one-launch consolidation (the JAX package's,
+    array for array): counts [groups, n] -> (prefix8 [n, groups] 8-aligned
+    destination rows of each group's full-block run, nb8 [n] full-block
+    rows per partition, ridx [n, ri_cap] remainder rows' staging indices
+    within the partition's groups*quota rows, ri_cap, dst_rows)."""
+    n, groups, quota = geom.n, geom.groups, geom.quota
+    totals = counts.sum(axis=0)
+    nb = counts // BLOCK
+    rem = counts - nb * BLOCK
+    nb8 = (nb.sum(axis=0) * BLOCK).astype(np.int32)
+    prefix8 = np.zeros((n, groups), np.int32)
+    prefix8[:, 1:] = np.cumsum((nb.T * BLOCK)[:, :-1], axis=1)
+    ri_cap = int(bucket_capacity(max(1, int(rem.sum(axis=0).max()))))
+    ridx = np.zeros((n, ri_cap), np.int32)
+    for j in range(n):
+        rj = rem[:, j]
+        rem_tot = int(rj.sum())
+        rgid = np.repeat(np.arange(groups), rj)
+        rwithin = np.arange(rem_tot) - np.repeat(np.cumsum(rj) - rj, rj)
+        ridx[j, :rem_tot] = (rgid * quota + nb[:, j][rgid] * BLOCK
+                             + rwithin).astype(np.int32)
+    dst_rows = int(bucket_capacity(int(totals.max()))) + max(quota, ri_cap)
+    return prefix8, nb8, ridx, ri_cap, dst_rows
+
+
+@dataclass(frozen=True)
+class CompactPlan:
+    """What ``dma_compact`` needs besides the staging tensor: the index plan
+    and each partition's live and bucketed row counts (all host arrays)."""
+    prefix8: np.ndarray     # int32 [n, groups]
+    nb8: np.ndarray         # int32 [n]
+    totals: np.ndarray      # int32 [n]
+    fills: np.ndarray       # int32 [n]: bucket_capacity(total), 0 if empty
+    ridx: np.ndarray        # int32 [n, ri_cap]
+    dst_rows: int
+
+    @staticmethod
+    def of(counts: np.ndarray, geom: KernelGeom) -> "CompactPlan":
+        prefix8, nb8, ridx, _ri_cap, dst_rows = dma_index_plan(counts, geom)
+        totals = counts.sum(axis=0).astype(np.int32)
+        fills = np.array([bucket_capacity(int(t)) if t else 0
+                          for t in totals], np.int32)
+        return CompactPlan(prefix8, nb8, totals, fills, ridx, dst_rows)
+
+    def index_array(self) -> np.ndarray:
+        """The kernel's one int32 index array: prefix8 | nb8 | totals |
+        fills | ridx."""
+        return np.concatenate([self.prefix8.ravel(), self.nb8, self.totals,
+                               self.fills, self.ridx.ravel()]).astype(np.int32)
+
+    def tail_ctas(self) -> int:
+        """CTAs per partition for its remainder and zero rows."""
+        span = int((self.fills - self.nb8).max(initial=0))
+        return max(1, -(-span // TAIL_ROWS))
+
+
+def _check_compact(out: torch.Tensor, plan: CompactPlan,
+                   geom: KernelGeom) -> None:
+    want = (geom.n, geom.groups, geom.quota, geom.L)
+    if out.dtype != torch.uint8 or tuple(out.shape) != want:
+        raise ValueError(f"out must be uint8 {want}, got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if plan.prefix8.shape != (geom.n, geom.groups) or \
+            plan.ridx.shape[0] != geom.n:
+        raise ValueError("the compact plan does not match the geometry")
+
+
+def dma_compact(out: torch.Tensor, plan: CompactPlan,
+                geom: KernelGeom) -> torch.Tensor:
+    """Every partition's live rows in the reference's order -> compact
+    uint8 [n, dst_rows, L]: rows [0, total) live, [total, bucket) zero,
+    the rest undefined. CPU tensors take the plain version; any other
+    device goes to the CUDA kernel, which runs or raises."""
+    _check_compact(out, plan, geom)
+    if out.device.type == "cpu":
+        return dma_compact_plain(out, plan, geom)
+    return COMPACT_KERNEL(out, plan, geom)
+
+
+def dma_compact_plain(out: torch.Tensor, plan: CompactPlan,
+                      geom: KernelGeom) -> torch.Tensor:
+    """The compaction in plain PyTorch, from the same plan: each piece's
+    full-block run to its prefix8 row, each partition's remainder rows
+    (ridx) from its nb8 row on, one scatter for all; then the zero rows."""
+    _check_compact(out, plan, geom)
+    n, groups, quota, L = geom.n, geom.groups, geom.quota, geom.L
+    dev = out.device
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return _upload(a.astype(np.int64), dev)
+
+    prefix8, nb8, totals = up(plan.prefix8), up(plan.nb8), up(plan.totals)
+    part = torch.arange(n, device=dev)
+    run_end = torch.cat([prefix8[:, 1:], nb8[:, None]], dim=1)
+    run_rows = (run_end - prefix8).reshape(-1)
+    n_full = int(plan.nb8.astype(np.int64).sum())
+    src_full = _runs(torch.arange(n * groups, device=dev) * quota, run_rows,
+                     n_full)
+    dst_full = _runs((part[:, None] * plan.dst_rows + prefix8).reshape(-1),
+                     run_rows, n_full)
+    rem = totals - nb8
+    n_rem = int(plan.totals.astype(np.int64).sum()) - n_full
+    ridx = up(plan.ridx)
+    taken = torch.arange(ridx.shape[1], device=dev)[None, :] < rem[:, None]
+    src_rem = (ridx + part[:, None] * (groups * quota))[taken]
+    dst_rem = _runs(part * plan.dst_rows + nb8, rem, n_rem)
+    compact = torch.empty((n, plan.dst_rows, L), dtype=torch.uint8, device=dev)
+    compact.view(-1, L)[torch.cat([dst_full, dst_rem])] = \
+        out.view(-1, L)[torch.cat([src_full, src_rem])]
+    for j in range(n):
+        compact[j, int(plan.totals[j]):int(plan.fills[j])] = 0
+    return compact
+
+
+class _CompactKernel:
+    """ctypes binding of csrc/dma_compact.cu. ``launches`` counts the
+    launches of the kernel (and nothing else)."""
+
+    SOURCE = "dma_compact.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = cuda_build.load(self.SOURCE)
+            lib.dma_compact.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            lib.dma_compact.restype = ctypes.c_int
+            lib.dma_compact_error.argtypes = [ctypes.c_int]
+            lib.dma_compact_error.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, out: torch.Tensor, plan: CompactPlan,
+                 geom: KernelGeom) -> torch.Tensor:
+        _check_compact(out, plan, geom)
+        if out.device.type != "cuda":
+            raise ValueError(f"the CUDA compact kernel needs CUDA tensors, "
+                             f"got {out.device}")
+        lib = self.load()
+        idx = _upload(plan.index_array(), out.device)
+        compact = torch.empty((geom.n, plan.dst_rows, geom.L),
+                              dtype=torch.uint8, device=out.device)
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.dma_compact(
+            out.data_ptr(), idx.data_ptr(), compact.data_ptr(), geom.groups,
+            geom.n, geom.quota, geom.L, plan.ridx.shape[1], plan.dst_rows,
+            plan.tail_ctas(), stream)
+        if err != 0:
+            msg = lib.dma_compact_error(err).decode()
+            raise RuntimeError(f"dma_compact launch failed: CUDA error {err} "
+                               f"({msg})")
+        self.launches += 1
+        return compact
+
+
+#: the process's binding of the CUDA compact kernel
+COMPACT_KERNEL = _CompactKernel()
+
+
+def consolidate_all(out: torch.Tensor, stats_host: np.ndarray, spec: PackSpec,
+                    schema: Schema,
+                    geom: KernelGeom) -> List[Optional[DeviceBatch]]:
+    """Every partition's pieces -> one DeviceBatch each (None for an empty
+    partition): one ``dma_compact`` for all partitions, then each
+    partition's unpack reads its rows of the compact directly."""
+    counts = stats_host[:, :, 0].astype(np.int64)      # [groups, n]
+    if counts.sum(axis=0).max(initial=0) == 0:
+        return [None] * geom.n
+    plan = CompactPlan.of(counts, geom)
+    compact = dma_compact(out, plan, geom)
+    batches: List[Optional[DeviceBatch]] = []
+    for j in range(geom.n):
+        total = int(plan.totals[j])
+        if total == 0:
+            batches.append(None)
+            continue
+        mat = compact[j, :int(plan.fills[j])]
+        batches.append(DeviceBatch(
+            schema, tuple(unpack_columns(spec, schema, mat)), total))
+    return batches

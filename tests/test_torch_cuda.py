@@ -1,0 +1,108 @@
+"""The PyTorch port's hand-written CUDA kernels on the card, against their
+plain PyTorch versions, and the exchange through them. Every test here needs
+an NVIDIA GPU: it carries the ``cuda`` marker and skips without one.
+
+This file imports neither jax nor pyarrow, so it also runs where only the
+port's dependencies are installed:
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``."""
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
+from spark_rapids_tpu_torch.columnar.transfer import upload
+from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
+from spark_rapids_tpu_torch.execs import exchange_execs as tx
+from spark_rapids_tpu_torch.exprs.core import (UnresolvedAttribute,
+                                               bind_expression)
+from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+from spark_rapids_tpu_torch.shuffle import partition_kernel as tpk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    yield torch.device("cuda")
+    DeviceManager.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,L,empty", [
+    (1 << 20, 8, 76, 7), (70001, 5, 21, None), (300, 32, 13, None),
+    (200000, 2, 16, None)])
+def test_cuda_compact_kernel_matches_plain_version(cuda, rows, n, L, empty):
+    """The CUDA compaction equals the plain version exactly on the live and
+    zero rows, through the real reorder kernel's output."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    geom = tpk.KernelGeom.plan(rows, n, L)
+    pids = torch.randint(0, n, (geom.cap,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    if empty is not None:             # its rows spread over the others
+        spread = torch.randint(1, n, (geom.cap,), generator=g, device=cuda,
+                               dtype=torch.int32)
+        pids = torch.where(pids == empty, (pids + spread) % n, pids)
+    pids[rows:] = -1
+    data = torch.randint(0, 256, (geom.cap, L), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    out, stats = tpk.partition_reorder(
+        pids.view(geom.groups, geom.G, tpk.W),
+        data.view(geom.groups, geom.G * tpk.W, L), geom)
+    assert not stats[:, :, 1].any()
+    counts = stats[:, :, 0].cpu().numpy().astype(np.int64)
+    plan = tpk.CompactPlan.of(counts, geom)
+    launches = tpk.COMPACT_KERNEL.launches
+    k = tpk.dma_compact(out, plan, geom)
+    assert tpk.COMPACT_KERNEL.launches == launches + 1
+    p = tpk.dma_compact_plain(out, plan, geom)
+    torch.cuda.synchronize()
+    for j in range(n):
+        f = int(plan.fills[j])
+        assert torch.equal(k[j, :f], p[j, :f]), (rows, n, L, j)
+    if empty is not None:
+        assert plan.totals[empty] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_exchange_with_and_without_compaction_agree(cuda):
+    """Hash and round-robin exchanges through the kernels: the partitions
+    read back through the catalog are equal with dmaConsolidate on and off,
+    and the compact kernel launches once per map batch when it is on."""
+    batch = upload(gen_lineitem(0.05, seed=3), cuda)
+    key = bind_expression(UnresolvedAttribute("l_orderkey"), batch.schema)
+
+    class Resident(LeafExec):
+        def execute(self, ctx):
+            yield batch
+
+    for part in (tx.HashPartitioning(8, (key,)),
+                 tx.RoundRobinPartitioning(6)):
+        results = []
+        for dma in ("false", "true"):
+            conf = TpuConf({"spark.rapids.tpu.shuffle.kernel."
+                            "dmaConsolidate.enabled": dma})
+            dm = DeviceManager.initialize(conf, cuda)
+            ex = tx.TpuShuffleExchangeExec(part, Resident(batch.schema))
+            cleanups = []
+            launches = tpk.COMPACT_KERNEL.launches
+            try:
+                results.append([
+                    list(ex.execute(ExecContext(conf, cuda, p,
+                                                ex.num_partitions, dm,
+                                                cleanups)))
+                    for p in range(ex.num_partitions)])
+            finally:
+                for fn in cleanups:
+                    fn()
+            assert dm.is_idle
+            assert (ex.kernel_splits, ex.sort_path_splits) == (1, 0)
+            assert tpk.COMPACT_KERNEL.launches - launches == \
+                (1 if dma == "true" else 0)
+            assert ex.stage_stats().total_rows == batch.num_rows
+        for off, on in zip(*results):
+            assert len(off) == len(on) == 1
+            for a, b in zip(off[0].columns, on[0].columns):
+                assert torch.equal(a.data, b.data)
+                assert torch.equal(a.validity, b.validity)
+                assert a.lengths is None or torch.equal(a.lengths, b.lengths)

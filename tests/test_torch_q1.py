@@ -12,10 +12,12 @@ from spark_rapids_tpu.api import TpuSession as JaxSession
 from spark_rapids_tpu.benchmarks import tpch as jtpch
 from spark_rapids_tpu.testing import assert_tables_equal
 from spark_rapids_tpu_torch.api import TpuSession
+from spark_rapids_tpu_torch.api.dataframe import DataFrame
 from spark_rapids_tpu_torch.benchmarks import tpch as ttpch
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.execs.exchange_execs import (
     HashPartitioning, TpuShuffleExchangeExec)
+from spark_rapids_tpu_torch.plan import logical as lp
 
 SCALE = 0.001
 SEED = 42
@@ -107,7 +109,18 @@ def test_float_aggregates_need_variable_float_agg():
 
 
 def test_unported_operator_raises_naming_it():
+    """A logical operator the port has no physical plan for is refused by
+    name (round-robin repartition, refused in the first slice, is planned
+    now: tests/test_torch_exchange.py)."""
+    class Sample(lp.LogicalPlan):
+        def __init__(self, child):
+            self.child = child
+
+        def schema(self):
+            return self.child.schema()
+
     sess = TpuSession(ttpch.BENCH_CONF, device="cpu")
     df = sess.create_dataframe(ttpch.gen_lineitem(SCALE, 0))
-    with pytest.raises(NotImplementedError, match="round-robin Repartition"):
-        df.repartition(4).collect()
+    with pytest.raises(NotImplementedError, match="no physical plan for "
+                                                  "Sample"):
+        DataFrame(Sample(df._plan), sess).collect()
