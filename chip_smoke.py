@@ -8,9 +8,14 @@ Phases:
   3. hold each kernel against its plain PyTorch version on the card:
      - the partition-reorder kernel at the main path's shape (lineitem, 8
        hash partitions on l_orderkey), at n = 2 and n = 32, on a ragged
-       batch with dead rows and an odd row width, and on an
+       batch with dead rows and an odd row width, with a partition that
+       gets no row, on a tiny batch, on wide rows (L = 300: fewer rows per
+       tile; L = 1100 and 2600: the wide form, one and several bulk copies
+       per tile), with half the rows dead in every window, with num_rows
+       ending inside a tile, at n = 32 with L = 13, and on an
        all-in-one-partition batch that must raise the overflow flag; stats
-       and every live staging row must match exactly;
+       and every live staging row must match exactly; the kernel's time,
+       byte bound and roofline share are printed beside the sort path's;
      - the compact kernel (dmaConsolidate) on the reorder kernel's real
        output at the main path's shape, at n = 2 and n = 32, at L = 21 with
        dead rows, with a partition that gets no row, and on a tiny batch;
@@ -42,6 +47,7 @@ JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
+       [--tile-sweep ROWS ...] [--kernels-only]
 """
 from __future__ import annotations
 
@@ -92,18 +98,22 @@ def build_kernels():
     for src, (so, log) in zip(sources, logs):
         print(f"built {src} -> {so.name}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "smem")):
                 print(f"  ptxas: {line.strip()}")
     print(f"kernel build: {len(sources)} source(s) in {secs:.2f} s")
 
 
 # ------------------------------------------------------------------ phase 3
-def check_reorder(name, pids, data, geom, expect_flag=None, time_it=False):
-    """Run the CUDA reorder and its plain version on the same inputs and
-    compare exactly. Returns (max_abs_err, kernel_ms, plain_ms)."""
+def check_reorder(name, pids, data, geom, expect_flag=None, time_it=False,
+                  tile_rows=None):
+    """Run the CUDA reorder (at ``tile_rows`` rows per tile, else its
+    default) and its plain version on the same inputs and compare exactly.
+    Returns (max_abs_err, kernel_ms, plain_ms)."""
     import torch
     from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
-    k_out, k_stats = pk.REORDER_KERNEL(pids, data, geom)
+    tile_rows = tile_rows or pk.reorder_tile_rows(geom.L)
+    k_out, k_stats = pk.REORDER_KERNEL(pids, data, geom, tile_rows)
     p_out, p_stats = pk.partition_reorder_plain(pids, data, geom)
     torch.cuda.synchronize()
     if not torch.equal(k_stats, p_stats):
@@ -130,10 +140,12 @@ def check_reorder(name, pids, data, geom, expect_flag=None, time_it=False):
     del k_out, p_out
     k_ms = p_ms = None
     if time_it:
-        k_ms = cuda_ms(lambda: pk.REORDER_KERNEL(pids, data, geom), 10)
+        k_ms = cuda_ms(lambda: pk.REORDER_KERNEL(pids, data, geom, tile_rows),
+                       10)
         p_ms = cuda_ms(lambda: pk.partition_reorder_plain(pids, data, geom), 3)
     print(f"reorder {name}: groups={geom.groups} G={geom.G} n={geom.n} "
-          f"L={geom.L} quota={geom.quota} overflow={flag} exact=yes"
+          f"L={geom.L} quota={geom.quota} tile_rows={tile_rows} "
+          f"overflow={flag} exact=yes"
           + (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}" if time_it else ""))
     return float(err), k_ms, p_ms
 
@@ -240,9 +252,10 @@ def check_compact(name, out, stats, geom, time_it=False):
     return float(err), k_ms, p_ms, lib_ms, bound_ms
 
 
-def phase_kernels(lineitem, device):
+def phase_kernels(lineitem, device, tile_sweep=()):
     """Every kernel against its plain version; returns the kernel records
-    of the main-path shape (launches filled in later)."""
+    of the main-path shape (launches filled in later). ``tile_sweep`` names
+    more tile sizes to check and time the reorder at on the main path."""
     import torch
     from spark_rapids_tpu_torch.columnar.transfer import upload
     from spark_rapids_tpu_torch.exprs.core import ColV
@@ -273,7 +286,13 @@ def phase_kernels(lineitem, device):
     bound_ms = moved / H100_BYTES_PER_S * 1e3
     print(f"reorder main-path: bytes={moved} bound_ms={bound_ms:.4f} "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"roofline_share={bound_ms / k_ms:.3f}")
+          f"roofline_share={bound_ms / k_ms:.3f} sort_path_ms={sort_ms:.4f}")
+    for rows in tile_sweep:
+        _, ms, _ = check_reorder(f"main-path tile_rows={rows}", p3, d3, geom,
+                                 expect_flag=False, time_it=True,
+                                 tile_rows=rows)
+        print(f"reorder main-path tile_rows={rows}: kernel_ms={ms:.4f} "
+              f"roofline_share={bound_ms / ms:.3f}")
     reorder = {"name": "partition_reorder", "route": "cuda",
                "source": "spark_rapids_tpu_torch/csrc/partition_reorder.cu",
                "replaces": "spark_rapids_tpu/shuffle/partition_kernel.py:261",
@@ -298,7 +317,17 @@ def phase_kernels(lineitem, device):
              ("n=32", (rows, 76, 32, 0.0), {}),
              ("ragged+dead L=21", (3 * 32768 + 1000 + 77, 21, 5, 0.1), {}),
              ("empty partition", (rows, 76, 8, 0.05), {"empty": 3}),
-             ("tiny", (300, 13, 3, 0.2), {})]
+             ("tiny", (300, 13, 3, 0.2), {}),
+             # the redesign's edges: tiles of fewer rows, the wide form
+             # (one chunk and several per tile), half the rows dead in every
+             # window, num_rows ending inside a tile, many partitions of a
+             # narrow odd width
+             ("wide L=300", (1 << 20, 300, 8, 0.02), {}),
+             ("wide L=1100", (300000, 1100, 6, 0.02), {}),
+             ("wide L=2600", (70000, 2600, 4, 0.1), {}),
+             ("50% dead", (rows, 76, 8, 0.5), {}),
+             ("rows end mid-tile", (3 * 32768 + 128 + 37, 76, 8, 0.0), {}),
+             ("n=32 L=13", (rows, 13, 32, 0.0), {})]
     for name, args, kw in cases:
         case = synthetic_case(*args, device, seed=7, **kw)
         check_reorder(name, *case, expect_flag=False)
@@ -679,6 +708,12 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=10.0,
                     help="lineitem scale factor (1.0 = 6M rows)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--tile-sweep", type=int, nargs="*", default=(),
+                    metavar="ROWS", help="also check and time the reorder "
+                    "at these rows per tile on the main path")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (a short first run of a new "
+                         "kernel); prints no result line")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one exchange run with dmaConsolidate "
                          "off and on and one Q1 run, and write their "
@@ -701,7 +736,10 @@ def main() -> int:
     reference = q1_numpy(lineitem)
     print(f"lineitem sf={args.sf}: {lineitem.num_rows} rows generated and "
           f"reference Q1 computed in {time.perf_counter() - t0:.2f} s")
-    reorder, compact = phase_kernels(lineitem, device)
+    reorder, compact = phase_kernels(lineitem, device, args.tile_sweep)
+    if args.kernels_only:
+        print(json.dumps({"kernels": [reorder, compact]}))
+        return 0
     compact["launches"] = phase_exchange(lineitem, device, args.profile)
     phase_spill(args.seed, device)
     reorder["launches"] = phase_main_path(lineitem, reference, args.profile)

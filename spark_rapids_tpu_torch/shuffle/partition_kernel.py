@@ -235,9 +235,36 @@ def partition_reorder_plain(pids: torch.Tensor, data: torch.Tensor,
     return out, stats
 
 
+#: rows of this many bytes or more take the reorder kernel's wide form
+#: (32-row tiles streamed in 16 KB pieces; kWideRowBytes in
+#: csrc/partition_reorder.cu, which refuses other tile sizes for them)
+WIDE_ROW_BYTES = 1024
+#: dynamic shared memory one CTA of the reorder kernel may take for its two
+#: tile buffers and its staging buffer: at L = 76 that is 256-row tiles and
+#: three CTAs an SM, which beat 128- and 512-row tiles on an H100
+#: (chip_smoke.py --tile-sweep)
+TILE_SMEM_BYTES = 64 << 10
+
+
+def reorder_tile_rows(L: int) -> int:
+    """Rows per tile of the reorder kernel for rows of L bytes: 32 for wide
+    rows, else the most rows (a power of two in [64, 512]) whose two tile
+    buffers (pids and rows) and staging buffer (smem_bytes in
+    csrc/partition_reorder.cu) fit TILE_SMEM_BYTES, or 32 (which fits the
+    card's 227 KB for any L under WIDE_ROW_BYTES)."""
+    if L >= WIDE_ROW_BYTES:
+        return 32
+    rows = W
+    while rows > 32 and 2 * (4 * rows + rows * L) + rows * L + 1024 \
+            > TILE_SMEM_BYTES:
+        rows //= 2
+    return rows
+
+
 class _ReorderKernel:
     """ctypes binding of csrc/partition_reorder.cu. ``launches`` counts the
-    launches of the kernel (and nothing else)."""
+    calls of its entry point (and nothing else); each call runs two device
+    kernels, the pids pre-pass and the reorder."""
 
     SOURCE = "partition_reorder.cu"
 
@@ -249,7 +276,7 @@ class _ReorderKernel:
         if self._lib is None:
             lib = cuda_build.load(self.SOURCE)
             lib.partition_reorder.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             lib.partition_reorder.restype = ctypes.c_int
             lib.partition_reorder_error.argtypes = [ctypes.c_int]
             lib.partition_reorder_error.restype = ctypes.c_char_p
@@ -257,23 +284,33 @@ class _ReorderKernel:
         return self._lib
 
     def __call__(self, pids: torch.Tensor, data: torch.Tensor,
-                 geom: KernelGeom) -> Tuple[torch.Tensor, torch.Tensor]:
+                 geom: KernelGeom, tile_rows: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         _check_inputs(pids, data, geom)
         if pids.device.type != "cuda":
             raise ValueError(f"the CUDA reorder kernel needs CUDA tensors, "
                              f"got {pids.device}")
+        if pids.data_ptr() % 16 or data.data_ptr() % 16:
+            raise ValueError("the CUDA reorder kernel needs 16-byte aligned "
+                             "pids and data")
+        tile_rows = tile_rows or reorder_tile_rows(geom.L)
         lib = self.load()
+        dev = pids.device
         out = torch.empty((geom.n, geom.groups, geom.quota, geom.L),
-                          dtype=torch.uint8, device=pids.device)
+                          dtype=torch.uint8, device=dev)
         stats = torch.empty((geom.groups, geom.n, STAT_LANES),
-                            dtype=torch.int32, device=pids.device)
-        vec4 = int(geom.L % 4 == 0 and data.data_ptr() % 4 == 0
-                   and out.data_ptr() % 4 == 0)
-        stream = torch.cuda.current_stream(pids.device).cuda_stream
+                            dtype=torch.int32, device=dev)
+        tiles = geom.groups * geom.G * (W // tile_rows)
+        scratch = torch.empty(tiles * (geom.n + 1), dtype=torch.int32,
+                              device=dev)
+        if out.data_ptr() % 16:
+            raise ValueError("the CUDA reorder kernel needs a 16-byte aligned "
+                             "out")
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.partition_reorder(
             pids.data_ptr(), data.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            geom.groups, geom.G, geom.n, geom.q_w, geom.quota, geom.L, vec4,
-            stream)
+            scratch.data_ptr(), geom.groups, geom.G, geom.n, geom.q_w,
+            geom.quota, geom.L, tile_rows, stream)
         if err != 0:
             msg = lib.partition_reorder_error(err).decode()
             raise RuntimeError(f"partition_reorder launch failed: CUDA error "
@@ -291,7 +328,9 @@ def kernel_inputs(batch: DeviceBatch, pids: torch.Tensor, spec: PackSpec,
                   geom: KernelGeom) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack a batch and shape it for the reorder: dead and padding rows get
     pid -1, rows are zero-padded to ``geom.cap`` -> (pids [groups, G, W],
-    data [groups, G*W, L])."""
+    data [groups, G*W, L]). Both are fresh tensors (or a leading slice of
+    one), so on a GPU they start on the allocator's aligned boundary, as the
+    kernel's bulk copies need."""
     alive = torch.arange(batch.capacity, device=pids.device) < batch.num_rows
     p = pad_rows(torch.where(alive, pids, -1).to(torch.int32), geom.cap)
     p[batch.capacity:] = -1

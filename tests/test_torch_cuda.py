@@ -28,6 +28,63 @@ def cuda():
     DeviceManager.shutdown()
 
 
+def _reorder_case(dev, rows, n, L, dead, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    geom = tpk.KernelGeom.plan(rows, n, L)
+    pids = torch.randint(0, n, (geom.cap,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pids[torch.rand(geom.cap, generator=g, device=dev) < dead] = -1
+    pids[rows:] = -1
+    data = torch.randint(0, 256, (geom.cap, L), generator=g, device=dev,
+                         dtype=torch.uint8)
+    return (pids.view(geom.groups, geom.G, tpk.W),
+            data.view(geom.groups, geom.G * tpk.W, L), geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,L,dead", [
+    (1 << 20, 8, 76, 0.0),              # the main path's row width
+    (1 << 18, 8, 300, 0.02),            # fewer rows per tile
+    (100000, 6, 1100, 0.02),            # the wide form, one piece a tile
+    (40000, 4, 2600, 0.1),              # the wide form, several pieces
+    (1 << 20, 8, 76, 0.5),              # half the rows dead in every window
+    (3 * 32768 + 165, 8, 76, 0.0),      # num_rows ends inside a tile
+    (1 << 20, 32, 13, 0.0),             # many partitions, odd width
+    (70001, 5, 21, 0.1), (300, 3, 13, 0.2)])
+def test_cuda_reorder_kernel_matches_plain_version(cuda, rows, n, L, dead):
+    """The CUDA reorder equals the plain version exactly: stats and every
+    live staging row, with one call of the entry point."""
+    pids, data, geom = _reorder_case(cuda, rows, n, L, dead, seed=rows + L)
+    launches = tpk.REORDER_KERNEL.launches
+    k_out, k_stats = tpk.partition_reorder(pids, data, geom)
+    assert tpk.REORDER_KERNEL.launches == launches + 1
+    p_out, p_stats = tpk.partition_reorder_plain(pids, data, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(k_stats, p_stats)
+    assert not k_stats[:, :, 1].any()
+    counts = k_stats[:, :, 0].T
+    live = torch.arange(geom.quota, device=cuda)[None, None, :] \
+        < counts[:, :, None]
+    assert not ((k_out != p_out).any(dim=-1) & live).any()
+
+
+@pytest.mark.cuda
+def test_cuda_reorder_kernel_overflow_and_alignment(cuda):
+    """One partition overflows: the flag is raised on every stats row and
+    the stats equal the plain version's. A data tensor that is not 16-byte
+    aligned is refused, never handed to the plain version."""
+    pids, data, geom = _reorder_case(cuda, 1 << 18, 8, 76, 0.0)
+    pids = torch.zeros_like(pids)
+    _, k_stats = tpk.partition_reorder(pids, data, geom)
+    _, p_stats = tpk.partition_reorder_plain(pids, data, geom)
+    assert torch.equal(k_stats, p_stats)
+    assert bool((k_stats[:, :, 1] == 1).all())
+    buf = torch.zeros(data.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(data.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpk.partition_reorder(pids, shifted, geom)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n,L,empty", [
     (1 << 20, 8, 76, 7), (70001, 5, 21, None), (300, 32, 13, None),

@@ -24,7 +24,9 @@ from spark_rapids_tpu_torch.shuffle import partition_kernel as tpk
 CPU = torch.device("cpu")
 
 
-def _table(n, seed=0, nulls=False):
+def _table(n, seed=0, nulls=False, wide=0):
+    """A batch of every packable type; ``wide`` more string columns of up to
+    300 bytes each make the packed rows wide."""
     rng = np.random.default_rng(seed)
     cols = {
         "l": rng.integers(-2**62, 2**62, n),
@@ -36,14 +38,17 @@ def _table(n, seed=0, nulls=False):
                for x in rng.integers(0, 1000, n)],
         "ts": rng.integers(0, 2**45, n),
     }
+    for k in range(wide):
+        cols[f"w{k}"] = ["x" * int(m) + str(k)
+                         for m in rng.integers(0, 300, n)]
     types = {"dt": pa.date32(), "ts": pa.timestamp("us")}
     mask = (lambda: rng.random(n) < 0.1) if nulls else (lambda: None)
     return pa.table({k: pa.array(v, type=types.get(k), mask=mask())
                      for k, v in cols.items()})
 
 
-def _both(table):
-    jb = JaxBatch.from_arrow(table, string_max_bytes=16)
+def _both(table, string_max_bytes=16):
+    jb = JaxBatch.from_arrow(table, string_max_bytes=string_max_bytes)
     schema = tdt.Schema([tdt.Field(f.name, tdt.DType(f.dtype.value),
                                    f.nullable) for f in jb.schema])
     bufs = [(np.asarray(c.data), np.asarray(c.validity),
@@ -92,12 +97,20 @@ def test_pack_matrix_bytes_equal_reference(nulls):
         assert torch.equal(a.validity, b.validity)
 
 
-@pytest.mark.parametrize("rows,n,nulls", [
-    (700, 2, False), (700, 4, False), (700, 8, False), (700, 8, True),
-    (40000, 4, True),        # two groups of 64 windows: carries across windows
+@pytest.mark.parametrize("rows,n,nulls,wide", [
+    (700, 2, False, 0), (700, 4, False, 0), (700, 8, False, 0),
+    (700, 8, True, 0),
+    (40000, 4, True, 0),     # two groups of 64 windows: carries across windows
+    # string columns over 256 bytes wide: rows of ~0.6 KB (fewer rows per
+    # tile of the CUDA kernel) and ~1.1 KB (its wide form)
+    (700, 8, True, 1), (700, 5, False, 2),
 ])
-def test_plain_reorder_equals_reference_kernel(rows, n, nulls):
-    jb, pb = _both(_table(rows, seed=rows + n, nulls=nulls))
+def test_plain_reorder_equals_reference_kernel(rows, n, nulls, wide):
+    jb, pb = _both(_table(rows, seed=rows + n, nulls=nulls, wide=wide),
+                   string_max_bytes=512 if wide else 16)
+    if wide:
+        assert jb.columns[-1].data.shape[1] > 256
+        assert tpk.PackSpec.for_batch(pb).lanes > 256 * wide
     rng = np.random.default_rng(3)
     pids = rng.integers(0, n, jb.capacity).astype(np.int32)
     pids[rng.random(jb.capacity) < 0.05] = -1          # dead rows
@@ -117,6 +130,17 @@ def test_plain_reorder_equals_reference_kernel(rows, n, nulls):
             c = j_counts[g, j]
             assert t_out[j, g, :c].tobytes() == j_out[j, g, :c].tobytes(), \
                 (j, g)
+
+
+@pytest.mark.parametrize("L,rows", [
+    (13, 512), (76, 256), (300, 64), (700, 32), (1023, 32), (1024, 32),
+    (1100, 32), (4000, 32)])
+def test_reorder_tile_rows(L, rows):
+    """Rows per tile of the CUDA kernel: the most that fit its shared-memory
+    budget, and 32 (its wide form) from 1 KB rows on; a tile's bytes stay a
+    multiple of 16 for its bulk copies."""
+    assert tpk.reorder_tile_rows(L) == rows
+    assert rows * L % 16 == 0 and tpk.W % rows == 0
 
 
 def test_overflow_flag_matches_reference():
