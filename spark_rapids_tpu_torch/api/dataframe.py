@@ -13,7 +13,8 @@ from spark_rapids_tpu_torch.api.column import Column
 from spark_rapids_tpu_torch.columnar.host import HostBatch, concat_host_batches
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
-from spark_rapids_tpu_torch.exprs import Alias, SortOrder, UnresolvedAttribute
+from spark_rapids_tpu_torch.exprs import (Alias, Coalesce, SortOrder,
+                                          UnresolvedAttribute)
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_physical
@@ -27,6 +28,25 @@ class DataFrame:
     def __init__(self, logical: lp.LogicalPlan, session: "TpuSession"):
         self._plan = logical
         self.session = session
+
+    def select(self, *cols: Union[str, Column]) -> "DataFrame":
+        return DataFrame(lp.Project(tuple(_to_expr(c) for c in cols),
+                                    self._plan), self.session)
+
+    def withColumn(self, name: str, c: Column) -> "DataFrame":
+        """Add a column, or replace one in place (pyspark semantics)."""
+        names = self._plan.schema().names()
+        exprs = [Alias(c.expr, name) if n == name else UnresolvedAttribute(n)
+                 for n in names]
+        if name not in names:
+            exprs.append(Alias(c.expr, name))
+        return DataFrame(lp.Project(tuple(exprs), self._plan), self.session)
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = tuple(Alias(UnresolvedAttribute(n), new) if n == old
+                      else UnresolvedAttribute(n)
+                      for n in self._plan.schema().names())
+        return DataFrame(lp.Project(exprs, self._plan), self.session)
 
     def filter(self, cond: Column) -> "DataFrame":
         return DataFrame(lp.Filter(cond.expr, self._plan), self.session)
@@ -43,6 +63,58 @@ class DataFrame:
             e = _to_expr(c)
             orders.append(e if isinstance(e, SortOrder) else SortOrder(e))
         return DataFrame(lp.Sort(tuple(orders), self._plan), self.session)
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(lp.Limit(n, self._plan), self.session)
+
+    def join(self, other: "DataFrame", on: Union[str, List],
+             how: str = "inner") -> "DataFrame":
+        """USING-style join: the key columns appear once in the output (the
+        left side's; the right side's for a right join; coalesced for a full
+        join). ``on`` may instead list ``(left_name, right_name)`` pairs for
+        keys named differently on each side; both columns of a pair stay in
+        the output."""
+        how = {"leftsemi": "left_semi", "semi": "left_semi",
+               "leftanti": "left_anti", "anti": "left_anti",
+               "leftouter": "left", "rightouter": "right",
+               "outer": "full", "fullouter": "full"}.get(how, how)
+        raw = [on] if isinstance(on, str) else list(on)
+        if any(isinstance(k, tuple) for k in raw):
+            if not all(isinstance(k, tuple) for k in raw):
+                raise ValueError(
+                    "join keys must be all strings (USING semantics) or all "
+                    "(left, right) pairs; use ('k', 'k') for same-named keys "
+                    "in the pair form")
+            return DataFrame(lp.Join(
+                self._plan, other._plan, how,
+                tuple(UnresolvedAttribute(a) for a, _ in raw),
+                tuple(UnresolvedAttribute(b) for _, b in raw)), self.session)
+        keys = tuple(UnresolvedAttribute(k) for k in raw)
+        joined = lp.Join(self._plan, other._plan, how, keys, keys)
+        if how in ("left_semi", "left_anti"):
+            return DataFrame(joined, self.session)
+        out = joined.schema()
+        left_n = len(self._plan.schema())
+        right_schema = other._plan.schema()
+        # the output name of each key's right-side column
+        right_out = {k: out[left_n + right_schema.index_of(k)].name
+                     for k in raw}
+        exprs = []
+        for i, f in enumerate(out):
+            if i >= left_n:
+                if f.name not in right_out.values():
+                    exprs.append(UnresolvedAttribute(f.name))
+                continue
+            if f.name in right_out and how == "full":
+                exprs.append(Alias(Coalesce(
+                    (UnresolvedAttribute(f.name),
+                     UnresolvedAttribute(right_out[f.name]))), f.name))
+            elif f.name in right_out and how == "right":
+                exprs.append(Alias(UnresolvedAttribute(right_out[f.name]),
+                                   f.name))
+            else:
+                exprs.append(UnresolvedAttribute(f.name))
+        return DataFrame(lp.Project(tuple(exprs), joined), self.session)
 
     def repartition(self, n: int, *cols: Union[str, Column]) -> "DataFrame":
         return DataFrame(

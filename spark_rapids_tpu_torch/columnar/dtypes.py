@@ -59,6 +59,17 @@ class DType(enum.Enum):
             raise TypeError(f"no common numeric type for {a} and {b}")
         return order[max(order.index(a), order.index(b))]
 
+    @staticmethod
+    def common_type(a: "DType", b: "DType") -> "DType":
+        """Catalyst's least common type of two operands (join keys,
+        coalesce): equal types pass, NULL yields the other side, numerics
+        widen; anything else raises."""
+        if a == b or b is DType.NULL:
+            return a
+        if a is DType.NULL:
+            return b
+        return DType.common_numeric(a, b)
+
 
 _NUMERIC = {DType.BYTE, DType.SHORT, DType.INT, DType.LONG, DType.FLOAT,
             DType.DOUBLE}

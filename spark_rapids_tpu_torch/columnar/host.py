@@ -32,6 +32,25 @@ class HostBatch:
     def column_by_name(self, name: str) -> HostColumn:
         return self.columns[self.schema.index_of(name)]
 
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the same table in arrow's layout, as pyarrow's
+        ``Table.nbytes`` counts them (the JAX package's scan size estimate):
+        a validity bitmap where a column has nulls, fixed-width values, and
+        for strings 4 offset bytes per row plus the string bytes."""
+        n = self.num_rows
+        total = 0
+        for f, c in zip(self.schema, self.columns):
+            if not c.validity[:n].all():
+                total += (n + 7) // 8
+            if f.dtype is DType.STRING:
+                total += 4 * n + int(c.lengths[:n].sum())
+            elif f.dtype is DType.BOOLEAN:
+                total += (n + 7) // 8
+            else:
+                total += n * f.dtype.np_dtype().itemsize
+        return total
+
     @staticmethod
     def from_arrow(table, string_max_bytes: int = 256) -> "HostBatch":
         """Arrow table -> HostBatch (pyarrow is imported here only)."""

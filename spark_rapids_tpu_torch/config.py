@@ -83,6 +83,12 @@ SHUFFLE_DMA_CONSOLIDATE = _conf(
     "instead of one row gather per partition. Both give the same rows in "
     "the same order. Off by default, as in the JAX package.")
 
+BROADCAST_JOIN_THRESHOLD = _conf(
+    "sql.broadcastJoinThreshold.bytes", int, 10 * 1024 * 1024,
+    "Largest estimated build side, in bytes, for which a join takes the "
+    "broadcast hash join (the spark.sql.autoBroadcastJoinThreshold role). A "
+    "side of unknown size is never broadcast; -1 turns broadcasts off.")
+
 DEVICE_POOL_FRACTION = _conf(
     "memory.tpu.allocFraction", float, 0.9,
     "Fraction of the device's memory that the spillable buffer store may "

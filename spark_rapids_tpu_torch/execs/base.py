@@ -60,6 +60,13 @@ class PhysicalExec:
     def execute(self, ctx: ExecContext) -> Iterator:
         raise NotImplementedError(self.name)
 
+    def size_estimate(self) -> Optional[int]:
+        """Estimated output bytes, or None when unknown (the JAX package's
+        estimates, which the planner's broadcast choice reads: a side of
+        unknown size is never broadcast). Narrowing operators pass their
+        child's estimate through as an upper bound."""
+        return None
+
     def tree_string(self, indent: int = 0) -> str:
         lines = ["  " * indent + f"{self.name} [{self.output}]"]
         lines += [c.tree_string(indent + 1) for c in self.children]

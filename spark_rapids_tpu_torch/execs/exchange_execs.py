@@ -11,11 +11,17 @@ one consolidation: ``consolidate_all`` (one compact launch for every
 partition) when ``shuffle.kernel.dmaConsolidate.enabled`` is set, else one
 ``consolidate`` gather per partition; both give the same batches. A wider
 fan-out, an unpackable batch or a quota overflow takes the sort path
-(``split_by_pid``).
+(``split_by_pid``). A range exchange stages its child's batches, samples
+their keys for the bounds, and always takes the sort path, as in the JAX
+package.
 
 Partition ids are bit-identical to the JAX package's: the same murmur3-style
 32-bit mix, held in int64 tensors with the wrap made explicit by masking,
-and the same round-robin start offsets.
+the same round-robin start offsets, and range bounds from the same sample
+rows and quantile picks.
+
+``TpuBroadcastExchangeExec`` materializes its child once into one batch that
+every consumer partition reads, and releases it when the action ends.
 """
 from __future__ import annotations
 
@@ -32,10 +38,14 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema, bucket_capacity
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.execs.cpu_execs import _row_width
-from spark_rapids_tpu_torch.execs.tpu_execs import batch_of, eval_ctx
+from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of,
+                                                    concat_device_batches,
+                                                    eval_ctx)
 from spark_rapids_tpu_torch.exprs.core import ColV, Expression
+from spark_rapids_tpu_torch.exprs.misc import SortOrder
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
+from spark_rapids_tpu_torch.ops.strings import align_widths, pad_width
 from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
 from spark_rapids_tpu_torch.shuffle.catalog import (ShuffleBlockId,
                                                     ShuffleBufferCatalog)
@@ -67,6 +77,13 @@ class RoundRobinPartitioning(Partitioning):
 class HashPartitioning(Partitioning):
     """Key-hash distribution."""
     keys: Tuple[Expression, ...] = ()
+
+
+@dataclass(frozen=True)
+class RangePartitioning(Partitioning):
+    """Contiguous key ranges; the n - 1 bounds come from a deterministic
+    sample of the input, taken when the map side runs."""
+    orders: Tuple[SortOrder, ...] = ()
 
 
 # ------------------------------------------------------------------ hash kernel
@@ -128,6 +145,84 @@ def _mix_partition_ids(hashes: Sequence[torch.Tensor],
 def hash_partition_ids(keys: Sequence[ColV], cap: int, n: int) -> torch.Tensor:
     """Target partition id (int32) per row from the key columns."""
     return _mix_partition_ids(key_hashes(keys, cap), n)
+
+
+# ------------------------------------------------------------------ range bounds
+#: sample rows over all staged batches that the range bounds are picked from
+_SAMPLE_TARGET = 4096
+
+
+def _lex_gt_bounds(row_passes: Sequence[torch.Tensor],
+                   bound_passes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Partition id per row: the number of bounds lexicographically smaller
+    than the row over the sort-key passes. The JAX package compares every
+    row with every bound at once through ``(rows, n - 1)`` matrices; here
+    one bound at a time adds its ``(rows,)`` verdict to the count, which is
+    the same sum over the same comparisons without the matrices."""
+    pid = torch.zeros(row_passes[0].shape[0], dtype=torch.int32,
+                      device=row_passes[0].device)
+    for j in range(bound_passes[0].shape[0]):
+        gt = torch.zeros_like(pid, dtype=torch.bool)
+        eq = torch.ones_like(gt)
+        for r, b in zip(row_passes, bound_passes):
+            gt |= eq & (r > b[j])
+            eq &= r == b[j]
+        pid += gt
+    return pid
+
+
+def range_partition_ids(orders: Sequence[SortOrder], row_keys: Sequence[ColV],
+                        bound_keys: Sequence[ColV]) -> torch.Tensor:
+    """Target partition id (int32) per row from the range bounds."""
+    row_passes: List[torch.Tensor] = []
+    bound_passes: List[torch.Tensor] = []
+    for o, rv, bv in zip(orders, row_keys, bound_keys):
+        if rv.lengths is not None:
+            # one width for rows and bounds, or their word passes misalign
+            rd, bd = align_widths(rv.data, bv.data)
+            rv = ColV(rv.dtype, rd, rv.validity, rv.lengths)
+            bv = ColV(bv.dtype, bd, bv.validity, bv.lengths)
+        row_passes.extend(bk._key_passes(rv, o.ascending, o.nulls_first))
+        bound_passes.extend(bk._key_passes(bv, o.ascending, o.nulls_first))
+    return _lex_gt_bounds(row_passes, bound_passes)
+
+
+def _sample_rows(colvs: Sequence[ColV], num_rows: int, k: int) -> List[ColV]:
+    """A deterministic, evenly spaced sample of ``k`` rows (SamplingUtils'
+    role), taken on the columns' device."""
+    idx = torch.from_numpy(np.linspace(0, num_rows - 1, min(k, num_rows))
+                           .astype(np.int32)).long()
+    return [bk.take_colv(v, idx.to(v.validity.device)) for v in colvs]
+
+
+def _sample_bounds(orders: Sequence[SortOrder], sampled: List[List[ColV]],
+                   n: int) -> Optional[List[ColV]]:
+    """The n - 1 range bounds from the per-batch key samples (CPU tensors):
+    the merged sample in key order, bound i at position (i + 1) / n of it.
+    Returns one ColV of n - 1 rows per order key, or None without rows."""
+    if not sampled or n <= 1:
+        return None
+    merged: List[ColV] = []
+    for ki in range(len(orders)):
+        parts = [keys[ki] for keys in sampled]
+        datas = [p.data for p in parts]
+        if parts[0].lengths is not None:
+            width = max(d.shape[-1] for d in datas)
+            datas = [pad_width(d, width) for d in datas]
+        merged.append(ColV(parts[0].dtype, torch.cat(datas),
+                           torch.cat([p.validity for p in parts]),
+                           torch.cat([p.lengths for p in parts])
+                           if parts[0].lengths is not None else None))
+    total = merged[0].validity.shape[0]
+    if total == 0:
+        return None
+    passes: List[torch.Tensor] = []
+    for o, v in zip(orders, merged):
+        passes.extend(bk._key_passes(v, o.ascending, o.nulls_first))
+    order = bk.lexsort(passes)
+    idx = order[[min(total - 1, ((i + 1) * total) // n)
+                 for i in range(n - 1)]]
+    return [bk.take_colv(v, idx) for v in merged]
 
 
 def _round_robin_offset(part: Partitioning, map_partition: int,
@@ -265,6 +360,10 @@ class ShuffleExchangeExecBase(PhysicalExec):
     def num_partitions(self) -> int:
         return self.partitioning.num_partitions
 
+    def size_estimate(self) -> Optional[int]:
+        # a repartition moves rows; it neither makes nor drops them
+        return self.children[0].size_estimate()
+
     def _run_map(self, ctx: ExecContext) -> None:
         raise NotImplementedError(self.name)
 
@@ -383,6 +482,9 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
         #: map batches split by the reorder kernel / by the sort path
         self.kernel_splits = 0
         self.sort_path_splits = 0
+        #: a range partitioning's bounds (one ColV of n - 1 rows per order
+        #: key), set when the map side runs
+        self.range_bounds: Optional[List[ColV]] = None
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         return self._read_partition(ctx, None)
@@ -414,18 +516,54 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
                         ) -> Iterator[Tuple[int, int, DeviceBatch]]:
         """(map partition, reduce partition, piece) triples: each child
         batch is split as it is produced, so the peak footprint is one batch
-        plus the spillable shuffle cache."""
+        plus the spillable shuffle cache. A range partitioning first stages
+        every batch and samples the bounds from them."""
         child = self.children[0]
-        for map_p in range(child.num_partitions):
-            if partition_ids is not None and map_p not in partition_ids:
+        batches = ((map_p, bi, db)
+                   for map_p in range(child.num_partitions)
+                   if partition_ids is None or map_p in partition_ids
+                   for bi, db in enumerate(child.execute(
+                       ctx.for_partition(map_p, child.num_partitions))))
+        bounds = None
+        if isinstance(self.partitioning, RangePartitioning):
+            batches = list(batches)
+            bounds = self._device_bounds(ctx, [db for _, _, db in batches])
+            self.range_bounds = bounds
+        for map_p, bi, db in batches:
+            if db.num_rows == 0:
                 continue
-            cctx = ctx.for_partition(map_p, child.num_partitions)
-            for bi, db in enumerate(child.execute(cctx)):
-                if db.num_rows == 0:
-                    continue
-                offset = _round_robin_offset(self.partitioning, map_p, bi)
-                for j, sub in self._split_batch(ctx, db, offset):
-                    yield map_p, j, sub
+            offset = _round_robin_offset(self.partitioning, map_p, bi)
+            for j, sub in self._split_batch(ctx, db, offset, bounds):
+                yield map_p, j, sub
+
+    def _device_bounds(self, ctx: ExecContext, staged: List[DeviceBatch]
+                       ) -> Optional[List[ColV]]:
+        """Evaluate the order keys on the device and gather the sample
+        there; only the sampled rows (at most ``_SAMPLE_TARGET`` in all)
+        reach the host, where the bounds are picked. The bounds go back to
+        the device."""
+        if not staged:
+            return None
+        part = self.partitioning
+        per = max(1, _SAMPLE_TARGET // len(staged))
+        sampled = []
+        for db in staged:
+            if db.num_rows == 0:
+                continue
+            ectx = eval_ctx(db, ctx)
+            keys = [bk.as_column(o.child.eval(ectx), db.capacity)
+                    for o in part.orders]
+            sampled.append([ColV(v.dtype, v.data.cpu(), v.validity.cpu(),
+                                 None if v.lengths is None
+                                 else v.lengths.cpu())
+                            for v in _sample_rows(keys, db.num_rows, per)])
+        bounds = _sample_bounds(part.orders, sampled, part.num_partitions)
+        if bounds is None:
+            return None
+        return [ColV(v.dtype, v.data.to(ctx.device),
+                     v.validity.to(ctx.device),
+                     None if v.lengths is None else v.lengths.to(ctx.device))
+                for v in bounds]
 
     def _run_map(self, ctx: ExecContext) -> None:
         catalog = _local_shuffle_env(ctx).shuffle_catalog
@@ -444,8 +582,9 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
                 self._map_part_rows.get((map_p, j), 0) + sub.num_rows
         self._fold_sketches()
 
-    def _split_batch(self, ctx: ExecContext, db: DeviceBatch,
-                     offset: int) -> List[Tuple[int, DeviceBatch]]:
+    def _split_batch(self, ctx: ExecContext, db: DeviceBatch, offset: int,
+                     bounds: Optional[List[ColV]] = None
+                     ) -> List[Tuple[int, DeviceBatch]]:
         part, n = self.partitioning, self.partitioning.num_partitions
         ectx = eval_ctx(db, ctx)
         hashes: List[torch.Tensor] = []
@@ -455,8 +594,19 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
             self._sketch_keys(hashes, db.num_rows)
         if isinstance(part, SinglePartitioning) or n == 1:
             return [(0, db)]
-        pids = _compute_pids(part, db.capacity, offset, hashes, db.device)
-        if ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off":
+        if isinstance(part, RangePartitioning):
+            # the bounds path stays on the sort path, as in the JAX package
+            pids = (range_partition_ids(
+                part.orders, [bk.as_column(o.child.eval(ectx), db.capacity)
+                              for o in part.orders], bounds)
+                    if bounds is not None else
+                    torch.zeros(db.capacity, dtype=torch.int32,
+                                device=db.device))
+        else:
+            pids = _compute_pids(part, db.capacity, offset, hashes,
+                                 db.device)
+        if ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off" and \
+                not isinstance(part, RangePartitioning):
             pieces = self._kernel_split(ctx, db, pids, n)
             if pieces is not None:
                 self.kernel_splits += 1
@@ -487,3 +637,39 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
             subs = [pk.consolidate(out, stats, j, spec, db.schema, geom)
                     for j in range(n)]
         return [(j, sub) for j, sub in enumerate(subs) if sub is not None]
+
+
+# ------------------------------------------------------------------ broadcast
+class TpuBroadcastExchangeExec(PhysicalExec):
+    """Every partition of the child materialized once into one device batch,
+    which every consumer partition reads; the action's cleanups release
+    it."""
+
+    def __init__(self, child: PhysicalExec):
+        super().__init__((child,), child.output)
+        self._lock = threading.Lock()
+        self._cached: Optional[DeviceBatch] = None
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()
+
+    def _release(self) -> None:
+        self._cached = None
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        with self._lock:
+            if self._cached is None:
+                if ctx.cleanups is not None:
+                    ctx.cleanups.append(self._release)
+                child = self.children[0]
+                parts = child.num_partitions
+                self._cached = concat_device_batches(
+                    [b for p in range(parts)
+                     for b in child.execute(ctx.for_partition(p, parts))],
+                    self.output, ctx.device)
+            batch = self._cached
+        yield batch

@@ -1,20 +1,23 @@
-"""Device physical operators: upload/download transitions, filter, hash
-aggregate and sort. Each evaluates its expressions eagerly on the batch's
-tensors; the live row count of a result reaches the host once per batch to
-pick the output's capacity bucket, as in the JAX package."""
+"""Device physical operators: upload/download transitions, project,
+filter, hash aggregate, sort and limit. Each evaluates its expressions
+eagerly on the batch's tensors; the live row count of a result reaches the
+host once per batch to pick the output's capacity bucket, as in the JAX
+package."""
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, pad_rows
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.columnar.dtypes import (DType, Schema,
+from spark_rapids_tpu_torch.columnar.dtypes import (DType, Field, Schema,
                                                     bucket_capacity)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.columnar.transfer import download, upload
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.cpu_execs import (limit_size_estimate,
+                                                    width_scaled_estimate)
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
@@ -76,6 +79,9 @@ class HostToDeviceExec(PhysicalExec):
     def __init__(self, child: PhysicalExec):
         super().__init__((child,), child.output)
 
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for hb in self.children[0].execute(ctx):
             yield upload(hb, ctx.device)
@@ -87,16 +93,43 @@ class DeviceToHostExec(PhysicalExec):
     def __init__(self, child: PhysicalExec):
         super().__init__((child,), child.output)
 
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()
+
     def execute(self, ctx: ExecContext) -> Iterator[HostBatch]:
         for db in self.children[0].execute(ctx):
             yield download(db)
 
 
 # ---------------------------------------------------------------- operators
+def output_schema(exprs: Tuple[Expression, ...]) -> Schema:
+    return Schema([Field(e.name_hint, e.dtype(), e.nullable())
+                   for e in exprs])
+
+
+class TpuProjectExec(PhysicalExec):
+    def __init__(self, exprs: Tuple[Expression, ...], child: PhysicalExec):
+        super().__init__((child,), output_schema(exprs))
+        self.exprs = exprs
+
+    def size_estimate(self) -> Optional[int]:
+        return width_scaled_estimate(self.children[0], self.output)
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        for batch in self.children[0].execute(ctx):
+            ectx = eval_ctx(batch, ctx)
+            yield batch_of(self.output,
+                           [bk.as_column(e.eval(ectx), batch.capacity)
+                            for e in self.exprs], batch.num_rows)
+
+
 class TpuFilterExec(PhysicalExec):
     def __init__(self, condition: Expression, child: PhysicalExec):
         super().__init__((child,), child.output)
         self.condition = condition
+
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()      # an upper bound
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for batch in self.children[0].execute(ctx):
@@ -110,8 +143,8 @@ class TpuFilterExec(PhysicalExec):
 class TpuHashAggregateExec(PhysicalExec):
     """Grouped aggregation over the concatenation of the child's batches.
     The fastest grouping runs first and the next one only when it raised
-    its flag: one-hot, then the exact sort (the JAX package's hash mode
-    between them is not ported yet)."""
+    its flag: one-hot, then hash, then the exact sort (the JAX package's
+    ``tpu_execs.py`` escalation)."""
 
     def __init__(self, grouping: Tuple[Expression, ...],
                  aggregates: Tuple[Expression, ...], child: PhysicalExec,
@@ -121,6 +154,10 @@ class TpuHashAggregateExec(PhysicalExec):
         self.aggregates = aggregates
         #: grouping modes run by the last execution, in order
         self.modes_run: List[str] = []
+
+    def size_estimate(self) -> Optional[int]:
+        # groups never outnumber input rows
+        return width_scaled_estimate(self.children[0], self.output)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         batch = concat_device_batches(list(self.children[0].execute(ctx)),
@@ -142,6 +179,9 @@ class TpuSortExec(PhysicalExec):
         super().__init__((child,), child.output)
         self.orders = orders
 
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()      # a permutation
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         batch = concat_device_batches(list(self.children[0].execute(ctx)),
                                       self.output, ctx.device)
@@ -155,3 +195,29 @@ class TpuSortExec(PhysicalExec):
                                            for v in ectx.columns],
                              batch.num_rows)
         yield batch
+
+
+class TpuLimitExec(PhysicalExec):
+    """The first ``n`` rows: a batch is cut by shrinking its row count and
+    invalidating the rows past it; no data moves."""
+
+    def __init__(self, n: int, child: PhysicalExec):
+        super().__init__((child,), child.output)
+        self.n = n
+
+    def size_estimate(self) -> Optional[int]:
+        return limit_size_estimate(self.children[0], self.output, self.n)
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        remaining = self.n
+        for batch in self.children[0].execute(ctx):
+            if remaining <= 0:
+                break
+            take = min(remaining, batch.num_rows)
+            remaining -= take
+            if take < batch.num_rows:
+                alive = bk.alive_mask(batch.capacity, take, batch.device)
+                batch = DeviceBatch(batch.schema, tuple(
+                    DeviceColumn(c.dtype, c.data, c.validity & alive,
+                                 c.lengths) for c in batch.columns), take)
+            yield batch

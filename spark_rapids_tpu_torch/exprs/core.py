@@ -63,6 +63,12 @@ class Expression:
                 nv = fn(v)
                 changed |= nv is not v
                 kwargs[f.name] = nv
+            elif isinstance(v, tuple) and any(isinstance(c, Expression)
+                                              for c in v):
+                nv = tuple(fn(c) if isinstance(c, Expression) else c
+                           for c in v)
+                changed |= any(a is not b for a, b in zip(nv, v))
+                kwargs[f.name] = nv
             else:
                 kwargs[f.name] = v
         return type(self)(**kwargs) if changed else self

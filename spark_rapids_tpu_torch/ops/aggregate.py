@@ -1,5 +1,5 @@
-"""Grouped aggregation over one batch: the one-hot mode and the exact sort
-mode of the JAX package's ``ops/aggregate.py``.
+"""Grouped aggregation over one batch: the one-hot, hash and sort modes of
+the JAX package's ``ops/aggregate.py``.
 
 ``onehot`` is the sort-free fast path for at most ``ONEHOT_CAP`` groups:
 distinct 64-bit key hashes give the group table and ``searchsorted`` gives
@@ -11,8 +11,15 @@ SPREAD``, then a sum over each group's sub-bins. The
 collision/overflow flag is exact, as in the JAX package: every injective key
 word of a row must equal its group's first row's.
 
+``hash`` orders rows by the shifted 64-bit key hash (one stable sort
+instead of the exact multi-key lexsort) and reduces at the group boundaries
+(``_reduce_phase_scan``); it is flagged when two keys collide or when there
+are more than ``GROUP_CAP`` groups. Its groups come out in hash order, as
+the JAX package's do.
+
 ``sort`` orders rows by the exact key passes and reduces segments; it is the
-escalation target when the one-hot flag is raised.
+last escalation target. Without keys every mode is the global aggregate:
+one group, also over no rows.
 """
 from __future__ import annotations
 
@@ -29,6 +36,10 @@ from spark_rapids_tpu_torch.ops import batch_kernels as bk
 #: group-space bound of the one-hot path; more distinct keys raise the flag
 ONEHOT_CAP = 64
 
+#: group-space bound of the hash mode's boundary-scan reduction; more groups
+#: raise the flag and the exec re-runs the exact sort
+GROUP_CAP = 65536
+
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 
@@ -37,8 +48,10 @@ AggResult = Tuple[List[ColV], List[ColV], int, bool]
 
 def grouping_modes(keys) -> List[str]:
     """Escalation order of the aggregate exec: each mode runs only when the
-    one before it raised its collision/overflow flag."""
-    return (["onehot"] if 0 < len(keys) <= 64 else []) + ["sort"]
+    one before it raised its collision/overflow flag. (The JAX package also
+    keeps string min/max out of the one-hot mode; the port has only
+    ``sum`` buffers.)"""
+    return (["onehot"] if 0 < len(keys) <= 64 else []) + ["hash", "sort"]
 
 
 def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction],
@@ -46,9 +59,12 @@ def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction
                     extra_mask=None) -> AggResult:
     """Grouped aggregation over one batch -> (key_cols, result_cols,
     num_groups, flagged). Output columns have the group count's capacity
-    bucket. ``extra_mask`` excludes rows (a fused filter predicate).
-    ``flagged`` is only ever True for ``grouping="onehot"``: the result may
-    be wrong and the caller must re-run with ``"sort"``."""
+    bucket (the hash mode's at most ``GROUP_CAP`` rows). ``extra_mask``
+    excludes rows (a fused filter predicate). ``flagged`` is only ever True
+    for ``grouping="onehot"`` or ``"hash"`` with keys: the result may be
+    wrong and the caller must re-run with the next mode."""
+    if grouping not in ("onehot", "hash", "sort"):
+        raise ValueError(f"unknown grouping mode {grouping!r}")
     alive = bk.alive_mask(capacity, num_rows, ctx.device)
     if extra_mask is not None:
         alive = alive & extra_mask
@@ -57,10 +73,12 @@ def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction
     for fn in agg_fns:
         bufs = [bk.as_column(b, capacity) for b in fn.project(ctx)]
         projections.append([b.with_validity(b.validity & alive) for b in bufs])
-    if keys and grouping == "onehot":
+    if not keys:
+        return _global_aggregate(projections, agg_fns, alive)
+    if grouping == "onehot":
         return _onehot_aggregate(keys, projections, agg_fns, alive)
-    if grouping != "sort":
-        raise ValueError(f"unknown grouping mode {grouping!r}")
+    if grouping == "hash":
+        return _hash_aggregate(keys, projections, agg_fns, alive)
     return _sort_aggregate(keys, projections, agg_fns, alive)
 
 
@@ -148,24 +166,8 @@ def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
     return _finish(key_cols, reduced, agg_fns, 0, out_cap, False, device)
 
 
-def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
-    device = alive.device
-    if keys:
-        order = bk.sort_indices([(k, True, True) for k in keys], alive)
-        sorted_keys = [bk.take_colv(k, order) for k in keys]
-        sorted_alive = alive[order]
-        starts = bk.starts_from_sorted(sorted_keys, sorted_alive)
-        num_groups = int(starts.sum())
-        gids = (torch.cumsum(starts.to(torch.int64), 0) - 1).clamp_(min=0)
-        out_cap = bucket_capacity(num_groups)
-        first = torch.nonzero(starts).squeeze(1)
-        key_cols = [bk.take_padded(k, first, out_cap) for k in sorted_keys]
-    else:
-        # global aggregate: exactly one group, even over no rows
-        order = torch.arange(alive.shape[0], device=device)
-        num_groups, out_cap = 1, bucket_capacity(1)
-        gids = torch.zeros_like(order)
-        key_cols = []
+def _segment_sums(projections, order, gids, out_cap):
+    """Every buffer taken in ``order`` and summed per group id."""
     reduced_per_fn = []
     for bufs in projections:
         reduced = []
@@ -175,5 +177,98 @@ def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
                                             out_cap, "sum")
             reduced.append(ColV(b.dtype, data, valid))
         reduced_per_fn.append(reduced)
+    return reduced_per_fn
+
+
+def _global_aggregate(projections, agg_fns, alive) -> AggResult:
+    """No keys: exactly one group, even over no rows (Spark's global
+    aggregate and its empty-input row)."""
+    order = torch.arange(alive.shape[0], device=alive.device)
+    out_cap = bucket_capacity(1)
+    reduced = _segment_sums(projections, order, torch.zeros_like(order),
+                            out_cap)
+    return _finish([], reduced, agg_fns, 1, out_cap, False, alive.device)
+
+
+def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
+    order = bk.sort_indices([(k, True, True) for k in keys], alive)
+    sorted_keys = [bk.take_colv(k, order) for k in keys]
+    starts = bk.starts_from_sorted(sorted_keys, alive[order])
+    num_groups = int(starts.sum())
+    gids = (torch.cumsum(starts.to(torch.int64), 0) - 1).clamp_(min=0)
+    out_cap = bucket_capacity(num_groups)
+    first = torch.nonzero(starts).squeeze(1)
+    key_cols = [bk.take_padded(k, first, out_cap) for k in sorted_keys]
+    return _finish(key_cols, _segment_sums(projections, order, gids, out_cap),
+                   agg_fns, num_groups, out_cap, False, alive.device)
+
+
+def _hash_aggregate(keys, projections, agg_fns, alive) -> AggResult:
+    """Rows in hash order, group boundaries from the exact key compare,
+    the flag from a boundary inside a run of one shifted hash (a collision)
+    or from more than ``GROUP_CAP`` groups; reductions at the boundaries."""
+    order, h = bk.hash_group_order(keys, alive)
+    sorted_keys = [bk.take_colv(k, order) for k in keys]
+    sorted_alive = alive[order]
+    starts = bk.starts_from_sorted(sorted_keys, sorted_alive)
+    flagged = bk.detect_hash_collision_sorted(bk._srl(h, 1)[order], starts,
+                                              sorted_alive)
+    num_groups = int(starts.sum())
+    flagged = flagged or num_groups > GROUP_CAP
+    gids = (torch.cumsum(starts.to(torch.int64), 0) - 1).clamp_(min=0)
+    out_cap = bucket_capacity(min(num_groups, GROUP_CAP))
+    sorted_projs = [[bk.take_colv(b, order) for b in bufs]
+                    for bufs in projections]
+    key_cols, reduced_per_fn = _reduce_phase_scan(
+        sorted_keys, sorted_projs, gids, num_groups, out_cap, sorted_alive)
     return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
-                   False, device)
+                   flagged, alive.device)
+
+
+def _reduce_phase_scan(sorted_keys, sorted_projs, gids, num_groups: int,
+                       out_cap: int, sorted_alive):
+    """Boundary-scan reduction over rows ordered by group (``gids``
+    non-decreasing): each group's first and last row come from two
+    ``searchsorted`` calls over the gids; keys are gathered at the first
+    row; integral sums are differences of one inclusive cumsum at the two
+    boundaries (wrapping arithmetic keeps them exact through any overflow).
+    Float sums are not: the running sum mixes other groups' values, so a
+    group that cancels to exactly 0.0 would keep a residue; they are
+    summed by group id instead, the groups past ``out_cap - 1`` folded into
+    the last bin as in the JAX package (the flag is raised then)."""
+    device = gids.device
+    cap = gids.shape[0]
+    g = torch.arange(out_cap, device=device)
+    start = torch.searchsorted(gids, g)
+    end = torch.searchsorted(gids, g, right=True) - 1
+    # dead rows keep the last group's id: its end is the last live row
+    n_alive = int(sorted_alive.sum())
+    end = torch.minimum(end, torch.tensor(max(n_alive - 1, 0), device=device))
+    has = g < num_groups
+    start = start.clamp(0, cap - 1)
+    end = end.clamp(0, cap - 1)
+    key_cols = []
+    for k in sorted_keys:
+        kc = bk.take_colv(k, start)
+        key_cols.append(kc.with_validity(kc.validity & has))
+
+    def seg_sum(contrib: torch.Tensor) -> torch.Tensor:
+        c = torch.cumsum(contrib, 0)
+        head = torch.where(start > 0, c[(start - 1).clamp(min=0)], 0)
+        return c[end] - head
+
+    gids_b = gids.clamp(max=out_cap - 1)
+    reduced_per_fn = []
+    for bufs in sorted_projs:
+        reduced = []
+        for b in bufs:
+            if b.dtype.is_floating:
+                data, valid = bk.segment_reduce(b.data, b.validity, gids_b,
+                                                out_cap, "sum")
+            else:
+                data = seg_sum(torch.where(b.validity, b.data, 0)
+                               .to(b.data.dtype))
+                valid = seg_sum(b.validity.to(torch.int64)) > 0
+            reduced.append(ColV(b.dtype, data, valid))
+        reduced_per_fn.append(reduced)
+    return key_cols, reduced_per_fn

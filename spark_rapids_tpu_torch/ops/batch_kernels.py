@@ -229,12 +229,16 @@ def _key_passes(v: ColV, ascending: bool, nulls_first: bool
     return [_null_rank(v, nulls_first)] + passes
 
 
+def _stable_argsort(keys: torch.Tensor) -> torch.Tensor:
+    return torch.sort(keys, stable=True).indices
+
+
 def lexsort(passes: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stable lexicographic order by ``passes`` (most significant first),
     composed least-significant first from stable sorts."""
     order = torch.arange(passes[0].shape[0], device=passes[0].device)
     for k in reversed(passes):
-        order = order[torch.sort(k[order], stable=True).indices]
+        order = order[_stable_argsort(k[order])]
     return order
 
 
@@ -246,6 +250,42 @@ def sort_indices(keys: Sequence[Tuple[ColV, bool, bool]],
     for v, asc, nf in keys:
         passes.extend(_key_passes(v, asc, nf))
     return lexsort(passes)
+
+
+def hash_group_order(keys: Sequence[ColV], alive: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hash grouping's row order: live rows by ``h >> 1`` (the 64-bit
+    key hash shifted right once), stable, then the dead rows in row order.
+    Returns (order, h). Equal keys land contiguous; only two different keys
+    sharing a shifted hash can split a group, which
+    ``detect_hash_collision_sorted`` flags.
+
+    The JAX package sorts the uint64 ``h >> 1`` with dead rows at the
+    uint64 maximum, which no shifted hash reaches. Held in int64, ``h >> 1``
+    is non-negative and may be ``INT64_MAX`` itself, so the dead rows get a
+    second, more significant sort key instead of a sentinel."""
+    h = hash64_cols(keys)
+    hs = torch.where(alive, _srl(h, 1), 0)
+    return lexsort([(~alive).to(torch.int8), hs]), h
+
+
+def detect_hash_collision_sorted(hs_sorted: torch.Tensor,
+                                 starts: torch.Tensor,
+                                 sorted_alive: torch.Tensor) -> bool:
+    """Collision flag over hash-ordered rows: a group boundary between two
+    live rows with the same shifted hash means two distinct keys collided."""
+    prev_h = torch.cat([hs_sorted[:1], hs_sorted[:-1]])
+    prev_a = torch.cat([sorted_alive.new_zeros(1), sorted_alive[:-1]])
+    return bool((starts & (hs_sorted == prev_h) & sorted_alive
+                 & prev_a).any())
+
+
+def rows_equal_adjacent(keys: Sequence[ColV], order: torch.Tensor,
+                        alive: torch.Tensor) -> torch.Tensor:
+    """Group-start marks of the rows taken in ``order`` (null == null, NaN
+    == NaN); dead rows never start a group."""
+    return starts_from_sorted([take_colv(v, order) for v in keys],
+                              alive[order])
 
 
 def sort_colvs(passes: Sequence[torch.Tensor], colvs: Sequence[ColV]

@@ -27,7 +27,7 @@ from spark_rapids_tpu_torch.execs.tpu_execs import (TpuHashAggregateExec,
 from spark_rapids_tpu_torch.exprs import (Average, Count, Literal, Multiply,
                                           Subtract, Sum, UnresolvedAttribute,
                                           bind_expression)
-from spark_rapids_tpu_torch.ops.aggregate import group_aggregate
+from spark_rapids_tpu_torch.ops.aggregate import GROUP_CAP, group_aggregate
 
 CPU = torch.device("cpu")
 REL = 1e-9
@@ -130,13 +130,13 @@ def _keyed_table(n, groups, seed):
     })
 
 
-@pytest.mark.parametrize("mode", ["onehot", "sort"])
+@pytest.mark.parametrize("mode", ["onehot", "hash", "sort"])
 def test_mode_equals_reference_mode_with_null_keys(mode):
     jb = JaxBatch.from_arrow(_keyed_table(3000, 20, seed=4),
                              string_max_bytes=16)
     ref = _reference_group_aggregate(jb, ("k", "s"), mode)
     ng = int(ref[8])
-    if mode == "onehot":
+    if mode != "sort":
         assert not bool(ref[9])
     pb = _port_batch(jb)
     col = UnresolvedAttribute
@@ -154,7 +154,7 @@ def _agg_query(df, f):
 
 
 @pytest.mark.parametrize("groups,modes", [(40, ["onehot"]),
-                                          (150, ["onehot", "sort"])])
+                                          (150, ["onehot", "hash"])])
 def test_escalation_matches_reference(groups, modes):
     t = _keyed_table(5000, groups, seed=groups)
     sess = TpuSession(CONF, device="cpu")
@@ -165,3 +165,86 @@ def test_escalation_matches_reference(groups, modes):
     want = _agg_query(JaxSession(CONF).create_dataframe(t), JF).collect()
     assert_tables_equal(want, got.to_arrow(), ignore_order=True,
                         approx_float=REL)
+
+
+def _hash_inputs(n, groups, seed):
+    rng = np.random.default_rng(seed)
+    return pa.table({"k": pa.array(rng.permutation(n) % groups
+                                   if groups >= n else
+                                   rng.integers(0, groups, n)),
+                     "s": pa.array([f"g{x % 3}" for x in range(n)]),
+                     "v": pa.array(rng.integers(-1000, 1000, n))})
+
+
+@pytest.mark.parametrize("n,groups", [(3000, 700), (70000, 70000)])
+def test_hash_mode_equals_reference_ordered(n, groups):
+    """Hash mode against the JAX package's, ordered: keys, sums, counts,
+    num_groups and the flag. 70,000 distinct keys overflow GROUP_CAP: both
+    flag it, and the first GROUP_CAP groups still agree."""
+    jb = JaxBatch.from_arrow(_hash_inputs(n, groups, seed=n),
+                             string_max_bytes=16)
+    ref = _reference_group_aggregate(jb, ("k", "s"), "hash")
+    pb = _port_batch(jb)
+    col = UnresolvedAttribute
+    keys = tuple(bind_expression(col(k), pb.schema) for k in ("k", "s"))
+    fns = (Sum(bind_expression(col("v"), pb.schema)), Count(Literal.of(1)))
+    key_cols, res_cols, ng, flagged = group_aggregate(
+        eval_ctx(pb, _Ctx()), keys, fns, pb.num_rows, pb.capacity,
+        grouping="hash")
+    assert ng == int(ref[8])
+    assert flagged == bool(ref[9]) == (ng > GROUP_CAP)
+    shown = min(ng, GROUP_CAP)
+    flat = []
+    for c in list(key_cols) + list(res_cols):
+        flat += [c.data.numpy()[:shown], c.validity.numpy()[:shown]]
+    for i, (got, want) in enumerate(zip(flat, ref[:8])):
+        assert np.array_equal(got, np.asarray(want)[:shown]), i
+
+
+def test_group_by_order_is_the_reference_hash_order():
+    """An unsorted groupBy of 200 groups escalates onehot -> hash and its
+    rows come out in the JAX package's hash order (the port's aggregate once
+    went onehot -> sort and returned them in key order)."""
+    rng = np.random.default_rng(0)
+    t = pa.table({"k": pa.array(rng.integers(0, 200, 5000)),
+                  "v": pa.array(rng.standard_normal(5000))})
+    sess = TpuSession(CONF, device="cpu")
+    got = sess.create_dataframe(t).groupBy("k").agg(
+        F.sum("v").alias("s")).collect()
+    want = JaxSession(CONF).create_dataframe(t).groupBy("k").agg(
+        JF.sum("v").alias("s")).collect()
+    agg = [e for e in sess.last_plan.walk()
+           if isinstance(e, TpuHashAggregateExec)]
+    assert agg[0].modes_run == ["onehot", "hash"]
+    assert_tables_equal(want, got.to_arrow(), approx_float=REL)
+
+
+def test_overflow_escalates_to_sort():
+    """More than GROUP_CAP groups: onehot -> hash -> sort, equal to the JAX
+    package's (its sort mode orders the groups by key)."""
+    t = _hash_inputs(70000, 70000, seed=1)
+    sess = TpuSession(CONF, device="cpu")
+    got = sess.create_dataframe(t).groupBy("k").agg(
+        F.sum("v").alias("sv"), F.count().alias("c")).collect()
+    agg = [e for e in sess.last_plan.walk()
+           if isinstance(e, TpuHashAggregateExec)]
+    assert agg[0].modes_run == ["onehot", "hash", "sort"]
+    want = JaxSession(CONF).create_dataframe(t).groupBy("k").agg(
+        JF.sum("v").alias("sv"), JF.count().alias("c")).collect()
+    assert_tables_equal(want, got.to_arrow())
+
+
+def test_global_aggregate_in_every_mode_has_one_row():
+    """No keys: one group in every mode, also over no rows."""
+    pb = _port_batch(JaxBatch.from_arrow(_hash_inputs(10, 5, seed=2),
+                                         string_max_bytes=16))
+    fns = (Sum(bind_expression(UnresolvedAttribute("v"), pb.schema)),
+           Count(Literal.of(1)))
+    for mode in ("onehot", "hash", "sort"):
+        for rows in (pb.num_rows, 0):
+            _, res, ng, flagged = group_aggregate(
+                eval_ctx(pb, _Ctx()), (), fns, rows, pb.capacity,
+                grouping=mode)
+            assert (ng, flagged) == (1, False)
+            assert bool(res[0].validity[0]) == (rows > 0)
+            assert int(res[1].data[0]) == rows

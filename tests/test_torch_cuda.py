@@ -163,3 +163,54 @@ def test_cuda_exchange_with_and_without_compaction_agree(cuda):
                 assert torch.equal(a.data, b.data)
                 assert torch.equal(a.validity, b.validity)
                 assert a.lengths is None or torch.equal(a.lengths, b.lengths)
+
+
+def _q3_frames(sess, scale, repartition):
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import Q3_COLUMNS
+    gens = {"customer": td.gen_customer, "orders": td.gen_orders,
+            "lineitem": td.gen_lineitem_full}
+    dfs = {k: sess.create_dataframe(g(scale, 7, Q3_COLUMNS[k]))
+           for k, g in gens.items()}
+    if repartition:
+        dfs["orders"] = dfs["orders"].repartition(8, "o_orderkey")
+        dfs["lineitem"] = dfs["lineitem"].repartition(8, "l_orderkey")
+    return dfs
+
+
+def _host_rows(hb):
+    return [(c.data.tobytes(), c.validity.tobytes()) for c in hb.columns]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_cuda_q3_equals_cpu_and_joins_through_the_reorder_kernel(cuda,
+                                                                 broadcast):
+    """Q3 at scale 0.01 on the GPU equals the same query on the CPU (float
+    sums within 1e-9), and each hash exchange of the join path splits its
+    one map batch through the reorder kernel, not the sort path."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
+    conf = {**BENCH_CONF, "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes":
+            str(64 << 20 if broadcast else -1)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sess = TpuSession(conf, device=dev)
+        launches = tpk.REORDER_KERNEL.launches
+        out[dev] = q3(_q3_frames(sess, 0.01, True)).collect()
+        hashed = [e for e in sess.last_plan.walk()
+                  if isinstance(e, tx.TpuShuffleExchangeExec)
+                  and isinstance(e.partitioning, tx.HashPartitioning)]
+        assert [(e.kernel_splits, e.sort_path_splits) for e in hashed] == \
+            [(1, 0), (1, 0)]
+        if dev == "cuda":
+            assert tpk.REORDER_KERNEL.launches - launches == 2
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu.num_rows == cpu.num_rows == 10
+    for name in ("l_orderkey", "o_orderdate", "o_shippriority"):
+        assert np.array_equal(gpu.column_by_name(name).data,
+                              cpu.column_by_name(name).data)
+    rev_g = gpu.column_by_name("revenue").data
+    rev_c = cpu.column_by_name("revenue").data
+    assert np.all(np.abs(rev_g - rev_c) <= 1e-9 * np.abs(rev_c))

@@ -29,6 +29,14 @@ sess = TpuSession(BENCH_CONF, device="cpu")
 res = q1(sess.create_dataframe(gen_lineitem(0.0005, 1))
          .repartition(8, "l_orderkey")).collect()
 assert res.num_rows == 6, res.num_rows
+from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
+dfs = {k: sess.create_dataframe(g(0.002, 1)) for k, g in (
+    ("customer", td.gen_customer), ("orders", td.gen_orders),
+    ("lineitem", td.gen_lineitem_full))}
+dfs["lineitem"] = dfs["lineitem"].repartition(8, "l_orderkey")
+res = q3(dfs).collect()
+assert res.num_rows == 10, res.num_rows
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -45,6 +53,8 @@ def _clean_env():
 
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
+    """Every module imports, and Q1 and Q3 run, with no jax, nothing of the
+    JAX package and no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
