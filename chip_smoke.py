@@ -56,23 +56,36 @@ Phases:
   8. TPC-H Q6 against a numpy Q6; lineitem hash-repartitioned 8 ways and
      sorted on (l_shipdate, l_orderkey) through the range exchange: the 7
      bounds, the per-partition counts and the collected rows against
-     numpy (np.lexsort's order); with --range-forms, the range ids on the
-     whole lineitem in one batch, the port's one-bound-at-a-time form
-     against the JAX package's (rows, n - 1) matrix form: equal ids, time,
-     peak memory (a one-time reading: the default run skips it).
+     numpy (np.lexsort's order);
+  9. this slice's main path, all 22 TPC-H queries through TpuSession:
+     first at --check-sf (default 1) on the card against the port's own
+     run on the CPU (keys, counts, dates and strings exact, floats to
+     relative 1e-9, the queries whose sort can tie unordered); then the
+     eight tables at the run's scale with the union of the columns the
+     queries read, each query scanning only its own, orders and lineitem
+     hash-repartitioned 8 ways; both kernels against their plain versions
+     on the widest orders and lineitem inputs those exchanges build, timed
+     and bounded there; LIKE's DFA timed on Q13's and Q16's columns; each
+     query cold and warm (the warm result equal to the cold one) with its
+     wall times, rows, peak device memory, reorder launches (one per hash
+     exchange, at least one where it reads orders or lineitem) and those
+     kept, joins and aggregate modes; Q18 with dmaConsolidate on (the
+     compact kernel must launch; the result equal to the default run's);
+     Q13 and Q22 against numpy versions.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
-seconds are printed. Prints one JSON line of per-kernel numbers: Q3's
-launches (and launches_kept, those whose output was used) with the times,
-bounds and errors of phase 7's checks on Q3's inputs (summed over the
-inputs a Q3 run launches the kernel on, each under "inputs"), phase 3's
-reading at Q1's lineitem shape, and every path's launches under
-launches_by_path; then as its last line {"ok": true, "device": {...}}. Any
-failure exits non-zero before that line.
+seconds are printed. Prints one JSON line of per-kernel numbers: the 22
+queries' launches (and launches_kept, those whose output was used; the
+compact kernel's from the dma-on Q18) with the times, bounds and errors of
+phase 9's checks (summed over its inputs, each under "inputs"), phase 7's
+reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every
+path's launches under launches_by_path; then as its last line
+{"ok": true, "device": {...}}. Any failure exits non-zero before that
+line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
-       [--tile-sweep ROWS ...] [--kernels-only] [--range-forms]
+       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 1.0]
 """
 from __future__ import annotations
 
@@ -811,14 +824,15 @@ def check_q3(name, res, ref):
 
 def join_strategies(plan):
     """Join exec names of a plan, depth first (the outer join first)."""
-    out = [type(plan).__name__] if "HashJoin" in type(plan).__name__ else []
+    name = type(plan).__name__
+    out = [name] if "Join" in name or "Cartesian" in name else []
     for c in plan.children:
         out += join_strategies(c)
     return out
 
 
-def q3_kernel_inputs(hb, key, device):
-    """The reorder's inputs as Q3's hash exchange over ``hb`` builds them:
+def exchange_kernel_inputs(hb, key, device):
+    """The reorder's inputs as a hash exchange over ``hb`` builds them:
     the table uploaded as one batch, packed whole, pids hash 8 on ``key``."""
     from spark_rapids_tpu_torch.columnar.transfer import upload
     from spark_rapids_tpu_torch.execs.exchange_execs import hash_partition_ids
@@ -835,13 +849,23 @@ def q3_kernel_inputs(hb, key, device):
 def phase_q3_kernels(tables, device):
     """Both kernels against their plain versions on the inputs Q3's two
     hash exchanges give them (orders on o_orderkey, lineitem on
-    l_orderkey), timed and bounded there. Returns (each exchange's overflow
-    flag, the reorder's Q3 numbers, the compact kernel's Q3 numbers). A Q3
-    run launches the reorder once per exchange, so its ms, plain_ms and
-    bound_ms are sums over the two inputs and max_abs_err their maximum;
-    the compact kernel runs only where the reorder's output is kept (no
-    overflow), and its numbers sum over those inputs. ``inputs`` lists each
-    input's own reading."""
+    l_orderkey)."""
+    return check_kernels_on(
+        {f"q3 {t} hash(8, {k})": (tables[t], k)
+         for t, k in (("orders", "o_orderkey"), ("lineitem", "l_orderkey"))},
+        device)
+
+
+def check_kernels_on(inputs, device):
+    """Both kernels against their plain versions on the reorder inputs the
+    hash exchanges (8 ways on ``key``) over the named tables build, timed
+    and bounded there. ``inputs`` maps a name to (host table, key).
+    Returns (each input's overflow flag, the reorder's numbers, the compact
+    kernel's numbers). A query launches the reorder once per exchange, so
+    its ms, plain_ms and bound_ms are sums over the inputs and max_abs_err
+    their maximum; the compact kernel runs only where the reorder's output
+    is kept (no overflow), and its numbers sum over those inputs.
+    ``inputs`` in each record lists each input's own reading."""
     import torch
     from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
 
@@ -859,9 +883,8 @@ def phase_q3_kernels(tables, device):
                 + reading["library_ms"]
 
     reorder, compact, flags = empty(), empty(), []
-    for table, key in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
-        name = f"q3 {table} hash(8, {key})"
-        p3, d3, geom = q3_kernel_inputs(tables[table], key, device)
+    for name, (hb, key) in inputs.items():
+        p3, d3, geom = exchange_kernel_inputs(hb, key, device)
         err, k_ms, p_ms, flag = check_reorder(name, p3, d3, geom,
                                               time_it=True)
         moved, bound = reorder_bound_ms(p3, geom)
@@ -871,7 +894,7 @@ def phase_q3_kernels(tables, device):
               + (" (stats compared; the exchange discards the staging rows "
                  "and takes the sort path)" if flag else ""))
         flags.append(flag)
-        add(reorder, {"input": name, "rows": tables[table].num_rows,
+        add(reorder, {"input": name, "rows": hb.num_rows,
                       "L": geom.L, "overflow": flag, "max_abs_err": err,
                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                       "library_ms": None})
@@ -880,7 +903,7 @@ def phase_q3_kernels(tables, device):
             del p3, d3
             c_err, c_ms, c_plain, c_lib, c_bound = check_compact(
                 name, out, stats, geom, time_it=True)
-            add(compact, {"input": name, "rows": tables[table].num_rows,
+            add(compact, {"input": name, "rows": hb.num_rows,
                           "L": geom.L, "max_abs_err": c_err, "ms": c_ms,
                           "plain_ms": c_plain, "bound_ms": c_bound,
                           "library_ms": c_lib})
@@ -996,62 +1019,11 @@ def q6_numpy(li):
     return float((_col(li, "l_extendedprice")[keep] * disc[keep]).sum())
 
 
-def lex_gt_bounds_matrix(row_passes, bound_passes):
-    """The JAX package's ``_lex_gt_bounds`` structure in plain torch: every
-    row against every bound at once through (rows, n - 1) matrices."""
-    import torch
-    cap, nb = row_passes[0].shape[0], bound_passes[0].shape[0]
-    gt = torch.zeros((cap, nb), dtype=torch.bool, device=row_passes[0].device)
-    eq = torch.ones_like(gt)
-    for r, b in zip(row_passes, bound_passes):
-        gt |= eq & (r[:, None] > b[None, :])
-        eq &= r[:, None] == b[None, :]
-    return gt.sum(dim=1).to(torch.int32)
-
-
-def measure_range_ids(li, bounds, orders, device):
-    """The port's one-bound-at-a-time range ids against the JAX package's
-    matrix form on the whole lineitem (one batch of capacity 67,108,864 at
-    SF 10), both over the same key passes: equal pids, device time and the
-    peak memory each adds."""
-    import torch
-    from spark_rapids_tpu_torch.columnar.transfer import upload
-    from spark_rapids_tpu_torch.execs import exchange_execs as tx
-    from spark_rapids_tpu_torch.execs.tpu_execs import colvs_of
-    from spark_rapids_tpu_torch.ops import batch_kernels as bk
-    batch = upload(li, device)
-    cols = colvs_of(batch)
-    rows = [cols[batch.schema.index_of(n)] for n in ("l_shipdate",
-                                                     "l_orderkey")]
-    rp = [p for v in rows for p in bk._key_passes(v, True, True)]
-    bp = [p for v in bounds for p in bk._key_passes(v, True, True)]
-    out = {}
-    for name, fn in (("per_bound", lambda: tx._lex_gt_bounds(rp, bp)),
-                     ("matrix", lambda: lex_gt_bounds_matrix(rp, bp))):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        pids = fn()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        out[name] = (pids, cuda_ms(fn, 3), peak)
-    if not (torch.equal(out["per_bound"][0], out["matrix"][0])
-            and torch.equal(out["per_bound"][0],
-                            tx.range_partition_ids(orders, rows, bounds))):
-        raise AssertionError("range ids: per-bound and matrix forms differ")
-    print(f"range ids cap={batch.capacity} n={len(bounds[0].validity) + 1}: "
-          + " ".join(f"{k}_ms={v[1]:.3f} {k}_peak_gb={v[2] / 1e9:.3f}"
-                     for k, v in out.items()) + " equal=yes")
-    del batch, cols, rows, rp, bp, out
-    torch.cuda.empty_cache()
-
-
-def phase_q6_and_sort(li, device, range_forms=False):
+def phase_q6_and_sort(li, device):
     """Q6 against a numpy Q6, then lineitem hash-repartitioned 8 ways and
     sorted globally on (l_shipdate, l_orderkey) through the range exchange:
     the bounds, the per-partition counts and the collected rows checked
-    against numpy; with ``range_forms``, the range ids' two forms
-    measured."""
+    against numpy."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
@@ -1115,10 +1087,331 @@ def phase_q6_and_sort(li, device, range_forms=False):
           f"{time.perf_counter() - t0 - sort_s:.2f} "
           f"partition_rows={list(rows)} bounds(shipdate, orderkey)={pairs}")
     del res, order, skey, key
-    if range_forms:
-        t0 = time.perf_counter()
-        measure_range_ids(li, bounds, ex[0].partitioning.orders, device)
-        print(f"range ids measured in {time.perf_counter() - t0:.2f} s")
+
+
+# ------------------------------------------------------------------ phase 9
+#: queries whose final sort can tie (tests/test_tpch_full.py's list): their
+#: rows compare unordered
+TPCH_TIES = {2, 3, 5, 9, 10, 11, 16, 18, 21}
+PARTITION_KEYS = {"orders": "o_orderkey", "lineitem": "l_orderkey"}
+
+
+def tpch_tables(sf, seed):
+    """The eight tables with the union of the columns the 22 queries read."""
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import all_columns
+    return td.gen_all(sf, seed, all_columns())
+
+
+def query_tables(tables, q):
+    """The tables query ``q`` reads, each with only its columns (and the
+    partition key of orders and lineitem)."""
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import COLUMNS
+    out = {}
+    for t, names in COLUMNS[q].items():
+        key = PARTITION_KEYS.get(t)
+        out[t] = tables[t].select(names + ([key] if key and key not in names
+                                           else []))
+    return out
+
+
+def query_frames(sess, tables, q):
+    """Query ``q``'s DataFrames, orders and lineitem hash-repartitioned 8
+    ways on their order keys."""
+    dfs = {}
+    for t, hb in query_tables(tables, q).items():
+        df = sess.create_dataframe(hb)
+        dfs[t] = df.repartition(8, PARTITION_KEYS[t]) \
+            if t in PARTITION_KEYS else df
+    return dfs
+
+
+def result_rows(hb):
+    """A result's rows as tuples (None for null, bytes for strings)."""
+    cols = []
+    for f, c in zip(hb.schema, hb.columns):
+        vals = []
+        for r in range(hb.num_rows):
+            if not c.validity[r]:
+                vals.append(None)
+            elif c.lengths is not None:
+                vals.append(bytes(c.data[r, :c.lengths[r]]))
+            else:
+                vals.append(c.data[r].item())
+        cols.append(vals)
+    return list(zip(*cols))
+
+
+def _sort_key(row):
+    """Rows of a query whose sort can tie, in one canonical order: floats
+    rounded (they agree to 1e-9, not bit for bit), nulls first."""
+    return tuple((0,) if v is None else
+                 (1, round(v, 6) if isinstance(v, float) else v)
+                 for v in row)
+
+
+def check_same_result(name, got, want, ties):
+    """Keys, counts, dates and strings exact; floats within relative
+    REL_TOL (NaN equals NaN); unordered when the query's sort can tie."""
+    if got.schema.names() != want.schema.names() \
+            or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows of "
+                             f"{got.schema.names()} against {want.num_rows} "
+                             f"of {want.schema.names()}")
+    g, w = result_rows(got), result_rows(want)
+    if ties:
+        g, w = sorted(g, key=_sort_key), sorted(w, key=_sort_key)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g, w)):
+        for x, y in zip(a, b):
+            if isinstance(y, float) and x is not None:
+                if np.isnan(y) or np.isnan(x):
+                    ok = np.isnan(x) and np.isnan(y)
+                else:
+                    err = abs(x - y) / max(abs(y), 1e-300)
+                    worst = max(worst, err)
+                    ok = err <= REL_TOL
+            else:
+                ok = x == y
+            if not ok:
+                raise AssertionError(f"{name}: row {i} differs: {a} != {b}")
+    return worst
+
+
+def run_query(sess, tables, q):
+    """One cold-cache run of query ``q`` on the session's device -> (result,
+    seconds, reorder launches, compact launches, launches kept, plan)."""
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = QUERIES[q](query_frames(sess, tables, q)).collect()
+    if sess.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    reorder_n, compact_n = read_launches()
+    plan = sess.last_plan
+    hashed = [e for e in plan.walk() if isinstance(e, TpuShuffleExchangeExec)
+              and isinstance(e.partitioning, HashPartitioning)]
+    kept = sum(e.kernel_splits for e in hashed)
+    if sess.device.type == "cuda" and reorder_n != len(hashed):
+        raise AssertionError(f"q{q}: {reorder_n} reorder launches for "
+                             f"{len(hashed)} hash exchanges")
+    return res, secs, reorder_n, compact_n, kept, plan
+
+
+def phase_tpch_check(sf, seed):
+    """Every query at scale ``sf`` on the card against the port's own run
+    on the CPU (whose answers the CPU tests hold against the JAX
+    package)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    t0 = time.perf_counter()
+    tables = tpch_tables(sf, seed)
+    gen_s = time.perf_counter() - t0
+    gpu, cpu = TpuSession(BENCH_CONF), TpuSession(BENCH_CONF, device="cpu")
+    cpu_s = gpu_s = 0.0
+    for q in QUERIES:
+        want, secs = run_query(cpu, tables, q)[:2]
+        cpu_s += secs
+        got, secs = run_query(gpu, tables, q)[:2]
+        gpu_s += secs
+        worst = check_same_result(f"q{q} sf={sf} cuda against cpu", got, want,
+                                  q in TPCH_TIES)
+        print(f"q{q} sf={sf}: {got.num_rows} rows equal the CPU run "
+              f"(worst relative float error {worst:.3e})")
+    print(f"tpch sf={sf} check: tables generated in {gen_s:.2f} s, 22 "
+          f"queries on the CPU in {cpu_s:.2f} s and on the card in "
+          f"{gpu_s:.2f} s, every result equal")
+
+
+def like_numpy(data, lengths, parts):
+    """LIKE '%p1%p2%...%' in numpy: each part found, in order, after the
+    previous part's end."""
+    n, width = data.shape
+    pos = np.zeros(n, np.int64)               # where the next part may start
+    ok = np.ones(n, bool)
+    for part in parts:
+        k = len(part)
+        s_count = width - k + 1
+        hit = np.ones((n, s_count), bool)
+        for j, b in enumerate(part):
+            hit &= data[:, j:j + s_count] == b
+        starts = np.arange(s_count)[None, :]
+        hit &= (starts >= pos[:, None]) & (starts + k <= lengths[:, None])
+        found = hit.any(axis=1)
+        first = hit.argmax(axis=1)
+        ok &= found
+        pos = np.where(found, first + k, width + 1)
+    return ok
+
+
+def q13_numpy(tables):
+    """TPC-H Q13 in numpy -> (c_count, custdist) in the query's order."""
+    orders = tables["orders"]
+    com = orders.column_by_name("o_comment")
+    keep = ~like_numpy(com.data, com.lengths, [b"special", b"requests"])
+    n_cust = tables["customer"].num_rows
+    cust = _col(orders, "o_custkey")[keep]
+    per_cust = np.bincount(cust, minlength=n_cust + 1)[1:]
+    custdist = np.bincount(per_cust)
+    c_count = np.nonzero(custdist)[0]
+    dist = custdist[c_count]
+    order = np.lexsort((-c_count, -dist))
+    return c_count[order], dist[order]
+
+
+def q22_numpy(tables):
+    """TPC-H Q22 in numpy -> (cntrycode, numcust, totacctbal) by code."""
+    cust = tables["customer"]
+    phone = cust.column_by_name("c_phone").data
+    code = (phone[:, 0].astype(np.int64) - 48) * 10 + (phone[:, 1] - 48)
+    bal = _col(cust, "c_acctbal")
+    in_codes = np.isin(code, [13, 31, 23, 29, 30, 18, 17])
+    avg = bal[in_codes & (bal > 0.0)].mean()
+    has_order = np.zeros(cust.num_rows + 1, bool)
+    has_order[_col(tables["orders"], "o_custkey")] = True
+    keys = _col(cust, "c_custkey")
+    pick = in_codes & ~has_order[keys] & (bal > avg)
+    codes = np.unique(code[pick])
+    return (codes, np.array([(code[pick] == c).sum() for c in codes]),
+            np.array([bal[pick][code[pick] == c].sum() for c in codes]))
+
+
+def check_q13_q22(results, tables):
+    c_count, dist = q13_numpy(tables)
+    got = results[13]
+    if not (np.array_equal(_col(got, "c_count"), c_count)
+            and np.array_equal(_col(got, "custdist"), dist)):
+        raise AssertionError(f"q13: {got.num_rows} rows differ from numpy")
+    codes, num, tot = q22_numpy(tables)
+    got = results[22]
+    got_codes = [int(bytes(r)) for r in got.column_by_name("cntrycode").data
+                 [:, :2]]
+    rel = np.abs(_col(got, "totacctbal") - tot) / np.abs(tot)
+    if not (got_codes == codes.tolist()
+            and np.array_equal(_col(got, "numcust"), num)
+            and rel.max(initial=0) <= REL_TOL):
+        raise AssertionError(f"q22: {got_codes} {_col(got, 'numcust')} "
+                             f"against numpy {codes} {num}")
+    print(f"q13: {len(c_count)} rows equal numpy (LIKE '%special%requests%' "
+          f"over {tables['orders'].num_rows} comments); q22: {len(codes)} "
+          f"country codes equal numpy (worst relative sum error "
+          f"{rel.max(initial=0):.3e})")
+
+
+def dfa_device_ms(tables, device):
+    """Device time of LIKE's byte DFA over the whole column Q13 and Q16
+    run it on (the queries run it per partition of the same rows)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import regex as rk
+    out = {}
+    for q, table, column, pattern in (
+            (13, "orders", "o_comment", "%special%requests%"),
+            (16, "supplier", "s_comment", "%Customer%Complaints%")):
+        c = tables[table].column_by_name(column)
+        data = torch.from_numpy(c.data).to(device)
+        lengths = torch.from_numpy(c.lengths).to(device)
+        dfa = rk.compile_dfa(rk.like_to_regex(pattern))
+        ms = cuda_ms(lambda: rk.dfa_match(dfa, data, lengths), 3)
+        out[q] = {"rows": int(data.shape[0]), "width": int(data.shape[1]),
+                  "states": dfa.n_states, "ms": ms}
+        print(f"dfa q{q} {column} LIKE {pattern!r}: rows={data.shape[0]} "
+              f"width={data.shape[1]} states={dfa.n_states} device_ms="
+              f"{ms:.3f}")
+        del data, lengths
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tpch_kernels(tables, device):
+    """Both kernels against their plain versions on the widest orders and
+    the widest lineitem input the 22 queries' hash exchanges give the
+    reorder (their pruned columns), timed and bounded there; the compact
+    kernel where the reorder's output is kept. Returns (reorder numbers,
+    compact numbers) as phase 7's are."""
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+
+    def width(hb):
+        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
+                                      else 1) + 1
+                   + (4 if c.lengths is not None else 0) for c in hb.columns)
+    picks = {}
+    for q in QUERIES:
+        for t, hb in query_tables(tables, q).items():
+            if t in PARTITION_KEYS and (t not in picks
+                                        or width(hb) > width(picks[t][1])):
+                picks[t] = (q, hb)
+    inputs = {f"q{q} {t}": (hb, PARTITION_KEYS[t])
+              for t, (q, hb) in sorted(picks.items())}
+    return check_kernels_on(inputs, device)[1:]
+
+
+def phase_tpch(tables):
+    """All 22 queries at the run's scale through TpuSession on the card,
+    orders and lineitem hash-repartitioned 8 ways: each cold then warm (the
+    warm result must equal the cold one), with its wall times, rows, peak
+    device memory, reorder launches and launches kept (the hash exchanges
+    that used the kernel's output rather than the sort path), join
+    strategies and aggregate grouping modes; then Q18 with dmaConsolidate
+    on, whose compact kernel must launch and whose result must equal the
+    default run's; then Q13 and Q22 against numpy. Returns (per-query
+    numbers, the dma-on Q18's (reorder, compact) launches)."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
+                                                                QUERIES)
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    from spark_rapids_tpu_torch.execs.tpu_execs import TpuHashAggregateExec
+
+    sess = TpuSession(BENCH_CONF)
+    results, nums = {}, {}
+    for q in QUERIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cold, cold_s, launches, _, kept, plan = run_query(sess, tables, q)
+        warm, warm_s = run_query(sess, tables, q)[:2]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_same_result(f"q{q} warm against cold", warm, cold,
+                          q in TPCH_TIES)
+        if launches < 1 and any(t in PARTITION_KEYS for t in COLUMNS[q]):
+            raise AssertionError(f"q{q} reads orders or lineitem and did "
+                                 f"not launch the reorder kernel")
+        joins = [j.replace("Tpu", "").replace("Exec", "")
+                 for j in join_strategies(plan)]
+        splits = [(e.kernel_splits, e.sort_path_splits) for e in plan.walk()
+                  if isinstance(e, TpuShuffleExchangeExec)
+                  and isinstance(e.partitioning, HashPartitioning)]
+        modes = [e.modes_run for e in plan.walk()
+                 if isinstance(e, TpuHashAggregateExec)]
+        nums[q] = {"rows": warm.num_rows, "cold_s": cold_s, "warm_s": warm_s,
+                   "peak_gb": peak, "launches": launches,
+                   "launches_kept": kept}
+        print(f"q{q}: rows={warm.num_rows} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} peak_device_gb={peak:.2f} "
+              f"reorder_launches={launches} launches_kept={kept} "
+              f"splits_kernel_sort={splits} joins={joins} "
+              f"aggregate_modes={modes}")
+        results[q] = warm
+        del cold, plan
+    dma = TpuSession({**BENCH_CONF, "spark.rapids.tpu.shuffle.kernel."
+                                    "dmaConsolidate.enabled": "true"})
+    res, secs, reorder_n, compact_n = run_query(dma, tables, 18)[:4]
+    if compact_n < 1:
+        raise AssertionError("q18 dmaConsolidate: the compact kernel was "
+                             "not launched")
+    check_same_result("q18 dmaConsolidate against the default run", res,
+                      results[18], True)
+    print(f"q18 dmaConsolidate: s={secs:.4f} reorder_launches={reorder_n} "
+          f"compact_launches={compact_n}, equal to the default run")
+    check_q13_q22(results, tables)
+    return nums, (reorder_n, compact_n)
 
 
 def main() -> int:
@@ -1132,11 +1425,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
-    ap.add_argument("--range-forms", action="store_true",
-                    help="also time the range ids on the whole lineitem in "
-                         "the port's one-bound-at-a-time form against the "
-                         "JAX package's (rows, n - 1) matrix form (equal ids, "
-                         "device time, peak memory)")
+    ap.add_argument("--check-sf", type=float, default=1.0,
+                    help="scale of phase 9's check of every TPC-H query on "
+                         "the card against the CPU")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one exchange run with dmaConsolidate "
                          "off and on, one Q1 run and one Q3 run, and write "
@@ -1193,27 +1484,45 @@ def main() -> int:
     for label, (r, c, _) in q3_launches.items():
         by_path[f"q3 {label}"] = {"reorder": r, "compact": c}
     phase_done("7 q3 runs")
-    phase_q6_and_sort(tables["lineitem"], device, args.range_forms)
+    phase_q6_and_sort(tables["lineitem"], device)
     del tables
     phase_done("8 q6 and range sort")
-    # this slice's main path is Q3: the reorder's launches in its shuffled
-    # run and the compact kernel's in its dmaConsolidate run, beside the
-    # times, bounds and errors of those launches' inputs (phase 7's checks);
-    # launches_kept counts the launches whose output the exchange used.
-    # Phase 3's reading at Q1's lineitem shape and every path's launches
+    phase_tpch_check(args.check_sf, args.seed)
+    phase_done(f"9 tpch sf={args.check_sf} against the cpu")
+    tables = tpch_tables(args.sf, args.seed)
+    print(f"tpch tables sf={args.sf}: " + ", ".join(
+        f"{k} {v.num_rows}" for k, v in tables.items())
+        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+    tpch_kernel_nums = phase_tpch_kernels(tables, device)
+    phase_done("9 tpch kernel checks")
+    dfa_device_ms(tables, device)
+    tpch, dma18 = phase_tpch(tables)
+    del tables
+    phase_done(f"9 tpch sf={args.sf}")
+    by_path["q18 dmaConsolidate"] = {"reorder": dma18[0],
+                                     "compact": dma18[1]}
+    for q, n in tpch.items():
+        by_path[f"tpch q{q}"] = {"reorder": n["launches"]}
+    # this slice's main path is the 22 TPC-H queries: the reorder's
+    # launches summed over their cold runs (launches_kept: those whose
+    # output the exchange used) and the compact kernel's in the dma-on Q18,
+    # beside the times, bounds and errors of the widest orders and lineitem
+    # inputs those queries give the kernels. Phase 3's reading at Q1's
+    # lineitem shape, phase 7's on Q3's inputs and every path's launches
     # stand beside them.
-    shuffled, dma = q3_launches["shuffled"], q3_launches["shuffled+dma"]
     records = []
-    for name, q3n, li_n, launches, kept in (
-            ("reorder", q3_nums[0], lineitem_nums[0], shuffled[0],
-             shuffled[2]),
-            ("compact", q3_nums[1], lineitem_nums[1], dma[1], dma[1])):
+    for name, nums, q3n, li_n, launches, kept in (
+            ("reorder", tpch_kernel_nums[0], q3_nums[0], lineitem_nums[0],
+             sum(n["launches"] for n in tpch.values()),
+             sum(n["launches_kept"] for n in tpch.values())),
+            ("compact", tpch_kernel_nums[1], q3_nums[1], lineitem_nums[1],
+             dma18[1], dma18[1])):
         if launches < 1 or kept < 1:
-            raise AssertionError(f"{name}: Q3 launched it {launches} times, "
-                                 f"{kept} of them kept")
+            raise AssertionError(f"{name}: the TPC-H runs launched it "
+                                 f"{launches} times, {kept} of them kept")
         records.append({**KERNELS[name], "launches": launches,
-                        "launches_kept": kept, **q3n,
-                        "phase3_q1_lineitem": li_n,
+                        "launches_kept": kept, **nums,
+                        "phase7_q3": q3n, "phase3_q1_lineitem": li_n,
                         "launches_by_path": {p: v[name]
                                              for p, v in by_path.items()
                                              if name in v}})

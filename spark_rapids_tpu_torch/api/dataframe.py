@@ -116,6 +116,27 @@ class DataFrame:
                 exprs.append(UnresolvedAttribute(f.name))
         return DataFrame(lp.Project(tuple(exprs), joined), self.session)
 
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(lp.Join(self._plan, other._plan, "cross"),
+                         self.session)
+
+    def distinct(self) -> "DataFrame":
+        return self.dropDuplicates()
+
+    def dropDuplicates(self, subset: Optional[List[str]] = None
+                       ) -> "DataFrame":
+        """Distinct rows: a group-by over every column with no aggregate
+        function (Spark plans distinct the same way). A ``subset`` keeps one
+        arbitrary row per key, which needs ``First``: not ported yet."""
+        if subset is not None:
+            raise NotImplementedError(
+                "dropDuplicates(subset) needs the First aggregate, which "
+                "the PyTorch port does not have yet (ROADMAP.md, queue 1)")
+        grouping = tuple(UnresolvedAttribute(n)
+                         for n in self._plan.schema().names())
+        return DataFrame(lp.Aggregate(grouping, (), self._plan),
+                         self.session)
+
     def repartition(self, n: int, *cols: Union[str, Column]) -> "DataFrame":
         return DataFrame(
             lp.Repartition(n, self._plan, tuple(_to_expr(c) for c in cols)),

@@ -1,4 +1,4 @@
-"""TPC-H customer, orders and lineitem as ``HostBatch``es, numpy only.
+"""The eight TPC-H tables as ``HostBatch``es, numpy only.
 
 The JAX package's ``benchmarks/tpch_data.py`` dbgen-alike, built straight
 into the port's host layout (strings as a byte matrix at the width bucket
@@ -22,6 +22,30 @@ from spark_rapids_tpu_torch.columnar.dtypes import (DType, Field, Schema,
 from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
 
 _EPOCH = datetime.date(1970, 1, 1)
+
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = [  # (name, regionkey): the spec's 25 nations
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+]
+TYPE_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+TYPE_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+TYPE_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+CONTAINER_1 = ["SM", "LG", "MED", "JUMBO", "WRAP"]
+CONTAINER_2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
+COLORS = ["almond", "antique", "aquamarine", "azure", "beige", "bisque",
+          "black", "blanched", "blue", "blush", "brown", "burlywood",
+          "chartreuse", "chiffon", "chocolate", "coral", "cornflower",
+          "cream", "cyan", "dark", "deep", "dim", "dodger", "drab",
+          "firebrick", "floral", "forest", "frosted", "gainsboro", "ghost",
+          "goldenrod", "green", "grey", "honeydew", "hot", "indian", "ivory",
+          "khaki", "lace", "lavender", "lawn", "lemon", "light", "lime",
+          "linen", "magenta", "maroon", "medium", "metallic", "midnight"]
 
 
 def _d(y: int, m: int, d: int) -> int:
@@ -122,27 +146,40 @@ class _Table:
                          tuple(self.cols[c] for c in names), n)
 
 
+def _vocab_strings(vocab: Sequence[str], idx: np.ndarray) -> HostColumn:
+    """The strings ``vocab[idx]`` as ``_strings`` builds them (the width
+    bucket of the longest value used), gathered from the vocabulary's own
+    byte matrix instead of made one numpy string at a time."""
+    raw = [v.encode() for v in vocab]
+    vlen = np.array([len(r) for r in raw], np.int32)
+    lengths = vlen[idx]
+    width = string_width_bucket(int(lengths.max(initial=0)),
+                                _STRING_MAX_BYTES)
+    mat = np.zeros((len(raw), width), np.uint8)
+    for i, r in enumerate(raw):
+        mat[i, :min(len(r), width)] = bytearray(r[:width])
+    return HostColumn(DType.STRING, mat[idx], np.ones(idx.shape[0], np.bool_),
+                      lengths)
+
+
 def _comment(rng, n: int, build: bool, salt_phrase=None,
-             salt_frac: float = 0.02) -> Optional[np.ndarray]:
+             salt_frac: float = 0.02) -> Optional[HostColumn]:
     """Word-soup comments; ``salt_frac`` of rows embed the two salt words.
-    With ``build`` false the same random numbers are drawn and no string is
-    made."""
-    w = np.array(_WORDS)
-    a, b, c = (rng.integers(0, len(w), n) for _ in range(3))
-    out = None
-    if build:
-        out = np.char.add(np.char.add(w[a], " "),
-                          np.char.add(w[b], np.char.add(" ", w[c])))
+    Every comment is one of a small vocabulary (each three-word soup, each
+    salted phrase), so the column is gathered from it. With ``build``
+    false the same random numbers are drawn and no string is made."""
+    nw = len(_WORDS)
+    a, b, c = (rng.integers(0, nw, n) for _ in range(3))
+    code = (a * nw + b) * nw + c
+    vocab = [f"{x} {y} {z}" for x in _WORDS for y in _WORDS for z in _WORDS]
     if salt_phrase is not None:
         hit = rng.random(n) < salt_frac
-        mid = w[rng.integers(0, len(w), n)]
-        last = rng.integers(0, len(w), n)
-        if build:
-            s1, s2 = salt_phrase
-            salted = np.char.add(np.char.add(np.char.add(
-                np.char.add(s1, " "), mid), f" {s2} "), w[last])
-            out = np.where(hit, salted, out)
-    return out
+        mid = rng.integers(0, nw, n)
+        last = rng.integers(0, nw, n)
+        s1, s2 = salt_phrase
+        code = np.where(hit, nw ** 3 + mid * nw + last, code)
+        vocab += [f"{s1} {y} {s2} {z}" for y in _WORDS for z in _WORDS]
+    return _vocab_strings(vocab, code) if build else None
 
 
 def _phone(nationkey):
@@ -153,6 +190,14 @@ def _phone(nationkey):
 
 
 # ------------------------------------------------------------------ tables
+REGION_COLUMNS = ("r_regionkey", "r_name", "r_comment")
+NATION_COLUMNS = ("n_nationkey", "n_name", "n_regionkey", "n_comment")
+SUPPLIER_COLUMNS = ("s_suppkey", "s_name", "s_address", "s_nationkey",
+                    "s_phone", "s_acctbal", "s_comment")
+PART_COLUMNS = ("p_partkey", "p_name", "p_mfgr", "p_brand", "p_type",
+                "p_size", "p_container", "p_retailprice", "p_comment")
+PARTSUPP_COLUMNS = ("ps_partkey", "ps_suppkey", "ps_availqty",
+                    "ps_supplycost", "ps_comment")
 CUSTOMER_COLUMNS = ("c_custkey", "c_name", "c_address", "c_nationkey",
                     "c_phone", "c_acctbal", "c_mktsegment", "c_comment")
 ORDERS_COLUMNS = ("o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
@@ -163,6 +208,124 @@ LINEITEM_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
                     "l_returnflag", "l_linestatus", "l_shipdate",
                     "l_commitdate", "l_receiptdate", "l_shipinstruct",
                     "l_shipmode", "l_comment")
+
+
+def gen_region(columns: Optional[Sequence[str]] = None) -> HostBatch:
+    t = _Table(REGION_COLUMNS, columns)
+    t.add("r_regionkey", DType.LONG,
+          lambda: _values(DType.LONG, np.arange(5, dtype=np.int64)))
+    t.add("r_name", DType.STRING, lambda: _strings(np.array(REGIONS)))
+    t.add("r_comment", DType.STRING, lambda: _strings(np.array(
+        [f"{r.lower()} region" for r in REGIONS])))
+    return t.batch(len(REGIONS))
+
+
+def gen_nation(columns: Optional[Sequence[str]] = None) -> HostBatch:
+    t = _Table(NATION_COLUMNS, columns)
+    t.add("n_nationkey", DType.LONG,
+          lambda: _values(DType.LONG, np.arange(25, dtype=np.int64)))
+    t.add("n_name", DType.STRING,
+          lambda: _strings(np.array([n for n, _ in NATIONS])))
+    t.add("n_regionkey", DType.LONG, lambda: _values(
+        DType.LONG, np.array([r for _, r in NATIONS], np.int64)))
+    t.add("n_comment", DType.STRING, lambda: _strings(np.array(
+        [f"{n.lower()} nation" for n, _ in NATIONS])))
+    return t.batch(len(NATIONS))
+
+
+def gen_supplier(scale: float, seed: int,
+                 columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_supplier(scale)
+    t = _Table(SUPPLIER_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 1)
+    keys = np.arange(1, n + 1, dtype=np.int64)
+    nationkey = rng.integers(0, 25, n).astype(np.int64) \
+        if t.need("s_nationkey") else None
+    t.add("s_suppkey", DType.LONG, lambda: _values(DType.LONG, keys))
+    t.add("s_name", DType.STRING, lambda: _strings(np.char.add(
+        "Supplier#", np.char.zfill(keys.astype(str), 9))))
+    t.add("s_address", DType.STRING, lambda: _strings(np.char.add(
+        "addr ", keys.astype(str))))
+    t.add("s_nationkey", DType.LONG, lambda: _values(DType.LONG, nationkey))
+    t.add("s_phone", DType.STRING, lambda: _strings(_phone(nationkey)))
+    if t.need("s_acctbal"):
+        acctbal = np.round(rng.uniform(-999.99, 9999.99, n), 2)
+        t.add("s_acctbal", DType.DOUBLE,
+              lambda: _values(DType.DOUBLE, acctbal))
+    if t.need("s_comment"):
+        comment = _comment(rng, n, "s_comment" in t.wanted,
+                           ("Customer", "Complaints"), 0.05)
+        t.add("s_comment", DType.STRING, lambda: comment)
+    return t.batch(n)
+
+
+def gen_part(scale: float, seed: int,
+             columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_part(scale)
+    t = _Table(PART_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 3)
+    keys = np.arange(1, n + 1, dtype=np.int64)
+    t.add("p_partkey", DType.LONG, lambda: _values(DType.LONG, keys))
+    if t.last >= 1:
+        # the draws before the JAX generator's table literal, in its order;
+        # the strings are made only for the columns asked for
+        def draw(k):
+            return rng.integers(0, k, n)
+        name_a, name_b = draw(len(COLORS)), draw(len(COLORS))
+        ty = [draw(len(TYPE_1)), draw(len(TYPE_2)), draw(len(TYPE_3))]
+        cont = [draw(5), draw(8)]
+        brand = rng.integers(1, 6, n) * 10 + rng.integers(1, 6, n)
+        t.add("p_name", DType.STRING, lambda: _vocab_strings(
+            [f"{x} {y}" for x in COLORS for y in COLORS],
+            name_a * len(COLORS) + name_b))
+        if t.need("p_mfgr"):
+            mfgr = rng.integers(1, 6, n)
+            t.add("p_mfgr", DType.STRING, lambda: _vocab_strings(
+                [f"Manufacturer#{v}" for v in range(6)], mfgr))
+        t.add("p_brand", DType.STRING, lambda: _vocab_strings(
+            [f"Brand#{v}" for v in range(56)], brand))
+        t.add("p_type", DType.STRING, lambda: _vocab_strings(
+            [f"{x} {y} {z}" for x in TYPE_1 for y in TYPE_2 for z in TYPE_3],
+            (ty[0] * len(TYPE_2) + ty[1]) * len(TYPE_3) + ty[2]))
+        if t.need("p_size"):
+            size = rng.integers(1, 51, n).astype(np.int32)
+            t.add("p_size", DType.INT, lambda: _values(DType.INT, size))
+        t.add("p_container", DType.STRING, lambda: _vocab_strings(
+            [f"{x} {y}" for x in CONTAINER_1 for y in CONTAINER_2],
+            cont[0] * len(CONTAINER_2) + cont[1]))
+        t.add("p_retailprice", DType.DOUBLE, lambda: _values(
+            DType.DOUBLE, np.round(900 + (keys % 1000) * 100 / 1000.0
+                                   + 100 * (keys % 10), 2)))
+        if t.need("p_comment"):
+            comment = _comment(rng, n, "p_comment" in t.wanted)
+            t.add("p_comment", DType.STRING, lambda: comment)
+    return t.batch(n)
+
+
+def gen_partsupp(scale: float, seed: int,
+                 columns: Optional[Sequence[str]] = None) -> HostBatch:
+    np_ = n_part(scale)
+    n_supp = n_supplier(scale)
+    t = _Table(PARTSUPP_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 4)
+    partkey = np.repeat(np.arange(1, np_ + 1, dtype=np.int64),
+                        N_SUPP_PER_PART)
+    n = partkey.shape[0]
+    t.add("ps_partkey", DType.LONG, lambda: _values(DType.LONG, partkey))
+    t.add("ps_suppkey", DType.LONG, lambda: _values(DType.LONG, _ps_suppkey(
+        partkey, np.tile(np.arange(N_SUPP_PER_PART, dtype=np.int64), np_),
+        n_supp)))
+    if t.need("ps_availqty"):
+        qty = rng.integers(1, 10_000, n).astype(np.int32)
+        t.add("ps_availqty", DType.INT, lambda: _values(DType.INT, qty))
+    if t.need("ps_supplycost"):
+        cost = np.round(rng.uniform(1.0, 1000.0, n), 2)
+        t.add("ps_supplycost", DType.DOUBLE,
+              lambda: _values(DType.DOUBLE, cost))
+    if t.need("ps_comment"):
+        comment = _comment(rng, n, "ps_comment" in t.wanted)
+        t.add("ps_comment", DType.STRING, lambda: comment)
+    return t.batch(n)
 
 
 def gen_customer(scale: float, seed: int,
@@ -187,10 +350,10 @@ def gen_customer(scale: float, seed: int,
     if t.need("c_mktsegment"):
         seg = rng.integers(0, 5, n)
         t.add("c_mktsegment", DType.STRING,
-              lambda: _strings(np.array(SEGMENTS)[seg]))
+              lambda: _vocab_strings(SEGMENTS, seg))
     if t.need("c_comment"):
         comment = _comment(rng, n, "c_comment" in t.wanted)
-        t.add("c_comment", DType.STRING, lambda: _strings(comment))
+        t.add("c_comment", DType.STRING, lambda: comment)
     return t.batch(n)
 
 
@@ -211,9 +374,9 @@ def gen_orders(scale: float, seed: int,
     if t.need("o_custkey"):
         cust = cust_pool[rng.integers(0, cust_pool.shape[0], n)]
         t.add("o_custkey", DType.LONG, lambda: _values(DType.LONG, cust))
-    t.add("o_orderstatus", DType.STRING, lambda: _strings(
-        np.where(orderdate < _d(1995, 6, 17), "F",
-                 np.where(pending, "P", "O"))))
+    t.add("o_orderstatus", DType.STRING, lambda: _vocab_strings(
+        ["F", "P", "O"], np.where(orderdate < _d(1995, 6, 17), 0,
+                                  np.where(pending, 1, 2))))
     if t.need("o_totalprice"):
         price = np.round(rng.uniform(850.0, 560_000.0, n), 2)
         t.add("o_totalprice", DType.DOUBLE,
@@ -222,7 +385,7 @@ def gen_orders(scale: float, seed: int,
     if t.need("o_orderpriority"):
         prio = rng.integers(0, 5, n)
         t.add("o_orderpriority", DType.STRING,
-              lambda: _strings(np.array(PRIORITIES)[prio]))
+              lambda: _vocab_strings(PRIORITIES, prio))
     if t.need("o_clerk"):
         clerk = rng.integers(1, max(n // 1000, 2), n)
         t.add("o_clerk", DType.STRING, lambda: _strings(np.char.add(
@@ -232,7 +395,7 @@ def gen_orders(scale: float, seed: int,
     if t.need("o_comment"):
         comment = _comment(rng, n, "o_comment" in t.wanted,
                            ("special", "requests"), 0.03)
-        t.add("o_comment", DType.STRING, lambda: _strings(comment))
+        t.add("o_comment", DType.STRING, lambda: comment)
     return t.batch(n)
 
 
@@ -280,11 +443,11 @@ def gen_lineitem_full(scale: float, seed: int,
         if t.need(name):
             v = np.round(rng.uniform(lo, hi, n), 2)
             t.add(name, DType.DOUBLE, lambda v=v: _values(DType.DOUBLE, v))
-    t.add("l_returnflag", DType.STRING, lambda: _strings(np.where(
-        receiptdate <= _d(1995, 6, 17),
-        np.where(cols["flag_draw"], "R", "A"), "N")))
-    t.add("l_linestatus", DType.STRING, lambda: _strings(np.where(
-        shipdate > _d(1995, 6, 17), "O", "F")))
+    t.add("l_returnflag", DType.STRING, lambda: _vocab_strings(
+        ["R", "A", "N"], np.where(receiptdate <= _d(1995, 6, 17),
+                                  np.where(cols["flag_draw"], 0, 1), 2)))
+    t.add("l_linestatus", DType.STRING, lambda: _vocab_strings(
+        ["O", "F"], np.where(shipdate > _d(1995, 6, 17), 0, 1)))
     t.add("l_shipdate", DType.DATE, lambda: _values(DType.DATE, shipdate))
     t.add("l_commitdate", DType.DATE,
           lambda: _values(DType.DATE, odate + cols["commit"]))
@@ -295,8 +458,26 @@ def gen_lineitem_full(scale: float, seed: int,
         if t.need(name):
             idx = rng.integers(0, len(vocab), n)
             t.add(name, DType.STRING,
-                  lambda idx=idx, vocab=vocab: _strings(np.array(vocab)[idx]))
+                  lambda idx=idx, vocab=vocab: _vocab_strings(vocab, idx))
     if t.need("l_comment"):
         comment = _comment(rng, n, "l_comment" in t.wanted)
-        t.add("l_comment", DType.STRING, lambda: _strings(comment))
+        t.add("l_comment", DType.STRING, lambda: comment)
     return t.batch(n)
+
+
+def gen_all(scale: float = 0.001, seed: int = 0,
+            columns: Optional[Dict[str, Sequence[str]]] = None
+            ) -> Dict[str, HostBatch]:
+    """All eight tables; ``columns`` maps a table to the columns to build
+    (a table it leaves out gets all of them)."""
+    cols = columns or {}
+    return {
+        "region": gen_region(cols.get("region")),
+        "nation": gen_nation(cols.get("nation")),
+        "supplier": gen_supplier(scale, seed, cols.get("supplier")),
+        "customer": gen_customer(scale, seed, cols.get("customer")),
+        "part": gen_part(scale, seed, cols.get("part")),
+        "partsupp": gen_partsupp(scale, seed, cols.get("partsupp")),
+        "orders": gen_orders(scale, seed, cols.get("orders")),
+        "lineitem": gen_lineitem_full(scale, seed, cols.get("lineitem")),
+    }

@@ -70,6 +70,13 @@ class DType(enum.Enum):
             return b
         return DType.common_numeric(a, b)
 
+    @staticmethod
+    def common_type_all(dtypes: Sequence["DType"]) -> "DType":
+        out = dtypes[0]
+        for dt in dtypes[1:]:
+            out = DType.common_type(out, dt)
+        return out
+
 
 _NUMERIC = {DType.BYTE, DType.SHORT, DType.INT, DType.LONG, DType.FLOAT,
             DType.DOUBLE}

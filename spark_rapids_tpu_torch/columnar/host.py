@@ -32,6 +32,12 @@ class HostBatch:
     def column_by_name(self, name: str) -> HostColumn:
         return self.columns[self.schema.index_of(name)]
 
+    def select(self, names) -> "HostBatch":
+        """The named columns, in the order given (no copy)."""
+        idx = [self.schema.index_of(n) for n in names]
+        return HostBatch(Schema([self.schema[i] for i in idx]),
+                         tuple(self.columns[i] for i in idx), self.num_rows)
+
     @property
     def nbytes(self) -> int:
         """The bytes of the same table in arrow's layout, as pyarrow's

@@ -1,5 +1,6 @@
-"""Join physical operators: the shuffled and the broadcast hash join (the
-JAX package's ``execs/join_execs.py`` without its grace and encoded-domain
+"""Join physical operators: the shuffled and the broadcast hash join, and
+the keyless broadcast nested-loop join and cartesian product (the JAX
+package's ``execs/join_execs.py`` without its grace and encoded-domain
 branches, which wait for those subsystems).
 
 Both run ``ops/join.py``'s two phases over the concatenation of each side's
@@ -7,6 +8,8 @@ batches: the size phase, one host read of the output total, the gather at
 the total's capacity bucket. A residual condition of an inner join is a
 filter over the joined rows. The broadcast join differs only in its plan:
 its build child is a broadcast exchange that every stream partition reads.
+The keyless joins run the same exec with the ``cross`` kernel and their
+condition as the filter.
 """
 from __future__ import annotations
 
@@ -109,3 +112,27 @@ class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """The same join with its build side arriving through a broadcast
     exchange: the stream side keeps its partitioning and each of its
     partitions joins against the one cached build batch."""
+
+
+class _NestedLoopMixin:
+    """A keyless inner or cross join: the cross product of the two sides,
+    then the condition (if any) as a filter over it."""
+
+    def __init__(self, left: PhysicalExec, right: PhysicalExec, how: str,
+                 output: Schema, condition: Optional[Expression] = None,
+                 build_side: str = "right"):
+        if how not in ("inner", "cross"):
+            raise ValueError(f"nested-loop and cartesian joins support "
+                             f"inner and cross, not {how}")
+        super().__init__(left, right, "cross", (), (), output, condition,
+                         build_side)
+
+
+class TpuBroadcastNestedLoopJoinExec(_NestedLoopMixin,
+                                     TpuBroadcastHashJoinExec):
+    """The build side arrives through a broadcast exchange; the stream
+    side keeps its partitioning."""
+
+
+class TpuCartesianProductExec(_NestedLoopMixin, TpuShuffledHashJoinExec):
+    """Both sides in one partition each."""

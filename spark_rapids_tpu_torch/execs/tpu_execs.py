@@ -164,7 +164,7 @@ class TpuHashAggregateExec(PhysicalExec):
                                       self.children[0].output, ctx.device)
         fns = tuple(a.c if isinstance(a, Alias) else a for a in self.aggregates)
         self.modes_run = []
-        for mode in grouping_modes(self.grouping):
+        for mode in grouping_modes(self.grouping, fns):
             self.modes_run.append(mode)
             key_cols, res_cols, n, flagged = group_aggregate(
                 eval_ctx(batch, ctx), self.grouping, fns, batch.num_rows,

@@ -2,8 +2,10 @@
 
 An aggregate declares buffer specs (a projection of the input row plus a
 reduction kind); the aggregate exec evaluates the projections, reduces each
-buffer per group and calls ``evaluate`` on the reduced buffers. Only the
-``sum`` kind is needed by Sum, Count and Average.
+buffer per group and calls ``evaluate`` on the reduced buffers. Sum, Count
+and Average reduce ``sum`` buffers; Min and Max reduce ``min`` and ``max``
+buffers (a null input is projected to the reduction's neutral value; a
+string buffer keeps its rows and reduces by byte order).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 @dataclass(frozen=True)
 class BufferSpec:
     dtype: DType
-    kind: str  # sum
+    kind: str  # sum | min | max
 
 
 class AggregateFunction(Expression):
@@ -95,6 +97,58 @@ class Count(AggregateFunction):
         b = buffers[0]
         # count is 0, not null, for a group without valid inputs
         return ColV(DType.LONG, b.data, torch.ones_like(b.validity))
+
+
+class _MinMax(AggregateFunction):
+    kind = ""
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def buffer_specs(self) -> List[BufferSpec]:
+        return [BufferSpec(self.dtype(), self.kind)]
+
+    def project(self, ctx: EvalCtx) -> List[ColV]:
+        v = self.c.eval(ctx)
+        if v.dtype is DType.STRING:
+            return [v]
+        data = torch.where(v.validity, v.data,
+                           _reduce_neutral(self.kind, v.dtype))
+        return [ColV(v.dtype, data.to(v.data.dtype), v.validity,
+                     is_scalar=v.is_scalar)]
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        return buffers[0]
+
+
+@dataclass(frozen=True)
+class Min(_MinMax):
+    c: Expression
+    kind = "min"
+
+
+@dataclass(frozen=True)
+class Max(_MinMax):
+    c: Expression
+    kind = "max"
+
+
+def _reduce_neutral(kind: str, dt: DType):
+    """The neutral value a null input is projected to before a reduction:
+    the integral bounds for integers and dates (never a float infinity),
+    the infinities for floats."""
+    if kind == "sum":
+        return 0
+    if dt.is_floating:
+        return float("inf") if kind == "min" else float("-inf")
+    if dt is DType.BOOLEAN:
+        return kind == "min"
+    info = torch.iinfo(dt.torch_dtype())
+    if kind == "min":
+        return info.max
+    if kind == "max":
+        return info.min
+    raise ValueError(kind)
 
 
 @dataclass(frozen=True)

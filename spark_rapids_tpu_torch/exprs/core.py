@@ -189,3 +189,25 @@ def cast_operand(v: ColV, to: DType) -> ColV:
         return v
     return ColV(to, v.data.to(to.torch_dtype()), v.validity,
                 is_scalar=v.is_scalar)
+
+
+def widen(v: ColV, to: DType, ctx: EvalCtx) -> ColV:
+    """A branch value in the branches' common type (the JAX package's
+    ``widen``, shared by Coalesce, If and CaseWhen): a NULL-typed value
+    becomes an all-null value of ``to`` (strings with zero lengths), and
+    numerics widen."""
+    if v.dtype == to:
+        return v
+    if v.dtype is DType.NULL:
+        false = torch.zeros_like(v.validity, dtype=torch.bool)
+        if to is DType.STRING:
+            shape = (8,) if v.is_scalar else (ctx.capacity, 8)
+            data = torch.zeros(shape, dtype=torch.uint8, device=ctx.device)
+            lengths = torch.zeros(shape[:-1], dtype=torch.int32,
+                                  device=ctx.device)
+            return ColV(to, data, false, lengths, is_scalar=v.is_scalar)
+        return ColV(to, v.data.to(to.torch_dtype()), false,
+                    is_scalar=v.is_scalar)
+    if v.dtype.is_numeric and to.is_numeric:
+        return cast_operand(v, to)
+    raise TypeError(f"cannot widen {v.dtype} to {to}")

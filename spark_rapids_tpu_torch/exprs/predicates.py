@@ -1,12 +1,16 @@
-"""Predicate expressions (the JAX package's ``exprs/predicates.py`` up to
-``In``). Comparisons are null-intolerant; float comparisons follow Spark's
+"""Predicate expressions (the JAX package's ``exprs/predicates.py``).
+Comparisons are null-intolerant; float comparisons follow Spark's
 NaN semantics (NaN = NaN, NaN greater than every other value); strings
 compare by their bytes; ``And`` and ``Or`` use Kleene three-valued logic
-(false AND null = false, true OR null = true)."""
+(false AND null = false, true OR null = true); ``In`` and ``InSet`` follow
+Spark's rule for a list: null when nothing matched and the value or an item
+is null."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType
@@ -162,3 +166,69 @@ class Or(Expression):
         valid = (l.validity & r.validity) | res_true
         return ColV(DType.BOOLEAN, l.data | r.data, valid,
                     is_scalar=l.is_scalar and r.is_scalar)
+
+
+@dataclass(frozen=True)
+class In(Expression):
+    """value IN (literals...): one equality per item (strings through
+    ``string_eq``, floats with NaN = NaN), numerics compared in the wider
+    of the two types."""
+    value: Expression
+    items: Tuple[Expression, ...]      # Literals
+
+    def dtype(self) -> DType:
+        return DType.BOOLEAN
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.value.eval(ctx)
+        found = None
+        has_null_item = False
+        for lit in self.items:
+            if lit.value is None:
+                has_null_item = True
+                continue
+            lv, vc = lit.eval(ctx), v
+            if v.dtype != lv.dtype and v.dtype.is_numeric \
+                    and lv.dtype.is_numeric:
+                common = DType.common_numeric(v.dtype, lv.dtype)
+                vc, lv = cast_operand(v, common), cast_operand(lv, common)
+            if v.dtype is DType.STRING:
+                eq = sk.string_eq(v.data, v.lengths, lv.data, lv.lengths)
+            elif v.dtype.is_floating:
+                eq = _float_compare("eq", vc.data, lv.data)
+            else:
+                eq = vc.data == lv.data
+            found = eq if found is None else found | eq
+        if found is None:
+            found = torch.zeros_like(v.validity)
+        valid = v.validity & (found | (not has_null_item))
+        return ColV(DType.BOOLEAN, found, valid, is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class InSet(Expression):
+    """value IN (a large numeric literal set): one ``searchsorted`` probe
+    of the sorted set per row instead of one equality per item, in the
+    wider domain (a double column against an int set, or float items
+    against an int column, compare as doubles)."""
+    value: Expression
+    values: Tuple      # python scalars, no nulls
+    has_null: bool = False
+
+    def dtype(self) -> DType:
+        return DType.BOOLEAN
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.value.eval(ctx)
+        as_float = v.dtype.is_floating or any(isinstance(x, float)
+                                              for x in self.values)
+        td = torch.float64 if as_float else v.data.dtype
+        table = torch.from_numpy(np.sort(np.asarray(
+            list(self.values), np.float64 if as_float
+            else v.dtype.np_dtype()))).to(ctx.device)
+        d = v.data.to(td)
+        idx = torch.searchsorted(table, d)
+        hit = table[idx.clamp(0, table.shape[0] - 1)] == d
+        found = (idx < table.shape[0]) & hit
+        validity = v.validity & found if self.has_null else v.validity
+        return ColV(DType.BOOLEAN, found, validity, is_scalar=v.is_scalar)

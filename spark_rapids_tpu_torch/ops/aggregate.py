@@ -6,8 +6,11 @@ distinct 64-bit key hashes give the group table and ``searchsorted`` gives
 each row its group id. The JAX package forms ``[capacity, 64]`` one-hot masks
 that XLA fuses away; eager torch would materialise them (cap x 64 x 8 bytes a
 buffer, ~34 GB at SF 10), so here every reduction goes by group id instead:
-one ``index_add_`` per buffer into the sub-bins ``gid * SPREAD + row %
-SPREAD``, then a sum over each group's sub-bins. The
+one ``index_add_`` per sum buffer (``scatter_reduce_`` per min or max
+buffer; the JAX package's ``masked_min`` would be a ``[rows, 64]`` matrix)
+into the sub-bins ``gid * SPREAD + row % SPREAD``, then a reduction over
+each group's sub-bins. String min and max need a rank sort and keep the
+aggregate off this mode (``onehot_supported``). The
 collision/overflow flag is exact, as in the JAX package: every injective key
 word of a row must equal its group's first row's.
 
@@ -19,7 +22,13 @@ the JAX package's do.
 
 ``sort`` orders rows by the exact key passes and reduces segments; it is the
 last escalation target. Without keys every mode is the global aggregate:
-one group, also over no rows.
+one group, also over no rows. An aggregate with keys and no functions is a
+``distinct``. A string min or max ranks the rows by byte order and reduces
+the ranks (``_segment_minmax_string``).
+
+The port has one aggregation stage (its exec sees all its input in one
+partition), so the JAX package's partial buffers and ``merge_aggregate``
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import pad_rows
-from spark_rapids_tpu_torch.columnar.dtypes import bucket_capacity
+from spark_rapids_tpu_torch.columnar.dtypes import DType, bucket_capacity
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
@@ -46,12 +55,20 @@ _I64_MIN = -(1 << 63)
 AggResult = Tuple[List[ColV], List[ColV], int, bool]
 
 
-def grouping_modes(keys) -> List[str]:
+def onehot_supported(agg_fns: Sequence[AggregateFunction]) -> bool:
+    """The one-hot mode covers every reduction but a string min or max
+    (those need the rank sort the mode exists to avoid)."""
+    return not any(spec.dtype is DType.STRING and spec.kind in ("min", "max")
+                   for fn in agg_fns for spec in fn.buffer_specs())
+
+
+def grouping_modes(keys, agg_fns: Sequence[AggregateFunction]) -> List[str]:
     """Escalation order of the aggregate exec: each mode runs only when the
-    one before it raised its collision/overflow flag. (The JAX package also
-    keeps string min/max out of the one-hot mode; the port has only
-    ``sum`` buffers.)"""
-    return (["onehot"] if 0 < len(keys) <= 64 else []) + ["hash", "sort"]
+    one before it raised its collision/overflow flag. The one-hot mode
+    needs 1 to 64 keys (one validity bit each in a word) and no string
+    min/max."""
+    onehot = 0 < len(keys) <= 64 and onehot_supported(agg_fns)
+    return (["onehot"] if onehot else []) + ["hash", "sort"]
 
 
 def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction],
@@ -129,8 +146,10 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
         collided |= w != w[row_rep]
     flagged = num_real > G or bool((collided & in_table).any())
     key_cols = [bk.take_padded(v, rep, out_cap) for v in keys]
-    reduced_per_fn = [[_group_sum(b, spread, num_groups, out_cap)
-                       for b in bufs] for bufs in projections]
+    reduced_per_fn = [[_group_reduce(b, spec.kind, spread, num_groups,
+                                     out_cap)
+                       for spec, b in zip(fn.buffer_specs(), bufs)]
+                      for fn, bufs in zip(agg_fns, projections)]
     return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
                    flagged, device)
 
@@ -142,20 +161,44 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
 SPREAD = 256
 
 
-def _group_sum(b: ColV, spread: torch.Tensor, num_groups: int,
-               out_cap: int) -> ColV:
-    """One ``sum`` buffer reduced by group id: ``index_add_`` into the
-    sub-bins ``spread`` (the spare group ``num_groups`` holds the rows that
-    are dropped), then a sum over each group's sub-bins. The group's sum is
-    valid when any of its rows was."""
+def _group_reduce(b: ColV, kind: str, spread: torch.Tensor, num_groups: int,
+                  out_cap: int) -> ColV:
+    """One numeric buffer reduced by group id (the JAX package's
+    ``_onehot_reduce_buffer``): into the sub-bins ``spread`` (the spare
+    group ``num_groups`` holds the rows that are dropped), then over each
+    group's sub-bins. A sum adds; a min or max reduces the NaN-free values
+    and adds the NaN and valid counts, so Spark's NaN rule applies to the
+    whole group. The result is valid when any of the group's rows was."""
     bins = (num_groups + 1) * SPREAD
 
-    def reduce(t: torch.Tensor) -> torch.Tensor:
-        acc = t.new_zeros(bins).index_add_(0, spread, t)
-        return pad_rows(acc.view(-1, SPREAD).sum(dim=1)[:num_groups], out_cap)
+    def fold(t: torch.Tensor, how: str = "sum") -> torch.Tensor:
+        per_group = t.view(-1, SPREAD)
+        per_group = {"sum": per_group.sum(dim=1),
+                     "min": per_group.amin(dim=1),
+                     "max": per_group.amax(dim=1)}[how]
+        return pad_rows(per_group[:num_groups], out_cap)
 
-    return ColV(b.dtype, reduce(torch.where(b.validity, b.data, 0)),
-                reduce(b.validity.to(torch.int32)) > 0)
+    def add(t: torch.Tensor) -> torch.Tensor:
+        return fold(t.new_zeros(bins).index_add_(0, spread, t))
+
+    count = add(b.validity.to(torch.int64))
+    if kind == "sum":
+        contrib = torch.where(b.validity, b.data, 0).to(b.data.dtype)
+        if contrib.is_floating_point() and contrib.device.type != "cpu":
+            # in a fixed order per group (``segment_sum``), not by atomics
+            gid = torch.div(spread, SPREAD, rounding_mode="floor")
+            sums = bk.segment_sum(contrib, gid, num_groups + 1)
+            return ColV(b.dtype, pad_rows(sums[:num_groups], out_cap),
+                        count > 0)
+        return ColV(b.dtype, add(contrib), count > 0)
+    res, nan_count = bk.minmax_parts(b.data, b.validity, spread, bins, kind)
+    res = fold(res.to(torch.int8) if res.dtype == torch.bool else res, kind)
+    if b.data.dtype == torch.bool:
+        res = res.to(torch.bool)
+    if nan_count is not None:
+        nan_count = fold(nan_count)
+    return ColV(b.dtype, bk.minmax_finish(res, count, nan_count, kind),
+                count > 0)
 
 
 def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
@@ -166,18 +209,48 @@ def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
     return _finish(key_cols, reduced, agg_fns, 0, out_cap, False, device)
 
 
-def _segment_sums(projections, order, gids, out_cap):
-    """Every buffer taken in ``order`` and summed per group id."""
-    reduced_per_fn = []
-    for bufs in projections:
-        reduced = []
-        for b in bufs:
-            sb = bk.take_colv(b, order)
-            data, valid = bk.segment_reduce(sb.data, sb.validity, gids,
-                                            out_cap, "sum")
-            reduced.append(ColV(b.dtype, data, valid))
-        reduced_per_fn.append(reduced)
-    return reduced_per_fn
+def _reduce_buffer(b: ColV, kind: str, gids: torch.Tensor,
+                   out_cap: int) -> ColV:
+    """One buffer reduced per group id (rows in group order: ``gids``
+    non-decreasing)."""
+    if b.dtype is DType.STRING:
+        return _segment_minmax_string(b, gids, out_cap, kind)
+    data, valid = bk.segment_reduce(b.data, b.validity, gids, out_cap, kind,
+                                    ids_sorted=True)
+    return ColV(b.dtype, data, valid)
+
+
+def _segment_reduce_all(agg_fns, projections, order, gids, out_cap):
+    """Every buffer taken in ``order`` and reduced per group id."""
+    return [[_reduce_buffer(bk.take_colv(b, order), spec.kind, gids, out_cap)
+             for spec, b in zip(fn.buffer_specs(), bufs)]
+            for fn, bufs in zip(agg_fns, projections)]
+
+
+def _string_rank(b: ColV, kind: str):
+    """String min/max's preamble: the rows' ranks in byte order, with a
+    sentinel no reduction picks over for rows that do not take part
+    (null or dead; their validity is already false). -> (order,
+    masked_rank, n)."""
+    order = bk.sort_indices([(b, True, True)], b.validity)
+    n = order.shape[0]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=order.device)
+    sentinel = n + 1 if kind == "min" else -1
+    return order, torch.where(b.validity, rank, sentinel), n
+
+
+def _segment_minmax_string(b: ColV, gids: torch.Tensor, out_cap: int,
+                           kind: str) -> ColV:
+    """min/max over strings: the least or greatest rank per group, then
+    that row picked (both sentinels fail the bounds check)."""
+    order, masked, n = _string_rank(b, kind)
+    seg, _ = bk.segment_reduce(masked, torch.ones_like(b.validity), gids,
+                               out_cap, kind)
+    has = (seg >= 0) & (seg < n)
+    pick = order[seg.clamp(0, n - 1)]
+    return ColV(b.dtype, b.data[pick], has & b.validity[pick],
+                b.lengths[pick])
 
 
 def _global_aggregate(projections, agg_fns, alive) -> AggResult:
@@ -185,8 +258,8 @@ def _global_aggregate(projections, agg_fns, alive) -> AggResult:
     aggregate and its empty-input row)."""
     order = torch.arange(alive.shape[0], device=alive.device)
     out_cap = bucket_capacity(1)
-    reduced = _segment_sums(projections, order, torch.zeros_like(order),
-                            out_cap)
+    reduced = _segment_reduce_all(agg_fns, projections, order,
+                                  torch.zeros_like(order), out_cap)
     return _finish([], reduced, agg_fns, 1, out_cap, False, alive.device)
 
 
@@ -199,7 +272,9 @@ def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     out_cap = bucket_capacity(num_groups)
     first = torch.nonzero(starts).squeeze(1)
     key_cols = [bk.take_padded(k, first, out_cap) for k in sorted_keys]
-    return _finish(key_cols, _segment_sums(projections, order, gids, out_cap),
+    return _finish(key_cols,
+                   _segment_reduce_all(agg_fns, projections, order, gids,
+                                       out_cap),
                    agg_fns, num_groups, out_cap, False, alive.device)
 
 
@@ -220,13 +295,14 @@ def _hash_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     sorted_projs = [[bk.take_colv(b, order) for b in bufs]
                     for bufs in projections]
     key_cols, reduced_per_fn = _reduce_phase_scan(
-        sorted_keys, sorted_projs, gids, num_groups, out_cap, sorted_alive)
+        sorted_keys, agg_fns, sorted_projs, gids, num_groups, out_cap,
+        sorted_alive)
     return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
                    flagged, alive.device)
 
 
-def _reduce_phase_scan(sorted_keys, sorted_projs, gids, num_groups: int,
-                       out_cap: int, sorted_alive):
+def _reduce_phase_scan(sorted_keys, agg_fns, sorted_projs, gids,
+                       num_groups: int, out_cap: int, sorted_alive):
     """Boundary-scan reduction over rows ordered by group (``gids``
     non-decreasing): each group's first and last row come from two
     ``searchsorted`` calls over the gids; keys are gathered at the first
@@ -235,7 +311,8 @@ def _reduce_phase_scan(sorted_keys, sorted_projs, gids, num_groups: int,
     Float sums are not: the running sum mixes other groups' values, so a
     group that cancels to exactly 0.0 would keep a residue; they are
     summed by group id instead, the groups past ``out_cap - 1`` folded into
-    the last bin as in the JAX package (the flag is raised then)."""
+    the last bin as in the JAX package (the flag is raised then), and so
+    are min and max."""
     device = gids.device
     cap = gids.shape[0]
     g = torch.arange(out_cap, device=device)
@@ -259,16 +336,15 @@ def _reduce_phase_scan(sorted_keys, sorted_projs, gids, num_groups: int,
 
     gids_b = gids.clamp(max=out_cap - 1)
     reduced_per_fn = []
-    for bufs in sorted_projs:
+    for fn, bufs in zip(agg_fns, sorted_projs):
         reduced = []
-        for b in bufs:
-            if b.dtype.is_floating:
-                data, valid = bk.segment_reduce(b.data, b.validity, gids_b,
-                                                out_cap, "sum")
-            else:
-                data = seg_sum(torch.where(b.validity, b.data, 0)
-                               .to(b.data.dtype))
-                valid = seg_sum(b.validity.to(torch.int64)) > 0
+        for spec, b in zip(fn.buffer_specs(), bufs):
+            if spec.kind != "sum" or b.dtype.is_floating:
+                reduced.append(_reduce_buffer(b, spec.kind, gids_b, out_cap))
+                continue
+            data = seg_sum(torch.where(b.validity, b.data, 0)
+                           .to(b.data.dtype))
+            valid = seg_sum(b.validity.to(torch.int64)) > 0
             reduced.append(ColV(b.dtype, data, valid))
         reduced_per_fn.append(reduced)
     return key_cols, reduced_per_fn

@@ -320,15 +320,83 @@ def starts_from_sorted(sorted_keys: Sequence[ColV],
     return new_group & sorted_alive
 
 
+def segment_sum(contrib: torch.Tensor, seg_ids: torch.Tensor,
+                num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
+    """Per-segment sum. Integer sums come out the same in any order, and
+    the CPU's ``index_add_`` adds in row order; on the GPU its atomic adds
+    make a float sum's last bits vary from run to run, so there a float
+    sum reduces each segment in a fixed order instead
+    (``torch.segment_reduce`` over the rows sorted by segment). The same
+    rows then give the same bits every time, which Q15's equality of a sum
+    with the max of the same sums computed in another pass needs.
+    ``ids_sorted`` says the ids are already non-decreasing."""
+    if not contrib.is_floating_point() or contrib.device.type == "cpu":
+        return contrib.new_zeros(num_segments).index_add_(0, seg_ids, contrib)
+    if not ids_sorted:
+        order = torch.sort(seg_ids, stable=True).indices
+        seg_ids, contrib = seg_ids[order], contrib[order]
+    lengths = torch.bincount(seg_ids, minlength=num_segments)
+    return torch.segment_reduce(contrib, "sum", lengths=lengths, unsafe=True)
+
+
 def segment_reduce(data: torch.Tensor, validity: torch.Tensor,
-                   seg_ids: torch.Tensor, num_segments: int, kind: str):
-    """Per-segment reduction -> (seg_data, seg_validity); a segment is valid
-    when any of its rows was."""
-    if kind != "sum":
-        raise NotImplementedError(f"segment {kind} is not ported yet")
-    contrib = torch.where(validity, data, 0).to(data.dtype)
-    out = data.new_zeros(num_segments).index_add_(0, seg_ids, contrib)
+                   seg_ids: torch.Tensor, num_segments: int, kind: str,
+                   ids_sorted: bool = False):
+    """Per-segment ``sum``, ``min`` or ``max`` -> (seg_data, seg_validity);
+    a segment is valid when any of its rows was. min and max follow
+    Spark's order (NaN above every other value) and leave a segment with
+    no valid row at the reduction's neutral value."""
     counts = torch.zeros(num_segments, dtype=torch.int64,
                          device=data.device).index_add_(
         0, seg_ids, validity.to(torch.int64))
-    return out, counts > 0
+    if kind == "sum":
+        contrib = torch.where(validity, data, 0).to(data.dtype)
+        return segment_sum(contrib, seg_ids, num_segments, ids_sorted), \
+            counts > 0
+    if kind in ("min", "max"):
+        res, nan_count = minmax_parts(data, validity, seg_ids, num_segments,
+                                      kind)
+        return minmax_finish(res, counts, nan_count, kind), counts > 0
+    raise ValueError(f"unknown segment reduction {kind!r}")
+
+
+def minmax_parts(data: torch.Tensor, validity: torch.Tensor,
+                 seg_ids: torch.Tensor, num_segments: int, kind: str):
+    """The raw pieces of a segment min/max -> (reduced, nan_count): NaN is
+    replaced by +inf before the reduction and counted (None for
+    non-floats), since ``scatter_reduce``'s amin/amax have no defined NaN
+    order. Every segment starts at the neutral value (``iinfo`` bounds for
+    integers, the infinities for floats), so an empty segment keeps it."""
+    op = "amin" if kind == "min" else "amax"
+    nan_count = None
+    if data.dtype == torch.bool:
+        d = torch.where(validity, data.to(torch.int8), int(kind == "min"))
+        init = int(kind == "min")
+    elif data.dtype.is_floating_point:
+        nan = torch.isnan(data)
+        init = float("inf") if kind == "min" else float("-inf")
+        d = torch.where(validity, torch.where(nan, float("inf"), data), init)
+        nan_count = torch.zeros(num_segments, dtype=torch.int64,
+                                device=data.device).index_add_(
+            0, seg_ids, (nan & validity).to(torch.int64))
+    else:
+        info = torch.iinfo(data.dtype)
+        init = info.max if kind == "min" else info.min
+        d = torch.where(validity, data, init)
+    d = d.to(torch.int8 if data.dtype == torch.bool else data.dtype)
+    out = torch.full((num_segments,), init, dtype=d.dtype,
+                     device=data.device).scatter_reduce_(0, seg_ids, d, op)
+    return (out.to(torch.bool) if data.dtype == torch.bool else out), \
+        nan_count
+
+
+def minmax_finish(res: torch.Tensor, valid_count: torch.Tensor, nan_count,
+                  kind: str) -> torch.Tensor:
+    """Spark's NaN rule on a reduced min/max: a max that saw a NaN is NaN;
+    a min is NaN only when every valid value was."""
+    if nan_count is None:
+        return res
+    if kind == "max":
+        return torch.where(nan_count > 0, float("nan"), res)
+    return torch.where((valid_count > 0) & (nan_count == valid_count),
+                       float("nan"), res)

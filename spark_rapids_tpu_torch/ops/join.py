@@ -10,8 +10,9 @@ the data, so the join runs in two phases:
                             right row) pair of every output row.
 
 Spark semantics: a null key never matches; NaN keys match each other. Kinds:
-inner, left, right, full, left_semi, left_anti. ``cross`` waits for the
-nested-loop execs.
+inner, left, right, full, left_semi, left_anti, and ``cross`` (no keys:
+each live stream row emits every live build row, in build row order; the
+nested-loop and cartesian execs' kernel).
 
 Emit groups ``[0, S)`` are the stream (left) rows: each emits its match
 count (1 null-padded row when unmatched under left/full, 0 or 1 under
@@ -61,14 +62,24 @@ def join_size(l_keys: Sequence[ColV], r_keys: Sequence[ColV],
     total (0-d), border [B] (build rows by group id, dead rows last),
     start_b [S] (per stream row: its group's first position in
     ``border``), sgid [S], matches_l [S]."""
-    if how == "cross":
-        raise NotImplementedError(
-            "cross joins wait for the nested-loop and cartesian execs")
     if how not in JOIN_KINDS:
         raise ValueError(f"unsupported join type {how}")
     S, B = l_alive.shape[0], r_alive.shape[0]
     G = S + B
     device = l_alive.device
+    if how == "cross":
+        b_count = r_alive.sum()
+        matches_l = torch.where(l_alive, b_count, 0)
+        emit_counts = torch.cat([matches_l, torch.zeros(
+            B, dtype=torch.int64, device=device)])
+        return dict(emit_counts=emit_counts,
+                    emit_offsets=_exclusive_cumsum(emit_counts),
+                    total=emit_counts.sum(),
+                    # the live build rows first, in row order
+                    border=bk._stable_argsort((~r_alive).to(torch.int8)),
+                    start_b=torch.zeros(S, dtype=torch.int64, device=device),
+                    sgid=torch.zeros(S, dtype=torch.int64, device=device),
+                    matches_l=matches_l)
     l_ok = l_alive & ~_any_null(l_keys)
     r_ok = r_alive & ~_any_null(r_keys)
     keys_all = [_concat_colv(lk, rk) for lk, rk in zip(l_keys, r_keys)]
@@ -143,6 +154,10 @@ def join_gather(sized: Dict[str, torch.Tensor], S: int, B: int, out_cap: int,
     k = p - emit_offsets[g]
     from_stream = g < S
     srow = g.clamp(0, S - 1)
+    if how == "cross":
+        right_row = sized["border"][k.clamp(0, max(B - 1, 0))]
+        valid = in_range & from_stream
+        return srow, valid, right_row, valid, total
     if how in ("left_semi", "left_anti"):
         zeros = torch.zeros_like(srow)
         return srow, in_range, zeros, torch.zeros_like(in_range), total

@@ -20,7 +20,8 @@ from spark_rapids_tpu_torch.execs.exchange_execs import (
     HashPartitioning, RangePartitioning, RoundRobinPartitioning,
     SinglePartitioning, TpuBroadcastExchangeExec, TpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.execs.join_execs import (
-    TpuBroadcastHashJoinExec, TpuShuffledHashJoinExec, legal_broadcast_sides)
+    TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
+    TpuCartesianProductExec, TpuShuffledHashJoinExec, legal_broadcast_sides)
 from spark_rapids_tpu_torch.execs.tpu_execs import (
     DeviceToHostExec, HostToDeviceExec, TpuFilterExec, TpuHashAggregateExec,
     TpuLimitExec, TpuProjectExec, TpuSortExec)
@@ -125,10 +126,6 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
 
 
 def _plan_join(plan: lp.Join, conf: TpuConf) -> PhysicalExec:
-    if plan.how == "cross" or not plan.left_keys:
-        raise NotImplementedError(
-            f"{plan.how} join without keys: the nested-loop and cartesian "
-            f"execs are not ported yet")
     left = _plan_node(plan.left, conf)
     right = _plan_node(plan.right, conf)
     lkeys = [bind_expression(e, left.output) for e in plan.left_keys]
@@ -144,8 +141,9 @@ def _plan_join(plan: lp.Join, conf: TpuConf) -> PhysicalExec:
     out_schema = plan.schema()
     cond = (bind_expression(plan.condition, out_schema)
             if plan.condition is not None else None)
-    if cond is not None and plan.how != "inner":
-        # a post-join filter equals a join condition only for inner joins
+    if cond is not None and plan.how not in ("inner", "cross"):
+        # a post-join filter equals a join condition only for inner and
+        # cross joins
         raise NotImplementedError(
             f"join conditions are only supported for inner joins, not "
             f"{plan.how}")
@@ -158,12 +156,27 @@ def _select_join(left: PhysicalExec, right: PhysicalExec, how: str,
                  out_schema: Schema, cond, conf: TpuConf) -> PhysicalExec:
     """Spark's JoinSelection: the broadcast hash join when a legal build
     side's estimated size is at most sql.broadcastJoinThreshold.bytes (the
-    right side first), else the shuffled hash join."""
+    right side first), else the shuffled hash join. A join without keys
+    becomes the broadcast nested-loop join on the same rule, else the
+    cartesian product. The JAX package keeps those two off the device
+    unless sql.exec.NestedLoopJoin / sql.exec.CartesianProduct are set; the
+    port has no CPU engine and always plans them."""
     threshold = conf.get(cfg.BROADCAST_JOIN_THRESHOLD)
 
     def broadcastable(side: PhysicalExec) -> bool:
         sz = side.size_estimate()
         return sz is not None and sz <= threshold
+
+    if not lkeys:
+        if how not in ("inner", "cross"):
+            raise NotImplementedError(
+                f"{how} join requires join keys (no nested-loop form)")
+        for bi, side in ((1, right), (0, left)):
+            if bi in legal_broadcast_sides(how) and broadcastable(side):
+                return TpuBroadcastNestedLoopJoinExec(
+                    left, right, how, out_schema, cond,
+                    build_side="right" if bi == 1 else "left")
+        return TpuCartesianProductExec(left, right, how, out_schema, cond)
 
     for bi, side in ((1, right), (0, left)):
         if bi in legal_broadcast_sides(how) and broadcastable(side):

@@ -214,3 +214,118 @@ def test_cuda_q3_equals_cpu_and_joins_through_the_reorder_kernel(cuda,
     rev_g = gpu.column_by_name("revenue").data
     rev_c = cpu.column_by_name("revenue").data
     assert np.all(np.abs(rev_g - rev_c) <= 1e-9 * np.abs(rev_c))
+
+
+def _strings_tensor(rng, n, width):
+    alphabet = np.frombuffer(b"ab c%x", np.uint8)
+    lengths = rng.integers(0, width + 1, n).astype(np.int32)
+    data = alphabet[rng.integers(0, len(alphabet), (n, width))]
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+def _word_strings(rng, n, width):
+    """Rows of random words (the LIKE patterns' own among them), cut to
+    ``width`` bytes."""
+    words = ["special", "requests", "ab", "c", "x", "%", "xyx"]
+    pick = rng.integers(0, len(words), (n, 5))
+    data = np.zeros((n, width), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    for i in range(n):
+        raw = " ".join(words[j] for j in pick[i][:rng.integers(1, 6)])
+        raw = raw.encode()[:width]
+        data[i, :len(raw)] = bytearray(raw)
+        lengths[i] = len(raw)
+    return torch.from_numpy(data), torch.from_numpy(lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["%a%b%", "%special%requests%", "ab_c%",
+                                     "%x_x%"])
+def test_cuda_dfa_match_equals_cpu(cuda, pattern):
+    """LIKE's byte DFA on the card equals the same scan on the CPU, on rows
+    some of which match."""
+    from spark_rapids_tpu_torch.ops import regex as rk
+    data, lengths = _word_strings(np.random.default_rng(1), 50_000, 32)
+    dfa = rk.compile_dfa(rk.like_to_regex(pattern))
+    want = rk.dfa_match(dfa, data, lengths)
+    got = rk.dfa_match(dfa, data.to(cuda), lengths.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["onehot", "hash", "sort"])
+def test_cuda_min_max_equals_cpu(cuda, mode):
+    """min and max of ints, doubles with NaNs and strings, grouped by a key
+    with nulls, on the card equal the CPU in every grouping mode (the
+    string min/max has no one-hot form and is left out there)."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs import BoundReference, Max, Min
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    from spark_rapids_tpu_torch.ops.aggregate import group_aggregate
+    rng = np.random.default_rng(2)
+    n = 1 << 18
+    valid = lambda: torch.from_numpy(rng.random(n) > 0.1)  # noqa: E731
+    d = rng.standard_normal(n)
+    d[rng.random(n) < 0.01] = np.nan
+    s, s_len = _strings_tensor(rng, n, 16)
+    cols = [ColV(DType.LONG, torch.from_numpy(rng.integers(0, 40, n)),
+                 valid()),
+            ColV(DType.INT, torch.from_numpy(
+                rng.integers(-9, 9, n).astype(np.int32)), valid()),
+            ColV(DType.DOUBLE, torch.from_numpy(d), valid()),
+            ColV(DType.STRING, s, valid(), s_len)]
+    types = [DType.LONG, DType.INT, DType.DOUBLE, DType.STRING]
+    refs = [BoundReference(i, t) for i, t in enumerate(types)]
+    fns = [f(r) for r in refs[1:3 if mode == "onehot" else 4]
+           for f in (Min, Max)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dc = [ColV(c.dtype, c.data.to(dev), c.validity.to(dev),
+                   None if c.lengths is None else c.lengths.to(dev))
+              for c in cols]
+        out[dev] = group_aggregate(EvalCtx(dc, n, torch.device(dev)),
+                                   [refs[0]], fns, n, n, grouping=mode)
+    (ck, cr, cn, cf), (gk, gr, gn, gf) = out["cpu"], out["cuda"]
+    assert not cf and not gf and cn == gn
+    for a, b in zip(ck + cr, gk + gr):
+        assert torch.equal(a.validity[:cn], b.validity[:cn].cpu())
+        va = a.validity[:cn]
+        da, db = a.data[:cn][va], b.data[:cn].cpu()[va]
+        if da.is_floating_point():
+            assert torch.equal(torch.isnan(da), torch.isnan(db))
+            da, db = da.nan_to_num(), db.nan_to_num()
+        assert torch.equal(da, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [("onehot", 6), ("hash", 5000),
+                                         ("sort", 100_000)])
+def test_cuda_float_sums_repeat_bit_for_bit(cuda, mode, groups):
+    """A float sum on the card gives the same bits on every run (Q15 holds
+    a sum equal to the max of the same sums from another pass), in every
+    grouping mode and in the global aggregate, and equals the CPU's within
+    1e-9."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs import BoundReference, Sum
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    from spark_rapids_tpu_torch.ops.aggregate import group_aggregate
+    rng = np.random.default_rng(5)
+    n = 1 << 21
+    key = torch.from_numpy(rng.integers(0, groups, n))
+    val = torch.from_numpy(rng.standard_normal(n) * 1e6)
+    ones = torch.ones(n, dtype=torch.bool)
+    refs = [BoundReference(0, DType.LONG), BoundReference(1, DType.DOUBLE)]
+    for keys in ([refs[0]], []):
+        out = []
+        for dev in ("cuda", "cuda", "cpu"):
+            cols = [ColV(DType.LONG, key.to(dev), ones.to(dev)),
+                    ColV(DType.DOUBLE, val.to(dev), ones.to(dev))]
+            _, res, num, flagged = group_aggregate(
+                EvalCtx(cols, n, torch.device(dev)), keys, [Sum(refs[1])], n,
+                n, grouping=mode)
+            assert not flagged
+            out.append(res[0].data[:num].cpu())
+        assert torch.equal(out[0], out[1])
+        assert torch.allclose(out[0], out[2], rtol=1e-9, atol=0)

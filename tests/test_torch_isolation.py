@@ -37,6 +37,12 @@ dfs = {k: sess.create_dataframe(g(0.002, 1)) for k, g in (
 dfs["lineitem"] = dfs["lineitem"].repartition(8, "l_orderkey")
 res = q3(dfs).collect()
 assert res.num_rows == 10, res.num_rows
+from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+tables = td.gen_all(0.002, 1)
+for q in (13, 22):          # the byte DFA's LIKE; the nested-loop join
+    res = QUERIES[q]({k: sess.create_dataframe(v)
+                      for k, v in tables.items()}).collect()
+    assert res.num_rows > 0, (q, res.num_rows)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -53,8 +59,8 @@ def _clean_env():
 
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
-    """Every module imports, and Q1 and Q3 run, with no jax, nothing of the
-    JAX package and no pyarrow loaded."""
+    """Every module imports, and Q1, Q3, Q13 and Q22 run, with no jax,
+    nothing of the JAX package and no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)

@@ -111,9 +111,16 @@ def test_join_kernels_equal_reference(case, how):
 
 
 def test_cross_join_waits_for_nested_loop_execs():
-    alive = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="cross"):
-        tjoin.join_size([], [], alive, alive, "cross")
+    """The nested-loop execs' kernel: every live stream row emits every
+    live build row, in build row order (test_torch_cross_join.py holds it
+    against the JAX package's)."""
+    l_alive = torch.tensor([True, False, True, True])
+    r_alive = torch.tensor([False, True, True])
+    sized = tjoin.join_size([], [], l_alive, r_alive, "cross")
+    assert int(sized["total"]) == 6
+    lrow, lvalid, rrow, rvalid, _ = tjoin.join_gather(sized, 4, 3, 8, "cross")
+    assert lrow[lvalid].tolist() == [0, 0, 2, 2, 3, 3]
+    assert rrow[rvalid].tolist() == [1, 2] * 3
 
 
 def _tables():
