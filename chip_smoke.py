@@ -71,16 +71,32 @@ Phases:
      exchange, at least one where it reads orders or lineitem) and those
      kept, joins and aggregate modes; Q18 with dmaConsolidate on (the
      compact kernel must launch; the result equal to the default run's);
-     Q13 and Q22 against numpy versions.
+     Q13 and Q22 against numpy versions;
+ 10. this slice's main path, the TPC-DS bench subset (bench.py's 14
+     TPCDS_BENCH_QUERIES) and TPCx-BB q5 through TpuSession: first at
+     --check-sf on the card against the port's own CPU run (as in phase
+     9); then the twelve TPC-DS tables at the run's scale with the union of
+     the columns the 14 queries read and the four q5 reads, each query
+     scanning only its own, store_sales, catalog_sales and web_sales
+     hash-repartitioned 8 ways on their item keys; both kernels against
+     their plain versions on the widest store_sales input those exchanges
+     build, timed and bounded there; each query cold and warm (the warm
+     result equal to the cold one) with its wall times, rows, peak device
+     memory, reorder launches (one per hash exchange, every one kept) and
+     those kept, joins and aggregate modes; q23 with dmaConsolidate on (a
+     compact launch per kept reorder output; the result equal to the
+     default run's); the geomean of the 14 TPC-DS warm walls on a line of
+     its own.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
-seconds are printed. Prints one JSON line of per-kernel numbers: the 22
-queries' launches (and launches_kept, those whose output was used; the
-compact kernel's from the dma-on Q18) with the times, bounds and errors of
-phase 9's checks (summed over its inputs, each under "inputs"), phase 7's
-reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every
-path's launches under launches_by_path; then as its last line
+seconds are printed. Prints one JSON line of per-kernel numbers: phase
+10's launches (and launches_kept, those whose output was used; the compact
+kernel's from the dma-on q23) with the times, bounds and errors of phase
+10's check on the widest store_sales input, phase 9's TPC-H reading
+(launches and its checks, summed over its inputs, each under "inputs"),
+phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem shape, and
+every path's launches under launches_by_path; then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
@@ -1178,16 +1194,16 @@ def check_same_result(name, got, want, ties):
     return worst
 
 
-def run_query(sess, tables, q):
-    """One cold-cache run of query ``q`` on the session's device -> (result,
-    seconds, reorder launches, compact launches, launches kept, plan)."""
+def run_query(sess, name, build):
+    """One run of ``build(sess).collect()`` on the session's device ->
+    (result, seconds, reorder launches, compact launches, launches kept,
+    plan)."""
     import torch
-    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
     from spark_rapids_tpu_torch.execs.exchange_execs import (
         HashPartitioning, TpuShuffleExchangeExec)
     reset_launches()
     t0 = time.perf_counter()
-    res = QUERIES[q](query_frames(sess, tables, q)).collect()
+    res = build(sess).collect()
     if sess.device.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1197,35 +1213,119 @@ def run_query(sess, tables, q):
               and isinstance(e.partitioning, HashPartitioning)]
     kept = sum(e.kernel_splits for e in hashed)
     if sess.device.type == "cuda" and reorder_n != len(hashed):
-        raise AssertionError(f"q{q}: {reorder_n} reorder launches for "
+        raise AssertionError(f"{name}: {reorder_n} reorder launches for "
                              f"{len(hashed)} hash exchanges")
     return res, secs, reorder_n, compact_n, kept, plan
 
 
-def phase_tpch_check(sf, seed):
-    """Every query at scale ``sf`` on the card against the port's own run
-    on the CPU (whose answers the CPU tests hold against the JAX
+def check_against_cpu(label, sf, tables, specs):
+    """Every query of ``specs`` ((name, build, ties, reads a partitioned
+    table) as ``query_specs`` gives them) on the card against the port's
+    own run on the CPU (whose answers the CPU tests hold against the JAX
     package)."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
-    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
-    t0 = time.perf_counter()
-    tables = tpch_tables(sf, seed)
-    gen_s = time.perf_counter() - t0
     gpu, cpu = TpuSession(BENCH_CONF), TpuSession(BENCH_CONF, device="cpu")
     cpu_s = gpu_s = 0.0
-    for q in QUERIES:
-        want, secs = run_query(cpu, tables, q)[:2]
+    for name, build, ties, _ in specs:
+        want, secs = run_query(cpu, name, build)[:2]
         cpu_s += secs
-        got, secs = run_query(gpu, tables, q)[:2]
+        got, secs = run_query(gpu, name, build)[:2]
         gpu_s += secs
-        worst = check_same_result(f"q{q} sf={sf} cuda against cpu", got, want,
-                                  q in TPCH_TIES)
-        print(f"q{q} sf={sf}: {got.num_rows} rows equal the CPU run "
+        worst = check_same_result(f"{name} sf={sf} cuda against cpu", got,
+                                  want, ties)
+        print(f"{name} sf={sf}: {got.num_rows} rows equal the CPU run "
               f"(worst relative float error {worst:.3e})")
-    print(f"tpch sf={sf} check: tables generated in {gen_s:.2f} s, 22 "
-          f"queries on the CPU in {cpu_s:.2f} s and on the card in "
-          f"{gpu_s:.2f} s, every result equal")
+    print(f"{label} sf={sf} check: {len(specs)} queries on the CPU in "
+          f"{cpu_s:.2f} s and on the card in {gpu_s:.2f} s, every result "
+          f"equal")
+
+
+def run_cold_warm(specs, all_kept):
+    """Each query of ``specs`` cold then warm on the card (the warm result
+    must equal the cold one), with its wall times, rows, peak device
+    memory, reorder launches and launches kept (the hash exchanges that
+    used the kernel's output rather than the sort path; every one with
+    ``all_kept``), join strategies and aggregate grouping modes. Returns
+    (per-query numbers, warm results)."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    from spark_rapids_tpu_torch.execs.tpu_execs import TpuHashAggregateExec
+
+    sess = TpuSession(BENCH_CONF)
+    results, nums = {}, {}
+    for name, build, ties, partitioned in specs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cold, cold_s, launches, _, kept, plan = run_query(sess, name, build)
+        warm, warm_s = run_query(sess, name, build)[:2]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_same_result(f"{name} warm against cold", warm, cold, ties)
+        if partitioned and launches < 1:
+            raise AssertionError(f"{name} reads a hash-repartitioned table "
+                                 f"and did not launch the reorder kernel")
+        splits = [(e.kernel_splits, e.sort_path_splits) for e in plan.walk()
+                  if isinstance(e, TpuShuffleExchangeExec)
+                  and isinstance(e.partitioning, HashPartitioning)]
+        if all_kept and kept < len(splits):
+            raise AssertionError(f"{name}: a hash exchange took the sort "
+                                 f"path: {splits}")
+        joins = [j.replace("Tpu", "").replace("Exec", "")
+                 for j in join_strategies(plan)]
+        modes = [e.modes_run for e in plan.walk()
+                 if isinstance(e, TpuHashAggregateExec)]
+        nums[name] = {"rows": warm.num_rows, "cold_s": cold_s,
+                      "warm_s": warm_s, "peak_gb": peak,
+                      "launches": launches, "launches_kept": kept}
+        print(f"{name}: rows={warm.num_rows} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} peak_device_gb={peak:.2f} "
+              f"reorder_launches={launches} launches_kept={kept} "
+              f"splits_kernel_sort={splits} joins={joins} "
+              f"aggregate_modes={modes}")
+        results[name] = warm
+        del cold, plan
+    return nums, results
+
+
+def run_dma(name, build, want):
+    """The query again with dmaConsolidate on: the compact kernel must
+    launch once per kept reorder output and the result equal ``want``.
+    Returns (reorder, compact, kept) launches."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    dma = TpuSession({**BENCH_CONF, "spark.rapids.tpu.shuffle.kernel."
+                                    "dmaConsolidate.enabled": "true"})
+    res, secs, reorder_n, compact_n, kept = run_query(dma, name, build)[:5]
+    if compact_n < 1 or compact_n != kept:
+        raise AssertionError(f"{name} dmaConsolidate: {compact_n} compact "
+                             f"launches for {kept} kept reorder outputs")
+    check_same_result(f"{name} dmaConsolidate against the default run", res,
+                      want, True)
+    print(f"{name} dmaConsolidate: s={secs:.4f} reorder_launches="
+          f"{reorder_n} compact_launches={compact_n}, equal to the default "
+          f"run")
+    return reorder_n, compact_n, kept
+
+
+def tpch_specs(tables):
+    """The 22 queries as (name, build, ties, reads a partitioned table)."""
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
+                                                                QUERIES)
+    return [(f"q{q}", lambda sess, q=q: QUERIES[q](query_frames(
+        sess, tables, q)), q in TPCH_TIES,
+        any(t in PARTITION_KEYS for t in COLUMNS[q])) for q in QUERIES]
+
+
+def phase_tpch_check(sf, seed):
+    t0 = time.perf_counter()
+    tables = tpch_tables(sf, seed)
+    print(f"tpch sf={sf}: tables generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check_against_cpu("tpch", sf, tables, tpch_specs(tables))
 
 
 def like_numpy(data, lengths, parts):
@@ -1283,12 +1383,12 @@ def q22_numpy(tables):
 
 def check_q13_q22(results, tables):
     c_count, dist = q13_numpy(tables)
-    got = results[13]
+    got = results["q13"]
     if not (np.array_equal(_col(got, "c_count"), c_count)
             and np.array_equal(_col(got, "custdist"), dist)):
         raise AssertionError(f"q13: {got.num_rows} rows differ from numpy")
     codes, num, tot = q22_numpy(tables)
-    got = results[22]
+    got = results["q22"]
     got_codes = [int(bytes(r)) for r in got.column_by_name("cntrycode").data
                  [:, :2]]
     rel = np.abs(_col(got, "totacctbal") - tot) / np.abs(tot)
@@ -1351,67 +1451,127 @@ def phase_tpch_kernels(tables, device):
 
 
 def phase_tpch(tables):
-    """All 22 queries at the run's scale through TpuSession on the card,
-    orders and lineitem hash-repartitioned 8 ways: each cold then warm (the
-    warm result must equal the cold one), with its wall times, rows, peak
-    device memory, reorder launches and launches kept (the hash exchanges
-    that used the kernel's output rather than the sort path), join
-    strategies and aggregate grouping modes; then Q18 with dmaConsolidate
-    on, whose compact kernel must launch and whose result must equal the
-    default run's; then Q13 and Q22 against numpy. Returns (per-query
-    numbers, the dma-on Q18's (reorder, compact) launches)."""
-    import torch
-    from spark_rapids_tpu_torch.api import TpuSession
-    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
-    from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
-                                                                QUERIES)
-    from spark_rapids_tpu_torch.execs.exchange_execs import (
-        HashPartitioning, TpuShuffleExchangeExec)
-    from spark_rapids_tpu_torch.execs.tpu_execs import TpuHashAggregateExec
-
-    sess = TpuSession(BENCH_CONF)
-    results, nums = {}, {}
-    for q in QUERIES:
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        cold, cold_s, launches, _, kept, plan = run_query(sess, tables, q)
-        warm, warm_s = run_query(sess, tables, q)[:2]
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        check_same_result(f"q{q} warm against cold", warm, cold,
-                          q in TPCH_TIES)
-        if launches < 1 and any(t in PARTITION_KEYS for t in COLUMNS[q]):
-            raise AssertionError(f"q{q} reads orders or lineitem and did "
-                                 f"not launch the reorder kernel")
-        joins = [j.replace("Tpu", "").replace("Exec", "")
-                 for j in join_strategies(plan)]
-        splits = [(e.kernel_splits, e.sort_path_splits) for e in plan.walk()
-                  if isinstance(e, TpuShuffleExchangeExec)
-                  and isinstance(e.partitioning, HashPartitioning)]
-        modes = [e.modes_run for e in plan.walk()
-                 if isinstance(e, TpuHashAggregateExec)]
-        nums[q] = {"rows": warm.num_rows, "cold_s": cold_s, "warm_s": warm_s,
-                   "peak_gb": peak, "launches": launches,
-                   "launches_kept": kept}
-        print(f"q{q}: rows={warm.num_rows} cold_s={cold_s:.4f} "
-              f"warm_s={warm_s:.4f} peak_device_gb={peak:.2f} "
-              f"reorder_launches={launches} launches_kept={kept} "
-              f"splits_kernel_sort={splits} joins={joins} "
-              f"aggregate_modes={modes}")
-        results[q] = warm
-        del cold, plan
-    dma = TpuSession({**BENCH_CONF, "spark.rapids.tpu.shuffle.kernel."
-                                    "dmaConsolidate.enabled": "true"})
-    res, secs, reorder_n, compact_n = run_query(dma, tables, 18)[:4]
-    if compact_n < 1:
-        raise AssertionError("q18 dmaConsolidate: the compact kernel was "
-                             "not launched")
-    check_same_result("q18 dmaConsolidate against the default run", res,
-                      results[18], True)
-    print(f"q18 dmaConsolidate: s={secs:.4f} reorder_launches={reorder_n} "
-          f"compact_launches={compact_n}, equal to the default run")
+    """All 22 queries at the run's scale, orders and lineitem
+    hash-repartitioned 8 ways, cold and warm (``run_cold_warm``); then Q18
+    with dmaConsolidate on; then Q13 and Q22 against numpy. Returns
+    (per-query numbers, the dma-on Q18's (reorder, compact, kept)
+    launches)."""
+    specs = tpch_specs(tables)
+    nums, results = run_cold_warm(specs, all_kept=False)
+    dma18 = run_dma("q18", dict((s[0], s[1]) for s in specs)["q18"],
+                    results["q18"])
     check_q13_q22(results, tables)
-    return nums, (reorder_n, compact_n)
+    return nums, dma18
+
+
+# ------------------------------------------------------------------ phase 10
+#: the TPC-DS bench subset (bench.py's TPCDS_BENCH_QUERIES) and TPCx-BB q5
+#: (its name here is "bb_q5")
+TPCDS_QUERIES = ("q3", "q4", "q7", "q14", "q19", "q23", "q27", "q34", "q42",
+                 "q52", "q55", "q67", "q68", "q96")
+SUITE = TPCDS_QUERIES + ("bb_q5",)
+#: queries whose final sort can tie (tests/test_tpcds.py's and
+#: tests/test_tpcxbb.py's lists): their rows compare unordered
+SUITE_TIES = {"q3", "q4", "q7", "q14", "q19", "q23", "q27", "q34", "q42",
+              "q52", "q55", "q67", "q68", "bb_q5"}
+#: the fact tables, hash-repartitioned 8 ways on their item keys
+FACT_KEYS = {"store_sales": "ss_item_sk", "catalog_sales": "cs_item_sk",
+             "web_sales": "ws_item_sk"}
+
+
+def suite_query(q):
+    """(query function, the columns it reads per table) of a suite name."""
+    if q == "bb_q5":
+        from spark_rapids_tpu_torch.benchmarks import tpcxbb_queries as bq
+        return bq.QUERIES["q5"], bq.COLUMNS["q5"]
+    from spark_rapids_tpu_torch.benchmarks import tpcds_queries as dq
+    return dq.QUERIES[q], dq.COLUMNS[q]
+
+
+def suite_tables(sf, seed):
+    """{"ds": the twelve TPC-DS tables with the union of the columns the 14
+    queries read (and the fact tables' partition keys), "bb": the four
+    tables TPCx-BB q5 reads}."""
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb_data as bd
+    want = {}
+    for q in TPCDS_QUERIES:
+        for t, names in suite_query(q)[1].items():
+            want.setdefault(t, set()).update(names)
+    for t, key in FACT_KEYS.items():
+        want[t].add(key)
+    cols = {t: [c for c in getattr(dd, f"{t.upper()}_COLUMNS") if c in names]
+            for t, names in want.items()}
+    return {"ds": dd.gen_all(sf, seed, cols),
+            "bb": bd.gen_all(sf, seed, suite_query("bb_q5")[1])}
+
+
+def suite_frames(sess, tables, q):
+    """Query ``q``'s DataFrames over only its columns (and the fact tables'
+    partition keys), the fact tables hash-repartitioned 8 ways."""
+    src = tables["bb" if q == "bb_q5" else "ds"]
+    dfs = {}
+    for t, names in suite_query(q)[1].items():
+        key = FACT_KEYS.get(t)
+        df = sess.create_dataframe(src[t].select(
+            names + ([key] if key and key not in names else [])))
+        dfs[t] = df.repartition(8, key) if key else df
+    return dfs
+
+
+def suite_specs(tables):
+    """The 15 suite queries as (name, build, ties, reads a fact table)."""
+    return [(q, lambda sess, q=q: suite_query(q)[0](suite_frames(
+        sess, tables, q)), q in SUITE_TIES,
+        any(t in FACT_KEYS for t in suite_query(q)[1])) for q in SUITE]
+
+
+def phase_suite_check(sf, seed):
+    t0 = time.perf_counter()
+    tables = suite_tables(sf, seed)
+    print(f"tpcds+q5 sf={sf}: tables generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check_against_cpu("tpcds+q5", sf, tables, suite_specs(tables))
+
+
+def phase_suite_kernels(tables, device):
+    """Both kernels against their plain versions on the widest store_sales
+    input the suite's hash exchanges give the reorder, timed and bounded
+    there. Returns (reorder numbers, compact numbers) as phase 7's are."""
+    def width(hb):
+        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
+                                      else 1) + 1
+                   + (4 if c.lengths is not None else 0) for c in hb.columns)
+    best = None
+    for q in TPCDS_QUERIES:
+        names = suite_query(q)[1].get("store_sales")
+        if names is None:
+            continue
+        cols = names + ([FACT_KEYS["store_sales"]]
+                        if FACT_KEYS["store_sales"] not in names else [])
+        hb = tables["ds"]["store_sales"].select(cols)
+        if best is None or width(hb) > width(best[1]):
+            best = (q, hb)
+    q, hb = best
+    return check_kernels_on({f"{q} store_sales": (hb, "ss_item_sk")},
+                            device)[1:]
+
+
+def phase_suite(tables):
+    """The 14 TPC-DS queries and TPCx-BB q5 at the run's scale, the fact
+    tables hash-repartitioned 8 ways on their item keys, cold and warm
+    (``run_cold_warm``; every fact-table exchange must keep the reorder's
+    output); then q23 with dmaConsolidate on; then the geomean of the 14
+    TPC-DS warm walls on its own line. Returns (per-query numbers, the
+    dma-on q23's (reorder, compact, kept) launches)."""
+    specs = suite_specs(tables)
+    nums, results = run_cold_warm(specs, all_kept=True)
+    dma23 = run_dma("q23", dict((s[0], s[1]) for s in specs)["q23"],
+                    results["q23"])
+    warm = [nums[q]["warm_s"] for q in TPCDS_QUERIES]
+    print(json.dumps({"tpcds_warm_geomean_s": float(np.exp(np.mean(
+        np.log(warm)))), "queries": len(warm)}))
+    return nums, dma23
 
 
 def main() -> int:
@@ -1426,8 +1586,8 @@ def main() -> int:
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
     ap.add_argument("--check-sf", type=float, default=1.0,
-                    help="scale of phase 9's check of every TPC-H query on "
-                         "the card against the CPU")
+                    help="scale of phase 9's and phase 10's checks of "
+                         "every query on the card against the CPU")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one exchange run with dmaConsolidate "
                          "off and on, one Q1 run and one Q3 run, and write "
@@ -1502,26 +1662,55 @@ def main() -> int:
     by_path["q18 dmaConsolidate"] = {"reorder": dma18[0],
                                      "compact": dma18[1]}
     for q, n in tpch.items():
-        by_path[f"tpch q{q}"] = {"reorder": n["launches"]}
-    # this slice's main path is the 22 TPC-H queries: the reorder's
-    # launches summed over their cold runs (launches_kept: those whose
-    # output the exchange used) and the compact kernel's in the dma-on Q18,
-    # beside the times, bounds and errors of the widest orders and lineitem
-    # inputs those queries give the kernels. Phase 3's reading at Q1's
-    # lineitem shape, phase 7's on Q3's inputs and every path's launches
-    # stand beside them.
+        by_path[f"tpch {q}"] = {"reorder": n["launches"]}
+    phase_suite_check(args.check_sf, args.seed)
+    phase_done(f"10 tpcds+q5 sf={args.check_sf} against the cpu")
+    tables = suite_tables(args.sf, args.seed)
+    print(f"tpcds tables sf={args.sf}: " + ", ".join(
+        f"{k} {v.num_rows}" for k, v in tables["ds"].items())
+        + "; tpcxbb: " + ", ".join(
+        f"{k} {v.num_rows}" for k, v in tables["bb"].items())
+        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+    suite_kernel_nums = phase_suite_kernels(tables, device)
+    phase_done("10 tpcds kernel checks")
+    suite, dma23 = phase_suite(tables)
+    del tables
+    phase_done(f"10 tpcds+q5 sf={args.sf}")
+    by_path["q23 dmaConsolidate"] = {"reorder": dma23[0],
+                                     "compact": dma23[1]}
+    for q, n in suite.items():
+        by_path[q] = {"reorder": n["launches"]}
+    # this slice's main path is the 14 TPC-DS queries and TPCx-BB q5: the
+    # reorder's launches summed over their cold runs (launches_kept: those
+    # whose output the exchange used) and the compact kernel's in the
+    # dma-on q23, beside the times, bounds and errors of the widest
+    # store_sales input those queries give the kernels. Phase 9's TPC-H
+    # reading (launches and the widest orders and lineitem inputs), phase
+    # 7's on Q3's inputs, phase 3's at Q1's lineitem shape and every
+    # path's launches stand beside them.
+    tpch_launches = {"reorder": (sum(n["launches"] for n in tpch.values()),
+                                 sum(n["launches_kept"]
+                                     for n in tpch.values())),
+                     "compact": (dma18[1], dma18[2])}
     records = []
-    for name, nums, q3n, li_n, launches, kept in (
-            ("reorder", tpch_kernel_nums[0], q3_nums[0], lineitem_nums[0],
-             sum(n["launches"] for n in tpch.values()),
-             sum(n["launches_kept"] for n in tpch.values())),
-            ("compact", tpch_kernel_nums[1], q3_nums[1], lineitem_nums[1],
-             dma18[1], dma18[1])):
+    for name, nums, tpchn, q3n, li_n, launches, kept in (
+            ("reorder", suite_kernel_nums[0], tpch_kernel_nums[0],
+             q3_nums[0], lineitem_nums[0],
+             sum(n["launches"] for n in suite.values()),
+             sum(n["launches_kept"] for n in suite.values())),
+            ("compact", suite_kernel_nums[1], tpch_kernel_nums[1],
+             q3_nums[1], lineitem_nums[1], dma23[1], dma23[2])):
         if launches < 1 or kept < 1:
-            raise AssertionError(f"{name}: the TPC-H runs launched it "
+            raise AssertionError(f"{name}: the TPC-DS runs launched it "
                                  f"{launches} times, {kept} of them kept")
+        t_launches, t_kept = tpch_launches[name]
+        if t_launches < 1 or t_kept < 1:
+            raise AssertionError(f"{name}: the TPC-H runs launched it "
+                                 f"{t_launches} times, {t_kept} of them kept")
         records.append({**KERNELS[name], "launches": launches,
                         "launches_kept": kept, **nums,
+                        "phase9_tpch": {"launches": t_launches,
+                                        "launches_kept": t_kept, **tpchn},
                         "phase7_q3": q3n, "phase3_q1_lineitem": li_n,
                         "launches_by_path": {p: v[name]
                                              for p, v in by_path.items()

@@ -11,6 +11,7 @@ from spark_rapids_tpu_torch.exprs import (Add, Alias, And, Contains, Divide,
                                           LessThanOrEqual, Like, Literal,
                                           Multiply, Not, NotEqual, Or,
                                           SortOrder, StartsWith, Subtract)
+from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 
 
 def _expr(v: Any) -> Expression:
@@ -73,6 +74,11 @@ class Column:
 
     # ordering (ascending, nulls first, is a sort's default)
     def desc(self): return Column(SortOrder(self.expr, False, False))
+
+    # windowing
+    def over(self, spec) -> "Column":
+        return Column(WindowExpression(self.expr, spec._part, spec._orders,
+                                       spec._frame))
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))

@@ -1,0 +1,44 @@
+"""PySpark-style window specs: ``Window.partitionBy("a")
+.orderBy(col("b").desc())``, consumed by ``Column.over``. Frames
+(``rowsBetween``/``rangeBetween``) come with the framed aggregates, which
+the port does not have yet."""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+from spark_rapids_tpu_torch.api.column import Column
+from spark_rapids_tpu_torch.api.dataframe import _to_expr
+from spark_rapids_tpu_torch.exprs.core import Expression
+from spark_rapids_tpu_torch.exprs.misc import SortOrder
+from spark_rapids_tpu_torch.exprs.windows import WindowFrame
+
+
+class WindowSpec:
+    def __init__(self, part: Tuple[Expression, ...] = (),
+                 orders: Tuple[SortOrder, ...] = (),
+                 frame: Optional[WindowFrame] = None):
+        self._part = part
+        self._orders = orders
+        self._frame = frame
+
+    def partitionBy(self, *cols: Union[str, Column]) -> "WindowSpec":
+        return WindowSpec(tuple(_to_expr(c) for c in cols), self._orders,
+                          self._frame)
+
+    def orderBy(self, *cols: Union[str, Column]) -> "WindowSpec":
+        orders = []
+        for c in cols:
+            e = _to_expr(c)
+            orders.append(e if isinstance(e, SortOrder)
+                          else SortOrder(e, True, True))
+        return WindowSpec(self._part, tuple(orders), self._frame)
+
+
+class Window:
+    @staticmethod
+    def partitionBy(*cols: Union[str, Column]) -> WindowSpec:
+        return WindowSpec().partitionBy(*cols)
+
+    @staticmethod
+    def orderBy(*cols: Union[str, Column]) -> WindowSpec:
+        return WindowSpec().orderBy(*cols)

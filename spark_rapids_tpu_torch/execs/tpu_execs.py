@@ -1,5 +1,5 @@
 """Device physical operators: upload/download transitions, project,
-filter, hash aggregate, sort and limit. Each evaluates its expressions
+filter, hash aggregate, sort, limit and union. Each evaluates its expressions
 eagerly on the batch's tensors; the live row count of a result reaches the
 host once per batch to pick the output's capacity bucket, as in the JAX
 package."""
@@ -221,3 +221,22 @@ class TpuLimitExec(PhysicalExec):
                     DeviceColumn(c.dtype, c.data, c.validity & alive,
                                  c.lengths) for c in batch.columns), take)
             yield batch
+
+
+class TpuUnionExec(PhysicalExec):
+    """UNION ALL: each partition yields the left child's batches, then the
+    right child's (the children share one schema; the left one names it).
+    The port has no file scan, so it has none of the hidden input-file
+    columns the JAX planner aligns across a union's branches."""
+
+    def __init__(self, left: PhysicalExec, right: PhysicalExec):
+        super().__init__((left, right), left.output)
+
+    def size_estimate(self) -> Optional[int]:
+        sizes = [c.size_estimate() for c in self.children]
+        return None if any(s is None for s in sizes) else sum(sizes)
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        for child in self.children:
+            for batch in child.execute(ctx):
+                yield DeviceBatch(self.output, batch.columns, batch.num_rows)

@@ -1,7 +1,9 @@
-"""Expressions of the port: the subset the 22 TPC-H queries use."""
+"""Expressions of the port: the subset the 22 TPC-H queries, the TPC-DS
+bench subset and TPCx-BB q5 use."""
 from spark_rapids_tpu_torch.exprs.aggregates import (AggregateFunction, Average,
-                                                     BufferSpec, Count, Max,
-                                                     Min, Sum)
+                                                     BufferSpec, Count,
+                                                     DistinctAgg, First, Last,
+                                                     Max, Min, Sum)
 from spark_rapids_tpu_torch.exprs.arithmetic import (Add, Divide, Multiply,
                                                      Subtract)
 from spark_rapids_tpu_torch.exprs.cast import Cast
@@ -25,8 +27,8 @@ from spark_rapids_tpu_torch.exprs.strings import (Contains, EndsWith, Like,
                                                   StartsWith, Substring)
 
 __all__ = [
-    "AggregateFunction", "Average", "BufferSpec", "Count", "Max", "Min",
-    "Sum", "Add", "Divide", "Multiply", "Subtract", "Cast", "CaseWhen", "If",
+    "AggregateFunction", "Average", "BufferSpec", "Count", "DistinctAgg",
+    "First", "Last", "Max", "Min", "Sum", "Add", "Divide", "Multiply", "Subtract", "Cast", "CaseWhen", "If",
     "BoundReference", "ColV", "EvalCtx", "Expression", "UnresolvedAttribute",
     "bind_expression", "DayOfMonth", "Month", "Year", "Literal", "Alias",
     "SortOrder", "AtLeastNNonNulls", "Coalesce", "IsNan", "IsNotNull",

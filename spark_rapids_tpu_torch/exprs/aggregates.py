@@ -5,7 +5,11 @@ reduction kind); the aggregate exec evaluates the projections, reduces each
 buffer per group and calls ``evaluate`` on the reduced buffers. Sum, Count
 and Average reduce ``sum`` buffers; Min and Max reduce ``min`` and ``max``
 buffers (a null input is projected to the reduction's neutral value; a
-string buffer keeps its rows and reduces by byte order).
+string buffer keeps its rows and reduces by byte order). First and Last
+reduce ``first`` and ``last`` buffers: the value of the group's first or
+last row, or of its first or last valid row with ``ignore_nulls``.
+``DistinctAgg`` marks an aggregate over distinct values; the DataFrame API
+rewrites it away before planning.
 """
 from __future__ import annotations
 
@@ -20,12 +24,20 @@ from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 
 @dataclass(frozen=True)
 class BufferSpec:
+    """One buffer: its dtype and reduction kind. ``ignore_nulls`` matters
+    only to first/last: the first/last valid row instead of the first/last
+    row outright (which may be null)."""
     dtype: DType
-    kind: str  # sum | min | max
+    kind: str  # sum | min | max | first | last
+    ignore_nulls: bool = False
 
 
 class AggregateFunction(Expression):
     """Base for declarative aggregate functions. Not row-evaluable."""
+
+    @property
+    def child(self) -> Expression:
+        return self.children[0] if self.children else None
 
     def eval(self, ctx: EvalCtx) -> ColV:
         raise TypeError(f"{type(self).__name__} must be evaluated by an "
@@ -131,6 +143,54 @@ class Min(_MinMax):
 class Max(_MinMax):
     c: Expression
     kind = "max"
+
+
+class _FirstLast(AggregateFunction):
+    kind = ""
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def buffer_specs(self) -> List[BufferSpec]:
+        return [BufferSpec(self.dtype(), self.kind, self.ignore_nulls)]
+
+    def project(self, ctx: EvalCtx) -> List[ColV]:
+        return [self.c.eval(ctx)]
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        return buffers[0]
+
+
+@dataclass(frozen=True)
+class First(_FirstLast):
+    c: Expression
+    ignore_nulls: bool = False
+    kind = "first"
+
+
+@dataclass(frozen=True)
+class Last(_FirstLast):
+    c: Expression
+    ignore_nulls: bool = False
+    kind = "last"
+
+
+@dataclass(frozen=True)
+class DistinctAgg(AggregateFunction):
+    """Marker wrapping an aggregate over the DISTINCT values of its child.
+    Never executed: ``GroupedData.agg`` rewrites an aggregation holding one
+    into dedup-then-aggregate subplans joined on the grouping keys."""
+    inner: AggregateFunction
+
+    def dtype(self) -> DType:
+        return self.inner.dtype()
+
+    def nullable(self) -> bool:
+        return self.inner.nullable()
+
+    @property
+    def name_hint(self) -> str:
+        return f"{self.inner.name_hint}_distinct"
 
 
 def _reduce_neutral(kind: str, dt: DType):

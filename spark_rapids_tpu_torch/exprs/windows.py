@@ -1,0 +1,116 @@
+"""Window expressions (the JAX package's ``exprs/windows.py``): the frame
+spec, ``WindowExpression`` and the three ranking functions.
+
+A ``WindowExpression`` pairs a function with its partition keys, order
+keys and frame. The window exec sorts once per (partition, order) spec and
+hands every expression under it one ``FrameCtx`` (``ops/window.py``); a
+ranking function reads its positions. Framed aggregates, lead/lag, ntile,
+percent_rank and cume_dist are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DType
+from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
+from spark_rapids_tpu_torch.exprs.misc import SortOrder
+
+
+@dataclass(frozen=True)
+class WindowFrame:
+    """Frame spec. ``lower``/``upper``: None = unbounded; ROWS: an int row
+    offset (negative = preceding); RANGE: a numeric offset on the single
+    order key, 0 = CURRENT ROW (peer-inclusive)."""
+    frame_type: str = "range"  # "rows" | "range"
+    lower: Optional[Union[int, float]] = None
+    upper: Optional[Union[int, float]] = 0
+
+
+class WindowFunction(Expression):
+    """Ranking-style function computed from partition and peer positions."""
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        raise NotImplementedError(type(self).__name__)
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        raise TypeError(f"{type(self).__name__} must be evaluated by a "
+                        f"window exec")
+
+
+@dataclass(frozen=True)
+class WindowExpression(Expression):
+    """function OVER (PARTITION BY part_keys ORDER BY orders frame)."""
+    fn: Expression
+    part_keys: Tuple[Expression, ...] = ()
+    orders: Tuple[SortOrder, ...] = ()
+    frame: Optional[WindowFrame] = None
+
+    def __post_init__(self):
+        if isinstance(self.fn, WindowFunction) and not self.orders:
+            # Spark's analyzer error for rank/row_number without ORDER BY
+            raise ValueError(
+                f"window function {type(self.fn).__name__} requires the "
+                f"window to be ordered (add orderBy to the window spec)")
+
+    def dtype(self) -> DType:
+        return self.fn.dtype()
+
+    def nullable(self) -> bool:
+        return self.fn.nullable()
+
+    @property
+    def name_hint(self) -> str:
+        return self.fn.name_hint
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        raise TypeError("WindowExpression must be evaluated by a window exec")
+
+    def sort_spec_key(self):
+        """Window expressions sharing this key share one sort and FrameCtx."""
+        return (self.part_keys, self.orders)
+
+
+def _rank_col(data: torch.Tensor, fr) -> ColV:
+    return ColV(DType.INT, data.to(torch.int32), fr.salive)
+
+
+@dataclass(frozen=True)
+class RowNumber(WindowFunction):
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        return _rank_col(fr.idx - fr.seg_first + 1, fr)
+
+
+@dataclass(frozen=True)
+class Rank(WindowFunction):
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        return _rank_col(fr.peer_first - fr.seg_first + 1, fr)
+
+
+@dataclass(frozen=True)
+class DenseRank(WindowFunction):
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        # the count of peer-group starts in (seg_first, idx]
+        c = torch.cumsum((fr.peer_first == fr.idx).to(torch.int64), 0)
+        return _rank_col(c - c[fr.seg_first.clamp(0, fr.capacity - 1)] + 1,
+                         fr)

@@ -21,10 +21,16 @@ are more than ``GROUP_CAP`` groups. Its groups come out in hash order, as
 the JAX package's do.
 
 ``sort`` orders rows by the exact key passes and reduces segments; it is the
-last escalation target. Without keys every mode is the global aggregate:
-one group, also over no rows. An aggregate with keys and no functions is a
-``distinct``. A string min or max ranks the rows by byte order and reduces
-the ranks (``_segment_minmax_string``).
+last escalation target. A first/last buffer picks the group's first or last
+row in input order in every mode: the least or greatest row index by
+``segment_pick`` in the one-hot, sort and global modes (the hash and sort
+orders are stable, so a group's rows keep their input order), and in the
+hash mode the row at the group's boundary (``_register_pick``; with
+``ignore_nulls``, the least or greatest valid row index). Without keys
+every mode is the global aggregate: one group, also over no rows. An
+aggregate with keys and no functions is a ``distinct``. A string min or
+max ranks the rows by byte order and reduces the ranks
+(``_segment_minmax_string``).
 
 The port has one aggregation stage (its exec sees all its input in one
 partition), so the JAX package's partial buffers and ``merge_aggregate``
@@ -146,7 +152,9 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
         collided |= w != w[row_rep]
     flagged = num_real > G or bool((collided & in_table).any())
     key_cols = [bk.take_padded(v, rep, out_cap) for v in keys]
-    reduced_per_fn = [[_group_reduce(b, spec.kind, spread, num_groups,
+    reduced_per_fn = [[_pick(b, spec, gid, num_groups + 1, out_cap)
+                       if spec.kind in ("first", "last") else
+                       _group_reduce(b, spec.kind, spread, num_groups,
                                      out_cap)
                        for spec, b in zip(fn.buffer_specs(), bufs)]
                       for fn, bufs in zip(agg_fns, projections)]
@@ -201,6 +209,19 @@ def _group_reduce(b: ColV, kind: str, spread: torch.Tensor, num_groups: int,
                 count > 0)
 
 
+def _pick(b: ColV, spec, seg_ids: torch.Tensor, num_segments: int,
+          out_cap: int, alive=None) -> ColV:
+    """A first/last buffer: the value at each segment's first or last
+    participating row (the JAX package's ``segment_pick`` reduction), in a
+    column of ``out_cap`` rows. The one-hot mode's spare segment (its last)
+    falls past the groups and is dropped."""
+    pick, has = bk.segment_pick(b.validity, seg_ids, num_segments, spec.kind,
+                                alive=alive, ignore_nulls=spec.ignore_nulls)
+    n = min(num_segments, out_cap)
+    out = bk.take_padded(b, pick[:n], out_cap)
+    return out.with_validity(out.validity & pad_rows(has[:n], out_cap))
+
+
 def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
     none = torch.zeros(0, dtype=torch.int64, device=device)
     key_cols = [bk.take_padded(v, none, out_cap) for v in keys]
@@ -220,9 +241,15 @@ def _reduce_buffer(b: ColV, kind: str, gids: torch.Tensor,
     return ColV(b.dtype, data, valid)
 
 
-def _segment_reduce_all(agg_fns, projections, order, gids, out_cap):
-    """Every buffer taken in ``order`` and reduced per group id."""
-    return [[_reduce_buffer(bk.take_colv(b, order), spec.kind, gids, out_cap)
+def _segment_reduce_all(agg_fns, projections, order, gids, out_cap,
+                        sorted_alive):
+    """Every buffer taken in ``order`` and reduced per group id (dead rows
+    share the last group's id; only the picks need ``sorted_alive`` to
+    pass them over, every other buffer's dead rows are invalid)."""
+    return [[_pick(bk.take_colv(b, order), spec, gids, out_cap, out_cap,
+                   sorted_alive)
+             if spec.kind in ("first", "last") else
+             _reduce_buffer(bk.take_colv(b, order), spec.kind, gids, out_cap)
              for spec, b in zip(fn.buffer_specs(), bufs)]
             for fn, bufs in zip(agg_fns, projections)]
 
@@ -243,10 +270,17 @@ def _string_rank(b: ColV, kind: str):
 def _segment_minmax_string(b: ColV, gids: torch.Tensor, out_cap: int,
                            kind: str) -> ColV:
     """min/max over strings: the least or greatest rank per group, then
-    that row picked (both sentinels fail the bounds check)."""
+    that row picked."""
     order, masked, n = _string_rank(b, kind)
     seg, _ = bk.segment_reduce(masked, torch.ones_like(b.validity), gids,
                                out_cap, kind)
+    return _string_pick(b, order, seg, n)
+
+
+def _string_pick(b: ColV, order: torch.Tensor, seg: torch.Tensor,
+                 n: int) -> ColV:
+    """String min/max's tail: each group's reduced rank -> the row picked
+    (both sentinels fail the bounds check)."""
     has = (seg >= 0) & (seg < n)
     pick = order[seg.clamp(0, n - 1)]
     return ColV(b.dtype, b.data[pick], has & b.validity[pick],
@@ -259,7 +293,7 @@ def _global_aggregate(projections, agg_fns, alive) -> AggResult:
     order = torch.arange(alive.shape[0], device=alive.device)
     out_cap = bucket_capacity(1)
     reduced = _segment_reduce_all(agg_fns, projections, order,
-                                  torch.zeros_like(order), out_cap)
+                                  torch.zeros_like(order), out_cap, alive)
     return _finish([], reduced, agg_fns, 1, out_cap, False, alive.device)
 
 
@@ -274,7 +308,7 @@ def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     key_cols = [bk.take_padded(k, first, out_cap) for k in sorted_keys]
     return _finish(key_cols,
                    _segment_reduce_all(agg_fns, projections, order, gids,
-                                       out_cap),
+                                       out_cap, alive[order]),
                    agg_fns, num_groups, out_cap, False, alive.device)
 
 
@@ -339,6 +373,10 @@ def _reduce_phase_scan(sorted_keys, agg_fns, sorted_projs, gids,
     for fn, bufs in zip(agg_fns, sorted_projs):
         reduced = []
         for spec, b in zip(fn.buffer_specs(), bufs):
+            if spec.kind in ("first", "last"):
+                reduced.append(_register_pick(b, spec, start, end, has,
+                                              gids_b, out_cap, sorted_alive))
+                continue
             if spec.kind != "sum" or b.dtype.is_floating:
                 reduced.append(_reduce_buffer(b, spec.kind, gids_b, out_cap))
                 continue
@@ -348,3 +386,17 @@ def _reduce_phase_scan(sorted_keys, agg_fns, sorted_projs, gids,
             reduced.append(ColV(b.dtype, data, valid))
         reduced_per_fn.append(reduced)
     return key_cols, reduced_per_fn
+
+
+def _register_pick(b: ColV, spec, start: torch.Tensor, end: torch.Tensor,
+                   has: torch.Tensor, gids_b: torch.Tensor, out_cap: int,
+                   sorted_alive: torch.Tensor) -> ColV:
+    """The hash mode's first/last over rows in group order: the row at the
+    group's first or last boundary, or, with ``ignore_nulls``, the least or
+    greatest valid row index of the group (the JAX package's
+    ``_register_pick``)."""
+    if spec.ignore_nulls:
+        return _pick(b, spec, gids_b, out_cap, out_cap, sorted_alive)
+    pos = start if spec.kind == "first" else end
+    out = bk.take_colv(b, pos)
+    return out.with_validity(out.validity & has)

@@ -320,6 +320,31 @@ def starts_from_sorted(sorted_keys: Sequence[ColV],
     return new_group & sorted_alive
 
 
+def segment_pick(validity: torch.Tensor, seg_ids: torch.Tensor,
+                 num_segments: int, kind: str, alive=None,
+                 ignore_nulls: bool = False):
+    """Row index of the first (``kind="first"``) or last participating row
+    of each segment -> (pick, has). Rows take part when alive, and with
+    ``ignore_nulls`` also valid. The pick is a min or max of row indices
+    (``scatter_reduce_`` with ``amin``/``amax`` on int64), which is exact
+    in any order, so the GPU's atomics give the CPU's answer. A segment
+    without a candidate keeps the sentinel, which ``has`` rejects; its pick
+    is clamped into range so callers can gather with it."""
+    n = validity.shape[0]
+    if alive is None:
+        alive = torch.ones_like(validity)
+    candidate = alive & validity if ignore_nulls else alive
+    idx = torch.arange(n, dtype=torch.int64, device=validity.device)
+    sentinel = n + 1 if kind == "first" else -1
+    op = "amin" if kind == "first" else "amax"
+    key = torch.where(candidate, idx, sentinel)
+    pick = torch.full((num_segments,), sentinel, dtype=torch.int64,
+                      device=validity.device).scatter_reduce_(0, seg_ids, key,
+                                                              op)
+    has = (pick >= 0) & (pick < n)
+    return pick.clamp(0, max(n - 1, 0)), has
+
+
 def segment_sum(contrib: torch.Tensor, seg_ids: torch.Tensor,
                 num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
     """Per-segment sum. Integer sums come out the same in any order, and

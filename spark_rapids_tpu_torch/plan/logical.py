@@ -1,11 +1,12 @@
 """Logical plan nodes produced by the DataFrame API (the subset this port
-plans: scan, project, filter, aggregate, sort, limit, join, repartition)."""
+plans: scan, project, filter, aggregate, sort, limit, join, repartition,
+union, expand and window)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+from spark_rapids_tpu_torch.columnar.dtypes import DType, Field, Schema
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.exprs.core import Expression, bind_expression
 from spark_rapids_tpu_torch.exprs.misc import SortOrder
@@ -152,3 +153,63 @@ class Join(LogicalPlan):
             names.add(name)
             out.append(Field(name, f.dtype, f.nullable))
         return Schema(out)
+
+
+@dataclass
+class Union(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.left, self.right)
+
+    def schema(self) -> Schema:
+        return self.left.schema()
+
+
+@dataclass
+class Expand(LogicalPlan):
+    """Each input row becomes one output row per projection list (Spark's
+    Expand, under rollup, cube and grouping sets). A slot's type is its
+    first non-NULL projection's; it is nullable if any projection is
+    nullable or NULL."""
+    projections: Tuple[Tuple[Expression, ...], ...]
+    names: Tuple[str, ...]
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def schema(self) -> Schema:
+        cs = self.child.schema()
+        fields = []
+        for i, name in enumerate(self.names):
+            slot = [bind_expression(p[i], cs) for p in self.projections]
+            dt = next((b.dtype() for b in slot if b.dtype() is not DType.NULL),
+                      DType.NULL)
+            nullable = any(b.nullable() or b.dtype() is DType.NULL
+                           for b in slot)
+            fields.append(Field(name, dt, nullable))
+        return Schema(fields)
+
+
+@dataclass
+class Window(LogicalPlan):
+    """The child's columns and one window column per expression; every
+    expression shares one (partition, order) spec (the API groups them)."""
+    wexprs: Tuple[Expression, ...]   # Alias(WindowExpression) entries
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def schema(self) -> Schema:
+        cs = self.child.schema()
+        fields = list(cs.fields)
+        for e in self.wexprs:
+            b = bind_expression(e, cs)
+            fields.append(Field(e.name_hint, b.dtype(), b.nullable()))
+        return Schema(fields)

@@ -5,7 +5,8 @@ onto the TPU; the port has no CPU engine, so it plans the device operators
 directly, binds expressions to child ordinals, picks each join's strategy
 (``_select_join``) and satisfies the operators' distribution requirements
 (``ensure_requirements``). An operator it cannot plan raises
-``NotImplementedError`` naming it.
+``NotImplementedError`` naming it. A union, expand or window plans as the
+JAX package's ``TpuOverrides`` converts its CPU exec.
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ from spark_rapids_tpu_torch.execs.exchange_execs import (
 from spark_rapids_tpu_torch.execs.join_execs import (
     TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
     TpuCartesianProductExec, TpuShuffledHashJoinExec, legal_broadcast_sides)
+from spark_rapids_tpu_torch.execs.expand_execs import TpuExpandExec
 from spark_rapids_tpu_torch.execs.tpu_execs import (
     DeviceToHostExec, HostToDeviceExec, TpuFilterExec, TpuHashAggregateExec,
-    TpuLimitExec, TpuProjectExec, TpuSortExec)
+    TpuLimitExec, TpuProjectExec, TpuSortExec, TpuUnionExec)
+from spark_rapids_tpu_torch.execs.window_execs import TpuWindowExec
 from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, Average, Sum
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.core import Expression, bind_expression
@@ -41,9 +44,9 @@ def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
     """Distribution requirements, as the JAX package's planner sets them:
     a broadcast join's build side gets a broadcast exchange (the stream side
     keeps its partitioning); a sort over a partitioned child gets a range
-    exchange and sorts each range; aggregates, limits and shuffled joins
-    see all their input in one partition, through a single-partition
-    exchange over a partitioned child."""
+    exchange and sorts each range; aggregates, limits, shuffled joins and
+    windows see all their input in one partition, through a
+    single-partition exchange over a partitioned child."""
     def fix(node: PhysicalExec) -> PhysicalExec:
         if isinstance(node, TpuBroadcastHashJoinExec):
             bi = 0 if node.build_side == "left" else 1
@@ -59,7 +62,7 @@ def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
             return node.with_children([TpuShuffleExchangeExec(
                 RangePartitioning(child.num_partitions, node.orders), child)])
         if not isinstance(node, (TpuHashAggregateExec, TpuLimitExec,
-                                 TpuShuffledHashJoinExec)):
+                                 TpuShuffledHashJoinExec, TpuWindowExec)):
             return node
         kids = [TpuShuffleExchangeExec(SinglePartitioning(), c)
                 if c.num_partitions > 1 else c for c in node.children]
@@ -89,6 +92,9 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
         return HostToDeviceExec(CpuLocalScanExec(plan.batch))
     if isinstance(plan, lp.Join):
         return _plan_join(plan, conf)
+    if isinstance(plan, lp.Union):
+        return TpuUnionExec(_plan_node(plan.left, conf),
+                            _plan_node(plan.right, conf))
     child = _plan_node(plan.child, conf) if plan.children else None
     if isinstance(plan, lp.Project):
         return TpuProjectExec(tuple(_named(bind_expression(e, child.output),
@@ -113,6 +119,13 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
         return TpuSortExec(orders, child)
     if isinstance(plan, lp.Limit):
         return TpuLimitExec(plan.n, child)
+    if isinstance(plan, lp.Expand):
+        projs = tuple(tuple(bind_expression(e, child.output) for e in p)
+                      for p in plan.projections)
+        return TpuExpandExec(projs, child, plan.schema())
+    if isinstance(plan, lp.Window):
+        return TpuWindowExec(tuple(_named(bind_expression(e, child.output), e)
+                                   for e in plan.wexprs), child)
     if isinstance(plan, lp.Repartition):
         if not plan.keys:
             return TpuShuffleExchangeExec(

@@ -5,7 +5,8 @@ empty sides); ``crossJoin`` plans the broadcast nested-loop join (either
 build side) or the cartesian product exactly where the JAX planner does,
 with ``sql.exec.NestedLoopJoin`` and ``sql.exec.CartesianProduct`` on, and
 collects the JAX numpy engine's rows; ``distinct`` equals its rows, and
-``dropDuplicates(subset)`` names what it waits for."""
+``dropDuplicates(subset)``, which waited for the ``First`` aggregate,
+now keeps the JAX device path's first row per key."""
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -168,7 +169,11 @@ def test_distinct_equals_reference():
 
 
 def test_drop_duplicates_subset_names_the_missing_first():
-    sess = TpuSession({}, device="cpu")
-    df = sess.create_dataframe(pa.table({"a": [1, 1], "b": [2, 3]}))
-    with pytest.raises(NotImplementedError, match="First"):
-        df.dropDuplicates(["a"])
+    table = pa.table({"a": [1, 1, None, 2, None], "b": [2, 3, 4, None, 5],
+                      "c": ["x", "y", None, "z", "w"]})
+    want = JaxSession({}).create_dataframe(table).dropDuplicates(["a"]) \
+        .collect()
+    got = TpuSession({}, device="cpu").create_dataframe(table) \
+        .dropDuplicates(["a"]).collect()
+    assert got.schema.names() == ["a", "b", "c"] and got.num_rows == 3
+    assert_tables_equal(want, got.to_arrow(), ignore_order=True)

@@ -329,3 +329,76 @@ def test_cuda_float_sums_repeat_bit_for_bit(cuda, mode, groups):
             out.append(res[0].data[:num].cpu())
         assert torch.equal(out[0], out[1])
         assert torch.allclose(out[0], out[2], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [("onehot", 40), ("hash", 5000),
+                                         ("sort", 100_000)])
+def test_cuda_first_last_equal_cpu(cuda, mode, groups):
+    """``segment_pick`` (a min/max of row indices by ``scatter_reduce_``)
+    on the card equals the CPU's picks, and so do first/last with and
+    without ignorenulls over doubles and strings in every grouping mode."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs import BoundReference, First, Last
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    from spark_rapids_tpu_torch.ops import batch_kernels as bk
+    from spark_rapids_tpu_torch.ops.aggregate import group_aggregate
+    rng = np.random.default_rng(9)
+    n = 1 << 19
+    key = torch.from_numpy(rng.integers(0, groups, n))
+    valid = torch.from_numpy(rng.random(n) > 0.3)
+    alive = torch.from_numpy(rng.random(n) > 0.05)
+    for kind in ("first", "last"):
+        for ign in (False, True):
+            want = bk.segment_pick(valid, key, groups, kind, alive, ign)
+            got = bk.segment_pick(valid.to(cuda), key.to(cuda), groups, kind,
+                                  alive.to(cuda), ign)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    s, s_len = _strings_tensor(rng, n, 16)
+    cols = [ColV(DType.LONG, key, torch.ones(n, dtype=torch.bool)),
+            ColV(DType.DOUBLE, torch.from_numpy(rng.standard_normal(n)),
+                 valid),
+            ColV(DType.STRING, s, torch.from_numpy(rng.random(n) > 0.3),
+                 s_len)]
+    refs = [BoundReference(i, c.dtype) for i, c in enumerate(cols)]
+    fns = [f(r, ign) for r in refs[1:] for f in (First, Last)
+           for ign in (False, True)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dc = [ColV(c.dtype, c.data.to(dev), c.validity.to(dev),
+                   None if c.lengths is None else c.lengths.to(dev))
+              for c in cols]
+        out[dev] = group_aggregate(EvalCtx(dc, n, torch.device(dev)),
+                                   [refs[0]], fns, n, n, grouping=mode)
+    (ck, cr, cn, cf), (gk, gr, gn, gf) = out["cpu"], out["cuda"]
+    assert not cf and not gf and cn == gn
+    for a, b in zip(ck + cr, gk + gr):
+        assert torch.equal(a.validity[:cn], b.validity[:cn].cpu())
+        assert torch.equal(a.data[:cn], b.data[:cn].cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_q67_ranks_repeat_bit_for_bit(cuda):
+    """TPC-DS q67 on the card: the rollup's float sums feed rank(), so the
+    ranks hold only if the sums come out with the same bits every run.
+    The cold and the warm run give the same rows bit for bit, and as many
+    as the CPU run."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data, tpcds_queries
+    tables = tpcds_data.gen_all(0.1, seed=42,
+                                columns=tpcds_queries.COLUMNS["q67"])
+    tables = {t: b for t, b in tables.items()
+              if t in tpcds_queries.COLUMNS["q67"]}
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        sess = TpuSession(BENCH_CONF, device=dev)
+        dfs = {t: sess.create_dataframe(b) for t, b in tables.items()}
+        dfs["store_sales"] = dfs["store_sales"].repartition(8, "ss_item_sk")
+        out.append(tpcds_queries.QUERIES["q67"](dfs).collect())
+    cold, warm, cpu = out
+    assert cold.num_rows == warm.num_rows == cpu.num_rows == 100
+    for a, b in zip(cold.columns, warm.columns):
+        assert np.array_equal(a.validity, b.validity)
+        assert a.data.tobytes() == b.data.tobytes()
