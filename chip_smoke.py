@@ -40,7 +40,7 @@ Phases:
      must not have taken the sort path; then the same with dmaConsolidate
      on (the compact kernel must have launched), then plain Q1 (no
      repartition) against the same reference;
-  7. this slice's main path: TPC-H Q3 over customer, orders and lineitem
+  7. slice 4's main path: TPC-H Q3 over customer, orders and lineitem
      (the columns Q3 reads, from tpch_data at the same scale and seed),
      orders and lineitem hash-repartitioned 8 ways on their order keys;
      first both kernels against their plain versions on the inputs Q3's
@@ -57,8 +57,8 @@ Phases:
      sorted on (l_shipdate, l_orderkey) through the range exchange: the 7
      bounds, the per-partition counts and the collected rows against
      numpy (np.lexsort's order);
-  9. this slice's main path, all 22 TPC-H queries through TpuSession:
-     first at --check-sf (default 1) on the card against the port's own
+  9. slice 5's main path, all 22 TPC-H queries through TpuSession:
+     first at --check-sf (default 0.5) on the card against the port's own
      run on the CPU (keys, counts, dates and strings exact, floats to
      relative 1e-9, the queries whose sort can tie unordered); then the
      eight tables at the run's scale with the union of the columns the
@@ -72,7 +72,7 @@ Phases:
      kept, joins and aggregate modes; Q18 with dmaConsolidate on (the
      compact kernel must launch; the result equal to the default run's);
      Q13 and Q22 against numpy versions;
- 10. this slice's main path, the TPC-DS bench subset (bench.py's 14
+ 10. slice 6's main path, the TPC-DS bench subset (bench.py's 14
      TPCDS_BENCH_QUERIES) and TPCx-BB q5 through TpuSession: first at
      --check-sf on the card against the port's own CPU run (as in phase
      9); then the twelve TPC-DS tables at the run's scale with the union of
@@ -86,22 +86,40 @@ Phases:
      those kept, joins and aggregate modes; q23 with dmaConsolidate on (a
      compact launch per kept reorder output; the result equal to the
      default run's); the geomean of the 14 TPC-DS warm walls on a line of
+     its own;
+ 11. slice 7's main path, all 30 TPCx-BB queries through TpuSession:
+     first at --bb-check-sf (default 1) on the card against the port's
+     own CPU run (as in phase 9); then the nineteen tables at the run's
+     scale with the union of the columns the queries read, each query
+     scanning only its own, store_sales and web_sales hash-repartitioned
+     8 ways on their item keys and web_clickstreams on wcs_user_sk (the
+     key its sessionizing windows partition on); both kernels against
+     their plain versions on the widest input those exchanges build from
+     each fact, timed and bounded there; the split's DFA (dfa_find_spans and
+     regex_greedy_spans) timed over product_reviews; each query cold and
+     warm (the warm result equal to the cold one) with its wall times,
+     rows, peak device memory, reorder launches (one per hash exchange)
+     and those kept, joins and aggregate modes; q29 with dmaConsolidate
+     on (a compact launch per kept reorder output; the result equal to
+     the default run's); the geomean of the 30 warm walls on a line of
      its own.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
 seconds are printed. Prints one JSON line of per-kernel numbers: phase
-10's launches (and launches_kept, those whose output was used; the compact
-kernel's from the dma-on q23) with the times, bounds and errors of phase
-10's check on the widest store_sales input, phase 9's TPC-H reading
-(launches and its checks, summed over its inputs, each under "inputs"),
-phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem shape, and
-every path's launches under launches_by_path; then as its last line
+11's launches (and launches_kept, those whose output was used; the compact
+kernel's from the dma-on q29) with the times, bounds and errors of phase
+11's check on the widest input of each TPCx-BB fact (summed over the
+inputs, each under "inputs"), phase 10's TPC-DS and q5 reading and phase
+9's TPC-H reading (launches and their checks, likewise), phase 7's
+reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every
+path's launches under launches_by_path; then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
-       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 1.0]
+       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.5]
+       [--bb-check-sf 1.0]
 """
 from __future__ import annotations
 
@@ -1574,6 +1592,141 @@ def phase_suite(tables):
     return nums, dma23
 
 
+# ------------------------------------------------------------------ phase 11
+#: queries whose final sort can tie (tests/test_tpcxbb.py's list): their
+#: rows compare unordered
+BB_TIES = {"q5", "q7", "q9", "q11", "q14", "q16", "q17", "q21", "q22",
+           "q24"}
+#: the facts and their partition keys: the sales on their item keys, the
+#: clickstream on the user its sessionizing windows partition on
+BB_FACT_KEYS = {"store_sales": "ss_item_sk", "web_sales": "ws_item_sk",
+                "web_clickstreams": "wcs_user_sk"}
+#: the web_sales query run again with dmaConsolidate on
+BB_DMA_QUERY = "q29"
+
+
+def bb_queries():
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb_queries as bq
+    return sorted(bq.QUERIES, key=lambda n: int(n[1:]))
+
+
+def bb_tables(sf, seed):
+    """The nineteen TPCx-BB tables with the union of the columns the 30
+    queries read (and the facts' partition keys)."""
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb_data as bd
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb_queries import COLUMNS
+    want = {}
+    for cols in COLUMNS.values():
+        for t, names in cols.items():
+            want.setdefault(t, set()).update(names)
+    for t, key in BB_FACT_KEYS.items():
+        want[t].add(key)
+    return bd.gen_all(sf, seed, {t: sorted(v) for t, v in want.items()},
+                      tables=[t for t in bd.TABLES if t in want])
+
+
+def bb_query_tables(tables, q):
+    """The tables query ``q`` reads, each with only its columns (and a
+    fact's partition key)."""
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb_queries import COLUMNS
+    out = {}
+    for t, names in COLUMNS[q].items():
+        key = BB_FACT_KEYS.get(t)
+        out[t] = tables[t].select(names + ([key] if key and key not in names
+                                           else []))
+    return out
+
+
+def bb_frames(sess, tables, q):
+    """Query ``q``'s DataFrames, the facts hash-repartitioned 8 ways."""
+    dfs = {}
+    for t, hb in bb_query_tables(tables, q).items():
+        df = sess.create_dataframe(hb)
+        dfs[t] = df.repartition(8, BB_FACT_KEYS[t]) \
+            if t in BB_FACT_KEYS else df
+    return dfs
+
+
+def bb_specs(tables):
+    """The 30 queries as (name, build, ties, reads a fact)."""
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb_queries import (COLUMNS,
+                                                                  QUERIES)
+    return [(q, lambda sess, q=q: QUERIES[q](bb_frames(sess, tables, q)),
+             q in BB_TIES, any(t in BB_FACT_KEYS for t in COLUMNS[q]))
+            for q in bb_queries()]
+
+
+def phase_bb_check(sf, seed):
+    t0 = time.perf_counter()
+    tables = bb_tables(sf, seed)
+    print(f"tpcxbb sf={sf}: tables generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check_against_cpu("tpcxbb", sf, tables, bb_specs(tables))
+
+
+def phase_bb_kernels(tables, device):
+    """Both kernels against their plain versions on the widest input the
+    30 queries' hash exchanges give the reorder from each fact
+    (store_sales, web_sales, web_clickstreams, pruned to a query's
+    columns), timed and bounded there; the compact kernel where the
+    reorder's output is kept. Returns (reorder numbers, compact numbers)
+    as phase 7's are."""
+    def width(hb):
+        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
+                                      else 1) + 1
+                   + (4 if c.lengths is not None else 0) for c in hb.columns)
+    picks = {}
+    for q in bb_queries():
+        for t, hb in bb_query_tables(tables, q).items():
+            if t in BB_FACT_KEYS and (t not in picks
+                                      or width(hb) > width(picks[t][1])):
+                picks[t] = (q, hb)
+    inputs = {f"{q} {t}": (hb, BB_FACT_KEYS[t])
+              for t, (q, hb) in sorted(picks.items())}
+    return check_kernels_on(inputs, device)[1:]
+
+
+def split_dfa_ms(tables, device):
+    """Device time of split(pr_review_content, "\\. ")'s span search, the
+    DFA run from every byte (``dfa_find_spans``) and the greedy choice of
+    spans (``regex_greedy_spans``), over the whole review column, with
+    CUDA events."""
+    import torch
+    from spark_rapids_tpu_torch.ops import regex as rk
+    c = tables["product_reviews"].column_by_name("pr_review_content")
+    data = torch.from_numpy(c.data).to(device)
+    lengths = torch.from_numpy(c.lengths).to(device)
+    dfa = rk.compile_dfa("\\. ")
+    find_ms = cuda_ms(lambda: rk.dfa_find_spans(dfa, data, lengths), 5)
+    spans = rk.dfa_find_spans(dfa, data, lengths)
+    greedy_ms = cuda_ms(lambda: rk.regex_greedy_spans(spans, lengths), 5)
+    out = {"rows": int(data.shape[0]), "width": int(data.shape[1]),
+           "states": dfa.n_states,
+           "steps": rk.max_match_steps(dfa, int(data.shape[1])),
+           "find_ms": find_ms, "greedy_ms": greedy_ms}
+    print(f"split dfa pr_review_content '\\. ': rows={out['rows']} "
+          f"width={out['width']} states={out['states']} "
+          f"steps={out['steps']} find_spans_ms={find_ms:.3f} "
+          f"greedy_spans_ms={greedy_ms:.3f}")
+    return out
+
+
+def phase_bb(tables):
+    """The 30 TPCx-BB queries at the run's scale, the facts
+    hash-repartitioned 8 ways, cold and warm (``run_cold_warm``); then
+    ``BB_DMA_QUERY`` with dmaConsolidate on; then the geomean of the 30
+    warm walls on its own line. Returns (per-query numbers, the dma-on
+    run's (reorder, compact, kept) launches)."""
+    specs = bb_specs(tables)
+    nums, results = run_cold_warm(specs, all_kept=False)
+    dma = run_dma(BB_DMA_QUERY, dict((s[0], s[1]) for s in specs)[
+        BB_DMA_QUERY], results[BB_DMA_QUERY])
+    warm = [nums[q]["warm_s"] for q in bb_queries()]
+    print(json.dumps({"tpcxbb_warm_geomean_s": float(np.exp(np.mean(
+        np.log(warm)))), "queries": len(warm)}))
+    return nums, dma
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -1585,9 +1738,12 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
-    ap.add_argument("--check-sf", type=float, default=1.0,
+    ap.add_argument("--check-sf", type=float, default=0.5,
                     help="scale of phase 9's and phase 10's checks of "
                          "every query on the card against the CPU")
+    ap.add_argument("--bb-check-sf", type=float, default=1.0,
+                    help="scale of phase 11's check of the 30 TPCx-BB "
+                         "queries on the card against the CPU")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one exchange run with dmaConsolidate "
                          "off and on, one Q1 run and one Q3 run, and write "
@@ -1680,38 +1836,57 @@ def main() -> int:
                                      "compact": dma23[1]}
     for q, n in suite.items():
         by_path[q] = {"reorder": n["launches"]}
-    # this slice's main path is the 14 TPC-DS queries and TPCx-BB q5: the
-    # reorder's launches summed over their cold runs (launches_kept: those
-    # whose output the exchange used) and the compact kernel's in the
-    # dma-on q23, beside the times, bounds and errors of the widest
-    # store_sales input those queries give the kernels. Phase 9's TPC-H
-    # reading (launches and the widest orders and lineitem inputs), phase
-    # 7's on Q3's inputs, phase 3's at Q1's lineitem shape and every
-    # path's launches stand beside them.
-    tpch_launches = {"reorder": (sum(n["launches"] for n in tpch.values()),
-                                 sum(n["launches_kept"]
-                                     for n in tpch.values())),
-                     "compact": (dma18[1], dma18[2])}
+    phase_bb_check(args.bb_check_sf, args.seed)
+    phase_done(f"11 tpcxbb sf={args.bb_check_sf} against the cpu")
+    tables = bb_tables(args.sf, args.seed)
+    print(f"tpcxbb tables sf={args.sf}: " + ", ".join(
+        f"{k} {v.num_rows}" for k, v in tables.items())
+        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+    bb_kernel_nums = phase_bb_kernels(tables, device)
+    split_dfa_ms(tables, device)
+    phase_done("11 tpcxbb kernel checks")
+    bb, dma_bb = phase_bb(tables)
+    del tables
+    phase_done(f"11 tpcxbb sf={args.sf}")
+    by_path[f"tpcxbb {BB_DMA_QUERY} dmaConsolidate"] = {
+        "reorder": dma_bb[0], "compact": dma_bb[1]}
+    for q, n in bb.items():
+        by_path[f"tpcxbb {q}"] = {"reorder": n["launches"]}
+    # this slice's main path is the 30 TPCx-BB queries: the reorder's
+    # launches summed over their cold runs (launches_kept: those whose
+    # output the exchange used) and the compact kernel's in the dma-on
+    # web_sales query, beside the times, bounds and errors of the widest
+    # input of each fact those queries give the kernels. Phase 10's TPC-DS
+    # and q5 reading, phase 9's TPC-H reading, phase 7's on Q3's inputs,
+    # phase 3's at Q1's lineitem shape and every path's launches stand
+    # beside them.
+    def launch_sums(runs):
+        return (sum(n["launches"] for n in runs.values()),
+                sum(n["launches_kept"] for n in runs.values()))
+    readings = {
+        "reorder": {"bb": launch_sums(bb), "suite": launch_sums(suite),
+                    "tpch": launch_sums(tpch)},
+        "compact": {"bb": dma_bb[1:], "suite": dma23[1:],
+                    "tpch": dma18[1:]}}
     records = []
-    for name, nums, tpchn, q3n, li_n, launches, kept in (
-            ("reorder", suite_kernel_nums[0], tpch_kernel_nums[0],
-             q3_nums[0], lineitem_nums[0],
-             sum(n["launches"] for n in suite.values()),
-             sum(n["launches_kept"] for n in suite.values())),
-            ("compact", suite_kernel_nums[1], tpch_kernel_nums[1],
-             q3_nums[1], lineitem_nums[1], dma23[1], dma23[2])):
-        if launches < 1 or kept < 1:
-            raise AssertionError(f"{name}: the TPC-DS runs launched it "
-                                 f"{launches} times, {kept} of them kept")
-        t_launches, t_kept = tpch_launches[name]
-        if t_launches < 1 or t_kept < 1:
-            raise AssertionError(f"{name}: the TPC-H runs launched it "
-                                 f"{t_launches} times, {t_kept} of them kept")
+    for i, name in enumerate(("reorder", "compact")):
+        for label, (launches, kept) in readings[name].items():
+            if launches < 1 or kept < 1:
+                raise AssertionError(f"{name}: the {label} runs launched it "
+                                     f"{launches} times, {kept} of them "
+                                     f"kept")
+        (launches, kept), (s_l, s_k), (t_l, t_k) = (
+            readings[name][k] for k in ("bb", "suite", "tpch"))
         records.append({**KERNELS[name], "launches": launches,
-                        "launches_kept": kept, **nums,
-                        "phase9_tpch": {"launches": t_launches,
-                                        "launches_kept": t_kept, **tpchn},
-                        "phase7_q3": q3n, "phase3_q1_lineitem": li_n,
+                        "launches_kept": kept, **bb_kernel_nums[i],
+                        "phase10_tpcds": {"launches": s_l,
+                                          "launches_kept": s_k,
+                                          **suite_kernel_nums[i]},
+                        "phase9_tpch": {"launches": t_l,
+                                        "launches_kept": t_k,
+                                        **tpch_kernel_nums[i]},
+                        "phase7_q3": q3_nums[i],
+                        "phase3_q1_lineitem": lineitem_nums[i],
                         "launches_by_path": {p: v[name]
                                              for p, v in by_path.items()
                                              if name in v}})

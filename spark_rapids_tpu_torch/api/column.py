@@ -11,6 +11,7 @@ from spark_rapids_tpu_torch.exprs import (Add, Alias, And, Contains, Divide,
                                           LessThanOrEqual, Like, Literal,
                                           Multiply, Not, NotEqual, Or,
                                           SortOrder, StartsWith, Subtract)
+from spark_rapids_tpu_torch.exprs.strings import GetArrayItem
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 
 
@@ -71,6 +72,13 @@ class Column:
     def endswith(self, p): return Column(EndsWith(self.expr, _expr(p)))
     def contains(self, p): return Column(Contains(self.expr, _expr(p)))
     def like(self, p): return Column(Like(self.expr, _expr(p)))
+
+    # arrays: an item of array(...) or of split(...)
+    def getItem(self, i: int) -> "Column":
+        return Column(GetArrayItem(self.expr, int(i)))
+
+    def __getitem__(self, i: int) -> "Column":
+        return self.getItem(i)
 
     # ordering (ascending, nulls first, is a sort's default)
     def desc(self): return Column(SortOrder(self.expr, False, False))

@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.exprs import (Alias, Coalesce, DistinctAgg,
                                           First, IsNull, Literal,
                                           SortOrder, UnresolvedAttribute)
+from spark_rapids_tpu_torch.exprs.generators import Explode
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.plan import logical as lp
@@ -26,6 +27,32 @@ from spark_rapids_tpu_torch.plan.planner import plan_physical
 
 def _to_expr(c: Union[str, Column]):
     return UnresolvedAttribute(c) if isinstance(c, str) else c.expr
+
+
+def _extract_generators(exprs, child: lp.LogicalPlan):
+    """Pull an explode out of a projection list into a Generate node
+    beneath it (Catalyst's ExtractGenerator); the projection reads its
+    ``pos`` and element columns by name. At most one per select, as in
+    Spark."""
+    hits = [i for i, e in enumerate(exprs)
+            if isinstance(e.c if isinstance(e, Alias) else e, Explode)]
+    if not hits:
+        return exprs, child
+    if len(hits) > 1:
+        raise ValueError("only one generator (explode/posexplode) is "
+                         "allowed per select")
+    i = hits[0]
+    e = exprs[i]
+    gen = e.c if isinstance(e, Alias) else e
+    col_name = e.name if isinstance(e, Alias) else "col"
+    node = lp.Generate(gen.child_array.items, gen.with_position, col_name,
+                       child)
+    refs = [UnresolvedAttribute(col_name)]
+    if gen.with_position:
+        refs.insert(0, UnresolvedAttribute("pos"))
+    out = list(exprs)
+    out[i:i + 1] = refs
+    return tuple(out), node
 
 
 def _extract_windows(exprs, child: lp.LogicalPlan):
@@ -73,8 +100,9 @@ class DataFrame:
         self.session = session
 
     def select(self, *cols: Union[str, Column]) -> "DataFrame":
-        exprs, child = _extract_windows(tuple(_to_expr(c) for c in cols),
-                                        self._plan)
+        exprs, child = _extract_generators(tuple(_to_expr(c) for c in cols),
+                                           self._plan)
+        exprs, child = _extract_windows(exprs, child)
         return DataFrame(lp.Project(exprs, child), self.session)
 
     def withColumn(self, name: str, c: Column) -> "DataFrame":
@@ -84,7 +112,8 @@ class DataFrame:
                  for n in names]
         if name not in names:
             exprs.append(Alias(c.expr, name))
-        exprs, child = _extract_windows(tuple(exprs), self._plan)
+        exprs, child = _extract_generators(tuple(exprs), self._plan)
+        exprs, child = _extract_windows(exprs, child)
         return DataFrame(lp.Project(exprs, child), self.session)
 
     def drop(self, *names: str) -> "DataFrame":

@@ -1,16 +1,22 @@
 """Column functions (pyspark.sql.functions-style): the ones the 22 TPC-H
-queries, the TPC-DS bench subset and TPCx-BB q5 use."""
+queries, the TPC-DS bench subset and the 30 TPCx-BB queries use."""
 from __future__ import annotations
 
 from typing import Any, Union
 
 from spark_rapids_tpu_torch.api.column import Column, _expr
-from spark_rapids_tpu_torch.exprs import (Average, CaseWhen, Coalesce, Count,
-                                          DayOfMonth, DistinctAgg, First,
-                                          Last, Literal, Max, Min, Month,
-                                          Substring, Sum,
-                                          UnresolvedAttribute, Year)
-from spark_rapids_tpu_torch.exprs.windows import DenseRank, Rank, RowNumber
+from spark_rapids_tpu_torch.exprs import (Average, CaseWhen, Coalesce, Corr,
+                                          Count, CovarPop, CovarSamp,
+                                          DateDiff, DayOfMonth, DistinctAgg,
+                                          First, Last, Literal, Max, Min,
+                                          Month, Pmod, Round, StddevPop,
+                                          StddevSamp, StringSplit, Substring,
+                                          SubstringIndex, Sum,
+                                          UnresolvedAttribute, VariancePop,
+                                          VarianceSamp, Year)
+from spark_rapids_tpu_torch.exprs.generators import CreateArray, Explode
+from spark_rapids_tpu_torch.exprs.windows import (DenseRank, Lag, Lead, Rank,
+                                                  RowNumber)
 
 
 def col(name: str) -> Column:
@@ -61,6 +67,36 @@ def countDistinct(c: Union[str, Column]) -> Column:
     return Column(DistinctAgg(count(c).expr))
 
 
+def stddev(c: Union[str, Column]) -> Column:
+    return Column(StddevSamp(_c(c)))
+
+
+
+def stddev_pop(c: Union[str, Column]) -> Column:
+    return Column(StddevPop(_c(c)))
+
+
+def variance(c: Union[str, Column]) -> Column:
+    return Column(VarianceSamp(_c(c)))
+
+
+
+def var_pop(c: Union[str, Column]) -> Column:
+    return Column(VariancePop(_c(c)))
+
+
+def corr(a: Union[str, Column], b: Union[str, Column]) -> Column:
+    return Column(Corr(_c(a), _c(b)))
+
+
+def covar_samp(a: Union[str, Column], b: Union[str, Column]) -> Column:
+    return Column(CovarSamp(_c(a), _c(b)))
+
+
+def covar_pop(a: Union[str, Column], b: Union[str, Column]) -> Column:
+    return Column(CovarPop(_c(a), _c(b)))
+
+
 # conditionals
 class _WhenColumn(Column):
     def __init__(self, branches):
@@ -82,9 +118,37 @@ def coalesce(*cols: Column) -> Column:
     return Column(Coalesce(tuple(_expr(c) for c in cols)))
 
 
+# math
+def pmod(a, b) -> Column:
+    return Column(Pmod(_expr(a), _expr(b)))
+
+
+def round(c: Union[str, Column], scale: int = 0) -> Column:  # noqa: A001
+    return Column(Round(_c(c), scale))
+
+
 # strings and dates
 def substring(c: Union[str, Column], pos: int, length: int) -> Column:
     return Column(Substring(_c(c), Literal.of(pos), Literal.of(length)))
+
+
+def substring_index(c: Union[str, Column], delim: str, count_: int) -> Column:
+    return Column(SubstringIndex(_c(c), Literal.of(delim),
+                                 Literal.of(count_)))
+
+
+def split(c: Union[str, Column], pattern: str, limit: int = -1) -> Column:
+    """split(str, regex), read through ``[i]``/``getItem(i)`` (an array is
+    not a column type; the item fuses into one split-field pass). Only
+    limit -1, a split at every match."""
+    if limit != -1:
+        raise NotImplementedError(
+            "split() with a positive limit is not supported (only -1)")
+    return Column(StringSplit(_c(c), Literal.of(pattern), limit))
+
+
+def datediff(end, start) -> Column:
+    return Column(DateDiff(_expr(end), _expr(start)))
 
 
 def year(c: Union[str, Column]) -> Column:
@@ -99,7 +163,42 @@ def dayofmonth(c: Union[str, Column]) -> Column:
     return Column(DayOfMonth(_c(c)))
 
 
+# arrays and generators
+def array(*cols: Union[str, Column]) -> Column:
+    """A per-row array of scalar columns, read only by ``explode`` or
+    ``[i]``."""
+    return Column(CreateArray(tuple(_c(c) for c in cols)))
+
+
+def _as_created_array(c) -> CreateArray:
+    if isinstance(c, (list, tuple)):
+        return CreateArray(tuple(Literal.of(v) for v in c))
+    e = c.expr if isinstance(c, Column) else None
+    if not isinstance(e, CreateArray):
+        raise ValueError("explode/posexplode requires array(...) or a "
+                         "Python list literal (ARRAY is not a column type)")
+    return e
+
+
+def explode(c) -> Column:
+    return Column(Explode(_as_created_array(c)))
+
+
+def posexplode(c) -> Column:
+    return Column(Explode(_as_created_array(c), with_position=True))
+
+
 # window functions
+def lead(c: Union[str, Column], offset: int = 1, default=None) -> Column:
+    d = None if default is None else Literal.of(default)
+    return Column(Lead(_c(c), offset, d))
+
+
+def lag(c: Union[str, Column], offset: int = 1, default=None) -> Column:
+    d = None if default is None else Literal.of(default)
+    return Column(Lag(_c(c), offset, d))
+
+
 def row_number() -> Column:
     return Column(RowNumber())
 

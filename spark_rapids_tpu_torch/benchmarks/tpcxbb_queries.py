@@ -1,15 +1,24 @@
-"""TPCx-BB q5 over the DataFrame API, as the JAX package's
-``benchmarks/tpcxbb_queries.py`` writes it: the per-user click profile in a
-category against the users' demographics. ``QUERIES`` maps its name to it
-and ``COLUMNS`` lists the columns it reads (``tpcxbb_data``'s
-``columns=``); the other 29 queries are not ported yet."""
+"""The 30 TPCx-BB ("BigBench") queries over the DataFrame API, as the JAX
+package's ``benchmarks/tpcxbb_queries.py`` writes them: the reference's 19
+DataFrame translations, and the 11 it rejects (q1-q4, q8, q10, q18, q19,
+q27, q29, q30: UDTF, UDF or python in the spec) re-expressed with engine
+primitives, sessionization as a lag gap and a running sum, path analysis
+as lag projections, sentiment and entity extraction as word-list matching
+over split sentences. Constants are adapted to the generator's calendar
+and small dimensions as noted inline. ``t`` maps a table name to its
+DataFrame; ``QUERIES`` maps a name to the query; ``COLUMNS`` lists the
+columns each query reads (``tpcxbb_data``'s ``columns=``)."""
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List
 
 from spark_rapids_tpu_torch.api import functions as F
+from spark_rapids_tpu_torch.api.window import Window
+from spark_rapids_tpu_torch.benchmarks.tpcxbb_data import (
+    COMPETITOR_COMPANIES, NEGATIVE_WORDS, POSITIVE_WORDS, date_sk)
 
-col, when = F.col, F.when
+col, lit, when = F.col, F.lit, F.when
 
 
 def q5(t):
@@ -36,12 +45,991 @@ def q5(t):
                     *[f"clicks_in_{i}" for i in range(1, 8)]))
 
 
-QUERIES: Dict[str, object] = {"q5": q5}
+def q6(t):
+    """Customers shifting from store to web purchases
+    (TpcxbbLikeSpark.scala:868)."""
+    dd = t["date_dim"].filter((col("d_year") >= 2001) & (col("d_year") <= 2002))
+    half = lambda p: (((col(f"{p}_ext_list_price")  # noqa: E731
+                        - col(f"{p}_ext_wholesale_cost")
+                        - col(f"{p}_ext_discount_amt"))
+                       + col(f"{p}_ext_sales_price")) / 2)
+    yr = lambda y, v: F.sum(when(col("d_year") == y, v).otherwise(0.0))  # noqa: E731
+    store = (t["store_sales"].join(dd, [("ss_sold_date_sk", "d_date_sk")])
+             .groupBy(col("ss_customer_sk").alias("customer_sk"))
+             .agg(yr(2001, half("ss")).alias("first_year_total"),
+                  yr(2002, half("ss")).alias("second_year_total"))
+             .filter(col("first_year_total") > 0))
+    web = (t["web_sales"].join(dd, [("ws_sold_date_sk", "d_date_sk")])
+           .groupBy(col("ws_bill_customer_sk").alias("customer_sk"))
+           .agg(yr(2001, half("ws")).alias("w_first_year_total"),
+                yr(2002, half("ws")).alias("w_second_year_total"))
+           .filter(col("w_first_year_total") > 0))
+    ratio_w = col("w_second_year_total") / col("w_first_year_total")
+    ratio_s = col("second_year_total") / col("first_year_total")
+    return (store.join(web, [("customer_sk", "customer_sk")])
+            .filter(ratio_w > ratio_s)
+            .join(t["customer"], [("customer_sk", "c_customer_sk")])
+            .select(ratio_w.alias("web_sales_increase_ratio"),
+                    col("customer_sk").alias("c_customer_sk"),
+                    "c_first_name", "c_last_name", "c_preferred_cust_flag",
+                    "c_birth_country", "c_login", "c_email_address")
+            .sort(col("web_sales_increase_ratio").desc(), "c_customer_sk",
+                  "c_first_name", "c_last_name", "c_preferred_cust_flag",
+                  "c_birth_country", "c_login")
+            .limit(100))
+
+
+def q7(t):
+    """States with >=10 sales of items priced 20% above category average
+    (TpcxbbLikeSpark.scala:949). Date window shifted to the generator
+    calendar: 2001-07 (reference: 2004-07)."""
+    avg_price = (t["item"].groupBy(col("i_category").alias("cat"))
+                 .agg(F.avg("i_current_price").alias("cat_avg"))
+                 .select("cat", (col("cat_avg") * 1.2).alias("avg_price")))
+    high = (t["item"].join(avg_price, [("i_category", "cat")])
+            .filter(col("i_current_price") > col("avg_price"))
+            .select("i_item_sk"))
+    dates = (t["date_dim"]
+             .filter((col("d_year") == 2001) & (col("d_moy") == 7))
+             .select("d_date_sk"))
+    return (t["store_sales"]
+            .join(high, [("ss_item_sk", "i_item_sk")], "leftsemi")
+            .join(dates, [("ss_sold_date_sk", "d_date_sk")], "leftsemi")
+            .join(t["customer"], [("ss_customer_sk", "c_customer_sk")])
+            .join(t["customer_address"].filter(col("ca_state").isNotNull()),
+                  [("c_current_addr_sk", "ca_address_sk")])
+            .groupBy("ca_state").agg(F.count().alias("cnt"))
+            .filter(col("cnt") >= 10)
+            .sort(col("cnt").desc(), "ca_state")
+            .limit(10))
+
+
+def q9(t):
+    """Total quantity over demographic/price and state/profit band unions
+    (TpcxbbLikeSpark.scala:1021). State triplets drawn from the generator's
+    state pool (reference: KY/GA/NM, MT/OR/IN, WI/MO/WV)."""
+    price_ok = (((col("cd_marital_status") == "M")
+                 & (col("cd_education_status") == "4 yr Degree")
+                 & (col("ss_sales_price") >= 100)
+                 & (col("ss_sales_price") <= 150))
+                | ((col("cd_marital_status") == "M")
+                   & (col("cd_education_status") == "4 yr Degree")
+                   & (col("ss_sales_price") >= 50)
+                   & (col("ss_sales_price") <= 200))
+                | ((col("cd_marital_status") == "M")
+                   & (col("cd_education_status") == "4 yr Degree")
+                   & (col("ss_sales_price") >= 150)
+                   & (col("ss_sales_price") <= 200)))
+    geo_ok = (((col("ca_country") == "United States")
+               & col("ca_state").isin("GA", "TN", "SD")
+               & (col("ss_net_profit") >= 0) & (col("ss_net_profit") <= 2000))
+              | ((col("ca_country") == "United States")
+                 & col("ca_state").isin("IN", "LA", "MI")
+                 & (col("ss_net_profit") >= 150)
+                 & (col("ss_net_profit") <= 3000))
+              | ((col("ca_country") == "United States")
+                 & col("ca_state").isin("SC", "OH", "TX")
+                 & (col("ss_net_profit") >= 50)
+                 & (col("ss_net_profit") <= 25000)))
+    return (t["store_sales"]
+            .join(t["date_dim"].filter(col("d_year") == 2001),
+                  [("ss_sold_date_sk", "d_date_sk")])
+            .join(t["customer_address"], [("ss_addr_sk", "ca_address_sk")])
+            .join(t["store"], [("ss_store_sk", "s_store_sk")])
+            .join(t["customer_demographics"], [("ss_cdemo_sk", "cd_demo_sk")])
+            .filter(price_ok & geo_ok)
+            .agg(F.sum("ss_quantity").alias("sum_quantity")))
+
+
+def q11(t):
+    """Correlation of review stats with monthly revenue
+    (TpcxbbLikeSpark.scala:1103)."""
+    lo, hi = datetime.date(2003, 1, 2), datetime.date(2003, 2, 2)
+    reviews = (t["product_reviews"].filter(col("pr_item_sk").isNotNull())
+               .groupBy(col("pr_item_sk").alias("pid"))
+               .agg(F.count().alias("reviews_count"),
+                    F.avg("pr_review_rating").alias("avg_rating")))
+    dates = (t["date_dim"]
+             .filter((col("d_date") >= lit(lo)) & (col("d_date") <= lit(hi)))
+             .select("d_date_sk"))
+    revenue = (t["web_sales"].filter(col("ws_item_sk").isNotNull())
+               .join(dates, [("ws_sold_date_sk", "d_date_sk")], "leftsemi")
+               .groupBy("ws_item_sk")
+               .agg(F.sum("ws_net_paid").alias("revenue")))
+    return (reviews.join(revenue, [("pid", "ws_item_sk")])
+            .agg(F.corr("reviews_count", "avg_rating").alias("corr")))
+
+
+def q12(t):
+    """Customers who viewed a category online then bought in-store within 90
+    days (TpcxbbLikeSpark.scala:1161). Click window start shifted into the
+    generator calendar (reference: date_sk 37134)."""
+    w0 = date_sk(datetime.date(2001, 10, 1))
+    views = (t["web_clickstreams"]
+             .filter((col("wcs_click_date_sk") >= w0)
+                     & (col("wcs_click_date_sk") <= w0 + 30)
+                     & col("wcs_user_sk").isNotNull()
+                     & col("wcs_sales_sk").isNull())
+             .join(t["item"].filter(col("i_category").isin("Books",
+                                                           "Electronics")),
+                   [("wcs_item_sk", "i_item_sk")])
+             .select("wcs_user_sk", "wcs_click_date_sk"))
+    buys = (t["store_sales"]
+            .filter((col("ss_sold_date_sk") >= w0)
+                    & (col("ss_sold_date_sk") <= w0 + 90)
+                    & col("ss_customer_sk").isNotNull())
+            .join(t["item"].filter(col("i_category").isin("Books",
+                                                          "Electronics")),
+                  [("ss_item_sk", "i_item_sk")])
+            .select("ss_customer_sk", "ss_sold_date_sk"))
+    return (views.join(buys, [("wcs_user_sk", "ss_customer_sk")])
+            .filter(col("wcs_click_date_sk") < col("ss_sold_date_sk"))
+            .select("wcs_user_sk").distinct()
+            .sort("wcs_user_sk"))
+
+
+def q13(t):
+    """Customers whose web-sales growth beats their store-sales growth
+    (TpcxbbLikeSpark.scala:1203)."""
+    dd = (t["date_dim"].filter(col("d_year").isin(2001, 2002))
+          .select("d_date_sk", "d_year"))
+    yr = lambda y, c: F.sum(when(col("d_year") == y,  # noqa: E731
+                                 col(c)).otherwise(0.0))
+    store = (t["store_sales"].join(dd, [("ss_sold_date_sk", "d_date_sk")])
+             .groupBy(col("ss_customer_sk").alias("customer_sk"))
+             .agg(yr(2001, "ss_net_paid").alias("first_year_total"),
+                  yr(2002, "ss_net_paid").alias("second_year_total"))
+             .filter(col("first_year_total") > 0))
+    web = (t["web_sales"].join(dd, [("ws_sold_date_sk", "d_date_sk")])
+           .groupBy(col("ws_bill_customer_sk").alias("customer_sk"))
+           .agg(yr(2001, "ws_net_paid").alias("w_first_year_total"),
+                yr(2002, "ws_net_paid").alias("w_second_year_total"))
+           .filter(col("w_first_year_total") > 0))
+    ratio_w = col("w_second_year_total") / col("w_first_year_total")
+    ratio_s = col("second_year_total") / col("first_year_total")
+    return (store.join(web, [("customer_sk", "customer_sk")])
+            .filter(ratio_w > ratio_s)
+            .join(t["customer"], [("customer_sk", "c_customer_sk")])
+            .select(col("customer_sk").alias("c_customer_sk"),
+                    "c_first_name", "c_last_name",
+                    ratio_s.alias("storeSalesIncreaseRatio"),
+                    ratio_w.alias("webSalesIncreaseRatio"))
+            .sort(col("webSalesIncreaseRatio").desc(), "c_customer_sk",
+                  "c_first_name", "c_last_name")
+            .limit(100))
+
+
+def q14(t):
+    """Morning-to-evening web sales ratio for high-content pages
+    (TpcxbbLikeSpark.scala:1284)."""
+    base = (t["web_sales"]
+            .join(t["household_demographics"].filter(col("hd_dep_count") == 5),
+                  [("ws_ship_hdemo_sk", "hd_demo_sk")])
+            .join(t["web_page"].filter((col("wp_char_count") >= 5000)
+                                       & (col("wp_char_count") <= 6000)),
+                  [("ws_web_page_sk", "wp_web_page_sk")])
+            .join(t["time_dim"].filter(col("t_hour").isin(7, 8, 19, 20)),
+                  [("ws_sold_time_sk", "t_time_sk")])
+            .groupBy("t_hour").agg(F.count().alias("cnt")))
+    am = (col("t_hour") >= 7) & (col("t_hour") <= 8)
+    pm = (col("t_hour") >= 19) & (col("t_hour") <= 20)
+    return (base.agg(
+        F.sum(when(am, col("cnt")).otherwise(0)).alias("amc"),
+        F.sum(when(pm, col("cnt")).otherwise(0)).alias("pmc"))
+        .select(when(col("pmc") > 0, col("amc") / col("pmc"))
+                .otherwise(-1.00).alias("am_pm_ratio")))
+
+
+def q15(t):
+    """Categories with flat/declining store sales via least-squares slope
+    (TpcxbbLikeSpark.scala:1313). Store 3 (reference: store 10; the generator
+    floors at 6 stores)."""
+    lo, hi = datetime.date(2001, 9, 2), datetime.date(2002, 9, 2)
+    dates = (t["date_dim"]
+             .filter((col("d_date") >= lit(lo)) & (col("d_date") <= lit(hi)))
+             .select("d_date_sk"))
+    daily = (t["store_sales"].filter(col("ss_store_sk") == 3)
+             .join(dates, [("ss_sold_date_sk", "d_date_sk")], "leftsemi")
+             .join(t["item"].filter(col("i_category_id").isNotNull()),
+                   [("ss_item_sk", "i_item_sk")])
+             .groupBy(col("i_category_id").alias("cat"),
+                      col("ss_sold_date_sk").alias("x"))
+             .agg(F.sum("ss_net_paid").alias("y")))
+    per_cat = (daily
+               .select("cat", "x", "y", (col("x") * col("y")).alias("xy"),
+                       (col("x") * col("x")).alias("xx"))
+               .groupBy("cat")
+               .agg(F.count("x").alias("n"), F.sum("x").alias("sx"),
+                    F.sum("y").alias("sy"), F.sum("xy").alias("sxy"),
+                    F.sum("xx").alias("sxx")))
+    slope = ((col("n") * col("sxy") - col("sx") * col("sy"))
+             / (col("n") * col("sxx") - col("sx") * col("sx")))
+    intercept = (col("sy") - slope * col("sx")) / col("n")
+    return (per_cat.select("cat", slope.alias("slope"),
+                           intercept.alias("intercept"))
+            .filter(col("slope") <= 0.0)
+            .sort("cat"))
+
+
+def q16(t):
+    """Web sales net of refunds around a price-change date
+    (TpcxbbLikeSpark.scala:1377)."""
+    pivot = datetime.date(2001, 3, 16)
+    lo, hi = (pivot - datetime.timedelta(days=30),
+              pivot + datetime.timedelta(days=30))
+    sales = (t["web_sales"]
+             .join(t["web_returns"],
+                   [("ws_order_number", "wr_order_number"),
+                    ("ws_item_sk", "wr_item_sk")], "left")
+             .join(t["item"], [("ws_item_sk", "i_item_sk")])
+             .join(t["warehouse"], [("ws_warehouse_sk", "w_warehouse_sk")])
+             .join(t["date_dim"]
+                   .filter((col("d_date") >= lit(lo))
+                           & (col("d_date") <= lit(hi))),
+                   [("ws_sold_date_sk", "d_date_sk")]))
+    net = col("ws_sales_price") - F.coalesce(col("wr_refunded_cash"),
+                                             lit(0.0))
+    return (sales.groupBy("w_state", "i_item_id")
+            .agg(F.sum(when(col("d_date") < lit(pivot), net).otherwise(0.0))
+                 .alias("sales_before"),
+                 F.sum(when(col("d_date") >= lit(pivot), net).otherwise(0.0))
+                 .alias("sales_after"))
+            .sort("w_state", "i_item_id")
+            .limit(100))
+
+
+def q17(t):
+    """Promotional vs total sales ratio (TpcxbbLikeSpark.scala:1419)."""
+    in_tz_cust = (t["customer"]
+                  .join(t["customer_address"]
+                        .filter(col("ca_gmt_offset") == -5.0),
+                        [("c_current_addr_sk", "ca_address_sk")], "leftsemi")
+                  .select("c_customer_sk"))
+    base = (t["store_sales"]
+            .join(t["date_dim"].filter((col("d_year") == 2001)
+                                       & (col("d_moy") == 12)),
+                  [("ss_sold_date_sk", "d_date_sk")], "leftsemi")
+            .join(t["item"].filter(col("i_category").isin("Books", "Music")),
+                  [("ss_item_sk", "i_item_sk")], "leftsemi")
+            .join(t["store"].filter(col("s_gmt_offset") == -5.0),
+                  [("ss_store_sk", "s_store_sk")], "leftsemi")
+            .join(in_tz_cust, [("ss_customer_sk", "c_customer_sk")],
+                  "leftsemi")
+            .join(t["promotion"], [("ss_promo_sk", "p_promo_sk")]))
+    promo_on = ((col("p_channel_dmail") == "Y") | (col("p_channel_email") == "Y")
+                | (col("p_channel_tv") == "Y"))
+    per_channel = (base.groupBy("p_channel_email", "p_channel_dmail",
+                                "p_channel_tv")
+                   .agg(F.sum("ss_ext_sales_price").alias("total"))
+                   .select(when(promo_on, col("total")).otherwise(0.0)
+                           .alias("promotional"), "total"))
+    return (per_channel.agg(F.sum("promotional").alias("promotional"),
+                            F.sum("total").alias("total"))
+            .select("promotional", "total",
+                    when(col("total") > 0,
+                         100.0 * col("promotional") / col("total"))
+                    .otherwise(0.0).alias("promo_percent")))
+
+
+def q20(t):
+    """Customer return-behavior segmentation vectors
+    (TpcxbbLikeSpark.scala:1480)."""
+    orders = (t["store_sales"]
+              .groupBy("ss_customer_sk")
+              .agg(F.countDistinct("ss_ticket_number").alias("orders_count"),
+                   F.count("ss_item_sk").alias("orders_items"),
+                   F.sum("ss_net_paid").alias("orders_money")))
+    returns = (t["store_returns"]
+               .groupBy("sr_customer_sk")
+               .agg(F.countDistinct("sr_ticket_number").alias("returns_count"),
+                    F.count("sr_item_sk").alias("returns_items"),
+                    F.sum("sr_return_amt").alias("returns_money")))
+    ratio = lambda a, b: F.round(  # noqa: E731
+        when(col(a).isNull() | col(b).isNull() | (col(a) / col(b)).isNull(),
+             0.0).otherwise(col(a) / col(b)), 7)
+    return (orders.join(returns, [("ss_customer_sk", "sr_customer_sk")],
+                        "left")
+            .select(col("ss_customer_sk").alias("user_sk"),
+                    ratio("returns_count", "orders_count").alias("orderRatio"),
+                    ratio("returns_items", "orders_items").alias("itemsRatio"),
+                    ratio("returns_money", "orders_money")
+                    .alias("monetaryRatio"),
+                    F.round(F.coalesce(col("returns_count"), lit(0)), 0)
+                    .alias("frequency"))
+            .sort("user_sk"))
+
+
+def q21(t):
+    """Items sold, returned within 6 months, re-bought on the web
+    (TpcxbbLikeSpark.scala:1542)."""
+    part_sr = (t["store_returns"]
+               .join(t["date_dim"].filter((col("d_year") == 2003)
+                                          & (col("d_moy") >= 1)
+                                          & (col("d_moy") <= 7)),
+                     [("sr_returned_date_sk", "d_date_sk")])
+               .select("sr_item_sk", "sr_customer_sk", "sr_ticket_number",
+                       "sr_return_quantity"))
+    part_ws = (t["web_sales"]
+               .join(t["date_dim"].filter((col("d_year") >= 2003)
+                                          & (col("d_year") <= 2005)),
+                     [("ws_sold_date_sk", "d_date_sk")])
+               .select("ws_item_sk", "ws_bill_customer_sk", "ws_quantity"))
+    part_ss = (t["store_sales"]
+               .join(t["date_dim"].filter((col("d_year") == 2003)
+                                          & (col("d_moy") == 1)),
+                     [("ss_sold_date_sk", "d_date_sk")])
+               .select("ss_item_sk", "ss_store_sk", "ss_customer_sk",
+                       "ss_ticket_number", "ss_quantity"))
+    return (part_sr
+            .join(part_ws, [("sr_item_sk", "ws_item_sk"),
+                            ("sr_customer_sk", "ws_bill_customer_sk")])
+            .join(part_ss, [("sr_ticket_number", "ss_ticket_number"),
+                            ("sr_item_sk", "ss_item_sk"),
+                            ("sr_customer_sk", "ss_customer_sk")])
+            .join(t["store"], [("ss_store_sk", "s_store_sk")])
+            .join(t["item"], [("sr_item_sk", "i_item_sk")])
+            .groupBy("i_item_id", "i_item_desc", "s_store_id", "s_store_name")
+            .agg(F.sum("ss_quantity").alias("store_sales_quantity"),
+                 F.sum("sr_return_quantity").alias("store_returns_quantity"),
+                 F.sum("ws_quantity").alias("web_sales_quantity"))
+            .sort("i_item_id", "i_item_desc", "s_store_id", "s_store_name")
+            .limit(100))
+
+
+def q22(t):
+    """Inventory change around a price-change date by warehouse
+    (TpcxbbLikeSpark.scala:1630)."""
+    pivot = lit(datetime.date(2001, 5, 8))
+    dd = F.datediff(col("d_date"), pivot)
+    base = (t["inventory"]
+            .join(t["item"].filter((col("i_current_price") >= 0.98)
+                                   & (col("i_current_price") <= 1.5)),
+                  [("inv_item_sk", "i_item_sk")])
+            .join(t["warehouse"], [("inv_warehouse_sk", "w_warehouse_sk")])
+            .join(t["date_dim"], [("inv_date_sk", "d_date_sk")])
+            .filter((dd >= -30) & (dd <= 30)))
+    agg = (base.groupBy("w_warehouse_name", "i_item_id")
+           .agg(F.sum(when(dd < 0, col("inv_quantity_on_hand")).otherwise(0))
+                .alias("inv_before"),
+                F.sum(when(dd >= 0, col("inv_quantity_on_hand")).otherwise(0))
+                .alias("inv_after")))
+    ratio = col("inv_after") / col("inv_before")
+    return (agg.filter((col("inv_before") > 0)
+                       & (ratio >= 2.0 / 3.0) & (ratio <= 3.0 / 2.0))
+            .sort("w_warehouse_name", "i_item_id")
+            .limit(100))
+
+
+def q23(t):
+    """Items with high inventory coefficient-of-variation in consecutive
+    months (TpcxbbLikeSpark.scala:1685)."""
+    monthly = (t["inventory"]
+               .join(t["date_dim"].filter((col("d_year") == 2001)
+                                          & (col("d_moy") >= 1)
+                                          & (col("d_moy") <= 2)),
+                     [("inv_date_sk", "d_date_sk")])
+               .groupBy("inv_warehouse_sk", "inv_item_sk", "d_moy")
+               .agg(F.stddev("inv_quantity_on_hand").alias("stdev"),
+                    F.avg("inv_quantity_on_hand").alias("mean")))
+    cov_tab = (monthly.filter((col("mean") > 0)
+                              & (col("stdev") / col("mean") >= 1.3))
+               .select("inv_warehouse_sk", "inv_item_sk", "d_moy",
+                       (col("stdev") / col("mean")).alias("cov")))
+    inv1 = (cov_tab.filter(col("d_moy") == 1)
+            .select(col("inv_warehouse_sk").alias("w1"),
+                    col("inv_item_sk").alias("i1"),
+                    col("d_moy").alias("d_moy"), col("cov").alias("cov")))
+    inv2 = (cov_tab.filter(col("d_moy") == 2)
+            .select(col("inv_warehouse_sk").alias("w2"),
+                    col("inv_item_sk").alias("i2"),
+                    col("d_moy").alias("d_moy2"), col("cov").alias("cov2")))
+    return (inv1.join(inv2, [("w1", "w2"), ("i1", "i2")])
+            .select(col("w1").alias("inv_warehouse_sk"),
+                    col("i1").alias("inv_item_sk"), "d_moy", "cov",
+                    "d_moy2", "cov2")
+            .sort("inv_warehouse_sk", "inv_item_sk"))
+
+
+def q24(t):
+    """Cross-price elasticity of demand for one item
+    (TpcxbbLikeSpark.scala:1761). Item 10 (reference: item 10000; the
+    generator floors at 100 items)."""
+    comp = (t["item"].filter(col("i_item_sk") == 10)
+            .join(t["item_marketprices"], [("i_item_sk", "imp_item_sk")])
+            .select("i_item_sk", "imp_sk",
+                    ((col("imp_competitor_price") - col("i_current_price"))
+                     / col("i_current_price")).alias("price_change"),
+                    "imp_start_date",
+                    (col("imp_end_date") - col("imp_start_date"))
+                    .alias("no_days_comp_price")))
+    during = lambda d: ((col(d) >= col("imp_start_date"))  # noqa: E731
+                        & (col(d) < col("imp_start_date")
+                           + col("no_days_comp_price")))
+    before = lambda d: ((col(d) >= col("imp_start_date")  # noqa: E731
+                         - col("no_days_comp_price"))
+                        & (col(d) < col("imp_start_date")))
+    ws = (t["web_sales"].join(comp, [("ws_item_sk", "i_item_sk")])
+          .groupBy("ws_item_sk", "imp_sk", "price_change")
+          .agg(F.sum(when(during("ws_sold_date_sk"), col("ws_quantity"))
+                     .otherwise(0)).alias("current_ws_quant"),
+               F.sum(when(before("ws_sold_date_sk"), col("ws_quantity"))
+                     .otherwise(0)).alias("prev_ws_quant")))
+    ss = (t["store_sales"].join(comp, [("ss_item_sk", "i_item_sk")])
+          .groupBy("ss_item_sk", "imp_sk", "price_change")
+          .agg(F.sum(when(during("ss_sold_date_sk"), col("ss_quantity"))
+                     .otherwise(0)).alias("current_ss_quant"),
+               F.sum(when(before("ss_sold_date_sk"), col("ss_quantity"))
+                     .otherwise(0)).alias("prev_ss_quant")))
+    elasticity = ((col("current_ss_quant") + col("current_ws_quant")
+                   - col("prev_ss_quant") - col("prev_ws_quant"))
+                  / ((col("prev_ss_quant") + col("prev_ws_quant"))
+                     * col("price_change")))
+    return (ws.join(ss, [("ws_item_sk", "ss_item_sk"), ("imp_sk", "imp_sk")])
+            .groupBy("ws_item_sk")
+            .agg(F.avg(elasticity).alias("cross_price_elasticity")))
+
+
+def q25(t):
+    """RFM segmentation inputs over both channels
+    (TpcxbbLikeSpark.scala:1861). Recency pivot = date_sk(2003-01-02)
+    (reference constant 37621 encodes the same date in dsdgen's epoch)."""
+    cutoff = lit(datetime.date(2002, 1, 2))
+    store = (t["store_sales"]
+             .join(t["date_dim"].filter(col("d_date") > cutoff),
+                   [("ss_sold_date_sk", "d_date_sk")])
+             .filter(col("ss_customer_sk").isNotNull())
+             .groupBy(col("ss_customer_sk").alias("cid"))
+             .agg(F.countDistinct("ss_ticket_number").alias("frequency"),
+                  F.max("ss_sold_date_sk").alias("most_recent_date"),
+                  F.sum("ss_net_paid").alias("amount")))
+    web = (t["web_sales"]
+           .join(t["date_dim"].filter(col("d_date") > cutoff),
+                 [("ws_sold_date_sk", "d_date_sk")])
+           .filter(col("ws_bill_customer_sk").isNotNull())
+           .groupBy(col("ws_bill_customer_sk").alias("cid"))
+           .agg(F.countDistinct("ws_order_number").alias("frequency"),
+                F.max("ws_sold_date_sk").alias("most_recent_date"),
+                F.sum("ws_net_paid").alias("amount")))
+    pivot = date_sk(datetime.date(2003, 1, 2))
+    return (store.union(web)
+            .groupBy("cid")
+            .agg(F.max("most_recent_date").alias("mrd"),
+                 F.sum("frequency").alias("frequency"),
+                 F.sum("amount").alias("totalspend"))
+            .select("cid",
+                    when(lit(pivot) - col("mrd") < 60, 1.0).otherwise(0.0)
+                    .alias("recency"),
+                    "frequency", "totalspend")
+            .sort("cid"))
+
+
+def q26(t):
+    """Book-buyer clustering vectors: per-customer counts by item class
+    (TpcxbbLikeSpark.scala:1945)."""
+    idc = lambda i: F.count(  # noqa: E731
+        when(col("i_class_id") == i, 1).otherwise(None)).alias(f"id{i}")
+    return (t["store_sales"].filter(col("ss_customer_sk").isNotNull())
+            .join(t["item"].filter(col("i_category") == "Books"),
+                  [("ss_item_sk", "i_item_sk")])
+            .groupBy(col("ss_customer_sk").alias("cid"))
+            .agg(F.count("ss_item_sk").alias("item_count"),
+                 *[idc(i) for i in range(1, 16)])
+            .filter(col("item_count") > 5)
+            .drop("item_count")
+            .sort("cid"))
+
+
+def q28(t):
+    """Sentiment-classifier train/test split of product reviews
+    (TpcxbbLikeSpark.scala:2004): 90% train (pmod(sk,10) in 1..9), 10% test."""
+    return (t["product_reviews"]
+            .select("pr_review_sk", col("pr_review_rating").alias("pr_rating"),
+                    "pr_review_content")
+            .withColumn("part", when(F.pmod(col("pr_review_sk"), 10) == 0,
+                                     "test").otherwise("train"))
+            .sort("pr_review_sk"))
+
+
+# ---------------------------------------------------------------------------
+# The 11 queries the reference REJECTS (TpcxbbLikeSpark.scala:785-807,
+# 1015-1019, 1097-1101, 1455-1478, 1993-2002, 2059-2069 all throw
+# UnsupportedOperationException for UDTF/UDF/python). Here they run: the
+# spec's UDTF sessionization is a lag-gap cumulative-sum window, its python
+# path analysis is lag projections, and its sentiment/NER UDFs are word-list
+# matching over split sentences (masked string kernels) — all riding the
+# normal acceleration path. Constants adapt to the generator's scale as
+# noted inline; the query *shapes* follow the public BigBench spec.
+# ---------------------------------------------------------------------------
+
+def _sessionize(clicks):
+    """Session ids over each user's ordered clickstream: a new session when
+    >60 minutes pass between clicks (the spec's 'sessionize' UDTF role:
+    lag gap flag -> running sum). Timestamps are minutes since the epoch
+    (click_time_sk is minute-of-day in this generator)."""
+    w = Window.partitionBy("wcs_user_sk").orderBy("ts")
+    cum = w.rowsBetween(Window.unboundedPreceding, Window.currentRow)
+    gap = col("ts") - F.lag("ts", 1).over(w)
+    return (clicks.filter(col("wcs_user_sk").isNotNull())
+            .withColumn("ts", col("wcs_click_date_sk") * 1440
+                        + col("wcs_click_time_sk"))
+            .withColumn("new_s",
+                        when(gap.isNull() | (gap > 60), 1).otherwise(0))
+            .withColumn("session_id", F.sum("new_s").over(cum)))
+
+
+def _sentences(reviews):
+    """One row per review sentence ('. '-separated; the fused split-part
+    kernel feeds a created-array explode, so the array never materializes)."""
+    def part(i):
+        return F.split(col("pr_review_content"), "\\. ")[i]
+    return (reviews
+            .select("pr_review_sk", "pr_item_sk",
+                    F.explode(F.array(part(0), part(1), part(2)))
+                    .alias("sentence"))
+            .filter(col("sentence").isNotNull() & (col("sentence") != "")))
+
+
+def _pair_counts(df, basket_cols, item_col, out1, out2, min_cnt=0):
+    """Co-occurrence pair counts shared by q1/q29/q30: distinct
+    (basket, item) rows self-joined on the basket key(s), deduped with
+    item1 < item2, counted, ordered count-desc with id tiebreaks."""
+    df = df.select(*basket_cols, item_col).distinct()
+    aliased = df.select(
+        *[col(c).alias(f"_b{i}") for i, c in enumerate(basket_cols)],
+        col(item_col).alias(out2))
+    pairs = (df.join(aliased, [(c, f"_b{i}")
+                               for i, c in enumerate(basket_cols)])
+             .filter(col(item_col) < col(out2)))
+    out = (pairs.groupBy(col(item_col).alias(out1), out2)
+           .agg(F.count(lit(1)).alias("cnt")))
+    if min_cnt > 1:
+        out = out.filter(col("cnt") >= min_cnt)
+    return out.sort(col("cnt").desc(), out1, out2).limit(100)
+
+
+def _first_word(c, words):
+    """First word of ``words`` contained in ``c`` ('' when none) — the
+    sentiment-lexicon match as a masked when-chain, not NLP."""
+    e = None
+    for w_ in words:
+        e = (when(c.contains(w_), w_) if e is None
+             else e.when(c.contains(w_), w_))
+    return e.otherwise("")
+
+
+def q1(t):
+    """Top items sold together in one store basket (spec: self-join on
+    ss_ticket_number over category-filtered items; pair-count floor lowered
+    from the spec's 50 to 3 for generator scales)."""
+    cat = (t["item"].filter(col("i_category_id").isin(1, 2, 3))
+           .select("i_item_sk"))
+    ss = (t["store_sales"].filter(col("ss_store_sk").isNotNull())
+          .join(cat, [("ss_item_sk", "i_item_sk")]))
+    return _pair_counts(ss, ["ss_ticket_number"], "ss_item_sk",
+                        "item_sk_1", "item_sk_2", min_cnt=3)
+
+
+def q2(t):
+    """Top 30 items viewed in the same online session as a target item
+    (spec: sessionize UDTF + pair expansion; target item adapted to the
+    generator's dense small item domain)."""
+    target = 5
+    s = (_sessionize(t["web_clickstreams"])
+         .filter(col("wcs_item_sk").isNotNull())
+         .select("wcs_user_sk", "session_id", "wcs_item_sk").distinct())
+    hit = (s.filter(col("wcs_item_sk") == target)
+           .select(col("wcs_user_sk").alias("u"),
+                   col("session_id").alias("sid")).distinct())
+    return (s.join(hit, [("wcs_user_sk", "u"), ("session_id", "sid")])
+            .filter(col("wcs_item_sk") != target)
+            .groupBy(col("wcs_item_sk").alias("item_sk"))
+            .agg(F.count(lit(1)).alias("cnt"))
+            .sort(col("cnt").desc(), "item_sk").limit(30))
+
+
+def q3(t):
+    """Items viewed within the 5 preceding clicks (and 10 days) before a
+    purchase of an item in categories 2/3 (the spec's python path-analysis
+    as lag projections over the user-ordered stream)."""
+    w = Window.partitionBy("wcs_user_sk").orderBy("ts")
+    c = (t["web_clickstreams"]
+         .filter(col("wcs_user_sk").isNotNull()
+                 & col("wcs_item_sk").isNotNull())
+         .withColumn("ts", col("wcs_click_date_sk") * 1440
+                     + col("wcs_click_time_sk")))
+    # all five lag pairs in ONE windowed projection (the window sort runs
+    # once), then unpivoted by a union of narrow selects
+    wide = c.select(
+        "wcs_user_sk", "wcs_click_date_sk", "wcs_sales_sk", "wcs_item_sk",
+        *[e for k in range(1, 6) for e in
+          (F.lag("wcs_item_sk", k).over(w).alias(f"vi{k}"),
+           F.lag("wcs_click_date_sk", k).over(w).alias(f"vd{k}"))])
+    lags = None
+    for k in range(1, 6):
+        lk = wide.select(
+            "wcs_user_sk", "wcs_click_date_sk", "wcs_sales_sk",
+            "wcs_item_sk", col(f"vi{k}").alias("viewed_item"),
+            col(f"vd{k}").alias("viewed_date"))
+        lags = lk if lags is None else lags.union(lk)
+    cat = (t["item"].filter(col("i_category_id").isin(2, 3))
+           .select("i_item_sk"))
+    return (lags.filter(col("wcs_sales_sk").isNotNull()
+                        & col("viewed_item").isNotNull()
+                        & (col("wcs_click_date_sk") - col("viewed_date")
+                           <= 10))
+            .join(cat, [("wcs_item_sk", "i_item_sk")])
+            .groupBy(col("viewed_item").alias("lastviewed_item"))
+            .agg(F.count(lit(1)).alias("cnt"))
+            .sort(col("cnt").desc(), "lastviewed_item").limit(30))
+
+
+def q4(t):
+    """Shopping-cart abandonment: sessions that visited an 'order' page but
+    no 'confirmation' page and recorded no purchase; average pages per
+    abandoned session (spec: sessionize + python session filter)."""
+    s = (_sessionize(t["web_clickstreams"])
+         .join(t["web_page"], [("wcs_web_page_sk", "wp_web_page_sk")]))
+    flag = lambda c: F.sum(when(c, 1).otherwise(0))  # noqa: E731
+    per = (s.groupBy("wcs_user_sk", "session_id")
+           .agg(flag(col("wp_type") == "order").alias("n_order"),
+                flag(col("wp_type") == "confirmation").alias("n_conf"),
+                flag(col("wcs_sales_sk").isNotNull()).alias("n_buy"),
+                F.count(lit(1)).alias("pages")))
+    return (per.filter((col("n_order") > 0) & (col("n_conf") == 0)
+                       & (col("n_buy") == 0))
+            .agg(F.sum(col("pages") * 1.0).alias("total_pages"),
+                 F.count(lit(1)).alias("abandoned_sessions"))
+            .select((col("total_pages") / col("abandoned_sessions"))
+                    .alias("avg_pages_per_abandoned_session"),
+                    "abandoned_sessions"))
+
+
+def q8(t):
+    """Sales impact of review reading: purchases in sessions where a
+    'review' page view happened earlier vs all other purchases (spec:
+    python session scan; here a session-level min-ts semi profile)."""
+    s = (_sessionize(t["web_clickstreams"])
+         .join(t["web_page"], [("wcs_web_page_sk", "wp_web_page_sk")]))
+    first_review = (s.filter(col("wp_type") == "review")
+                    .groupBy(col("wcs_user_sk").alias("u"),
+                             col("session_id").alias("sid"))
+                    .agg(F.min("ts").alias("first_review_ts")))
+    buys = s.filter(col("wcs_sales_sk").isNotNull()
+                    & col("wcs_item_sk").isNotNull())
+    flagged = (buys.join(first_review,
+                         [("wcs_user_sk", "u"), ("session_id", "sid")],
+                         how="left")
+               .withColumn("after_review",
+                           when(col("first_review_ts").isNotNull()
+                                & (col("ts") > col("first_review_ts")),
+                                1).otherwise(0)))
+    return (flagged.join(t["item"].select("i_item_sk", "i_current_price"),
+                         [("wcs_item_sk", "i_item_sk")])
+            .groupBy("after_review")
+            .agg(F.count(lit(1)).alias("purchases"),
+                 F.sum("i_current_price").alias("amount"))
+            .sort("after_review"))
+
+
+def q10(t):
+    """Sentence-level review sentiment (the spec's sentiment UDF as
+    word-list matching over split sentences)."""
+    sent = _sentences(t["product_reviews"])
+    pos = _first_word(col("sentence"), POSITIVE_WORDS)
+    neg = _first_word(col("sentence"), NEGATIVE_WORDS)
+    return (sent.withColumn("pos_w", pos).withColumn("neg_w", neg)
+            .filter((col("pos_w") != "") | (col("neg_w") != ""))
+            .select("pr_item_sk",
+                    col("sentence").alias("review_sentence"),
+                    when(col("pos_w") != "", "POS").otherwise("NEG")
+                    .alias("sentiment"),
+                    when(col("pos_w") != "", col("pos_w"))
+                    .otherwise(col("neg_w")).alias("sentiment_word"))
+            .sort("pr_item_sk", "review_sentence", "sentiment_word"))
+
+
+def q18(t):
+    """Stores with declining sales + negative review sentences naming them
+    (spec: per-store linear regression, then sentence-level NER on the store
+    name; the mention is extracted with the split-part kernel and
+    equi-joined on s_store_name)."""
+    daily = (t["store_sales"]
+             .filter(col("ss_store_sk").isNotNull()
+                     & col("ss_sold_date_sk").isNotNull())
+             .groupBy("ss_store_sk", "ss_sold_date_sk")
+             .agg(F.sum("ss_net_paid").alias("s")))
+    x = col("ss_sold_date_sk") * 1.0
+    reg = (daily.groupBy("ss_store_sk")
+           .agg(F.count(lit(1)).alias("n"),
+                F.sum(x).alias("sx"), F.sum("s").alias("sy"),
+                F.sum(x * col("s")).alias("sxy"),
+                F.sum(x * x).alias("sxx")))
+    slope = ((col("n") * col("sxy") - col("sx") * col("sy"))
+             / (col("n") * col("sxx") - col("sx") * col("sx")))
+    declining = (reg.withColumn("slope", slope)
+                 .filter(col("slope") < 0)
+                 .join(t["store"], [("ss_store_sk", "s_store_sk")])
+                 .select(col("s_store_name").alias("store_name")).distinct())
+    sent = _sentences(t["product_reviews"])
+    hits = (sent
+            .withColumn("neg_word", _first_word(col("sentence"),
+                                                NEGATIVE_WORDS))
+            .filter((col("neg_word") != "")
+                    & col("sentence").contains(" at store "))
+            .withColumn("mention", F.substring_index(col("sentence"),
+                                                     " at store ", -1)))
+    return (hits.join(declining, [("mention", "store_name")])
+            .select(col("mention").alias("store_name"), "pr_review_sk",
+                    "sentence", "neg_word")
+            .sort("store_name", "pr_review_sk", "sentence"))
+
+
+def q19(t):
+    """Negative review sentences for items with returns in BOTH channels
+    (spec: return-heavy item selection + sentiment UDF; the week filter is
+    dropped — the generator links returns uniformly over the year)."""
+    sr = (t["store_returns"].groupBy(col("sr_item_sk").alias("item_sk"))
+          .agg(F.sum("sr_return_quantity").alias("sr_qty")))
+    wr = (t["web_returns"].groupBy(col("wr_item_sk").alias("item_sk2"))
+          .agg(F.count(lit(1)).alias("wr_cnt")))
+    heavy = (sr.join(wr, [("item_sk", "item_sk2")])
+             .filter((col("sr_qty") >= 1) & (col("wr_cnt") >= 1))
+             .select("item_sk"))
+    sent = _sentences(t["product_reviews"])
+    return (sent
+            .withColumn("neg_word", _first_word(col("sentence"),
+                                                NEGATIVE_WORDS))
+            .filter(col("neg_word") != "")
+            .join(heavy, [("pr_item_sk", "item_sk")])
+            .select("pr_item_sk", "pr_review_sk", "sentence", "neg_word")
+            .sort("pr_item_sk", "pr_review_sk", "sentence"))
+
+
+def q27(t):
+    """Competitor-company extraction from review sentences (the spec's NER
+    UDF: extract the entity after 'compared to' and keep known companies)."""
+    sent = _sentences(t["product_reviews"])
+    return (sent.filter(col("sentence").contains(" compared to "))
+            .withColumn("company", F.substring_index(col("sentence"),
+                                                     " compared to ", -1))
+            .filter(col("company").isin(*COMPETITOR_COMPANIES))
+            .select("pr_review_sk", "pr_item_sk", "company", "sentence")
+            .sort("pr_review_sk", "company", "sentence"))
+
+
+def q29(t):
+    """Top category pairs co-sold in one web order (spec: self-join on
+    ws_order_number at category level)."""
+    ws = (t["web_sales"]
+          .join(t["item"].select("i_item_sk", "i_category_id"),
+                [("ws_item_sk", "i_item_sk")]))
+    return _pair_counts(ws, ["ws_order_number"], "i_category_id",
+                        "category_id_1", "category_id_2")
+
+
+def q30(t):
+    """Top category pairs viewed in the same online session (q2's
+    sessionization at category level — the spec's second UDTF use)."""
+    s = (_sessionize(t["web_clickstreams"])
+         .filter(col("wcs_item_sk").isNotNull())
+         .join(t["item"].select("i_item_sk", "i_category_id"),
+               [("wcs_item_sk", "i_item_sk")]))
+    return _pair_counts(s, ["wcs_user_sk", "session_id"], "i_category_id",
+                        "category_id_1", "category_id_2")
+
+
+QUERIES: Dict[str, object] = {
+    name: fn for name, fn in list(globals().items())
+    if name.startswith("q") and name[1:].isdigit() and callable(fn)}
+
+#: the reference rejects 11 of the 30 (UDTF/UDF/python); all 30 run here
+UNSUPPORTED = ()
 
 COLUMNS: Dict[str, Dict[str, List[str]]] = {
-    "q5": {"web_clickstreams": ["wcs_item_sk", "wcs_user_sk"],
-           "item": ["i_item_sk", "i_category_id", "i_category"],
-           "customer": ["c_customer_sk", "c_current_cdemo_sk"],
-           "customer_demographics": ["cd_demo_sk", "cd_gender",
-                                     "cd_education_status"]},
+    "q1": {
+        "item": ["i_item_sk", "i_category_id"],
+        "store_sales": ["ss_item_sk", "ss_store_sk", "ss_ticket_number"],
+    },
+    "q2": {
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_click_time_sk",
+                             "wcs_item_sk", "wcs_user_sk"],
+    },
+    "q3": {
+        "item": ["i_item_sk", "i_category_id"],
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_click_time_sk",
+                             "wcs_sales_sk", "wcs_item_sk", "wcs_user_sk"],
+    },
+    "q4": {
+        "web_page": ["wp_web_page_sk", "wp_type"],
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_click_time_sk",
+                             "wcs_sales_sk", "wcs_web_page_sk", "wcs_user_sk"],
+    },
+    "q5": {
+        "item": ["i_item_sk", "i_category_id", "i_category"],
+        "customer": ["c_customer_sk", "c_current_cdemo_sk"],
+        "customer_demographics": ["cd_demo_sk", "cd_gender",
+                                  "cd_education_status"],
+        "web_clickstreams": ["wcs_item_sk", "wcs_user_sk"],
+    },
+    "q6": {
+        "date_dim": ["d_date_sk", "d_year"],
+        "customer": ["c_customer_sk", "c_first_name", "c_last_name",
+                     "c_preferred_cust_flag", "c_birth_country", "c_login",
+                     "c_email_address"],
+        "store_sales": ["ss_sold_date_sk", "ss_customer_sk",
+                        "ss_ext_discount_amt", "ss_ext_sales_price",
+                        "ss_ext_wholesale_cost", "ss_ext_list_price"],
+        "web_sales": ["ws_sold_date_sk", "ws_bill_customer_sk",
+                      "ws_ext_discount_amt", "ws_ext_sales_price",
+                      "ws_ext_wholesale_cost", "ws_ext_list_price"],
+    },
+    "q7": {
+        "date_dim": ["d_date_sk", "d_year", "d_moy"],
+        "item": ["i_item_sk", "i_category", "i_current_price"],
+        "customer": ["c_customer_sk", "c_current_addr_sk"],
+        "customer_address": ["ca_address_sk", "ca_state"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk"],
+    },
+    "q8": {
+        "item": ["i_item_sk", "i_current_price"],
+        "web_page": ["wp_web_page_sk", "wp_type"],
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_click_time_sk",
+                             "wcs_sales_sk", "wcs_item_sk", "wcs_web_page_sk",
+                             "wcs_user_sk"],
+    },
+    "q9": {
+        "date_dim": ["d_date_sk", "d_year"],
+        "customer_address": ["ca_address_sk", "ca_state", "ca_country"],
+        "customer_demographics": ["cd_demo_sk", "cd_marital_status",
+                                  "cd_education_status"],
+        "store": ["s_store_sk"],
+        "store_sales": ["ss_sold_date_sk", "ss_cdemo_sk", "ss_addr_sk",
+                        "ss_store_sk", "ss_quantity", "ss_sales_price",
+                        "ss_net_profit"],
+    },
+    "q10": {
+        "product_reviews": ["pr_review_sk", "pr_item_sk", "pr_review_content"],
+    },
+    "q11": {
+        "date_dim": ["d_date_sk", "d_date"],
+        "product_reviews": ["pr_review_rating", "pr_item_sk"],
+        "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_net_paid"],
+    },
+    "q12": {
+        "item": ["i_item_sk", "i_category"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk"],
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_sales_sk",
+                             "wcs_item_sk", "wcs_user_sk"],
+    },
+    "q13": {
+        "date_dim": ["d_date_sk", "d_year"],
+        "customer": ["c_customer_sk", "c_first_name", "c_last_name"],
+        "store_sales": ["ss_sold_date_sk", "ss_customer_sk", "ss_net_paid"],
+        "web_sales": ["ws_sold_date_sk", "ws_bill_customer_sk", "ws_net_paid"],
+    },
+    "q14": {
+        "time_dim": ["t_time_sk", "t_hour"],
+        "household_demographics": ["hd_demo_sk", "hd_dep_count"],
+        "web_page": ["wp_web_page_sk", "wp_char_count"],
+        "web_sales": ["ws_sold_time_sk", "ws_ship_hdemo_sk", "ws_web_page_sk"],
+    },
+    "q15": {
+        "date_dim": ["d_date_sk", "d_date"],
+        "item": ["i_item_sk", "i_category_id"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+                        "ss_net_paid"],
+    },
+    "q16": {
+        "date_dim": ["d_date_sk", "d_date"],
+        "item": ["i_item_sk", "i_item_id"],
+        "warehouse": ["w_warehouse_sk", "w_state"],
+        "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_warehouse_sk",
+                      "ws_order_number", "ws_sales_price"],
+        "web_returns": ["wr_order_number", "wr_item_sk", "wr_refunded_cash"],
+    },
+    "q17": {
+        "date_dim": ["d_date_sk", "d_year", "d_moy"],
+        "item": ["i_item_sk", "i_category"],
+        "customer": ["c_customer_sk", "c_current_addr_sk"],
+        "customer_address": ["ca_address_sk", "ca_gmt_offset"],
+        "store": ["s_store_sk", "s_gmt_offset"],
+        "promotion": ["p_promo_sk", "p_channel_dmail", "p_channel_email",
+                      "p_channel_tv"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                        "ss_store_sk", "ss_promo_sk", "ss_ext_sales_price"],
+    },
+    "q18": {
+        "store": ["s_store_sk", "s_store_name"],
+        "product_reviews": ["pr_review_sk", "pr_item_sk", "pr_review_content"],
+        "store_sales": ["ss_sold_date_sk", "ss_store_sk", "ss_net_paid"],
+    },
+    "q19": {
+        "product_reviews": ["pr_review_sk", "pr_item_sk", "pr_review_content"],
+        "store_returns": ["sr_item_sk", "sr_return_quantity"],
+        "web_returns": ["wr_item_sk"],
+    },
+    "q20": {
+        "store_sales": ["ss_item_sk", "ss_customer_sk", "ss_ticket_number",
+                        "ss_net_paid"],
+        "store_returns": ["sr_item_sk", "sr_customer_sk", "sr_ticket_number",
+                          "sr_return_amt"],
+    },
+    "q21": {
+        "date_dim": ["d_date_sk", "d_year", "d_moy"],
+        "item": ["i_item_sk", "i_item_id", "i_item_desc"],
+        "store": ["s_store_sk", "s_store_id", "s_store_name"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                        "ss_store_sk", "ss_ticket_number", "ss_quantity"],
+        "store_returns": ["sr_returned_date_sk", "sr_item_sk",
+                          "sr_customer_sk", "sr_ticket_number",
+                          "sr_return_quantity"],
+        "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_bill_customer_sk",
+                      "ws_quantity"],
+    },
+    "q22": {
+        "date_dim": ["d_date_sk", "d_date"],
+        "item": ["i_item_sk", "i_item_id", "i_current_price"],
+        "warehouse": ["w_warehouse_sk", "w_warehouse_name"],
+        "inventory": ["inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                      "inv_quantity_on_hand"],
+    },
+    "q23": {
+        "date_dim": ["d_date_sk", "d_year", "d_moy"],
+        "inventory": ["inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                      "inv_quantity_on_hand"],
+    },
+    "q24": {
+        "item": ["i_item_sk", "i_current_price"],
+        "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_quantity"],
+        "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_quantity"],
+        "item_marketprices": ["imp_sk", "imp_item_sk", "imp_competitor_price",
+                              "imp_start_date", "imp_end_date"],
+    },
+    "q25": {
+        "date_dim": ["d_date_sk", "d_date"],
+        "store_sales": ["ss_sold_date_sk", "ss_customer_sk",
+                        "ss_ticket_number", "ss_net_paid"],
+        "web_sales": ["ws_sold_date_sk", "ws_bill_customer_sk",
+                      "ws_order_number", "ws_net_paid"],
+    },
+    "q26": {
+        "item": ["i_item_sk", "i_category", "i_class_id"],
+        "store_sales": ["ss_item_sk", "ss_customer_sk"],
+    },
+    "q27": {
+        "product_reviews": ["pr_review_sk", "pr_item_sk", "pr_review_content"],
+    },
+    "q28": {
+        "product_reviews": ["pr_review_sk", "pr_review_rating",
+                            "pr_review_content"],
+    },
+    "q29": {
+        "item": ["i_item_sk", "i_category_id"],
+        "web_sales": ["ws_item_sk", "ws_order_number"],
+    },
+    "q30": {
+        "item": ["i_item_sk", "i_category_id"],
+        "web_clickstreams": ["wcs_click_date_sk", "wcs_click_time_sk",
+                             "wcs_item_sk", "wcs_user_sk"],
+    },
 }

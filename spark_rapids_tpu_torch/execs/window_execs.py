@@ -2,7 +2,10 @@
 
 One sort by (partition keys, order keys), then every window expression
 under that spec evaluates against one shared ``FrameCtx``: the ranking
-functions read positions. Output rows come in (partition, order) sorted
+functions and lead/lag read positions; an aggregate function projects its
+group-by buffers, reduces them over each row's frame
+(``ops/window.py::frame_reduce_buffer``) and evaluates them as a group-by
+would. Output rows come in (partition, order) sorted
 order, as Spark's WindowExec gives them, with the window columns after the
 child's. The exec needs its whole input in one partition
 (``plan/planner.py::ensure_requirements``).
@@ -19,6 +22,7 @@ from spark_rapids_tpu_torch.execs.cpu_execs import width_scaled_estimate
 from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of,
                                                     concat_device_batches,
                                                     eval_ctx)
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 from spark_rapids_tpu_torch.exprs.misc import Alias
 from spark_rapids_tpu_torch.exprs.windows import (WindowExpression,
@@ -60,12 +64,20 @@ def evaluate_window(ctx: EvalCtx, wexprs: Tuple[Expression, ...],
                 w.sort_spec_key() != first.sort_spec_key():
             raise ValueError("one window exec evaluates one (partition, "
                              "order) spec")
-        if not isinstance(w.fn, WindowFunction):
-            raise NotImplementedError(
-                f"window function {type(w.fn).__name__}: the PyTorch port "
-                f"evaluates row_number, rank and dense_rank only (framed "
-                f"aggregates are ROADMAP.md queue 1)")
-        out.append(w.fn.window_eval(sctx, fr))
+        fn = w.fn
+        if isinstance(fn, WindowFunction):
+            out.append(fn.window_eval(sctx, fr))
+        elif isinstance(fn, AggregateFunction):
+            frame = w.resolved_frame()
+            lo, hi, empty = wk.frame_bounds(fr, frame.frame_type,
+                                            frame.lower, frame.upper)
+            reduced = [wk.frame_reduce_buffer(fr, bk.as_column(b, cap),
+                                              s.kind, lo, hi, empty)
+                       for b, s in zip(fn.project(sctx), fn.buffer_specs())]
+            res = fn.evaluate(reduced)
+            out.append(res.with_validity(res.validity & fr.salive))
+        else:
+            raise TypeError(f"not a window function: {type(fn).__name__}")
     return out
 
 

@@ -8,6 +8,9 @@ buffers (a null input is projected to the reduction's neutral value; a
 string buffer keeps its rows and reduces by byte order). First and Last
 reduce ``first`` and ``last`` buffers: the value of the group's first or
 last row, or of its first or last valid row with ``ignore_nulls``.
+The moments (variance, stddev, corr, covar) reduce sum-of-powers
+buffers, so every mode and both devices reduce them as they reduce a sum
+(on the GPU a float sum adds in a fixed order, ``segment_sum``).
 ``DistinctAgg`` marks an aggregate over distinct values; the DataFrame API
 rewrites it away before planning.
 """
@@ -173,6 +176,159 @@ class Last(_FirstLast):
     c: Expression
     ignore_nulls: bool = False
     kind = "last"
+
+
+class _MomentBase(AggregateFunction):
+    """variance and stddev: the buffers (count, sum, sum of squares), all
+    sums, so any grouping mode reduces them (the JAX package's
+    sum-of-powers form of Spark's central-moment buffer)."""
+
+    def dtype(self) -> DType:
+        return DType.DOUBLE
+
+    def buffer_specs(self) -> List[BufferSpec]:
+        return [BufferSpec(DType.LONG, "sum"), BufferSpec(DType.DOUBLE, "sum"),
+                BufferSpec(DType.DOUBLE, "sum")]
+
+    def project(self, ctx: EvalCtx) -> List[ColV]:
+        v = self.c.eval(ctx)
+        x = _broadcast(torch.where(v.validity, v.data, 0).to(torch.float64),
+                       ctx)
+        valid = _broadcast(v.validity, ctx)
+        n = valid.to(torch.int64)
+        return [ColV(DType.LONG, n, torch.ones_like(valid)),
+                ColV(DType.DOUBLE, x, valid),
+                ColV(DType.DOUBLE, x * x, valid)]
+
+    @staticmethod
+    def _moments(buffers: List[ColV]):
+        n = buffers[0].data.to(torch.float64)
+        s, ss = buffers[1].data, buffers[2].data
+        # the clamp takes off catastrophic cancellation's negative residue
+        m2 = (ss - s * s / torch.where(n == 0, 1.0, n)).clamp(min=0.0)
+        return n, m2
+
+
+@dataclass(frozen=True)
+class VarianceSamp(_MomentBase):
+    c: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, m2 = self._moments(buffers)
+        return ColV(DType.DOUBLE, m2 / torch.where(n < 2, 1.0, n - 1.0),
+                    n >= 2)
+
+
+@dataclass(frozen=True)
+class VariancePop(_MomentBase):
+    c: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, m2 = self._moments(buffers)
+        return ColV(DType.DOUBLE, m2 / torch.where(n == 0, 1.0, n), n >= 1)
+
+
+@dataclass(frozen=True)
+class StddevSamp(_MomentBase):
+    c: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, m2 = self._moments(buffers)
+        return ColV(DType.DOUBLE,
+                    torch.sqrt(m2 / torch.where(n < 2, 1.0, n - 1.0)),
+                    n >= 2)
+
+
+@dataclass(frozen=True)
+class StddevPop(_MomentBase):
+    c: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, m2 = self._moments(buffers)
+        return ColV(DType.DOUBLE, torch.sqrt(m2 / torch.where(n == 0, 1.0, n)),
+                    n >= 1)
+
+
+class _BivariateBase(AggregateFunction):
+    """corr and covar: the buffers (n, sum x, sum y, sum xy[, sum x^2,
+    sum y^2]); a row takes part only where both sides are valid (Spark's
+    pairwise deletion)."""
+    with_squares = False
+
+    @property
+    def x(self) -> Expression:
+        return self.children[0]
+
+    @property
+    def y(self) -> Expression:
+        return self.children[1]
+
+    def dtype(self) -> DType:
+        return DType.DOUBLE
+
+    def buffer_specs(self) -> List[BufferSpec]:
+        return ([BufferSpec(DType.LONG, "sum")]
+                + [BufferSpec(DType.DOUBLE, "sum")]
+                * (5 if self.with_squares else 3))
+
+    def project(self, ctx: EvalCtx) -> List[ColV]:
+        xv, yv = self.x.eval(ctx), self.y.eval(ctx)
+        both = _broadcast(xv.validity & yv.validity, ctx)
+        x = _broadcast(xv.data.to(torch.float64), ctx)
+        y = _broadcast(yv.data.to(torch.float64), ctx)
+        x, y = torch.where(both, x, 0.0), torch.where(both, y, 0.0)
+        cols = [ColV(DType.LONG, both.to(torch.int64), torch.ones_like(both)),
+                ColV(DType.DOUBLE, x, both), ColV(DType.DOUBLE, y, both),
+                ColV(DType.DOUBLE, x * y, both)]
+        if self.with_squares:
+            cols += [ColV(DType.DOUBLE, x * x, both),
+                     ColV(DType.DOUBLE, y * y, both)]
+        return cols
+
+    @staticmethod
+    def _cov(buffers: List[ColV]):
+        n = buffers[0].data.to(torch.float64)
+        sx, sy, sxy = (b.data for b in buffers[1:4])
+        return n, sxy - sx * sy / torch.where(n == 0, 1.0, n)
+
+
+@dataclass(frozen=True)
+class Corr(_BivariateBase):
+    """Pearson's correlation; null below two rows or at zero variance."""
+    cx: Expression
+    cy: Expression
+    with_squares = True
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, cov = self._cov(buffers)
+        sx, sy, _, sxx, syy = (b.data for b in buffers[1:])
+        safe_n = torch.where(n == 0, 1.0, n)
+        vx = (sxx - sx * sx / safe_n).clamp(min=0.0)
+        vy = (syy - sy * sy / safe_n).clamp(min=0.0)
+        denom = torch.sqrt(vx * vy)
+        return ColV(DType.DOUBLE, cov / torch.where(denom == 0, 1.0, denom),
+                    (n >= 2) & (denom > 0))
+
+
+@dataclass(frozen=True)
+class CovarSamp(_BivariateBase):
+    cx: Expression
+    cy: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, cov = self._cov(buffers)
+        return ColV(DType.DOUBLE, cov / torch.where(n < 2, 1.0, n - 1.0),
+                    n >= 2)
+
+
+@dataclass(frozen=True)
+class CovarPop(_BivariateBase):
+    cx: Expression
+    cy: Expression
+
+    def evaluate(self, buffers: List[ColV]) -> ColV:
+        n, cov = self._cov(buffers)
+        return ColV(DType.DOUBLE, cov / torch.where(n == 0, 1.0, n), n >= 1)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Date parts: ``Year``, ``Month`` and ``DayOfMonth`` (the part of the JAX
-package's ``exprs/datetime.py`` TPC-H needs). Timestamps are UTC
+"""Date parts, ``Year``, ``Month`` and ``DayOfMonth``, and ``DateDiff``
+(the part of the JAX package's ``exprs/datetime.py`` the TPC-H and TPCx-BB
+queries need). Timestamps are UTC
 microseconds; the calendar comes from Howard Hinnant's civil-from-days,
 integer arithmetic only. torch's ``//`` on int64 floors, as numpy's does,
 so the era of a day before 1970 is the plain floor quotient."""
@@ -66,3 +67,19 @@ class Month(_DatePart):
 class DayOfMonth(_DatePart):
     c: Expression
     part = "day"
+
+
+@dataclass(frozen=True)
+class DateDiff(Expression):
+    """datediff(end, start): the days from start to end, an INT."""
+    end: Expression
+    start: Expression
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        e, s = self.end.eval(ctx), self.start.eval(ctx)
+        return ColV(DType.INT, e.data.to(torch.int32) - s.data.to(torch.int32),
+                    e.validity & s.validity,
+                    is_scalar=e.is_scalar and s.is_scalar)

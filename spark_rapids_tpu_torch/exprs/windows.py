@@ -1,10 +1,12 @@
 """Window expressions (the JAX package's ``exprs/windows.py``): the frame
-spec, ``WindowExpression`` and the three ranking functions.
+spec, ``WindowExpression``, the three ranking functions and lead/lag.
 
-A ``WindowExpression`` pairs a function with its partition keys, order
-keys and frame. The window exec sorts once per (partition, order) spec and
-hands every expression under it one ``FrameCtx`` (``ops/window.py``); a
-ranking function reads its positions. Framed aggregates, lead/lag, ntile,
+A ``WindowExpression`` pairs a function (an aggregate function, or a
+window function) with its partition keys, order keys and frame. The window
+exec sorts once per (partition, order) spec and hands every expression
+under it one ``FrameCtx`` (``ops/window.py``): a ranking function reads
+its positions, lead and lag gather at an offset inside the partition, and
+an aggregate reduces its buffers over each row's frame. ntile,
 percent_rank and cume_dist are not ported yet.
 """
 from __future__ import annotations
@@ -15,8 +17,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType
-from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
+from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression, widen
+from spark_rapids_tpu_torch.exprs.literals import Literal
 from spark_rapids_tpu_torch.exprs.misc import SortOrder
+from spark_rapids_tpu_torch.ops import batch_kernels as bk
+from spark_rapids_tpu_torch.ops.strings import align_widths
 
 
 @dataclass(frozen=True)
@@ -54,6 +59,15 @@ class WindowExpression(Expression):
             raise ValueError(
                 f"window function {type(self.fn).__name__} requires the "
                 f"window to be ordered (add orderBy to the window spec)")
+
+    def resolved_frame(self) -> WindowFrame:
+        """The frame, or SQL's default: RANGE UNBOUNDED PRECEDING to
+        CURRENT ROW with an ORDER BY, the whole partition without."""
+        if self.frame is not None:
+            return self.frame
+        if self.orders:
+            return WindowFrame("range", None, 0)
+        return WindowFrame("rows", None, None)
 
     def dtype(self) -> DType:
         return self.fn.dtype()
@@ -114,3 +128,43 @@ class DenseRank(WindowFunction):
         c = torch.cumsum((fr.peer_first == fr.idx).to(torch.int64), 0)
         return _rank_col(c - c[fr.seg_first.clamp(0, fr.capacity - 1)] + 1,
                          fr)
+
+
+class _LeadLag(WindowFunction):
+    """The value ``offset`` rows after (lead) or before (lag) the row in
+    its partition, else the default (null when there is none)."""
+    sign = 0
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        j = fr.idx + self.sign * int(self.offset)
+        in_part = (j >= fr.seg_first) & (j <= fr.seg_last)
+        at = bk.take_colv(v, j.clamp(0, fr.capacity - 1))
+        default = self.default if self.default is not None \
+            else Literal(None, DType.NULL)
+        d = widen(default.eval(ctx), v.dtype, ctx)
+        valid = torch.where(in_part, at.validity, d.validity) & fr.salive
+        if v.dtype is DType.STRING:
+            ad, dd = align_widths(at.data, d.data)
+            return ColV(v.dtype, torch.where(in_part[:, None], ad, dd), valid,
+                        torch.where(in_part, at.lengths, d.lengths))
+        return ColV(v.dtype, torch.where(in_part, at.data, d.data), valid)
+
+
+@dataclass(frozen=True)
+class Lead(_LeadLag):
+    c: Expression = None  # type: ignore[assignment]
+    offset: int = 1
+    default: Optional[Expression] = None
+    sign = 1
+
+
+@dataclass(frozen=True)
+class Lag(_LeadLag):
+    c: Expression = None  # type: ignore[assignment]
+    offset: int = 1
+    default: Optional[Expression] = None
+    sign = -1

@@ -1,6 +1,7 @@
 """Regex matching as a DFA over the byte matrix (the JAX package's
-``ops/regex.py``: its pattern compiler, copied, and the anchored
-``dfa_match``).
+``ops/regex.py``: its pattern compiler, copied, the anchored
+``dfa_match`` and the span search ``dfa_find_spans`` /
+``regex_greedy_spans`` that split() cuts at).
 
 Patterns are plan-time literals, so compilation runs on the host: the regex
 subset parses to a Thompson NFA, subset construction gives a dense DFA
@@ -299,3 +300,75 @@ def dfa_match(dfa: Dfa, data, lengths):
         state = flat[state * 256 + data[:, j].to(torch.int64)]
         hit |= accept[state] & (lengths == j + 1)
     return hit
+
+
+class _LiveCycle(Exception):
+    pass
+
+
+def max_match_steps(dfa: Dfa, width: int) -> int:
+    """How many bytes one anchored run can consume before it dies: the
+    longest path from the start through live states (not the dead sink
+    0), or ``width`` when a live cycle is reachable (or the path is too
+    deep to walk). A run past that many bytes is in the dead state, so
+    scanning further changes nothing."""
+    live = [np.unique(row[row != 0]) for row in dfa.trans]
+    depth: Dict[int, int] = {}
+    on_path: Set[int] = set()
+
+    def longest(s: int) -> int:
+        if s in on_path:
+            raise _LiveCycle
+        if s not in depth:
+            on_path.add(s)
+            depth[s] = 1 + max((longest(int(t)) for t in live[s]),
+                               default=-1)
+            on_path.discard(s)
+        return depth[s]
+
+    try:
+        return min(width, longest(dfa.start))
+    except (_LiveCycle, RecursionError):
+        return width
+
+
+def dfa_find_spans(dfa: Dfa, data, lengths):
+    """The longest match of the anchored DFA starting at every byte
+    position -> ``match_len[n, W]`` int32 (-1: no match there). One DFA
+    run per start position: step j moves every run one byte (the run at p
+    reads byte p + j), so a step is one table gather over the
+    ``[n, W - j]`` runs still inside the row width; steps stop after
+    ``max_match_steps``."""
+    n, width = data.shape
+    device = data.device
+    flat = torch.from_numpy(dfa.trans.reshape(-1).astype(np.int64)) \
+        .to(device)
+    accept = torch.from_numpy(dfa.accept).to(device)
+    pos = torch.arange(width, device=device)
+    valid_start = pos[None, :] <= lengths[:, None]
+    state = torch.where(valid_start, dfa.start, 0)
+    best = torch.where(valid_start & bool(dfa.accept[dfa.start]), 0, -1) \
+        .to(torch.int32)
+    for j in range(max_match_steps(dfa, width)):
+        live = width - j
+        byte = data[:, j:].to(torch.int64)
+        in_range = (pos[None, :live] + j) < lengths[:, None]
+        state = torch.where(in_range, flat[state[:, :live] * 256 + byte], 0)
+        best[:, :live] = torch.where(accept[state] & in_range, j + 1,
+                                     best[:, :live])
+    return best
+
+
+def regex_greedy_spans(match_len, lengths):
+    """Leftmost non-overlapping spans over the per-position match lengths
+    (Java's Matcher.find() order) -> ``sel[n, W]``, the span starts; a
+    zero-length match advances by one byte."""
+    n, width = match_len.shape
+    sel = torch.zeros((n, width), dtype=torch.bool, device=match_len.device)
+    nxt = torch.zeros(n, dtype=torch.int32, device=match_len.device)
+    for i in range(width):
+        m = match_len[:, i]
+        can = (m >= 0) & (nxt <= i) & (lengths >= i)
+        sel[:, i] = can
+        nxt = torch.where(can, torch.clamp(m + i, min=i + 1), nxt)
+    return sel

@@ -1,7 +1,8 @@
 """Kernels over the device string layout: a ``uint8[n, W]`` byte matrix,
 zero padded, plus ``int32[n]`` lengths (the part of the JAX package's
 ``ops/strings.py`` that comparisons, joins, range bounds, the constant
-pattern predicates and ``substring`` need).
+pattern predicates, ``substring``, ``substring_index`` and the split of a
+string at regex matches need).
 
 A string scalar (a literal) is a ``uint8[W]`` vector with a 0-d length and
 broadcasts against a column. Spark orders strings by their unsigned UTF-8
@@ -162,3 +163,95 @@ def char_to_byte_offset(data: torch.Tensor, lengths: torch.Tensor,
         < lengths[:, None]
     return (in_range & (char_idx <= char_count[:, None])).sum(
         dim=-1, dtype=torch.int32)
+
+
+def greedy_matches(data: torch.Tensor, lengths: torch.Tensor, needle: bytes):
+    """Non-overlapping left-to-right occurrences of a constant needle (the
+    scan order of Spark's indexOf-based substring_index) -> (sel, plain):
+    ``sel[n, W]`` marks the chosen occurrences' starts, ``plain[n, W]``
+    (int32) is 1 for a byte outside every chosen occurrence and within the
+    length. The choice is sequential in W: one step per byte column, each
+    over all rows (the JAX package's ``lax.scan``)."""
+    n, width = data.shape
+    k = len(needle)
+    in_range = _positions(width, data.device)[None, :] < lengths[:, None]
+    sel = torch.zeros((n, width), dtype=torch.bool, device=data.device)
+    if k == 0 or k > width:
+        return sel, in_range.to(torch.int32)
+    ok = torch.nn.functional.pad(_needle_hits(data, lengths, needle),
+                                 (0, k - 1))
+    inside = torch.zeros_like(sel)
+    nxt = torch.zeros(n, dtype=torch.int32, device=data.device)
+    for i in range(width):
+        can = ok[:, i] & (nxt <= i)
+        inside[:, i] = nxt > i
+        sel[:, i] = can
+        nxt = torch.where(can, i + k, nxt)
+    return sel, (in_range & ~(sel | inside)).to(torch.int32)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """The first True column of each row (0 where there is none), int32."""
+    return mask.to(torch.uint8).argmax(dim=-1).to(torch.int32)
+
+
+def substring_index(data: torch.Tensor, lengths: torch.Tensor, delim: bytes,
+                    count: int):
+    """substring_index(str, delim, count): the text before the count-th
+    delimiter (count > 0) or after the |count|-th from the last (count <
+    0); the whole string when it has fewer delimiters, the empty string
+    for count 0 -> (data, lengths)."""
+    n = data.shape[0]
+    if count == 0 or len(delim) == 0:
+        return (torch.zeros_like(data),
+                torch.zeros(n, dtype=torch.int32, device=data.device))
+    sel, _ = greedy_matches(data, lengths, delim)
+    occ = torch.cumsum(sel.to(torch.int32), dim=-1)
+    total = occ[:, -1]
+    if count > 0:
+        has = total >= count
+        cut = _first_true(sel & (occ == count))
+        start = torch.zeros_like(lengths)
+        new_len = torch.where(has, cut, lengths)
+    else:
+        want = total + count + 1
+        has = total >= -count
+        cut = _first_true(sel & (occ == want[:, None]))
+        start = torch.where(has, cut + len(delim), 0).to(torch.int32)
+        new_len = torch.where(has, lengths - start, lengths)
+    return substring(data, lengths, start, new_len)
+
+
+def spans_inside(sel: torch.Tensor, span_len: torch.Tensor) -> torch.Tensor:
+    """The bytes inside a span but not at its start, from the span starts
+    and their lengths (the regex counterpart of ``greedy_matches``'
+    inside): +1 at each start, -1 at its end, a running sum."""
+    n, width = sel.shape
+    starts = sel.to(torch.int32)
+    ends = torch.where(sel, _positions(width, sel.device)[None, :] + span_len,
+                       width).clamp(0, width).to(torch.int64)
+    delta = torch.zeros((n, width + 1), dtype=torch.int32, device=sel.device)
+    delta.scatter_add_(1, ends, -starts)
+    covered = torch.cumsum(delta[:, :width] + starts, dim=-1) > 0
+    return covered & ~sel
+
+
+def split_field(data: torch.Tensor, lengths: torch.Tensor, sel: torch.Tensor,
+                span_len: torch.Tensor, k: int):
+    """Field k (0-based) of each row split at the chosen delimiter spans
+    (Spark's split(str, regex)[k]): the bytes between the end of span k-1
+    and the start of span k -> (data, lengths, exists); a row with fewer
+    than k spans has no field k."""
+    occ = torch.cumsum(sel.to(torch.int32), dim=-1)
+    total = occ[:, -1]
+    if k == 0:
+        start = torch.zeros_like(lengths)
+    else:
+        p = _first_true(sel & (occ == k))
+        slen = span_len.gather(1, p[:, None].to(torch.int64))[:, 0]
+        start = torch.where(total >= k, p + slen.clamp(min=0), lengths)
+    endp = torch.where(total >= k + 1, _first_true(sel & (occ == k + 1)),
+                       lengths)
+    d, l = substring(data, lengths, start.to(torch.int32),
+                     (endp - start).clamp(min=0))
+    return d, l, total >= k

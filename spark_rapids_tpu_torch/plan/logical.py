@@ -1,6 +1,6 @@
 """Logical plan nodes produced by the DataFrame API (the subset this port
 plans: scan, project, filter, aggregate, sort, limit, join, repartition,
-union, expand and window)."""
+union, expand, generate and window)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -192,6 +192,33 @@ class Expand(LogicalPlan):
             nullable = any(b.nullable() or b.dtype() is DType.NULL
                            for b in slot)
             fields.append(Field(name, dt, nullable))
+        return Schema(fields)
+
+
+@dataclass
+class Generate(LogicalPlan):
+    """Explode (or posexplode) of a created array (Spark's Generate): the
+    child's columns, [pos], then the element column; one output row per
+    element per input row."""
+    elements: Tuple[Expression, ...]
+    pos: bool
+    col_name: str
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.exprs.generators import element_type
+        cs = self.child.schema()
+        fields = list(cs.fields)
+        if self.pos:
+            fields.append(Field("pos", DType.INT, nullable=False))
+        bound = tuple(bind_expression(e, cs) for e in self.elements)
+        nullable = any(b.nullable() or b.dtype() is DType.NULL
+                       for b in bound)
+        fields.append(Field(self.col_name, element_type(bound), nullable))
         return Schema(fields)
 
 

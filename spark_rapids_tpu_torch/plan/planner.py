@@ -5,8 +5,8 @@ onto the TPU; the port has no CPU engine, so it plans the device operators
 directly, binds expressions to child ordinals, picks each join's strategy
 (``_select_join``) and satisfies the operators' distribution requirements
 (``ensure_requirements``). An operator it cannot plan raises
-``NotImplementedError`` naming it. A union, expand or window plans as the
-JAX package's ``TpuOverrides`` converts its CPU exec.
+``NotImplementedError`` naming it. A union, expand, generate or window
+plans as the JAX package's ``TpuOverrides`` converts its CPU exec.
 """
 from __future__ import annotations
 
@@ -24,11 +24,16 @@ from spark_rapids_tpu_torch.execs.join_execs import (
     TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
     TpuCartesianProductExec, TpuShuffledHashJoinExec, legal_broadcast_sides)
 from spark_rapids_tpu_torch.execs.expand_execs import TpuExpandExec
+from spark_rapids_tpu_torch.execs.generate_execs import (TpuGenerateExec,
+                                                         generate_projections)
 from spark_rapids_tpu_torch.execs.tpu_execs import (
     DeviceToHostExec, HostToDeviceExec, TpuFilterExec, TpuHashAggregateExec,
     TpuLimitExec, TpuProjectExec, TpuSortExec, TpuUnionExec)
 from spark_rapids_tpu_torch.execs.window_execs import TpuWindowExec
-from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction, Average, Sum
+from spark_rapids_tpu_torch.exprs.aggregates import (AggregateFunction,
+                                                     Average, Sum,
+                                                     _BivariateBase,
+                                                     _MomentBase)
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.core import Expression, bind_expression
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
@@ -75,13 +80,15 @@ def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
 def _check_float_aggs(aggs, conf: TpuConf) -> None:
     """Float sums vary with evaluation order; without
     sql.variableFloatAgg.enabled the JAX package runs them on its CPU
-    engine, which the port does not have, so the plan is refused."""
+    engine, which the port does not have, so the plan is refused. The
+    moments sum double buffers whatever their input type, so they are
+    refused whatever it is."""
     if conf.get(cfg.ENABLE_FLOAT_AGG):
         return
     for a in aggs:
         fn = a.c if isinstance(a, Alias) else a
-        if isinstance(fn, Average) or (isinstance(fn, Sum)
-                                       and fn.c.dtype().is_floating):
+        if isinstance(fn, (Average, _MomentBase, _BivariateBase)) or (
+                isinstance(fn, Sum) and fn.c.dtype().is_floating):
             raise NotImplementedError(
                 f"{type(fn).__name__} over floating input needs "
                 f"{cfg.ENABLE_FLOAT_AGG.key}=true")
@@ -123,6 +130,12 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
         projs = tuple(tuple(bind_expression(e, child.output) for e in p)
                       for p in plan.projections)
         return TpuExpandExec(projs, child, plan.schema())
+    if isinstance(plan, lp.Generate):
+        elements = tuple(bind_expression(e, child.output)
+                         for e in plan.elements)
+        out = plan.schema()
+        return TpuGenerateExec(generate_projections(
+            child.output, elements, plan.pos, out), child, out)
     if isinstance(plan, lp.Window):
         return TpuWindowExec(tuple(_named(bind_expression(e, child.output), e)
                                    for e in plan.wexprs), child)

@@ -402,3 +402,117 @@ def test_cuda_q67_ranks_repeat_bit_for_bit(cuda):
     for a, b in zip(cold.columns, warm.columns):
         assert np.array_equal(a.validity, b.validity)
         assert a.data.tobytes() == b.data.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [("onehot", 6), ("hash", 5000),
+                                         ("sort", 100_000), ("global", 1)])
+def test_cuda_moments_repeat_bit_for_bit(cuda, mode, groups):
+    """stddev, variance, corr and covar sum double buffers: on the card they
+    give the same bits on every run in every grouping mode, and equal the
+    CPU's within 1e-9."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs import (BoundReference, Corr,
+                                              CovarSamp, StddevSamp,
+                                              VariancePop)
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    from spark_rapids_tpu_torch.ops.aggregate import group_aggregate
+    rng = np.random.default_rng(6)
+    n = 1 << 21
+    key = torch.from_numpy(rng.integers(0, groups, n))
+    x = torch.from_numpy(rng.standard_normal(n) * 1e3 + 50)
+    y = torch.from_numpy(rng.standard_normal(n) * 1e2)
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    ones = torch.ones(n, dtype=torch.bool)
+    refs = [BoundReference(i, t) for i, t in enumerate(
+        (DType.LONG, DType.DOUBLE, DType.DOUBLE))]
+    fns = [StddevSamp(refs[1]), VariancePop(refs[2]),
+           Corr(refs[1], refs[2]), CovarSamp(refs[2], refs[1])]
+    keys = [] if mode == "global" else [refs[0]]
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        cols = [ColV(DType.LONG, key.to(dev), ones.to(dev)),
+                ColV(DType.DOUBLE, x.to(dev), valid.to(dev)),
+                ColV(DType.DOUBLE, y.to(dev), ones.to(dev))]
+        _, res, num, flagged = group_aggregate(
+            EvalCtx(cols, n, torch.device(dev)), keys, fns, n, n,
+            grouping="sort" if mode == "global" else mode)
+        assert not flagged
+        out.append([(r.data[:num].cpu(), r.validity[:num].cpu())
+                    for r in res])
+    for (a, va), (b, vb), (c, vc) in zip(*out):
+        assert torch.equal(va, vb) and torch.equal(va, vc)
+        assert torch.equal(a[va], b[va])
+        assert torch.allclose(a[va], c[va], rtol=1e-9, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [("rows", None, 0), ("rows", -5, 3),
+                                   ("range", -20, 10), ("range", None, None)])
+def test_cuda_framed_sums_repeat_bit_for_bit(cuda, frame):
+    """Framed float sums take their prefix sums in a fixed order on the
+    card (``ops/window.py::prefix_sum``): the same bits on every run, and
+    the CPU's sums within 1e-9 of the partition's total magnitude."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.execs.window_execs import evaluate_window
+    from spark_rapids_tpu_torch.exprs import (Alias, BoundReference, Count,
+                                              SortOrder, Sum)
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    from spark_rapids_tpu_torch.exprs.windows import (WindowExpression,
+                                                      WindowFrame)
+    rng = np.random.default_rng(7)
+    n = 1 << 21
+    cols = [(DType.LONG, rng.integers(0, 3000, n)),
+            (DType.LONG, rng.integers(0, 10_000, n)),
+            (DType.DOUBLE, rng.standard_normal(n) * 1e6)]
+    refs = [BoundReference(i, t) for i, (t, _) in enumerate(cols)]
+    spec = dict(part_keys=(refs[0],), orders=(SortOrder(refs[1]),),
+                frame=WindowFrame(*frame))
+    wexprs = (Alias(WindowExpression(Sum(refs[2]), **spec), "s"),
+              Alias(WindowExpression(Count(refs[2]), **spec), "n"))
+    valid = torch.from_numpy(rng.random(n) > 0.05)
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        cv = [ColV(t, torch.from_numpy(a).to(dev), valid.to(dev))
+              for t, a in cols]
+        res = evaluate_window(EvalCtx(cv, n, torch.device(dev)), wexprs, n)
+        out.append([(r.data.cpu(), r.validity.cpu()) for r in res[-2:]])
+    (s1, v1), (n1, _) = out[0]
+    (s2, v2), (n2, _) = out[1]
+    (s3, v3), (n3, _) = out[2]
+    assert torch.equal(v1, v2) and torch.equal(v1, v3)
+    assert torch.equal(n1, n3) and torch.equal(n1, n2)
+    assert torch.equal(s1[v1], s2[v1])
+    scale = float(np.abs(cols[2][1]).sum()) / 3000
+    assert torch.allclose(s1[v1], s3[v1], rtol=1e-9, atol=1e-9 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", ["q23", "q18"])
+def test_cuda_tpcxbb_float_filters_repeat_bit_for_bit(cuda, q):
+    """q23 keeps items whose stddev/mean >= 1.3, q18 stores whose
+    least-squares slope < 0: both filters read the last bits of float
+    sums. On the card the cold and warm runs give the same rows bit for
+    bit, as many as the CPU run, with the facts hash 8 as on the card's
+    main path."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks import (tpcxbb_data,
+                                                   tpcxbb_queries)
+    cols = dict(tpcxbb_queries.COLUMNS[q])
+    if "store_sales" in cols and "ss_item_sk" not in cols["store_sales"]:
+        cols["store_sales"] = cols["store_sales"] + ["ss_item_sk"]
+    tables = tpcxbb_data.gen_all(1.0, seed=42, columns=cols, tables=cols)
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        sess = TpuSession(BENCH_CONF, device=dev)
+        dfs = {t: sess.create_dataframe(b) for t, b in tables.items()}
+        if "store_sales" in dfs:
+            dfs["store_sales"] = dfs["store_sales"].repartition(8,
+                                                                "ss_item_sk")
+        out.append(tpcxbb_queries.QUERIES[q](dfs).collect())
+    cold, warm, cpu = out
+    assert cold.num_rows == warm.num_rows == cpu.num_rows > 0
+    for a, b in zip(cold.columns, warm.columns):
+        assert np.array_equal(a.validity, b.validity)
+        assert a.data.tobytes() == b.data.tobytes()

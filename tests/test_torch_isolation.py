@@ -43,6 +43,14 @@ for q in (13, 22):          # the byte DFA's LIKE; the nested-loop join
     res = QUERIES[q]({k: sess.create_dataframe(v)
                       for k, v in tables.items()}).collect()
     assert res.num_rows > 0, (q, res.num_rows)
+from spark_rapids_tpu_torch.benchmarks import tpcxbb_data, tpcxbb_queries
+bb = tpcxbb_data.gen_all(0.01, 0)
+# lag and a framed sum; split, explode and substring_index; stddev;
+# round; datediff; pmod
+for q in ("q2", "q18", "q23", "q20", "q22", "q28"):
+    res = tpcxbb_queries.QUERIES[q]({k: sess.create_dataframe(v)
+                                     for k, v in bb.items()}).collect()
+    assert res.num_rows > 0, (q, res.num_rows)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -59,8 +67,9 @@ def _clean_env():
 
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
-    """Every module imports, and Q1, Q3, Q13 and Q22 run, with no jax,
-    nothing of the JAX package and no pyarrow loaded."""
+    """Every module imports, and TPC-H Q1, Q3, Q13 and Q22 and the TPCx-BB
+    queries through the slice-7 modules (q2, q18, q20, q22, q23, q28) run,
+    with no jax, nothing of the JAX package and no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
