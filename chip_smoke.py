@@ -102,7 +102,23 @@ Phases:
      and those kept, joins and aggregate modes; q29 with dmaConsolidate
      on (a compact launch per kept reorder output; the result equal to
      the default run's); the geomean of the 30 warm walls on a line of
-     its own.
+     its own;
+ 12. slice 8's path, the default one (fused stages and the
+     filter-into-aggregate fold, the scan cache, chunked uploads, the
+     pipelined upload, the admission semaphore, the streaming collect)
+     against ALL_OFF (fusion, scan cache, pipeline and streaming collect
+     off, single-shot uploads): every query of the three suites at the
+     check scales on the card both ways, equal bit for bit in the same row
+     order, with each query's fused stages and ops; Q1 and Q3 at the run's
+     scale (orders and lineitem hash 8) and Q1 over the plain lineitem,
+     both ways, cold and warm, with walls, peak device memory, reorder
+     launches and those kept (with --profile the device busy time over the
+     warm wall); lineitem uploaded in 1 Mi-row chunks and in a single shot,
+     twice each, byte-equal, with their times.
+
+The sessions run the port's defaults, so phases 6-11 take the default
+path too; their warm runs read the scan cache (a query's pruned tables are
+made once per phase), and a cold run starts with the cache cleared.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
@@ -128,6 +144,7 @@ import concurrent.futures
 import datetime
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1149,14 +1166,27 @@ def query_tables(tables, q):
     return out
 
 
-def query_frames(sess, tables, q):
-    """Query ``q``'s DataFrames, orders and lineitem hash-repartitioned 8
-    ways on their order keys."""
+def memo(fn):
+    """``fn(q)`` made once per ``q``: a query's pruned tables stay the same
+    host objects across its runs, so every run after the first reads them
+    from the scan cache, as repeated actions over one DataFrame do."""
+    made = {}
+
+    def get(q):
+        if q not in made:
+            made[q] = fn(q)
+        return made[q]
+    return get
+
+
+def query_frames(sess, pruned, repartition=True):
+    """A query's DataFrames over its pruned tables, orders and lineitem
+    hash-repartitioned 8 ways on their order keys (with ``repartition``)."""
     dfs = {}
-    for t, hb in query_tables(tables, q).items():
+    for t, hb in pruned.items():
         df = sess.create_dataframe(hb)
         dfs[t] = df.repartition(8, PARTITION_KEYS[t]) \
-            if t in PARTITION_KEYS else df
+            if repartition and t in PARTITION_KEYS else df
     return dfs
 
 
@@ -1273,9 +1303,15 @@ def run_cold_warm(specs, all_kept):
         HashPartitioning, TpuShuffleExchangeExec)
     from spark_rapids_tpu_torch.execs.tpu_execs import TpuHashAggregateExec
 
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+
     sess = TpuSession(BENCH_CONF)
     results, nums = {}, {}
     for name, build, ties, partitioned in specs:
+        # a cold run finds nothing cached; the warm run reads the scan
+        # cache, and the peak counts the query's cached tables
+        if peek_cache() is not None:
+            peek_cache().clear()
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1333,8 +1369,9 @@ def tpch_specs(tables):
     """The 22 queries as (name, build, ties, reads a partitioned table)."""
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
                                                                 QUERIES)
+    pruned = memo(lambda q: query_tables(tables, q))
     return [(f"q{q}", lambda sess, q=q: QUERIES[q](query_frames(
-        sess, tables, q)), q in TPCH_TIES,
+        sess, pruned(q))), q in TPCH_TIES,
         any(t in PARTITION_KEYS for t in COLUMNS[q])) for q in QUERIES]
 
 
@@ -1344,6 +1381,7 @@ def phase_tpch_check(sf, seed):
     print(f"tpch sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
     check_against_cpu("tpch", sf, tables, tpch_specs(tables))
+    return tables
 
 
 def like_numpy(data, lengths, parts):
@@ -1524,23 +1562,34 @@ def suite_tables(sf, seed):
             "bb": bd.gen_all(sf, seed, suite_query("bb_q5")[1])}
 
 
-def suite_frames(sess, tables, q):
-    """Query ``q``'s DataFrames over only its columns (and the fact tables'
-    partition keys), the fact tables hash-repartitioned 8 ways."""
+def suite_query_tables(tables, q):
+    """The tables query ``q`` reads, each with only its columns (and the
+    fact tables' partition keys)."""
     src = tables["bb" if q == "bb_q5" else "ds"]
-    dfs = {}
+    out = {}
     for t, names in suite_query(q)[1].items():
         key = FACT_KEYS.get(t)
-        df = sess.create_dataframe(src[t].select(
-            names + ([key] if key and key not in names else [])))
+        out[t] = src[t].select(names + ([key] if key and key not in names
+                                        else []))
+    return out
+
+
+def suite_frames(sess, pruned):
+    """A suite query's DataFrames over its pruned tables, the fact tables
+    hash-repartitioned 8 ways."""
+    dfs = {}
+    for t, hb in pruned.items():
+        key = FACT_KEYS.get(t)
+        df = sess.create_dataframe(hb)
         dfs[t] = df.repartition(8, key) if key else df
     return dfs
 
 
 def suite_specs(tables):
     """The 15 suite queries as (name, build, ties, reads a fact table)."""
+    pruned = memo(lambda q: suite_query_tables(tables, q))
     return [(q, lambda sess, q=q: suite_query(q)[0](suite_frames(
-        sess, tables, q)), q in SUITE_TIES,
+        sess, pruned(q))), q in SUITE_TIES,
         any(t in FACT_KEYS for t in suite_query(q)[1])) for q in SUITE]
 
 
@@ -1550,6 +1599,7 @@ def phase_suite_check(sf, seed):
     print(f"tpcds+q5 sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
     check_against_cpu("tpcds+q5", sf, tables, suite_specs(tables))
+    return tables
 
 
 def phase_suite_kernels(tables, device):
@@ -1637,10 +1687,11 @@ def bb_query_tables(tables, q):
     return out
 
 
-def bb_frames(sess, tables, q):
-    """Query ``q``'s DataFrames, the facts hash-repartitioned 8 ways."""
+def bb_frames(sess, pruned):
+    """A TPCx-BB query's DataFrames over its pruned tables, the facts
+    hash-repartitioned 8 ways."""
     dfs = {}
-    for t, hb in bb_query_tables(tables, q).items():
+    for t, hb in pruned.items():
         df = sess.create_dataframe(hb)
         dfs[t] = df.repartition(8, BB_FACT_KEYS[t]) \
             if t in BB_FACT_KEYS else df
@@ -1651,7 +1702,8 @@ def bb_specs(tables):
     """The 30 queries as (name, build, ties, reads a fact)."""
     from spark_rapids_tpu_torch.benchmarks.tpcxbb_queries import (COLUMNS,
                                                                   QUERIES)
-    return [(q, lambda sess, q=q: QUERIES[q](bb_frames(sess, tables, q)),
+    pruned = memo(lambda q: bb_query_tables(tables, q))
+    return [(q, lambda sess, q=q: QUERIES[q](bb_frames(sess, pruned(q))),
              q in BB_TIES, any(t in BB_FACT_KEYS for t in COLUMNS[q]))
             for q in bb_queries()]
 
@@ -1662,6 +1714,7 @@ def phase_bb_check(sf, seed):
     print(f"tpcxbb sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
     check_against_cpu("tpcxbb", sf, tables, bb_specs(tables))
+    return tables
 
 
 def phase_bb_kernels(tables, device):
@@ -1727,6 +1780,216 @@ def phase_bb(tables):
     return nums, dma
 
 
+# ------------------------------------------------------------------ phase 12
+#: the conf that turns off every piece of the default path this slice
+#: ported: the fused stages (the filter-into-aggregate fold stays, as in the
+#: JAX package), the scan cache, the pipeline, the streaming collect and the
+#: chunked upload
+ALL_OFF = {"spark.rapids.tpu.sql.fusion.enabled": "false",
+           "spark.rapids.tpu.sql.scanCache.enabled": "false",
+           "spark.rapids.tpu.transfer.pipeline.enabled": "false",
+           "spark.rapids.tpu.transfer.streamingCollect.enabled": "false",
+           "spark.rapids.tpu.transfer.chunkRows": "0"}
+
+
+def check_same_bits(name, got, want):
+    """Bit for bit, row order included: validity, lengths and the bytes of
+    every value (a string's bytes within its length)."""
+    if got.schema.names() != want.schema.names() \
+            or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows of "
+                             f"{got.schema.names()} against {want.num_rows} "
+                             f"of {want.schema.names()}")
+    n = got.num_rows
+    for f, x, y in zip(got.schema, got.columns, want.columns):
+        same = np.array_equal(x.validity[:n], y.validity[:n])
+        if x.lengths is not None:
+            w = int(x.lengths[:n].max(initial=0))
+            keep = np.arange(w)[None, :] < x.lengths[:n, None]
+            same = same and np.array_equal(x.lengths[:n], y.lengths[:n]) \
+                and np.array_equal(np.where(keep, x.data[:n, :w], 0),
+                                   np.where(keep, y.data[:n, :w], 0))
+        else:
+            same = same and x.data[:n].tobytes() == y.data[:n].tobytes()
+        if not same:
+            raise AssertionError(f"{name}: column {f.name} differs")
+
+
+def fusion_counts(plan):
+    from spark_rapids_tpu_torch.plan.fusion import fusion_stats
+    st = fusion_stats(plan)
+    return st["fused_stages"], st["fused_ops"]
+
+
+def default_vs_all_off(label, sf, specs):
+    """Every query of ``specs`` on the card with the default conf and with
+    ALL_OFF: the results must be equal bit for bit, in the same row order.
+    Prints each query's fused stages and ops. Returns the reorder launches
+    of each run."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    on = TpuSession(BENCH_CONF)
+    off = TpuSession({**BENCH_CONF, **ALL_OFF})
+    launches = {}
+    totals = [0.0, 0.0, 0, 0]
+    for name, build, _, _ in specs:
+        got, on_s, on_n = run_query(on, name, build)[:3]
+        stages, ops = fusion_counts(on.last_plan)
+        want, off_s, off_n = run_query(off, name, build)[:3]
+        if fusion_counts(off.last_plan) != (0, 0):
+            raise AssertionError(f"{name}: the all-off plan fused a stage")
+        check_same_bits(f"{label} {name} default against all-off", got, want)
+        launches[f"phase12 {label} {name} default"] = on_n
+        launches[f"phase12 {label} {name} all-off"] = off_n
+        totals = [totals[0] + on_s, totals[1] + off_s, totals[2] + stages,
+                  totals[3] + ops]
+        print(f"{label} {name} sf={sf}: rows={got.num_rows} fused_stages="
+              f"{stages} fused_ops={ops} default_s={on_s:.4f} all_off_s="
+              f"{off_s:.4f} reorder_launches={on_n}/{off_n}, bit-identical")
+    print(f"{label} sf={sf} default against all-off: {len(specs)} queries "
+          f"bit-identical, {totals[2]} fused stages of {totals[3]} ops, "
+          f"default {totals[0]:.2f} s, all-off {totals[1]:.2f} s")
+    return launches
+
+
+def sf10_both_ways(tables, profile_dir=None):
+    """Q1 and Q3 over the run's tables, orders and lineitem hash 8, and Q1
+    over the plain lineitem (the port aggregates above the single-partition
+    exchange, so only the plain Q1 folds its filter into the aggregate),
+    with the default conf and with ALL_OFF (the plain Q1 also with each of
+    ALL_OFF's keys alone), cold and warm, in two passes, the second in the
+    reverse order (a wall depends on what ran before it): walls, peak
+    device memory, reorder launches and those kept, fused stages; with
+    ``profile_dir`` the device busy time over the warm wall. The two ways'
+    results must be equal bit for bit. Returns the reorder launches of each
+    cold run."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    launches = {}
+    both = (("default", BENCH_CONF), ("all-off", {**BENCH_CONF, **ALL_OFF}))
+    # the plain Q1 also runs with one piece off at a time: which of them
+    # moves the cold and the warm wall
+    one_off = tuple((f"{k.split('.', 3)[3]}={v}", {**BENCH_CONF, k: v})
+                    for k, v in ALL_OFF.items())
+    for label, q, rep, ways in (("q1", 1, True, both),
+                                ("q1 plain", 1, False,
+                                 both[:1] + one_off + both[1:]),
+                                ("q3", 3, True, both)):
+        pruned = query_tables(tables, q)
+        results = {}
+        for pas, (way, conf) in enumerate(ways + ways[::-1]):
+            pas //= len(ways)
+
+            def build(sess, q=q, rep=rep):
+                return QUERIES[q](query_frames(sess, pruned, rep))
+            sess = TpuSession(conf)
+            if peek_cache() is not None:
+                peek_cache().clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cold, cold_s, n, _, kept, plan = run_query(sess, label, build)
+            warm, warm_s = run_query(sess, label, build)[:2]
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check_same_bits(f"{label} {way} warm against cold", warm, cold)
+            stages, ops = fusion_counts(plan)
+            results.setdefault(way, warm)
+            check_same_bits(f"{label} {way} pass {pas} against pass 0", warm,
+                            results[way])
+            launches[f"phase12 {label} sf10 {way} pass {pas}"] = n
+            print(f"{label} sf10 {way} pass {pas}: rows={warm.num_rows} "
+                  f"cold_s={cold_s:.4f} "
+                  f"warm_s={warm_s:.4f} peak_device_gb={peak:.2f} "
+                  f"reorder_launches={n} launches_kept={kept} "
+                  f"fused_stages={stages} fused_ops={ops}")
+            if profile_dir and pas == 0 and (way, conf) in both:
+                tag = f"{label}_{way}".replace(" ", "_").replace("-", "_")
+                profile_device(f"phase12 {label} {way}",
+                               lambda: build(sess).collect(),
+                               f"{profile_dir}/phase12_{tag}.tsv", warm_s)
+            del cold, plan
+        for way in results:
+            check_same_bits(f"{label} sf10 default against {way}",
+                            results["default"], results[way])
+        print(f"{label} sf10: the results of {', '.join(results)} are "
+              f"bit-identical")
+    return launches
+
+
+def chunked_upload_check(hb, device):
+    """lineitem uploaded in chunks of transfer.chunkRows (1 Mi rows, two in
+    flight) and in a single shot, each on this thread and on a fresh one
+    (where a PipelinedExec's producer uploads), twice in turns: every
+    chunked batch must be byte-equal to the single shot's. Prints each
+    upload's wall, the host's staging time within it and the rate."""
+    import threading
+    import torch
+    from spark_rapids_tpu_torch.columnar.transfer import upload_table
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    if peek_cache() is not None:
+        peek_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = upload_table(hb, device)
+    nbytes = logical_bytes(want)
+
+    def run(chunk_rows, out):
+        stats = {}
+        out.append((upload_table(hb, device, chunk_rows=chunk_rows,
+                                 max_inflight=2, stats=stats), stats))
+
+    for rnd in range(2):
+        for way, rows in (("single", 0), ("chunked", 1 << 20)):
+            for where in ("main", "thread"):
+                out = []
+                if where == "main":
+                    run(rows, out)
+                else:
+                    th = threading.Thread(target=run, args=(rows, out))
+                    th.start()
+                    th.join()
+                got, st = out[0]
+                for a, b in zip(got.columns, want.columns):
+                    for x, y in ((a.data, b.data), (a.validity, b.validity),
+                                 (a.lengths, b.lengths)):
+                        if (x is None) != (y is None) or (
+                                x is not None and (x.shape != y.shape
+                                                   or not torch.equal(x, y))):
+                            raise AssertionError(f"the {way} upload differs "
+                                                 f"from the single shot")
+                del got, out
+                print(f"lineitem upload {way} {where} round {rnd}: rows="
+                      f"{hb.num_rows} device_gb={nbytes / 1e9:.2f} chunks="
+                      f"{st['chunks']} wall_s={st['wall_s']:.4f} stage_s="
+                      f"{st['stage_s']:.4f} overlap="
+                      f"{st['upload_overlap_efficiency']:.3f} inflight_peak="
+                      f"{st['inflight_high_water']} gb_per_s="
+                      f"{nbytes / st['wall_s'] / 1e9:.2f}")
+    print("lineitem upload: every chunked batch byte-equal to the single "
+          "shot")
+
+
+def phase_default_path(check, check_sf, bb_check_sf, tables, device,
+                       profile_dir=None):
+    """Phase 12: the default path against ALL_OFF on the card: every query
+    of the three suites at the check scales, bit for bit; Q1 and Q3 over
+    the run's tables both ways, cold and warm; one chunked and one
+    single-shot upload of lineitem, byte-equal. Returns the reorder
+    launches of every run."""
+    launches = default_vs_all_off("tpch", check_sf,
+                                  tpch_specs(check["tpch"]))
+    launches.update(default_vs_all_off("tpcds+q5", check_sf,
+                                       suite_specs(check["suite"])))
+    launches.update(default_vs_all_off("tpcxbb", bb_check_sf,
+                                       bb_specs(check["bb"])))
+    launches.update(sf10_both_ways(tables, profile_dir))
+    chunked_upload_check(tables["lineitem"], device)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -1749,6 +2012,8 @@ def main() -> int:
                          "off and on, one Q1 run and one Q3 run, and write "
                          "their per-kernel device times as tables to DIR")
     args = ap.parse_args()
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -1803,7 +2068,7 @@ def main() -> int:
     phase_q6_and_sort(tables["lineitem"], device)
     del tables
     phase_done("8 q6 and range sort")
-    phase_tpch_check(args.check_sf, args.seed)
+    check = {"tpch": phase_tpch_check(args.check_sf, args.seed)}
     phase_done(f"9 tpch sf={args.check_sf} against the cpu")
     tables = tpch_tables(args.sf, args.seed)
     print(f"tpch tables sf={args.sf}: " + ", ".join(
@@ -1813,13 +2078,14 @@ def main() -> int:
     phase_done("9 tpch kernel checks")
     dfa_device_ms(tables, device)
     tpch, dma18 = phase_tpch(tables)
+    tpch_sf_tables = tables           # phase 12 runs Q1 and Q3 over them
     del tables
     phase_done(f"9 tpch sf={args.sf}")
     by_path["q18 dmaConsolidate"] = {"reorder": dma18[0],
                                      "compact": dma18[1]}
     for q, n in tpch.items():
         by_path[f"tpch {q}"] = {"reorder": n["launches"]}
-    phase_suite_check(args.check_sf, args.seed)
+    check["suite"] = phase_suite_check(args.check_sf, args.seed)
     phase_done(f"10 tpcds+q5 sf={args.check_sf} against the cpu")
     tables = suite_tables(args.sf, args.seed)
     print(f"tpcds tables sf={args.sf}: " + ", ".join(
@@ -1836,7 +2102,7 @@ def main() -> int:
                                      "compact": dma23[1]}
     for q, n in suite.items():
         by_path[q] = {"reorder": n["launches"]}
-    phase_bb_check(args.bb_check_sf, args.seed)
+    check["bb"] = phase_bb_check(args.bb_check_sf, args.seed)
     phase_done(f"11 tpcxbb sf={args.bb_check_sf} against the cpu")
     tables = bb_tables(args.sf, args.seed)
     print(f"tpcxbb tables sf={args.sf}: " + ", ".join(
@@ -1852,6 +2118,12 @@ def main() -> int:
         "reorder": dma_bb[0], "compact": dma_bb[1]}
     for q, n in bb.items():
         by_path[f"tpcxbb {q}"] = {"reorder": n["launches"]}
+    for path, n in phase_default_path(check, args.check_sf, args.bb_check_sf,
+                                      tpch_sf_tables, device,
+                                      args.profile).items():
+        by_path[path] = {"reorder": n}
+    del check, tpch_sf_tables
+    phase_done("12 default path against all-off")
     # this slice's main path is the 30 TPCx-BB queries: the reorder's
     # launches summed over their cold runs (launches_kept: those whose
     # output the exchange used) and the compact kernel's in the dma-on

@@ -9,12 +9,16 @@ from __future__ import annotations
 import datetime
 from typing import Any, Dict, List, Optional, Union
 
+from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch import device as device_mod
 from spark_rapids_tpu_torch.api.column import Column
 from spark_rapids_tpu_torch.columnar.dtypes import DType
 from spark_rapids_tpu_torch.columnar.host import HostBatch, concat_host_batches
+from spark_rapids_tpu_torch.columnar.transfer import (PendingDownload,
+                                                      start_download)
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.tpu_execs import DeviceToHostExec
 from spark_rapids_tpu_torch.exprs import (Alias, Coalesce, DistinctAgg,
                                           First, IsNull, Literal,
                                           SortOrder, UnresolvedAttribute)
@@ -265,18 +269,37 @@ class DataFrame:
 
     def collect(self) -> HostBatch:
         """Run the query on the session's device -> the result rows. The
-        action's cleanups (the exchanges' shuffle removal) run however it
-        ends, so it leaves the shuffle catalog empty."""
+        whole action holds the device-admission semaphore
+        (``sql.concurrentTpuTasks``). With
+        ``transfer.streamingCollect.enabled`` each result batch's download
+        starts as soon as the batch exists and the downloads resolve in
+        order, at most ``transfer.maxInflight`` outstanding. The action's
+        cleanups (the exchanges' shuffle removal) run however it ends, so it
+        leaves the shuffle catalog empty."""
+        conf = self.session.conf
         final = self.physical_plan()
         self.session.last_plan = final
-        dm = DeviceManager.initialize(self.session.conf, self.session.device)
+        dm = DeviceManager.initialize(conf, self.session.device)
         cleanups: List = []
-        out = []
+        out: List[HostBatch] = []
         try:
-            for p in range(final.num_partitions):
-                ctx = ExecContext(self.session.conf, self.session.device, p,
-                                  final.num_partitions, dm, cleanups)
-                out.extend(final.execute(ctx))
+            with dm.semaphore.held():
+                stream = (isinstance(final, DeviceToHostExec)
+                          and conf.get(cfg.TRANSFER_STREAMING_COLLECT))
+                root = final.children[0] if stream else final
+                max_inflight = conf.get(cfg.TRANSFER_MAX_INFLIGHT)
+                pending: List[PendingDownload] = []
+                for p in range(final.num_partitions):
+                    ctx = ExecContext(conf, self.session.device, p,
+                                      final.num_partitions, dm, cleanups)
+                    for b in root.execute(ctx):
+                        if not stream:
+                            out.append(b)
+                            continue
+                        pending.append(start_download(b))
+                        while len(pending) > max_inflight:
+                            out.append(pending.pop(0).result())
+                out.extend(pd.result() for pd in pending)
         finally:
             for fn in cleanups:
                 fn()

@@ -15,6 +15,7 @@ from spark_rapids_tpu_torch.exprs import (Average, CaseWhen, Coalesce, Corr,
                                           UnresolvedAttribute, VariancePop,
                                           VarianceSamp, Year)
 from spark_rapids_tpu_torch.exprs.generators import CreateArray, Explode
+from spark_rapids_tpu_torch.exprs.misc import Rand
 from spark_rapids_tpu_torch.exprs.windows import (DenseRank, Lag, Lead, Rank,
                                                   RowNumber)
 
@@ -25,6 +26,10 @@ def col(name: str) -> Column:
 
 def lit(value: Any) -> Column:
     return Column(Literal.of(value))
+
+
+def rand(seed: int = 0) -> Column:
+    return Column(Rand(seed))
 
 
 def _c(c: Union[str, Column]):

@@ -29,6 +29,13 @@ class DeviceBatch:
             bucket_capacity(self.num_rows)
 
     @property
+    def device_size_bytes(self) -> int:
+        """Bytes of the batch's device buffers at its capacity."""
+        return sum(t.numel() * t.element_size()
+                   for c in self.columns
+                   for t in (c.data, c.validity, c.lengths) if t is not None)
+
+    @property
     def device(self) -> torch.device:
         return self.columns[0].data.device
 

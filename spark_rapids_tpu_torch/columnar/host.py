@@ -28,6 +28,10 @@ class HostBatch:
     schema: Schema
     columns: Tuple[HostColumn, ...]
     num_rows: int
+    #: where the arrow table it came from ended each record batch (row
+    #: offsets short of ``num_rows``): a chunked upload may cut there
+    #: (columnar/transfer.py ``chunk_bounds``)
+    batch_ends: Tuple[int, ...] = ()
 
     def column_by_name(self, name: str) -> HostColumn:
         return self.columns[self.schema.index_of(name)]
@@ -36,7 +40,8 @@ class HostBatch:
         """The named columns, in the order given (no copy)."""
         idx = [self.schema.index_of(n) for n in names]
         return HostBatch(Schema([self.schema[i] for i in idx]),
-                         tuple(self.columns[i] for i in idx), self.num_rows)
+                         tuple(self.columns[i] for i in idx), self.num_rows,
+                         self.batch_ends)
 
     @property
     def nbytes(self) -> int:
@@ -61,6 +66,11 @@ class HostBatch:
     def from_arrow(table, string_max_bytes: int = 256) -> "HostBatch":
         """Arrow table -> HostBatch (pyarrow is imported here only)."""
         import pyarrow as pa
+        ends, off = [], 0
+        for b in table.to_batches():
+            off += b.num_rows
+            if off < table.num_rows:
+                ends.append(off)
         table = table.combine_chunks()
         fields, cols = [], []
         for f, chunked in zip(table.schema, table.columns):
@@ -82,7 +92,8 @@ class HostBatch:
             data = np.asarray(arr.fill_null(fill)).astype(dt.np_dtype(),
                                                           copy=False)
             cols.append(HostColumn(dt, data, validity))
-        return HostBatch(Schema(fields), tuple(cols), table.num_rows)
+        return HostBatch(Schema(fields), tuple(cols), table.num_rows,
+                         tuple(ends))
 
     def to_arrow(self):
         """HostBatch -> arrow table (pyarrow is imported here only)."""

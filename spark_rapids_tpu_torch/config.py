@@ -37,6 +37,18 @@ class ConfEntry:
 _REGISTRY: Dict[str, ConfEntry] = {}
 
 
+def _positive(name: str) -> Callable[[Any], Optional[str]]:
+    def check(v: Any) -> Optional[str]:
+        return None if v > 0 else f"{name} must be > 0, got {v}"
+    return check
+
+
+def _non_negative(name: str) -> Callable[[Any], Optional[str]]:
+    def check(v: Any) -> Optional[str]:
+        return None if v >= 0 else f"{name} must be >= 0, got {v}"
+    return check
+
+
 def _conf(key: str, conf_type: type, default: Any, doc: str,
           checker: Optional[Callable[[Any], Optional[str]]] = None
           ) -> ConfEntry:
@@ -107,6 +119,78 @@ HOST_SPILL_STORAGE_SIZE = _conf(
     "does not fit spills on to disk.",
     checker=lambda v: (None if v > 0
                        else f"spillStorageSize must be > 0, got {v}"))
+
+
+SCAN_CACHE_ENABLED = _conf(
+    "sql.scanCache.enabled", bool, True,
+    "Keep device copies of scanned in-memory tables across actions, so "
+    "repeated queries over the same DataFrame skip the host-to-device upload "
+    "(memory/scan_cache.py). Cached bytes count against the device store's "
+    "budget and are evicted before any buffer spills.")
+
+SCAN_CACHE_BYTES = _conf(
+    "sql.scanCache.maxBytes", int, 2 << 30,
+    "Upper bound on device bytes held by the scan cache; least-recently-used "
+    "tables are evicted past it.")
+
+FUSION_ENABLED = _conf(
+    "sql.fusion.enabled", bool, True,
+    "Whole-stage fusion (plan/fusion.py): collapse maximal chains of Project, "
+    "Filter and Expand, and the partial-aggregate fold, into "
+    "one FusedStageExec or FusedAggregateStageExec. A filter becomes a mask "
+    "over the downstream expressions with one compaction at the stage's "
+    "end. Fused stages render with a '*(id)' prefix in the plan tree. With "
+    "fusion off the filter-into-aggregate fold still runs.")
+
+FUSION_MAX_OPS = _conf(
+    "sql.fusion.maxOps", int, 16,
+    "Upper bound on operators collapsed into one fused stage, and on the "
+    "variants an Expand may multiply a stage into.",
+    checker=_positive("fusion.maxOps"))
+
+TRANSFER_CHUNK_ROWS = _conf(
+    "transfer.chunkRows", int, 1 << 20,
+    "Host-to-device uploads larger than this many rows go in row chunks, "
+    "each staged in pinned host memory while the chunks before it are in "
+    "flight, into one preallocated device tensor per buffer. 0 uploads every "
+    "table in a single shot.",
+    checker=_non_negative("transfer.chunkRows"))
+
+TRANSFER_MAX_INFLIGHT = _conf(
+    "transfer.maxInflight", int, 2,
+    "Bound on in-flight transfers: at most this many upload chunks (and, "
+    "with streaming collect, per-batch downloads) are outstanding before the "
+    "pipeline waits on the oldest.",
+    checker=_positive("transfer.maxInflight"))
+
+TRANSFER_PIPELINE_ENABLED = _conf(
+    "transfer.pipeline.enabled", bool, True,
+    "Planner-inserted bounded-async dispatch between the upload and the "
+    "device stage over it: a PipelinedExec keeps up to "
+    "transfer.pipeline.depth batches in flight on a producer thread that "
+    "shares the consuming task's semaphore hold. Skipped on single-core "
+    "hosts.")
+
+TRANSFER_PIPELINE_DEPTH = _conf(
+    "transfer.pipeline.depth", int, 2,
+    "How many batches a PipelinedExec keeps in flight between the producing "
+    "upload and the consuming stage.",
+    checker=_positive("transfer.pipeline.depth"))
+
+TRANSFER_STREAMING_COLLECT = _conf(
+    "transfer.streamingCollect.enabled", bool, True,
+    "collect() starts each result batch's device-to-host copy (non_blocking, "
+    "into pinned host buffers, with a CUDA event) as soon as the batch is "
+    "produced and resolves the copies in order, at most "
+    "transfer.maxInflight outstanding, instead of one synchronous download "
+    "per batch.")
+
+CONCURRENT_TPU_TASKS = _conf(
+    "sql.concurrentTpuTasks", int, 2,
+    "Number of tasks that may hold the device at once; the device-admission "
+    "semaphore (memory/semaphore.py) blocks the rest "
+    "(spark.rapids.sql.concurrentGpuTasks).",
+    checker=_positive("concurrentTpuTasks"))
 
 
 class TpuConf:

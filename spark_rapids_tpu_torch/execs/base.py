@@ -5,6 +5,7 @@ leaf and the download transition, ``DeviceBatch`` for everything between.
 """
 from __future__ import annotations
 
+import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -18,7 +19,8 @@ class ExecContext:
 
     def __init__(self, conf: TpuConf, device: torch.device,
                  partition_id: int = 0, num_partitions: int = 1,
-                 device_manager=None, cleanups: Optional[List] = None):
+                 device_manager=None, cleanups: Optional[List] = None,
+                 task_id: Optional[int] = None):
         self.conf = conf
         self.device = device
         self.partition_id = partition_id
@@ -29,6 +31,13 @@ class ExecContext:
         #: shared by the partitions of one action; the caller runs them when
         #: the action finishes (shuffle removal)
         self.cleanups = cleanups
+        #: the owning task's id for the device-admission semaphore: the
+        #: thread that starts the task. Threads an exec starts (the
+        #: PipelinedExec producer) join this task's hold; their own ident,
+        #: or a nested producer's, would take more permits and can
+        #: deadlock admission.
+        self.task_id = task_id if task_id is not None \
+            else threading.get_ident()
 
     @property
     def string_max_bytes(self) -> int:
@@ -37,12 +46,16 @@ class ExecContext:
     def for_partition(self, partition_id: int,
                       num_partitions: int) -> "ExecContext":
         return ExecContext(self.conf, self.device, partition_id,
-                           num_partitions, self.device_manager, self.cleanups)
+                           num_partitions, self.device_manager, self.cleanups,
+                           self.task_id)
 
 
 class PhysicalExec:
     """Base physical operator: ``output`` is the produced schema; ``execute``
     yields the batches of one partition."""
+
+    #: yields DeviceBatches (False for the host leaf and the download)
+    is_device = True
 
     def __init__(self, children: Sequence["PhysicalExec"], output: Schema):
         self.children: Tuple[PhysicalExec, ...] = tuple(children)

@@ -41,6 +41,8 @@ def limit_size_estimate(child: PhysicalExec, out_schema: Schema,
 
 
 class CpuLocalScanExec(LeafExec):
+    is_device = False
+
     def __init__(self, batch: HostBatch):
         super().__init__(batch.schema)
         self.batch = batch

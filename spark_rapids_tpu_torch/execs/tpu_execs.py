@@ -1,8 +1,10 @@
 """Device physical operators: upload/download transitions, project,
-filter, hash aggregate, sort, limit and union. Each evaluates its expressions
-eagerly on the batch's tensors; the live row count of a result reaches the
-host once per batch to pick the output's capacity bucket, as in the JAX
-package."""
+filter, hash aggregate, sort, limit and union. Each evaluates its
+expressions eagerly on the batch's tensors; the live row count of a result
+reaches the host once per batch to pick the output's capacity bucket, as in
+the JAX package. The aggregate may carry a folded filter (``pre_filter``)
+that masks its input rows instead of compacting them; the upload keeps its
+batch in the scan cache across actions."""
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Tuple
@@ -14,11 +16,16 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import (DType, Field, Schema,
                                                     bucket_capacity)
 from spark_rapids_tpu_torch.columnar.host import HostBatch
-from spark_rapids_tpu_torch.columnar.transfer import download, upload
+from spark_rapids_tpu_torch import config as cfg
+from spark_rapids_tpu_torch.columnar.transfer import (download,
+                                                      upload_table_conf)
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
-from spark_rapids_tpu_torch.execs.cpu_execs import (limit_size_estimate,
+from spark_rapids_tpu_torch.execs.cpu_execs import (CpuLocalScanExec,
+                                                    limit_size_estimate,
                                                     width_scaled_estimate)
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
+from spark_rapids_tpu_torch.exprs.cse import (add_shared_columns,
+                                              common_subexpressions)
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
 from spark_rapids_tpu_torch.ops.aggregate import (group_aggregate,
@@ -32,7 +39,7 @@ def colvs_of(batch: DeviceBatch) -> List[ColV]:
 
 def eval_ctx(batch: DeviceBatch, ctx: ExecContext) -> EvalCtx:
     return EvalCtx(colvs_of(batch), batch.capacity, batch.device,
-                   ctx.string_max_bytes)
+                   ctx.string_max_bytes, getattr(ctx, "partition_id", 0))
 
 
 def batch_of(schema: Schema, colvs, num_rows: int) -> DeviceBatch:
@@ -74,7 +81,11 @@ def concat_device_batches(batches: List[DeviceBatch], schema: Schema,
 
 # ---------------------------------------------------------------- transitions
 class HostToDeviceExec(PhysicalExec):
-    """Upload transition: each host batch goes to the context's device."""
+    """Upload transition: each host batch goes to the context's device, in
+    chunks of ``transfer.chunkRows`` rows. Directly over an in-memory scan,
+    with ``sql.scanCache.enabled``, the uploaded batch is cached across
+    actions (memory/scan_cache.py), so a repeated query over the same table
+    skips the upload."""
 
     def __init__(self, child: PhysicalExec):
         super().__init__((child,), child.output)
@@ -83,12 +94,27 @@ class HostToDeviceExec(PhysicalExec):
         return self.children[0].size_estimate()
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        for hb in self.children[0].execute(ctx):
-            yield upload(hb, ctx.device)
+        child = self.children[0]
+        if (isinstance(child, CpuLocalScanExec)
+                and ctx.conf.get(cfg.SCAN_CACHE_ENABLED)):
+            if ctx.partition_id != 0:
+                return
+            from spark_rapids_tpu_torch.memory.scan_cache import get_cache
+            cache = get_cache(ctx.conf.get(cfg.SCAN_CACHE_BYTES))
+            # per-key latch: actions missing on the same table at once
+            # share one upload
+            yield cache.get_or_put(
+                child.batch, ctx.string_max_bytes, ctx.device,
+                lambda: upload_table_conf(child.batch, ctx.device, ctx.conf))
+            return
+        for hb in child.execute(ctx):
+            yield upload_table_conf(hb, ctx.device, ctx.conf)
 
 
 class DeviceToHostExec(PhysicalExec):
     """Download transition: live rows back to host numpy buffers."""
+
+    is_device = False
 
     def __init__(self, child: PhysicalExec):
         super().__init__((child,), child.output)
@@ -144,14 +170,17 @@ class TpuHashAggregateExec(PhysicalExec):
     """Grouped aggregation over the concatenation of the child's batches.
     The fastest grouping runs first and the next one only when it raised
     its flag: one-hot, then hash, then the exact sort (the JAX package's
-    ``tpu_execs.py`` escalation)."""
+    ``tpu_execs.py`` escalation). A folded filter (``pre_filter``, over the
+    child's output) masks the input rows in every mode (``group_aggregate``'s
+    ``extra_mask``), so the filtered batch never materializes."""
 
     def __init__(self, grouping: Tuple[Expression, ...],
                  aggregates: Tuple[Expression, ...], child: PhysicalExec,
-                 output: Schema):
+                 output: Schema, pre_filter: Optional[Expression] = None):
         super().__init__((child,), output)
         self.grouping = grouping
         self.aggregates = aggregates
+        self.pre_filter = pre_filter
         #: grouping modes run by the last execution, in order
         self.modes_run: List[str] = []
 
@@ -160,15 +189,32 @@ class TpuHashAggregateExec(PhysicalExec):
         return width_scaled_estimate(self.children[0], self.output)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        batch = concat_device_batches(list(self.children[0].execute(ctx)),
-                                      self.children[0].output, ctx.device)
+        return self._aggregate(ctx, self.children[0].execute(ctx))
+
+    def _aggregate(self, ctx: ExecContext,
+                   source: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
+        batch = concat_device_batches(list(source), self.children[0].output,
+                                      ctx.device)
         fns = tuple(a.c if isinstance(a, Alias) else a for a in self.aggregates)
+        # the subtrees a fold repeated, evaluated once (exprs/cse.py)
+        ng = len(self.grouping)
+        shared, roots = common_subexpressions(
+            self.grouping + fns + (self.pre_filter,), len(batch.columns))
+        grouping, fns, pre_filter = roots[:ng], roots[ng:-1], roots[-1]
+        base = eval_ctx(batch, ctx)
+        add_shared_columns(base, shared)
+        mask = None
+        if pre_filter is not None:
+            p = bk.as_column(pre_filter.eval(base), batch.capacity)
+            mask = p.data & p.validity
         self.modes_run = []
-        for mode in grouping_modes(self.grouping, fns):
+        for mode in grouping_modes(grouping, fns):
             self.modes_run.append(mode)
+            ectx = eval_ctx(batch, ctx)
+            ectx.columns = list(base.columns)
             key_cols, res_cols, n, flagged = group_aggregate(
-                eval_ctx(batch, ctx), self.grouping, fns, batch.num_rows,
-                batch.capacity, grouping=mode)
+                ectx, grouping, fns, batch.num_rows, batch.capacity,
+                grouping=mode, extra_mask=mask)
             if not flagged:
                 break
         yield batch_of(self.output, list(key_cols) + list(res_cols), n)

@@ -31,14 +31,17 @@ class ColV:
 
 class EvalCtx:
     """Evaluation context: the child batch's columns as ColVs, their row
-    capacity, the device new tensors go to, and the string width cap."""
+    capacity, the device new tensors go to, the string width cap and the
+    partition being evaluated."""
 
     def __init__(self, columns: Sequence[ColV], capacity: int,
-                 device: torch.device, string_max_bytes: int = 256):
+                 device: torch.device, string_max_bytes: int = 256,
+                 partition_id: int = 0):
         self.columns = list(columns)
         self.capacity = capacity
         self.device = device
         self.string_max_bytes = string_max_bytes
+        self.partition_id = partition_id
 
 
 class Expression:

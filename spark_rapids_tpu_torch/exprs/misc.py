@@ -1,7 +1,11 @@
-"""Named expressions and sort ordering."""
+"""Named expressions, sort ordering and the non-deterministic generator
+``rand``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
+import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
@@ -41,3 +45,26 @@ class SortOrder(Expression):
 
     def eval(self, ctx: EvalCtx) -> ColV:
         return self.child.eval(ctx)
+
+
+@dataclass(frozen=True)
+class Rand(Expression):
+    """rand(seed): uniform doubles in [0, 1), deterministic per (seed,
+    partition). The stream is numpy's default generator seeded with (seed,
+    partition, 0), which is the JAX package's CPU-engine stream; its device
+    path draws from jax's threefry instead, so the values agree with the
+    JAX package's CPU engine only."""
+    seed: int = 0
+
+    def dtype(self) -> DType:
+        return DType.DOUBLE
+
+    def nullable(self) -> bool:
+        return False
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        rng = np.random.default_rng((self.seed, ctx.partition_id, 0))
+        data = torch.from_numpy(rng.random(ctx.capacity)).to(ctx.device)
+        return ColV(DType.DOUBLE, data,
+                    torch.ones(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device))

@@ -1,5 +1,6 @@
 """The process's device memory manager: one per process, holding the spill
-store chain (DEVICE -> HOST -> DISK) and its catalog.
+store chain (DEVICE -> HOST -> DISK), its catalog and the device-admission
+semaphore (``sql.concurrentTpuTasks`` permits, memory/semaphore.py).
 
 The device budget is ``memory.tpu.poolSizeBytes`` when set, else
 ``memory.tpu.allocFraction`` of the device's memory (``torch.cuda.
@@ -7,7 +8,7 @@ mem_get_info``'s total on a GPU; 16 GiB on the CPU, the JAX package's
 default when the backend reports no memory). The host budget is
 ``memory.host.spillStorageSize``. The session's device is part of the
 manager's key: stores that hold tensors on one device are never handed to a
-session on another.
+session on another. The permit count is part of the key too.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.memory.store import BufferCatalog, build_store_chain
 
 _DEFAULT_DEVICE_BYTES = 16 << 30
@@ -34,7 +36,8 @@ def _device_memory_bytes(device: torch.device) -> int:
 
 def _manager_key(conf: TpuConf, device: torch.device) -> tuple:
     return (conf.get(cfg.DEVICE_POOL_BYTES), conf.get(cfg.DEVICE_POOL_FRACTION),
-            conf.get(cfg.HOST_SPILL_STORAGE_SIZE), device)
+            conf.get(cfg.HOST_SPILL_STORAGE_SIZE),
+            conf.get(cfg.CONCURRENT_TPU_TASKS), device)
 
 
 class DeviceManager:
@@ -51,6 +54,7 @@ class DeviceManager:
         self.device_store, self.host_store, self.disk_store = \
             build_store_chain(self.catalog, self.device_budget,
                               conf.get(cfg.HOST_SPILL_STORAGE_SIZE))
+        self.semaphore = TpuSemaphore(conf.get(cfg.CONCURRENT_TPU_TASKS))
         #: the exchanges' shuffle catalog over these stores, made at the
         #: first exchange (execs/exchange_execs.py _local_shuffle_env)
         self.shuffle_env = None
@@ -58,7 +62,8 @@ class DeviceManager:
     @property
     def is_idle(self) -> bool:
         return not (len(self.device_store) or len(self.host_store)
-                    or len(self.disk_store))
+                    or len(self.disk_store)
+                    or self.semaphore.active_holders)
 
     def _close(self) -> None:
         self.device_store.close()

@@ -6,7 +6,9 @@ priority, oldest first among equals) down the chain. The host tier accounts
 its budget as a first-fit arena, and a buffer that finds no block spills the
 coldest host buffers to disk, or goes to disk itself. The port's counterpart
 of the JAX package's ``memory/store.py``, with the same spill order, so the
-same sequence of adds leaves each buffer on the same tier.
+same sequence of adds leaves each buffer on the same tier. The device
+tier's admission also counts the scan cache's bytes and shrinks the cache
+before it spills (``DeviceMemoryStore.ensure_capacity``).
 """
 from __future__ import annotations
 
@@ -104,13 +106,20 @@ class BufferStore:
         # make room outside the store lock: the spill cascade copies to the
         # host and writes files, which must not block unrelated traffic
         if self.budget_bytes is not None:
-            self.spill_to_size(max(self.budget_bytes - buf.size_bytes, 0))
+            self.ensure_capacity(buf.size_bytes)
         with self._lock:
             buf.owner_store = self
             self._buffers[buf.id.key] = buf
             self._spill_queue.offer(buf.id.key, buf.spill_priority)
             self._used += buf.size_bytes
         self.catalog.register(buf)
+
+    def ensure_capacity(self, incoming_bytes: int) -> None:
+        """Spill the coldest buffers until ``incoming_bytes`` fit the
+        budget."""
+        if self.budget_bytes is None:
+            return
+        self.spill_to_size(max(self.budget_bytes - incoming_bytes, 0))
 
     def spill_to_size(self, target_bytes: int) -> int:
         """Spill the coldest buffers until used <= target; returns the
@@ -198,6 +207,38 @@ class DeviceMemoryStore(BufferStore):
 
     def _move_down(self, buf: SpillableBuffer) -> SpillableBuffer:
         return buf.to_host()
+
+    def ensure_capacity(self, incoming_bytes: int) -> None:
+        """Admission counts the scan cache's device bytes too (they share
+        the device's memory). Cached scans are copies that can be uploaded
+        again, so they are evicted before any buffer spills down the
+        chain."""
+        if self.budget_bytes is None:
+            return
+        from spark_rapids_tpu_torch.memory import scan_cache
+        cache = scan_cache.peek_cache()
+        cache_bytes = 0
+        if cache is not None:
+            with self._lock:
+                used = self._used
+            cache_bytes = cache.total_bytes()
+            overflow = used + cache_bytes + incoming_bytes - self.budget_bytes
+            if overflow > 0:
+                cache_bytes -= cache.shrink_by(overflow)
+        self.spill_to_size(
+            max(self.budget_bytes - incoming_bytes - cache_bytes, 0))
+
+    def handle_oom(self, needed_bytes: int) -> int:
+        """Recovery from a failed device allocation: drop the scan cache's
+        copies first, then spill at least ``needed_bytes`` to the next
+        tier -> the bytes spilled."""
+        from spark_rapids_tpu_torch.memory import scan_cache
+        cache = scan_cache.peek_cache()
+        if cache is not None:
+            cache.clear()
+        with self._lock:
+            target = max(self._used - needed_bytes, 0)
+        return self.spill_to_size(target)
 
 
 class HostMemoryStore(BufferStore):

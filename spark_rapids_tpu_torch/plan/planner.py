@@ -41,8 +41,17 @@ from spark_rapids_tpu_torch.plan import logical as lp
 
 
 def plan_physical(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
-    """Device plan for ``plan``, ending in the download transition."""
-    return DeviceToHostExec(ensure_requirements(_plan_node(plan, conf)))
+    """Device plan for ``plan``, ending in the download transition, through
+    the JAX package's rewrites in its order: whole-stage fusion
+    (``sql.fusion.enabled``), the filter-into-aggregate fold (always), then
+    the pipeline boundaries over the uploads
+    (``transfer.pipeline.enabled``)."""
+    from spark_rapids_tpu_torch.plan.fusion import fuse_stages
+    from spark_rapids_tpu_torch.plan.overrides import (fuse_device_ops,
+                                                       insert_pipeline)
+    device_plan = fuse_device_ops(fuse_stages(
+        ensure_requirements(_plan_node(plan, conf)), conf))
+    return DeviceToHostExec(insert_pipeline(device_plan, conf))
 
 
 def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:

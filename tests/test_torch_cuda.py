@@ -516,3 +516,122 @@ def test_cuda_tpcxbb_float_filters_repeat_bit_for_bit(cuda, q):
     for a, b in zip(cold.columns, warm.columns):
         assert np.array_equal(a.validity, b.validity)
         assert a.data.tobytes() == b.data.tobytes()
+
+
+# ------------------------------------------------- the default execution path
+def _same_host_batch(a, b):
+    assert a.num_rows == b.num_rows
+    for x, y in zip(a.columns, b.columns):
+        assert np.array_equal(x.validity, y.validity)
+        assert x.data.tobytes() == y.data.tobytes()
+        assert x.lengths is None or np.array_equal(x.lengths, y.lengths)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_upload_equals_single_shot(cuda):
+    """Lineitem uploaded in chunks of 7,000 rows, two in flight, equals the
+    single-shot upload byte for byte, padding rows included."""
+    from spark_rapids_tpu_torch.columnar.transfer import (chunk_bounds,
+                                                          upload_table)
+    hb = gen_lineitem(0.05, seed=3)
+    assert len(chunk_bounds(hb, 7000)) > 10
+    one = upload(hb, cuda)
+    chunked = upload_table(hb, cuda, chunk_rows=7000, max_inflight=2)
+    torch.cuda.synchronize()
+    for a, b in zip(chunked.columns, one.columns):
+        for x, y in ((a.data, b.data), (a.validity, b.validity),
+                     (a.lengths, b.lengths)):
+            assert (x is None) == (y is None)
+            assert x is None or (x.shape == y.shape and torch.equal(x, y))
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_collect_equals_synchronous_download(cuda):
+    """Q1 and an 8-way repartition (eight result batches) collect the same
+    bytes with streaming collect on and off."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, q1
+    hb = gen_lineitem(0.05, seed=5)
+    out = []
+    for stream in ("true", "false"):
+        sess = TpuSession({**BENCH_CONF, "spark.rapids.tpu.transfer."
+                           "streamingCollect.enabled": stream}, device="cuda")
+        df = sess.create_dataframe(hb)
+        out.append((q1(df).collect(),
+                    df.repartition(8, "l_orderkey").collect()))
+    for a, b in zip(*out):
+        _same_host_batch(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_cache_warm_equals_cold(cuda):
+    """Q3 over orders and lineitem hash 8 (two exchanges, an aggregate):
+    the warm run reads the scan cache and gives the cold run's bits."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    sess = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql."
+                       "broadcastJoinThreshold.bytes": "-1"}, device="cuda")
+    frames = _q3_frames(sess, 0.05, True)
+    cold = q3(frames).collect()
+    hits = peek_cache().hits
+    warm = q3(frames).collect()
+    assert peek_cache().hits - hits == 3
+    assert cold.num_rows == 10
+    _same_host_batch(cold, warm)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_q1_and_q15_repeat_bit_for_bit(cuda):
+    """Q1 (its filter folded into a fused aggregate) and Q15 (revenues
+    against their max) give the same bits on three runs, and equal the run
+    with fusion off."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, q1
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.execs.fused_execs import \
+        FusedAggregateStageExec
+    tables = td.gen_all(0.1, 42)
+    li = gen_lineitem(0.1, seed=42)
+    for conf in (BENCH_CONF, {**BENCH_CONF,
+                              "spark.rapids.tpu.sql.fusion.enabled": "false"}):
+        sess = TpuSession(conf, device="cuda")
+        runs = []
+        for _ in range(3):
+            runs.append((q1(sess.create_dataframe(li)).collect(),
+                         QUERIES[15]({k: sess.create_dataframe(v)
+                                      for k, v in tables.items()}).collect()))
+        if conf is BENCH_CONF:
+            assert [n for n in sess.last_plan.walk()
+                    if isinstance(n, FusedAggregateStageExec)]
+            fused = runs[0]
+        for r in runs[1:] + [fused]:
+            for a, b in zip(runs[0], r):
+                _same_host_batch(a, b)
+    assert fused[0].num_rows >= 4 and fused[1].num_rows >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_under_one_permit_finishes(cuda):
+    """Q3 with its uploads pipelined under sql.concurrentTpuTasks=1: the
+    producers join the action's hold and the query finishes."""
+    import threading
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
+    from spark_rapids_tpu_torch.execs.pipeline import PipelinedExec
+    sess = TpuSession({**BENCH_CONF,
+                       "spark.rapids.tpu.sql.concurrentTpuTasks": "1"},
+                      device="cuda")
+    out = []
+    t = threading.Thread(target=lambda: out.append(
+        q3(_q3_frames(sess, 0.05, True)).collect()))
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and out[0].num_rows == 10
+    import os
+    assert [n for n in sess.last_plan.walk()
+            if isinstance(n, PipelinedExec)] or (os.cpu_count() or 1) < 2
+    assert DeviceManager.peek().semaphore.active_holders == 0

@@ -29,6 +29,19 @@ sess = TpuSession(BENCH_CONF, device="cpu")
 res = q1(sess.create_dataframe(gen_lineitem(0.0005, 1))
          .repartition(8, "l_orderkey")).collect()
 assert res.num_rows == 6, res.num_rows
+# the default path: the fused aggregate, the pipelined upload, the scan
+# cache on the second action, the streaming collect
+from spark_rapids_tpu_torch.execs.fused_execs import FusedAggregateStageExec
+from spark_rapids_tpu_torch.execs.pipeline import PipelinedExec
+from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+li = sess.create_dataframe(gen_lineitem(0.0005, 2))
+first, second = q1(li).collect(), q1(li).collect()
+assert first.num_rows == second.num_rows == 6
+kinds = {type(n) for n in sess.last_plan.walk()}
+import os
+assert FusedAggregateStageExec in kinds, kinds
+assert PipelinedExec in kinds or (os.cpu_count() or 1) < 2, kinds
+assert peek_cache().hits >= 1
 from spark_rapids_tpu_torch.benchmarks import tpch_data as td
 from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
 dfs = {k: sess.create_dataframe(g(0.002, 1)) for k, g in (
@@ -67,9 +80,11 @@ def _clean_env():
 
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
-    """Every module imports, and TPC-H Q1, Q3, Q13 and Q22 and the TPCx-BB
-    queries through the slice-7 modules (q2, q18, q20, q22, q23, q28) run,
-    with no jax, nothing of the JAX package and no pyarrow loaded."""
+    """Every module imports, and TPC-H Q1 (also through the default path's
+    fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22 and
+    the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
+    q23, q28) run, with no jax, nothing of the JAX package and no pyarrow
+    loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
