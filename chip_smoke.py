@@ -4,7 +4,9 @@
 Phases:
   1. require a CUDA device; print the card's name and power limit;
   2. build every hand-written kernel from csrc/ with nvcc, one nvcc per
-     source, all started together;
+     source, all started together; then make the port's CPU runs that
+     phases 9-11 and 13 hold the card against, in CPU_WORKERS processes,
+     and wait for them all, so that no CPU work runs beside a timed phase;
   3. hold each kernel against its plain PyTorch version on the card:
      - the partition-reorder kernel at the main path's shape (lineitem, 8
        hash partitions on l_orderkey), at n = 2 and n = 32, on a ragged
@@ -72,21 +74,26 @@ Phases:
      kept, joins and aggregate modes; Q18 with dmaConsolidate on (the
      compact kernel must launch; the result equal to the default run's);
      Q13 and Q22 against numpy versions;
- 10. slice 6's main path, the TPC-DS bench subset (bench.py's 14
-     TPCDS_BENCH_QUERIES) and TPCx-BB q5 through TpuSession: first at
-     --check-sf on the card against the port's own CPU run (as in phase
-     9); then the twelve TPC-DS tables at the run's scale with the union of
-     the columns the 14 queries read and the four q5 reads, each query
-     scanning only its own, store_sales, catalog_sales and web_sales
-     hash-repartitioned 8 ways on their item keys; both kernels against
-     their plain versions on the widest store_sales input those exchanges
-     build, timed and bounded there; each query cold and warm (the warm
-     result equal to the cold one) with its wall times, rows, peak device
-     memory, reorder launches (one per hash exchange, every one kept) and
-     those kept, joins and aggregate modes; q23 with dmaConsolidate on (a
-     compact launch per kept reorder output; the result equal to the
-     default run's); the geomean of the 14 TPC-DS warm walls on a line of
-     its own;
+ 10. slice 9's main path, all 99 TPC-DS queries and TPCx-BB q5 through
+     TpuSession: first at --check-sf on the card against the port's own
+     CPU run (as in phase 9); then the 24 TPC-DS tables at the run's
+     scale with the union of the columns the 99 queries read and the four
+     q5 reads, each query scanning only its own, store_sales,
+     catalog_sales and web_sales hash-repartitioned 8 ways on their item
+     keys; both kernels against their plain versions on the widest input
+     those exchanges build from each sales fact, timed and bounded there;
+     each query cold and warm (the warm result equal to the cold one) with
+     its wall times, rows, peak device memory, reorder launches (one per hash
+     exchange, every one kept) and those kept, joins and aggregate modes;
+     q72, if it runs out of device memory (its first join pairs every catalog
+     line with all the inventory rows of its item), again alone at the
+     largest of SF 5, 2 and 1 that fits, printed beside the error and the
+     peak, its numbers kept apart from the sums, the geomean and the
+     launches (any other failure fails the phase); q23 with dmaConsolidate on (a compact launch per kept reorder
+     output; the result equal to the default run's); the geomean of the 14
+     bench queries' warm walls (bench.py's TPCDS_BENCH_QUERIES, the series of
+     earlier runs) and of all 99, with the cold and warm sums, on lines of
+     their own;
  11. slice 7's main path, all 30 TPCx-BB queries through TpuSession:
      first at --bb-check-sf (default 1) on the card against the port's
      own CPU run (as in phase 9); then the nineteen tables at the run's
@@ -108,13 +115,28 @@ Phases:
      pipelined upload, the admission semaphore, the streaming collect)
      against ALL_OFF (fusion, scan cache, pipeline and streaming collect
      off, single-shot uploads): every query of the three suites at the
-     check scales on the card both ways, equal bit for bit in the same row
-     order, with each query's fused stages and ops; Q1 and Q3 at the run's
+     check scales on the card both ways, equal bit for
+     bit in the same row order, with each query's fused stages and ops; Q1 and Q3 at the run's
      scale (orders and lineitem hash 8) and Q1 over the plain lineitem,
      both ways, cold and warm, with walls, peak device memory, reorder
      launches and those kept (with --profile the device busy time over the
      warm wall); lineitem uploaded in 1 Mi-row chunks and in a single shot,
-     twice each, byte-equal, with their times.
+     twice each, byte-equal, with their times; its TPC-DS part keeps the
+     bench subset and q5;
+ 13. slice 9's entry point, TpuSession.sql over temp views: at
+     --check-sf the 22 TPC-H and the 99 TPC-DS SQL texts, each over views
+     of its DataFrame query's tables of phases 9 and 10 (orders, lineitem
+     and the sales facts hash 8), each equal to that query's card result
+     (by position;
+     unordered where either reference test's sort can tie); one statement
+     per function the SQL planner gained in this slice over the TPC-DS
+     views, the card's result equal to the port's CPU run bit for bit
+     (pow's within a few ulps: two libm pows); then TPC-H Q1, Q3 and Q21
+     and TPC-DS q3, q14 and q67 by SQL at the run's scale over views of
+     phases 9's and 10's tables, cold and warm as their DataFrame runs,
+     each launching the reorder kernel and equal to its DataFrame query's
+     result, and Q21's row ids (its non-equality correlation's semi/anti
+     join) checked for repeats.
 
 The sessions run the port's defaults, so phases 6-11 take the default
 path too; their warm runs read the scan cache (a query's pruned tables are
@@ -123,13 +145,15 @@ made once per phase), and a cold run starts with the cache cleared.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
 seconds are printed. Prints one JSON line of per-kernel numbers: phase
-11's launches (and launches_kept, those whose output was used; the compact
-kernel's from the dma-on q29) with the times, bounds and errors of phase
-11's check on the widest input of each TPCx-BB fact (summed over the
-inputs, each under "inputs"), phase 10's TPC-DS and q5 reading and phase
-9's TPC-H reading (launches and their checks, likewise), phase 7's
-reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every
-path's launches under launches_by_path; then as its last line
+10's launches over the TPC-DS queries that ran at the run's scale and q5
+(and launches_kept, those whose output was used; a query cut to a smaller
+scale under tpcds_oom_cut; the compact kernel's from the dma-on q23) with the
+times, bounds and errors of phase 10's check on the widest input of each
+sales fact (summed over the inputs, each under "inputs"), phase 11's
+TPCx-BB and phase 9's TPC-H readings (launches and their checks,
+likewise), phase 13's SQL launches at the run's scale, phase 7's reading
+on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
+launches under launches_by_path; then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
@@ -1166,6 +1190,13 @@ def query_tables(tables, q):
     return out
 
 
+def input_width(hb):
+    """Bytes of a packed row of ``hb`` (its reorder input's L, roughly)."""
+    return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
+                                  else 1) + 1
+               + (4 if c.lengths is not None else 0) for c in hb.columns)
+
+
 def memo(fn):
     """``fn(q)`` made once per ``q``: a query's pruned tables stay the same
     host objects across its runs, so every run after the first reads them
@@ -1214,10 +1245,13 @@ def _sort_key(row):
                  for v in row)
 
 
-def check_same_result(name, got, want, ties):
+def check_same_result(name, got, want, ties, positional=False):
     """Keys, counts, dates and strings exact; floats within relative
-    REL_TOL (NaN equals NaN); unordered when the query's sort can tie."""
-    if got.schema.names() != want.schema.names() \
+    REL_TOL (NaN equals NaN); unordered when the query's sort can tie.
+    ``positional``: the columns compare by position, whatever their
+    names (a SQL text names its outputs as the spec does)."""
+    if (not positional and got.schema.names() != want.schema.names()) \
+            or len(got.schema) != len(want.schema) \
             or got.num_rows != want.num_rows:
         raise AssertionError(f"{name}: {got.num_rows} rows of "
                              f"{got.schema.names()} against {want.num_rows} "
@@ -1266,17 +1300,19 @@ def run_query(sess, name, build):
     return res, secs, reorder_n, compact_n, kept, plan
 
 
-def check_against_cpu(label, sf, tables, specs):
+def check_against_cpu(label, sf, specs, refs):
     """Every query of ``specs`` ((name, build, ties, reads a partitioned
     table) as ``query_specs`` gives them) on the card against the port's
     own run on the CPU (whose answers the CPU tests hold against the JAX
-    package)."""
+    package): ``refs[name]`` is that run's (result, seconds), from
+    ``cpu_references``. Returns the card's results."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
-    gpu, cpu = TpuSession(BENCH_CONF), TpuSession(BENCH_CONF, device="cpu")
+    gpu = TpuSession(BENCH_CONF)
     cpu_s = gpu_s = 0.0
+    results = {}
     for name, build, ties, _ in specs:
-        want, secs = run_query(cpu, name, build)[:2]
+        want, secs = refs[name]
         cpu_s += secs
         got, secs = run_query(gpu, name, build)[:2]
         gpu_s += secs
@@ -1284,18 +1320,74 @@ def check_against_cpu(label, sf, tables, specs):
                                   want, ties)
         print(f"{name} sf={sf}: {got.num_rows} rows equal the CPU run "
               f"(worst relative float error {worst:.3e})")
+        results[name] = got
     print(f"{label} sf={sf} check: {len(specs)} queries on the CPU in "
-          f"{cpu_s:.2f} s and on the card in {gpu_s:.2f} s, every result "
-          f"equal")
+          f"{cpu_s:.2f} s (in the CPU workers) and on the card in "
+          f"{gpu_s:.2f} s, every result equal")
+    return results
 
 
-def run_cold_warm(specs, all_kept):
+# ------------------------------------------------------ the CPU references
+#: worker processes, and torch threads in each, that make the CPU
+#: references: torch's CPU operators use extra threads poorly at the
+#: check scales, so several processes of few threads finish sooner than
+#: one process with every core
+CPU_WORKERS, CPU_THREADS = 4, 2
+#: a CPU worker's query builds, per (suite, scale, seed)
+_WORKER_SPECS: dict = {}
+
+
+def _worker_init(threads):
+    import torch
+    torch.set_num_threads(threads)
+
+
+def cpu_run(suite, sf, seed, name):
+    """In a CPU worker: query ``name`` of ``suite`` (``SUITES``) on the
+    port's CPU session -> (result, seconds). The suite's tables are made
+    once per worker, from the same generators and seed as the card's."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    key = (suite, sf, seed)
+    if key not in _WORKER_SPECS:
+        make_tables, make_specs = SUITES[suite]
+        _WORKER_SPECS[key] = {s[0]: s[1] for s in
+                              make_specs(make_tables(sf, seed))}
+    sess = TpuSession(BENCH_CONF, device="cpu")
+    return run_query(sess, name, _WORKER_SPECS[key][name])[:2]
+
+
+def cpu_references(jobs):
+    """The port's CPU runs that the card's results are held against, for
+    ``jobs`` [(suite, scale, seed, query names)], made by CPU_WORKERS
+    processes. The script waits for them all before its first timed
+    phase, so no CPU work runs beside one; the workers are gone when this
+    returns or raises. Returns {suite: {name: (result, seconds)}}."""
+    import multiprocessing
+    refs = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init, initargs=(CPU_THREADS,)) as pool:
+        futures = {(suite, name): pool.submit(cpu_run, suite, sf, seed, name)
+                   for suite, sf, seed, names in jobs for name in names}
+        try:
+            for (suite, name), f in futures.items():
+                refs.setdefault(suite, {})[name] = f.result()
+        except BaseException:
+            pool.shutdown(cancel_futures=True)
+            raise
+    return refs
+
+
+def run_cold_warm(specs, all_kept, oom_ok=()):
     """Each query of ``specs`` cold then warm on the card (the warm result
     must equal the cold one), with its wall times, rows, peak device
     memory, reorder launches and launches kept (the hash exchanges that
     used the kernel's output rather than the sort path; every one with
-    ``all_kept``), join strategies and aggregate grouping modes. Returns
-    (per-query numbers, warm results)."""
+    ``all_kept``), join strategies and aggregate grouping modes. A query
+    of ``oom_ok`` that runs out of device memory is recorded and skipped;
+    any other failure raises. Returns (per-query numbers, warm results,
+    {query: its out-of-memory record})."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
@@ -1306,7 +1398,7 @@ def run_cold_warm(specs, all_kept):
     from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
 
     sess = TpuSession(BENCH_CONF)
-    results, nums = {}, {}
+    results, nums, ooms = {}, {}, {}
     for name, build, ties, partitioned in specs:
         # a cold run finds nothing cached; the warm run reads the scan
         # cache, and the peak counts the query's cached tables
@@ -1315,8 +1407,20 @@ def run_cold_warm(specs, all_kept):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cold, cold_s, launches, _, kept, plan = run_query(sess, name, build)
-        warm, warm_s = run_query(sess, name, build)[:2]
+        try:
+            cold, cold_s, launches, _, kept, plan = run_query(sess, name,
+                                                              build)
+            warm, warm_s = run_query(sess, name, build)[:2]
+        except torch.cuda.OutOfMemoryError as e:
+            if name not in oom_ok:
+                raise
+            ooms[name] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "error": str(e).splitlines()[0]}
+            print(f"{name}: out of device memory at peak "
+                  f"{ooms[name]['peak_gb']:.2f} GB: {ooms[name]['error']}")
+            sess = TpuSession(BENCH_CONF)
+            release_device()
+            continue
         peak = torch.cuda.max_memory_allocated() / 1e9
         check_same_result(f"{name} warm against cold", warm, cold, ties)
         if partitioned and launches < 1:
@@ -1342,7 +1446,7 @@ def run_cold_warm(specs, all_kept):
               f"aggregate_modes={modes}")
         results[name] = warm
         del cold, plan
-    return nums, results
+    return nums, results, ooms
 
 
 def run_dma(name, build, want):
@@ -1365,23 +1469,29 @@ def run_dma(name, build, want):
     return reorder_n, compact_n, kept
 
 
-def tpch_specs(tables):
-    """The 22 queries as (name, build, ties, reads a partitioned table)."""
+def tpch_specs(tables, pruned=None):
+    """The 22 queries as (name, build, ties, reads a partitioned table);
+    ``pruned(q)`` gives query ``q``'s tables (``query_tables``, made once
+    per query)."""
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
                                                                 QUERIES)
-    pruned = memo(lambda q: query_tables(tables, q))
+    pruned = pruned or memo(lambda q: query_tables(tables, q))
     return [(f"q{q}", lambda sess, q=q: QUERIES[q](query_frames(
         sess, pruned(q))), q in TPCH_TIES,
         any(t in PARTITION_KEYS for t in COLUMNS[q])) for q in QUERIES]
 
 
-def phase_tpch_check(sf, seed):
+def phase_tpch_check(sf, seed, refs):
+    """The 22 queries at ``sf`` on the card against the CPU run
+    (``refs``). Returns (the tables, the card's results, each query's
+    pruned tables)."""
     t0 = time.perf_counter()
     tables = tpch_tables(sf, seed)
     print(f"tpch sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    check_against_cpu("tpch", sf, tables, tpch_specs(tables))
-    return tables
+    pruned = memo(lambda q: query_tables(tables, q))
+    return tables, check_against_cpu("tpch", sf, tpch_specs(
+        tables, pruned), refs), pruned
 
 
 def like_numpy(data, lengths, parts):
@@ -1490,16 +1600,11 @@ def phase_tpch_kernels(tables, device):
     kernel where the reorder's output is kept. Returns (reorder numbers,
     compact numbers) as phase 7's are."""
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
-
-    def width(hb):
-        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
-                                      else 1) + 1
-                   + (4 if c.lengths is not None else 0) for c in hb.columns)
     picks = {}
     for q in QUERIES:
         for t, hb in query_tables(tables, q).items():
-            if t in PARTITION_KEYS and (t not in picks
-                                        or width(hb) > width(picks[t][1])):
+            if t in PARTITION_KEYS and (t not in picks or input_width(hb)
+                                        > input_width(picks[t][1])):
                 picks[t] = (q, hb)
     inputs = {f"q{q} {t}": (hb, PARTITION_KEYS[t])
               for t, (q, hb) in sorted(picks.items())}
@@ -1513,26 +1618,47 @@ def phase_tpch(tables):
     (per-query numbers, the dma-on Q18's (reorder, compact, kept)
     launches)."""
     specs = tpch_specs(tables)
-    nums, results = run_cold_warm(specs, all_kept=False)
+    nums, results, _ = run_cold_warm(specs, all_kept=False)
     dma18 = run_dma("q18", dict((s[0], s[1]) for s in specs)["q18"],
                     results["q18"])
     check_q13_q22(results, tables)
-    return nums, dma18
+    return nums, dma18, results
 
 
 # ------------------------------------------------------------------ phase 10
-#: the TPC-DS bench subset (bench.py's TPCDS_BENCH_QUERIES) and TPCx-BB q5
-#: (its name here is "bb_q5")
+#: the TPC-DS bench subset (bench.py's TPCDS_BENCH_QUERIES), whose warm
+#: geomean continues the series of earlier runs, and phase 12's queries
 TPCDS_QUERIES = ("q3", "q4", "q7", "q14", "q19", "q23", "q27", "q34", "q42",
                  "q52", "q55", "q67", "q68", "q96")
-SUITE = TPCDS_QUERIES + ("bb_q5",)
-#: queries whose final sort can tie (tests/test_tpcds.py's and
-#: tests/test_tpcxbb.py's lists): their rows compare unordered
-SUITE_TIES = {"q3", "q4", "q7", "q14", "q19", "q23", "q27", "q34", "q42",
-              "q52", "q55", "q67", "q68", "bb_q5"}
+SUITE_BENCH = TPCDS_QUERIES + ("bb_q5",)
+#: queries whose final sort can tie (tests/test_tpcds.py's list, and
+#: tests/test_tpcxbb.py's q5): their rows compare unordered
+SUITE_TIES = {
+    "q3", "q7", "q19", "q34", "q42", "q43", "q46", "q52", "q55", "q59",
+    "q65", "q68", "q73", "q79", "q89", "q98", "q15", "q18", "q20", "q25",
+    "q26", "q29", "q45", "q62", "q93", "q99", "q6", "q17", "q33", "q36",
+    "q47", "q53", "q60", "q63", "q69", "q76", "q86", "q50", "q71", "q1",
+    "q2", "q4", "q5", "q8", "q9", "q10", "q11", "q12", "q14", "q22", "q23",
+    "q24", "q27", "q30", "q31", "q35", "q38", "q39", "q49", "q51", "q54",
+    "q56", "q57", "q58", "q64", "q66", "q67", "q70", "q72", "q74", "q75",
+    "q77", "q78", "q80", "q81", "q83", "q84", "q85", "q91", "q95", "bb_q5"}
 #: the fact tables, hash-repartitioned 8 ways on their item keys
 FACT_KEYS = {"store_sales": "ss_item_sk", "catalog_sales": "cs_item_sk",
              "web_sales": "ws_item_sk"}
+#: the query whose first join pairs every catalog line with all the
+#: inventory rows of its item; at SF 10 it may not fit one card
+OOM_QUERY = "q72"
+OOM_SCALES = (5.0, 2.0, 1.0)
+
+
+def tpcds_queries():
+    from spark_rapids_tpu_torch.benchmarks import tpcds_queries as dq
+    return sorted(dq.QUERIES, key=lambda n: int(n[1:]))
+
+
+def suite_names():
+    """The 99 TPC-DS queries and TPCx-BB q5 (its name here is "bb_q5")."""
+    return tuple(tpcds_queries()) + ("bb_q5",)
 
 
 def suite_query(q):
@@ -1544,21 +1670,33 @@ def suite_query(q):
     return dq.QUERIES[q], dq.COLUMNS[q]
 
 
-def suite_tables(sf, seed):
-    """{"ds": the twelve TPC-DS tables with the union of the columns the 14
-    queries read (and the fact tables' partition keys), "bb": the four
-    tables TPCx-BB q5 reads}."""
+def tpcds_columns(names):
+    """The union of the columns the named TPC-DS queries read (and the fact
+    tables' partition keys), per table, in table order."""
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    want = {}
+    for q in names:
+        for t, cols in suite_query(q)[1].items():
+            want.setdefault(t, set()).update(cols)
+    for t, key in FACT_KEYS.items():
+        if t in want:
+            want[t].add(key)
+    return {t: [c for c in getattr(dd, f"{t.upper()}_COLUMNS") if c in cols]
+            for t, cols in want.items()}
+
+
+def suite_tables(sf, seed, names=None):
+    """{"ds": the TPC-DS tables the named queries read, each with the union
+    of the columns they read (and the fact tables' partition keys); by
+    default all 24 tables for the 99 queries (the two no query reads,
+    catalog_page and income_band, whole), "bb": the four tables TPCx-BB
+    q5 reads}."""
     from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
     from spark_rapids_tpu_torch.benchmarks import tpcxbb_data as bd
-    want = {}
-    for q in TPCDS_QUERIES:
-        for t, names in suite_query(q)[1].items():
-            want.setdefault(t, set()).update(names)
-    for t, key in FACT_KEYS.items():
-        want[t].add(key)
-    cols = {t: [c for c in getattr(dd, f"{t.upper()}_COLUMNS") if c in names]
-            for t, names in want.items()}
-    return {"ds": dd.gen_all(sf, seed, cols),
+    cols = tpcds_columns([q for q in (names or suite_names())
+                          if q != "bb_q5"])
+    return {"ds": dd.gen_all(sf, seed, cols, tables=dd.TABLES if names is None
+                             else [t for t in dd.TABLES if t in cols]),
             "bb": bd.gen_all(sf, seed, suite_query("bb_q5")[1])}
 
 
@@ -1585,61 +1723,113 @@ def suite_frames(sess, pruned):
     return dfs
 
 
-def suite_specs(tables):
-    """The 15 suite queries as (name, build, ties, reads a fact table)."""
-    pruned = memo(lambda q: suite_query_tables(tables, q))
+def suite_specs(tables, names=None, pruned=None):
+    """The suite queries (all 100 by default) as (name, build, ties,
+    reads a fact table); ``pruned(q)`` gives query ``q``'s tables
+    (``suite_query_tables``, made once per query)."""
+    pruned = pruned or memo(lambda q: suite_query_tables(tables, q))
     return [(q, lambda sess, q=q: suite_query(q)[0](suite_frames(
         sess, pruned(q))), q in SUITE_TIES,
-        any(t in FACT_KEYS for t in suite_query(q)[1])) for q in SUITE]
+        any(t in FACT_KEYS for t in suite_query(q)[1]))
+        for q in (names or suite_names())]
 
 
-def phase_suite_check(sf, seed):
+def phase_suite_check(sf, seed, refs):
+    """The 99 TPC-DS queries and q5 at ``sf`` on the card against the CPU
+    run (``refs``). Returns (the tables, the card's results, each query's
+    pruned tables)."""
     t0 = time.perf_counter()
     tables = suite_tables(sf, seed)
     print(f"tpcds+q5 sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    check_against_cpu("tpcds+q5", sf, tables, suite_specs(tables))
-    return tables
+    pruned = memo(lambda q: suite_query_tables(tables, q))
+    return tables, check_against_cpu("tpcds+q5", sf, suite_specs(
+        tables, pruned=pruned), refs), pruned
 
 
 def phase_suite_kernels(tables, device):
-    """Both kernels against their plain versions on the widest store_sales
-    input the suite's hash exchanges give the reorder, timed and bounded
-    there. Returns (reorder numbers, compact numbers) as phase 7's are."""
-    def width(hb):
-        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
-                                      else 1) + 1
-                   + (4 if c.lengths is not None else 0) for c in hb.columns)
-    best = None
-    for q in TPCDS_QUERIES:
-        names = suite_query(q)[1].get("store_sales")
-        if names is None:
+    """Both kernels against their plain versions on the widest input the
+    99 queries' hash exchanges give the reorder from each sales fact,
+    timed and bounded there. Returns (reorder numbers, compact numbers) as
+    phase 7's are."""
+    picks = {}
+    for q in tpcds_queries():
+        for t, hb in suite_query_tables(tables, q).items():
+            if t in FACT_KEYS and (t not in picks or input_width(hb)
+                                   > input_width(picks[t][1])):
+                picks[t] = (q, hb)
+    inputs = {f"{q} {t}": (hb, FACT_KEYS[t])
+              for t, (q, hb) in sorted(picks.items())}
+    return check_kernels_on(inputs, device)[1:]
+
+
+def run_at_smaller_scale(q, seed):
+    """``q`` alone, cold and warm, at the largest of ``OOM_SCALES`` at which
+    it fits the card. Returns (scale, numbers) or raises."""
+    import torch
+    for sf in OOM_SCALES:
+        tables = suite_tables(sf, seed, [q])
+        try:
+            nums = run_cold_warm(suite_specs(tables, [q]),
+                                 all_kept=True)[0]
+        except torch.cuda.OutOfMemoryError as e:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"{q} sf={sf}: out of device memory (peak {peak:.2f} GB): "
+                  f"{str(e).splitlines()[0]}")
+            del tables
+            release_device()
             continue
-        cols = names + ([FACT_KEYS["store_sales"]]
-                        if FACT_KEYS["store_sales"] not in names else [])
-        hb = tables["ds"]["store_sales"].select(cols)
-        if best is None or width(hb) > width(best[1]):
-            best = (q, hb)
-    q, hb = best
-    return check_kernels_on({f"{q} store_sales": (hb, "ss_item_sk")},
-                            device)[1:]
+        print(f"{q} runs at sf={sf}: " + json.dumps(nums[q]))
+        return sf, nums[q]
+    raise AssertionError(f"{q} does not fit the card even at sf="
+                         f"{OOM_SCALES[-1]}")
 
 
-def phase_suite(tables):
-    """The 14 TPC-DS queries and TPCx-BB q5 at the run's scale, the fact
+def release_device():
+    """Drop everything a failed query left on the card."""
+    import torch
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    if peek_cache() is not None:
+        peek_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_suite(tables, seed):
+    """The 99 TPC-DS queries and TPCx-BB q5 at the run's scale, the fact
     tables hash-repartitioned 8 ways on their item keys, cold and warm
-    (``run_cold_warm``; every fact-table exchange must keep the reorder's
-    output); then q23 with dmaConsolidate on; then the geomean of the 14
-    TPC-DS warm walls on its own line. Returns (per-query numbers, the
-    dma-on q23's (reorder, compact, kept) launches)."""
+    (``run_cold_warm``); ``OOM_QUERY``, if it runs out of device memory,
+    again alone at the largest smaller scale that fits; then q23 with
+    dmaConsolidate on; then the geomean of the 14 bench queries' warm
+    walls (the series of earlier runs) and of all 99 TPC-DS warm walls, on
+    lines of their own. Every hash exchange must use the reorder kernel's
+    output. A query cut to a smaller scale has its numbers in the cut
+    only: the sums, the geomean and the launches count the queries that
+    ran at the run's scale. Returns (per-query numbers, the dma-on q23's
+    (reorder, compact, kept) launches, the card's warm results, the
+    out-of-memory cut or None)."""
     specs = suite_specs(tables)
-    nums, results = run_cold_warm(specs, all_kept=True)
+    nums, results, ooms = run_cold_warm(specs, all_kept=True,
+                                        oom_ok=(OOM_QUERY,))
+    cut = None
+    if ooms:
+        sf, n = run_at_smaller_scale(OOM_QUERY, seed)
+        cut = {"query": OOM_QUERY, "sf": sf, "oom_at_run_scale": ooms,
+               **n}
+        print(json.dumps({"tpcds_oom_cut": cut}))
     dma23 = run_dma("q23", dict((s[0], s[1]) for s in specs)["q23"],
                     results["q23"])
-    warm = [nums[q]["warm_s"] for q in TPCDS_QUERIES]
+    bench = [nums[q]["warm_s"] for q in TPCDS_QUERIES]
     print(json.dumps({"tpcds_warm_geomean_s": float(np.exp(np.mean(
-        np.log(warm)))), "queries": len(warm)}))
-    return nums, dma23
+        np.log(bench)))), "queries": len(bench)}))
+    ran = [q for q in tpcds_queries() if q in nums]
+    every = [nums[q]["warm_s"] for q in ran]
+    print(json.dumps({"tpcds99_warm_geomean_s": float(np.exp(np.mean(
+        np.log(every)))), "queries": len(every),
+        "cold_sum_s": sum(nums[q]["cold_s"] for q in ran),
+        "warm_sum_s": sum(every),
+        "not_at_run_scale": sorted(set(tpcds_queries()) - set(ran))}))
+    return nums, dma23, results, cut
 
 
 # ------------------------------------------------------------------ phase 11
@@ -1708,12 +1898,12 @@ def bb_specs(tables):
             for q in bb_queries()]
 
 
-def phase_bb_check(sf, seed):
+def phase_bb_check(sf, seed, refs):
     t0 = time.perf_counter()
     tables = bb_tables(sf, seed)
     print(f"tpcxbb sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    check_against_cpu("tpcxbb", sf, tables, bb_specs(tables))
+    check_against_cpu("tpcxbb", sf, bb_specs(tables), refs)
     return tables
 
 
@@ -1724,15 +1914,11 @@ def phase_bb_kernels(tables, device):
     columns), timed and bounded there; the compact kernel where the
     reorder's output is kept. Returns (reorder numbers, compact numbers)
     as phase 7's are."""
-    def width(hb):
-        return sum(c.data.itemsize * (c.data.shape[1] if c.data.ndim > 1
-                                      else 1) + 1
-                   + (4 if c.lengths is not None else 0) for c in hb.columns)
     picks = {}
     for q in bb_queries():
         for t, hb in bb_query_tables(tables, q).items():
-            if t in BB_FACT_KEYS and (t not in picks
-                                      or width(hb) > width(picks[t][1])):
+            if t in BB_FACT_KEYS and (t not in picks or input_width(hb)
+                                      > input_width(picks[t][1])):
                 picks[t] = (q, hb)
     inputs = {f"{q} {t}": (hb, BB_FACT_KEYS[t])
               for t, (q, hb) in sorted(picks.items())}
@@ -1771,7 +1957,7 @@ def phase_bb(tables):
     warm walls on its own line. Returns (per-query numbers, the dma-on
     run's (reorder, compact, kept) launches)."""
     specs = bb_specs(tables)
-    nums, results = run_cold_warm(specs, all_kept=False)
+    nums, results, _ = run_cold_warm(specs, all_kept=False)
     dma = run_dma(BB_DMA_QUERY, dict((s[0], s[1]) for s in specs)[
         BB_DMA_QUERY], results[BB_DMA_QUERY])
     warm = [nums[q]["warm_s"] for q in bb_queries()]
@@ -1982,12 +2168,275 @@ def phase_default_path(check, check_sf, bb_check_sf, tables, device,
     launches = default_vs_all_off("tpch", check_sf,
                                   tpch_specs(check["tpch"]))
     launches.update(default_vs_all_off("tpcds+q5", check_sf,
-                                       suite_specs(check["suite"])))
+                                       suite_specs(check["suite"],
+                                                   SUITE_BENCH)))
     launches.update(default_vs_all_off("tpcxbb", bb_check_sf,
                                        bb_specs(check["bb"])))
     launches.update(sf10_both_ways(tables, profile_dir))
     chunked_upload_check(tables["lineitem"], device)
     return launches
+
+
+# ------------------------------------------------------------------ phase 13
+#: queries whose final sort can tie in tests/test_tpcds_sql.py's list; a
+#: SQL text's rows compare unordered with them and with SUITE_TIES
+SQL_TIES = SUITE_TIES | {
+    "q19", "q27", "q34", "q42", "q46", "q52", "q55", "q65", "q68", "q73",
+    "q79", "q88", "q96", "q15", "q26", "q7", "q21", "q25", "q29", "q37",
+    "q82", "q90", "q92", "q93", "q50", "q62", "q99", "q3", "q43", "q48",
+    "q84", "q61", "q32", "q41", "q45", "q20", "q12", "q98", "q33", "q56",
+    "q60", "q6", "q67"}
+#: the SQL texts run at the run's scale over phase 9's and 10's tables
+SQL_AT_SCALE = (("tpch", 1), ("tpch", 3), ("tpch", 21), ("tpcds", "q3"),
+                ("tpcds", "q14"), ("tpcds", "q67"))
+#: one statement per function the SQL planner's table gained in this
+#: slice, over the TPC-DS views (strings from customer and item, dates
+#: from date_dim, numbers from store_sales); the card's result must equal
+#: the CPU run's bit for bit, but pow's (two libm pows, each within an
+#: ulp or two of the exact power) to POW_ULPS
+FUNCTION_SQL = {
+    "minus_abs": "select ss_ticket_number, ss_item_sk, -ss_quantity as nq, "
+                 "abs(ss_quantity - 50) as aq, -ss_net_profit as np, "
+                 "abs(ss_net_profit) as ap from store_sales where "
+                 "ss_ticket_number < 20000 order by ss_ticket_number, "
+                 "ss_item_sk",
+    "floor_ceil_sqrt": "select ss_ticket_number, ss_item_sk, "
+                       "floor(ss_sales_price) as f, ceil(ss_list_price) as "
+                       "c, sqrt(ss_net_paid) as r, floor(ss_quantity) as "
+                       "fq from store_sales where ss_ticket_number < 20000 "
+                       "order by ss_ticket_number, ss_item_sk",
+    "pow": "select ss_ticket_number, ss_item_sk, pow(ss_quantity, 2) as p2, "
+           "power(ss_wholesale_cost, 0.5) as ph, pow(ss_list_price, "
+           "ss_quantity / 50.0) as pq from store_sales where "
+           "ss_ticket_number < 20000 order by ss_ticket_number, ss_item_sk",
+    "nanvl_greatest_least": "select ss_ticket_number, ss_item_sk, "
+                            "nanvl(ss_net_profit, 0.0) as nv, "
+                            "greatest(ss_list_price, ss_sales_price, 50.0) "
+                            "as g, least(ss_quantity, 40, ss_item_sk) as l "
+                            "from store_sales where ss_ticket_number < 20000 "
+                            "order by ss_ticket_number, ss_item_sk",
+    "cast_by_name": "select ss_ticket_number, ss_item_sk, cast(ss_quantity "
+                    "as double) as qd, cast(ss_net_profit as int) as pi, "
+                    "cast(ss_item_sk as int) as ii from store_sales where "
+                    "ss_ticket_number < 20000 order by ss_ticket_number, "
+                    "ss_item_sk",
+    "dates": "select d_date_sk, date_add(d_date, 30) as da, date_sub(d_date, "
+             "400) as ds, weekday(d_date) as wd from date_dim order by "
+             "d_date_sk",
+    "case_length": "select c_customer_sk, upper(c_first_name) as u, "
+                   "lower(c_last_name) as l, length(c_birth_country) as n, "
+                   "char_length(c_salutation) as cn from customer order by "
+                   "c_customer_sk",
+    "trims_concat_pads": "select i_item_sk, trim(concat('  ', i_brand, ' ')) "
+                         "as t, ltrim('am', i_brand) as lt, rtrim('s', "
+                         "i_category) as rt, concat(i_category, '/', "
+                         "i_class) as c, i_brand || '#' as p, lpad(i_class, "
+                         "12, '*') as lp, rpad(i_category, 4, '-') as rp "
+                         "from item order by i_item_sk",
+    "locate_replace": "select i_item_sk, instr(i_item_desc, 'desc') as i, "
+                      "locate('1', i_item_id, 9) as lc, replace(i_item_desc, "
+                      "'item', 'it') as r from item order by i_item_sk",
+    "ntile": "select ss_ticket_number, ss_item_sk, ntile(5) over (partition "
+             "by ss_store_sk order by ss_ticket_number, ss_item_sk) as nt "
+             "from store_sales where ss_ticket_number < 5000 order by "
+             "ss_ticket_number, ss_item_sk, nt",
+    "sum_distinct": "select ss_store_sk, sum(distinct ss_quantity) as sq, "
+                    "sum(distinct ss_item_sk) as si from store_sales group "
+                    "by ss_store_sk order by ss_store_sk",
+}
+POW_ULPS = 4
+
+
+def view_frames(sess, tables, keys):
+    """DataFrames over whole tables, the ones ``keys`` names
+    hash-repartitioned 8 ways on their keys, registered as temp views."""
+    dfs = {}
+    for t, hb in tables.items():
+        df = sess.create_dataframe(hb)
+        dfs[t] = df.repartition(8, keys[t]) if t in keys else df
+        dfs[t].createOrReplaceTempView(t)
+    return dfs
+
+
+def function_tables(sf, seed):
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    return dd.gen_all(sf, seed, tables=("date_dim", "customer", "item",
+                                        "store_sales"))
+
+
+def function_specs(tables):
+    """The function statements as (name, build, ties, reads a fact) over
+    the plain views of ``tables``."""
+    return [(name, lambda sess, text=text: (view_frames(sess, tables, {}),
+                                            sess.sql(text))[1], False, False)
+            for name, text in FUNCTION_SQL.items()]
+
+
+def check_same_bits_ulps(name, got, want, ulps):
+    """``check_same_bits``, but a double may differ by ``ulps`` units in
+    the last place (same validity, NaN where the other is). Returns the
+    largest difference seen, in ulps."""
+    import copy
+    same = copy.copy(got)
+    worst = 0
+    for i, (x, y) in enumerate(zip(got.columns, want.columns)):
+        if x.data.dtype != np.float64:
+            continue
+        n = got.num_rows
+        a, b = x.data[:n].view(np.int64), y.data[:n].view(np.int64)
+        nan = np.isnan(x.data[:n])
+        apart = np.abs(a - b)
+        both_nan = nan & np.isnan(y.data[:n])
+        close = (apart <= ulps) | both_nan
+        seen = apart[x.validity[:n] & ~both_nan]
+        worst = max(worst, int(seen.max()) if seen.size else 0)
+        if not close[x.validity[:n]].all():
+            raise AssertionError(f"{name}: column {got.schema[i].name} "
+                                 f"differs by more than {ulps} ulps")
+        cols = list(same.columns)
+        cols[i] = y
+        same = type(got)(got.schema, tuple(cols), got.num_rows,
+                         got.batch_ends)
+    check_same_bits(name, same, want)
+    return worst
+
+
+def row_ids_unique(sess, df):
+    """The row ids of the planned SQL DataFrame ``df`` (the projection
+    that adds monotonically_increasing_id(), run again on its own):
+    (ids, repeated ids)."""
+    from spark_rapids_tpu_torch.api.dataframe import DataFrame
+    from spark_rapids_tpu_torch.exprs import MonotonicallyIncreasingID
+    from spark_rapids_tpu_torch.plan import logical as lp
+
+    def has_id(e):
+        return isinstance(e, MonotonicallyIncreasingID) or any(
+            has_id(c) for c in e.children)
+
+    def find(node):
+        if isinstance(node, lp.Project) and any(has_id(e)
+                                                for e in node.exprs):
+            return node
+        for c in node.children:
+            hit = find(c)
+            if hit is not None:
+                return hit
+        return None
+    node = find(df._plan)
+    if node is None:
+        raise AssertionError("the plan has no row id")
+    col = next(e.name for e in node.exprs if has_id(e))
+    out = DataFrame(node, sess).collect()
+    ids = out.column_by_name(col).data[:out.num_rows]
+    return ids.shape[0], ids.shape[0] - np.unique(ids).shape[0]
+
+
+def phase_sql_check(sf, seed, check_results, check_pruned, refs):
+    """At ``sf`` on the card: the 22 TPC-H and the 99 TPC-DS SQL texts,
+    each over its DataFrame query's pruned tables of phases 9 and 10
+    registered as temp views (orders, lineitem and the three sales facts
+    hash 8), each equal to that query's card result (by position;
+    unordered where either reference test's sort can tie); then the
+    function statements, each equal to the CPU run (``refs``) bit for bit.
+    Returns the reorder launches per path."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpcds_sql import (
+        SQL_QUERIES as DS_SQL)
+    from spark_rapids_tpu_torch.benchmarks.tpch_sql import (
+        SQL_QUERIES as H_SQL)
+    launches = {}
+    for suite, texts, keys, ties, want, pruned in (
+            ("tpch", H_SQL, PARTITION_KEYS, {f"q{q}" for q in TPCH_TIES},
+             check_results["tpch"], check_pruned["tpch"]),
+            ("tpcds", DS_SQL, FACT_KEYS, SQL_TIES, check_results["suite"],
+             check_pruned["suite"])):
+        sess = TpuSession(BENCH_CONF)
+        total = 0.0
+        for q in sorted(texts, key=lambda n: int(str(n).lstrip("q"))):
+            name = f"q{q}" if suite == "tpch" else q
+            got, secs, n = run_query(
+                sess, f"sql {suite} {name}",
+                lambda s, t=texts[q], p=pruned(q), k=keys: (
+                    view_frames(s, p, k), s.sql(t))[1])[:3]
+            total += secs
+            check_same_result(f"sql {suite} {name} against its DataFrame "
+                              f"query", got, want[name], name in ties,
+                              positional=True)
+            launches[f"phase13 sql {suite} {name} sf={sf}"] = n
+            print(f"sql {suite} {name} sf={sf}: rows={got.num_rows} "
+                  f"s={secs:.4f} reorder_launches={n}, equal to the "
+                  f"DataFrame query")
+        print(f"sql {suite} sf={sf}: {len(texts)} texts in {total:.2f} s, "
+              f"each equal to its DataFrame query")
+    specs = function_specs(function_tables(sf, seed))
+    gpu = TpuSession(BENCH_CONF)
+    for name, build, _, _ in specs:
+        want, cpu_s = refs[name]
+        got, secs = run_query(gpu, name, build)[:2]
+        if name == "pow":
+            worst = check_same_bits_ulps(f"function {name}", got, want,
+                                         POW_ULPS)
+            how = (f"within {POW_ULPS} ulps (the largest difference "
+                   f"{worst} ulps) of")
+        else:
+            check_same_bits(f"function {name} cuda against cpu", got, want)
+            how = "bit-identical to"
+        print(f"sql function {name} sf={sf}: rows={got.num_rows} "
+              f"cuda_s={secs:.4f} cpu_s={cpu_s:.4f}, {how} the CPU run")
+    return launches
+
+
+def phase_sql_at_scale(tpch_tables_sf, tpch_results, ds_tables_sf,
+                       ds_results):
+    """TPC-H Q1, Q3 and Q21 and TPC-DS q3, q14 and q67 by SQL at the run's
+    scale, each over views of its pruned tables from phases 9 and 10
+    (orders, lineitem and the sales facts hash 8), cold and warm
+    (``run_cold_warm``): each must launch the reorder kernel and equal its
+    DataFrame query's warm result; Q21's row ids (its non-equality
+    correlation's semi/anti join) must not repeat. Returns (per-query
+    numbers, the row-id count and repeats)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpcds_sql import (
+        SQL_QUERIES as DS_SQL)
+    from spark_rapids_tpu_torch.benchmarks.tpch_sql import (
+        SQL_QUERIES as H_SQL)
+    specs, wants = [], {}
+    for suite, q in SQL_AT_SCALE:
+        if suite == "tpch":
+            name, text, keys = f"sql tpch q{q}", H_SQL[q], PARTITION_KEYS
+            pruned = query_tables(tpch_tables_sf, q)
+            wants[name] = (tpch_results[f"q{q}"], q in TPCH_TIES)
+        else:
+            name, text, keys = f"sql tpcds {q}", DS_SQL[q], FACT_KEYS
+            pruned = suite_query_tables(ds_tables_sf, q)
+            wants[name] = (ds_results[q], q in SQL_TIES)
+        specs.append((name, lambda sess, p=pruned, k=keys, t=text: (
+            view_frames(sess, p, k), sess.sql(t))[1], wants[name][1], True))
+    nums, results, _ = run_cold_warm(specs, all_kept=False)
+    for name, _, _, _ in specs:
+        want, ties = wants[name]
+        check_same_result(f"{name} against its DataFrame query",
+                          results[name], want, ties, positional=True)
+        if nums[name]["launches"] < 1:
+            raise AssertionError(f"{name}: the reorder kernel did not "
+                                 f"launch")
+        print(f"{name}: equal to the DataFrame query's warm result")
+    sess = TpuSession(BENCH_CONF)
+    view_frames(sess, query_tables(tpch_tables_sf, 21), PARTITION_KEYS)
+    n_ids, repeats = row_ids_unique(sess, sess.sql(H_SQL[21]))
+    print(f"sql tpch q21 row ids: {n_ids} ids, {repeats} repeated")
+    if repeats:
+        raise AssertionError(f"q21: {repeats} row ids repeat")
+    return nums, {"ids": n_ids, "repeated": repeats}
+
+
+#: the suites a CPU worker runs: name -> (make tables, make specs)
+SUITES = {"tpch": (tpch_tables, tpch_specs),
+          "suite": (suite_tables, suite_specs),
+          "bb": (bb_tables, bb_specs),
+          "functions": (function_tables, function_specs)}
 
 
 def main() -> int:
@@ -2002,8 +2451,9 @@ def main() -> int:
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
     ap.add_argument("--check-sf", type=float, default=0.5,
-                    help="scale of phase 9's and phase 10's checks of "
-                         "every query on the card against the CPU")
+                    help="scale of phase 9's, 10's and 13's checks of "
+                         "every query on the card against the CPU and of "
+                         "the SQL texts against the DataFrame queries")
     ap.add_argument("--bb-check-sf", type=float, default=1.0,
                     help="scale of phase 11's check of the 30 TPCx-BB "
                          "queries on the card against the CPU")
@@ -2022,7 +2472,6 @@ def main() -> int:
     print(f"gpu: {gpu_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
 
     clock = [time.perf_counter()]
 
@@ -2033,6 +2482,16 @@ def main() -> int:
 
     build_kernels()
     phase_done("2 build")
+    from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    if not args.kernels_only:
+        refs = cpu_references((
+            ("suite", args.check_sf, args.seed, suite_names()),
+            ("tpch", args.check_sf, args.seed, [f"q{q}" for q in QUERIES]),
+            ("bb", args.bb_check_sf, args.seed, bb_queries()),
+            ("functions", args.check_sf, args.seed, list(FUNCTION_SQL))))
+        phase_done(f"2 cpu references ({CPU_WORKERS} workers of "
+                   f"{CPU_THREADS} threads)")
     device = torch.device("cuda", 0)
     lineitem = gen_lineitem(args.sf, seed=args.seed)
     reference = q1_numpy(lineitem)
@@ -2068,7 +2527,9 @@ def main() -> int:
     phase_q6_and_sort(tables["lineitem"], device)
     del tables
     phase_done("8 q6 and range sort")
-    check = {"tpch": phase_tpch_check(args.check_sf, args.seed)}
+    check, check_results, check_pruned = {}, {}, {}
+    check["tpch"], check_results["tpch"], check_pruned["tpch"] = \
+        phase_tpch_check(args.check_sf, args.seed, refs["tpch"])
     phase_done(f"9 tpch sf={args.check_sf} against the cpu")
     tables = tpch_tables(args.sf, args.seed)
     print(f"tpch tables sf={args.sf}: " + ", ".join(
@@ -2077,15 +2538,17 @@ def main() -> int:
     tpch_kernel_nums = phase_tpch_kernels(tables, device)
     phase_done("9 tpch kernel checks")
     dfa_device_ms(tables, device)
-    tpch, dma18 = phase_tpch(tables)
-    tpch_sf_tables = tables           # phase 12 runs Q1 and Q3 over them
+    tpch, dma18, tpch_results = phase_tpch(tables)
+    tpch_sf_tables = tables        # phases 12 and 13 run queries over them
     del tables
     phase_done(f"9 tpch sf={args.sf}")
     by_path["q18 dmaConsolidate"] = {"reorder": dma18[0],
                                      "compact": dma18[1]}
     for q, n in tpch.items():
         by_path[f"tpch {q}"] = {"reorder": n["launches"]}
-    check["suite"] = phase_suite_check(args.check_sf, args.seed)
+    check["suite"], check_results["suite"], check_pruned["suite"] = \
+        phase_suite_check(args.check_sf, args.seed,
+                          refs["suite"])
     phase_done(f"10 tpcds+q5 sf={args.check_sf} against the cpu")
     tables = suite_tables(args.sf, args.seed)
     print(f"tpcds tables sf={args.sf}: " + ", ".join(
@@ -2095,14 +2558,18 @@ def main() -> int:
         + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
     suite_kernel_nums = phase_suite_kernels(tables, device)
     phase_done("10 tpcds kernel checks")
-    suite, dma23 = phase_suite(tables)
+    suite, dma23, suite_results, oom_cut = phase_suite(tables, args.seed)
+    suite_sf_tables = tables       # phase 13 runs queries over them
     del tables
     phase_done(f"10 tpcds+q5 sf={args.sf}")
     by_path["q23 dmaConsolidate"] = {"reorder": dma23[0],
                                      "compact": dma23[1]}
     for q, n in suite.items():
         by_path[q] = {"reorder": n["launches"]}
-    check["bb"] = phase_bb_check(args.bb_check_sf, args.seed)
+    if oom_cut is not None:
+        by_path[f"{OOM_QUERY} sf={oom_cut['sf']}"] = {
+            "reorder": oom_cut["launches"]}
+    check["bb"] = phase_bb_check(args.bb_check_sf, args.seed, refs["bb"])
     phase_done(f"11 tpcxbb sf={args.bb_check_sf} against the cpu")
     tables = bb_tables(args.sf, args.seed)
     print(f"tpcxbb tables sf={args.sf}: " + ", ".join(
@@ -2122,23 +2589,34 @@ def main() -> int:
                                       tpch_sf_tables, device,
                                       args.profile).items():
         by_path[path] = {"reorder": n}
-    del check, tpch_sf_tables
+    del check
     phase_done("12 default path against all-off")
-    # this slice's main path is the 30 TPCx-BB queries: the reorder's
-    # launches summed over their cold runs (launches_kept: those whose
-    # output the exchange used) and the compact kernel's in the dma-on
-    # web_sales query, beside the times, bounds and errors of the widest
-    # input of each fact those queries give the kernels. Phase 10's TPC-DS
-    # and q5 reading, phase 9's TPC-H reading, phase 7's on Q3's inputs,
-    # phase 3's at Q1's lineitem shape and every path's launches stand
-    # beside them.
+    for path, n in phase_sql_check(args.check_sf, args.seed, check_results,
+                                   check_pruned, refs["functions"]).items():
+        by_path[path] = {"reorder": n}
+    del check_results, check_pruned
+    phase_done(f"13 sql sf={args.check_sf}")
+    sql_nums, row_ids = phase_sql_at_scale(tpch_sf_tables, tpch_results,
+                                           suite_sf_tables, suite_results)
+    for q, n in sql_nums.items():
+        by_path[q] = {"reorder": n["launches"]}
+    del tpch_sf_tables, suite_sf_tables
+    phase_done(f"13 sql sf={args.sf}")
+    # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
+    # the reorder's launches summed over their cold runs (launches_kept:
+    # those whose output the exchange used) and the compact kernel's in
+    # the dma-on q23, beside the times, bounds and errors of the widest
+    # input of each sales fact those queries give the kernels. Phase 11's
+    # TPCx-BB reading, phase 9's TPC-H reading, phase 13's SQL launches at
+    # the run's scale, phase 7's reading on Q3's inputs, phase 3's at Q1's
+    # lineitem shape and every path's launches stand beside them.
     def launch_sums(runs):
         return (sum(n["launches"] for n in runs.values()),
                 sum(n["launches_kept"] for n in runs.values()))
     readings = {
-        "reorder": {"bb": launch_sums(bb), "suite": launch_sums(suite),
-                    "tpch": launch_sums(tpch)},
-        "compact": {"bb": dma_bb[1:], "suite": dma23[1:],
+        "reorder": {"suite": launch_sums(suite), "bb": launch_sums(bb),
+                    "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums)},
+        "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
                     "tpch": dma18[1:]}}
     records = []
     for i, name in enumerate(("reorder", "compact")):
@@ -2147,21 +2625,26 @@ def main() -> int:
                 raise AssertionError(f"{name}: the {label} runs launched it "
                                      f"{launches} times, {kept} of them "
                                      f"kept")
-        (launches, kept), (s_l, s_k), (t_l, t_k) = (
-            readings[name][k] for k in ("bb", "suite", "tpch"))
-        records.append({**KERNELS[name], "launches": launches,
-                        "launches_kept": kept, **bb_kernel_nums[i],
-                        "phase10_tpcds": {"launches": s_l,
-                                          "launches_kept": s_k,
-                                          **suite_kernel_nums[i]},
-                        "phase9_tpch": {"launches": t_l,
-                                        "launches_kept": t_k,
-                                        **tpch_kernel_nums[i]},
-                        "phase7_q3": q3_nums[i],
-                        "phase3_q1_lineitem": lineitem_nums[i],
-                        "launches_by_path": {p: v[name]
-                                             for p, v in by_path.items()
-                                             if name in v}})
+        (launches, kept), (b_l, b_k), (t_l, t_k) = (
+            readings[name][k] for k in ("suite", "bb", "tpch"))
+        record = {**KERNELS[name], "launches": launches,
+                  "launches_kept": kept, **suite_kernel_nums[i],
+                  "phase11_tpcxbb": {"launches": b_l, "launches_kept": b_k,
+                                     **bb_kernel_nums[i]},
+                  "phase9_tpch": {"launches": t_l, "launches_kept": t_k,
+                                  **tpch_kernel_nums[i]},
+                  "phase7_q3": q3_nums[i],
+                  "phase3_q1_lineitem": lineitem_nums[i],
+                  "launches_by_path": {p: v[name]
+                                       for p, v in by_path.items()
+                                       if name in v}}
+        if name in readings and "sql" in readings[name]:
+            record["phase13_sql"] = dict(zip(
+                ("launches", "launches_kept"), readings[name]["sql"]),
+                row_ids=row_ids)
+        if oom_cut is not None:
+            record["tpcds_oom_cut"] = oom_cut
+        records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,19 @@
 """Column: the user-facing expression builder (pyspark-style)."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
-from spark_rapids_tpu_torch.exprs import (Add, Alias, And, Contains, Divide,
+from spark_rapids_tpu_torch.columnar.dtypes import DType
+from spark_rapids_tpu_torch.exprs import (Add, Alias, And, Cast, Contains,
+                                          Divide,
                                           EndsWith, EqualNullSafe, EqualTo,
                                           Expression, GreaterThan,
                                           GreaterThanOrEqual, In, InSet,
                                           IsNan, IsNotNull, IsNull, LessThan,
                                           LessThanOrEqual, Like, Literal,
                                           Multiply, Not, NotEqual, Or,
-                                          SortOrder, StartsWith, Subtract)
+                                          SortOrder, StartsWith, Subtract,
+                                          UnaryMinus)
 from spark_rapids_tpu_torch.exprs.strings import GetArrayItem
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 
@@ -35,6 +38,7 @@ class Column:
     def __rmul__(self, o): return Column(Multiply(_expr(o), self.expr))
     def __truediv__(self, o): return Column(Divide(self.expr, _expr(o)))
     def __rtruediv__(self, o): return Column(Divide(_expr(o), self.expr))
+    def __neg__(self): return Column(UnaryMinus(self.expr))
 
     # comparisons
     def __eq__(self, o): return Column(EqualTo(self.expr, _expr(o)))  # type: ignore[override]
@@ -81,7 +85,10 @@ class Column:
         return self.getItem(i)
 
     # ordering (ascending, nulls first, is a sort's default)
+    def asc(self): return Column(SortOrder(self.expr, True, True))
+    def asc_nulls_last(self): return Column(SortOrder(self.expr, True, False))
     def desc(self): return Column(SortOrder(self.expr, False, False))
+    def desc_nulls_first(self): return Column(SortOrder(self.expr, False, True))
 
     # windowing
     def over(self, spec) -> "Column":
@@ -90,6 +97,12 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
+
+    def cast(self, to: Union[str, DType]) -> "Column":
+        """A cast to a type given by name (``"int"``, ``"double"``, ...) or
+        as a ``DType``."""
+        return Column(Cast(self.expr, DType(to) if isinstance(to, str)
+                           else to))
 
     def __repr__(self):
         return f"Column<{self.expr}>"

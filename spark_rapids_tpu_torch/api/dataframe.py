@@ -7,6 +7,7 @@ buffers; ``.to_arrow()`` converts it where pyarrow is installed).
 from __future__ import annotations
 
 import datetime
+import threading
 from typing import Any, Dict, List, Optional, Union
 
 from spark_rapids_tpu_torch import config as cfg
@@ -261,8 +262,16 @@ class DataFrame:
             lp.Repartition(n, self._plan, tuple(_to_expr(c) for c in cols)),
             self.session)
 
+    def createOrReplaceTempView(self, name: str) -> None:
+        """Register this DataFrame for ``session.sql``."""
+        self.session.register_view(name, self)
+
     def schema(self):
         return self._plan.schema()
+
+    @property
+    def columns(self) -> List[str]:
+        return self._plan.schema().names()
 
     def physical_plan(self) -> PhysicalExec:
         return plan_physical(self._plan, self.session.conf)
@@ -470,6 +479,31 @@ class TpuSession:
         self.device = device_mod.resolve(device)
         #: the physical plan of the last action
         self.last_plan: Optional[PhysicalExec] = None
+        self._views: Dict[str, DataFrame] = {}
+        #: guards the view table: views may be registered while another
+        #: thread plans SQL that reads them
+        self._views_lock = threading.Lock()
+
+    def table(self, name: str) -> DataFrame:
+        with self._views_lock:
+            try:
+                return self._views[name.lower()]
+            except KeyError:
+                raise KeyError(f"table or view not found: {name}") from None
+
+    def register_view(self, name: str, df: DataFrame) -> None:
+        with self._views_lock:
+            self._views[name.lower()] = df
+
+    def sql(self, query: str) -> DataFrame:
+        """A SQL query over the registered temp views, planned into a
+        DataFrame on this session's device (the role Catalyst's parser and
+        analyzer play for Spark). A function the port lacks raises here,
+        at plan time, naming it."""
+        from spark_rapids_tpu_torch.sql.parser import parse_sql
+        from spark_rapids_tpu_torch.sql.planner import SqlPlanner
+        df, _names = SqlPlanner(self).plan(parse_sql(query))
+        return df
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a HostBatch, or over an arrow table (converted

@@ -1,23 +1,33 @@
 """Column functions (pyspark.sql.functions-style): the ones the 22 TPC-H
-queries, the TPC-DS bench subset and the 30 TPCx-BB queries use."""
+queries, the 99 TPC-DS queries, the 30 TPCx-BB queries and the SQL
+planner's function table use."""
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 from spark_rapids_tpu_torch.api.column import Column, _expr
-from spark_rapids_tpu_torch.exprs import (Average, CaseWhen, Coalesce, Corr,
-                                          Count, CovarPop, CovarSamp,
-                                          DateDiff, DayOfMonth, DistinctAgg,
-                                          First, Last, Literal, Max, Min,
-                                          Month, Pmod, Round, StddevPop,
-                                          StddevSamp, StringSplit, Substring,
-                                          SubstringIndex, Sum,
-                                          UnresolvedAttribute, VariancePop,
-                                          VarianceSamp, Year)
+from spark_rapids_tpu_torch.exprs import (Abs, Average, CaseWhen, Ceil,
+                                          Coalesce, Concat, Corr, Count,
+                                          CovarPop, CovarSamp, DateAdd,
+                                          DateDiff, DateSub, DayOfMonth,
+                                          DistinctAgg, First, Floor,
+                                          Greatest, Last, Least, Length,
+                                          Literal, Lower, Max, Min,
+                                          MonotonicallyIncreasingID, Month,
+                                          NaNvl, Pmod, Pow, Round, Sqrt,
+                                          StddevPop, StddevSamp,
+                                          StringLocate, StringLPad,
+                                          StringReplace, StringRPad,
+                                          StringSplit, StringTrim,
+                                          StringTrimLeft, StringTrimRight,
+                                          Substring, SubstringIndex, Sum,
+                                          UnresolvedAttribute, Upper,
+                                          VariancePop, VarianceSamp, WeekDay,
+                                          Year)
 from spark_rapids_tpu_torch.exprs.generators import CreateArray, Explode
 from spark_rapids_tpu_torch.exprs.misc import Rand
-from spark_rapids_tpu_torch.exprs.windows import (DenseRank, Lag, Lead, Rank,
-                                                  RowNumber)
+from spark_rapids_tpu_torch.exprs.windows import (DenseRank, Lag, Lead, NTile,
+                                                  Rank, RowNumber)
 
 
 def col(name: str) -> Column:
@@ -30,6 +40,10 @@ def lit(value: Any) -> Column:
 
 def rand(seed: int = 0) -> Column:
     return Column(Rand(seed))
+
+
+def monotonically_increasing_id() -> Column:
+    return Column(MonotonicallyIncreasingID())
 
 
 def _c(c: Union[str, Column]):
@@ -70,6 +84,10 @@ def last(c: Union[str, Column], ignorenulls: bool = False) -> Column:
 
 def countDistinct(c: Union[str, Column]) -> Column:
     return Column(DistinctAgg(count(c).expr))
+
+
+def sumDistinct(c: Union[str, Column]) -> Column:
+    return Column(DistinctAgg(Sum(_c(c))))
 
 
 def stddev(c: Union[str, Column]) -> Column:
@@ -123,7 +141,35 @@ def coalesce(*cols: Column) -> Column:
     return Column(Coalesce(tuple(_expr(c) for c in cols)))
 
 
+def nanvl(a: Column, b: Column) -> Column:
+    return Column(NaNvl(_expr(a), _expr(b)))
+
+
+def greatest(*cols) -> Column:
+    return Column(Greatest(tuple(_expr(c) for c in cols)))
+
+
+def least(*cols) -> Column:
+    return Column(Least(tuple(_expr(c) for c in cols)))
+
+
 # math
+def _unary(cls):
+    def f(c: Union[str, Column]) -> Column:
+        return Column(cls(_c(c)))
+    return f
+
+
+abs = _unary(Abs)  # noqa: A001 - mirrors pyspark
+sqrt = _unary(Sqrt)
+floor = _unary(Floor)
+ceil = _unary(Ceil)
+
+
+def pow(a, b) -> Column:  # noqa: A001 - mirrors pyspark
+    return Column(Pow(_expr(a), _expr(b)))
+
+
 def pmod(a, b) -> Column:
     return Column(Pmod(_expr(a), _expr(b)))
 
@@ -133,6 +179,62 @@ def round(c: Union[str, Column], scale: int = 0) -> Column:  # noqa: A001
 
 
 # strings and dates
+upper = _unary(Upper)
+lower = _unary(Lower)
+length = _unary(Length)
+trim = _unary(StringTrim)
+
+
+def concat(*cols) -> Column:
+    return Column(Concat(tuple(_c(c) for c in cols)))
+
+
+def ltrim(c: Union[str, Column], trim_chars: Optional[str] = None) -> Column:
+    t = None if trim_chars is None else Literal.of(trim_chars)
+    return Column(StringTrimLeft(_c(c), t))
+
+
+def rtrim(c: Union[str, Column], trim_chars: Optional[str] = None) -> Column:
+    t = None if trim_chars is None else Literal.of(trim_chars)
+    return Column(StringTrimRight(_c(c), t))
+
+
+def locate(substr: str, c: Union[str, Column], pos: int = 1) -> Column:
+    return Column(StringLocate(Literal.of(substr), _c(c), Literal.of(pos)))
+
+
+def instr(c: Union[str, Column], substr: str) -> Column:
+    return Column(StringLocate(Literal.of(substr), _c(c), Literal.of(1)))
+
+
+def lpad(c: Union[str, Column], length_: int, pad: str) -> Column:
+    return Column(StringLPad(_c(c), Literal.of(length_), Literal.of(pad)))
+
+
+def rpad(c: Union[str, Column], length_: int, pad: str) -> Column:
+    return Column(StringRPad(_c(c), Literal.of(length_), Literal.of(pad)))
+
+
+def replace(c: Union[str, Column], search: str,
+            replacement: str = "") -> Column:
+    return Column(StringReplace(_c(c), Literal.of(search),
+                                Literal.of(replacement)))
+
+
+def date_add(c, days) -> Column:
+    return Column(DateAdd(_c(c) if isinstance(c, str) else c.expr,
+                          _expr(days)))
+
+
+def date_sub(c, days) -> Column:
+    return Column(DateSub(_c(c) if isinstance(c, str) else c.expr,
+                          _expr(days)))
+
+
+def weekday(c: Union[str, Column]) -> Column:
+    return Column(WeekDay(_c(c)))
+
+
 def substring(c: Union[str, Column], pos: int, length: int) -> Column:
     return Column(Substring(_c(c), Literal.of(pos), Literal.of(length)))
 
@@ -214,3 +316,7 @@ def rank() -> Column:
 
 def dense_rank() -> Column:
     return Column(DenseRank())
+
+
+def ntile(n: int) -> Column:
+    return Column(NTile(n))

@@ -1,16 +1,14 @@
-"""The TPC-DS tables the bench subset reads, as ``HostBatch``es, numpy only.
+"""The 24 TPC-DS tables, as ``HostBatch``es, numpy only.
 
 The JAX package's ``benchmarks/tpcds_data.py`` dsdgen-alike, built straight
 into the port's host layout (``tpch_data``'s): for a given scale and seed
 every column is byte-equal to the JAX generator's table converted to a
 ``HostBatch``. Every random stream is drawn in the JAX generator's order,
 so the values do not change; ``columns=`` names the columns to build, and
-the others are never materialized. The twelve tables of the bench subset
-(q3, q4, q7, q14, q19, q23, q27, q34, q42, q52, q55, q67, q68, q96) are
-here; the returns facts, inventory and the other dimensions of the full
-99-query suite are not ported yet. catalog_sales replays a third of the
-store returns, so ``gen_catalog_sales`` draws the store returns it needs
-(their dates, customers and items) the way the JAX generator does.
+the others are never materialized. The returns facts are sampled from
+their sales facts, and catalog_sales replays a third of the store returns,
+so ``gen_all`` draws store_sales, store_returns, catalog_sales and
+web_sales once each and builds the linked tables from those draws.
 """
 from __future__ import annotations
 
@@ -561,148 +559,564 @@ def gen_store_sales(scale: float, seed: int,
     return _StoreSales(scale, seed).batch(columns)
 
 
-def _store_return_replay(ss: _StoreSales, seed: int):
-    """The store returns catalog_sales replays: (customer, item, returned
-    date) of every third return with both a customer and a sale date, from
-    the JAX generator's ``gen_store_returns`` draws (only those the replay
-    reads)."""
-    rng = np.random.default_rng(seed + 23)
-    take = np.flatnonzero(rng.random(ss.n) < 0.08)
-    k = take.shape[0]
-    sold_null = ss.nulls["ss_sold_date_sk"][take]
-    ret_date = np.minimum(
-        np.where(sold_null, _SK0, ss.arrays["ss_sold_date_sk"][take])
-        + rng.integers(1, 61, k), _SK0 + _DAYS - 1)
-    cust_null = ss.nulls["ss_customer_sk"][take]
-    ok = np.flatnonzero(~cust_null & ~sold_null)[::3]
-    return (ss.arrays["ss_customer_sk"][take][ok],
-            ss.arrays["ss_item_sk"][take][ok], ret_date[ok])
+STORE_RETURNS_COLUMNS = (
+    "sr_returned_date_sk", "sr_return_time_sk", "sr_item_sk",
+    "sr_customer_sk", "sr_cdemo_sk", "sr_hdemo_sk", "sr_addr_sk",
+    "sr_store_sk", "sr_reason_sk", "sr_ticket_number", "sr_return_quantity",
+    "sr_return_amt", "sr_return_tax", "sr_return_amt_inc_tax", "sr_fee",
+    "sr_refunded_cash", "sr_net_loss")
 
 
-def _channel_sales(scale: float, seed: int, prefix: str,
-                   extra: Dict[str, int], columns: Optional[Sequence[str]],
-                   replay=None) -> HostBatch:
-    """The catalog/web sales fact: all lines of an order share its
-    customer, date and addresses; the warehouse varies per line.
-    ``replay`` is a (customer, item, date) triple appended as single-line
-    orders (catalog_sales' re-buys of returned store items)."""
-    names = _channel_columns(prefix, tuple(extra))
-    t = _Table(names, columns)
-    rng = np.random.default_rng(seed + sum(prefix.encode()))
-    orders = n_orders(scale)
-    lines_per = rng.integers(1, 9, orders)
-    n = int(lines_per.sum())
-    order_no = np.repeat(np.arange(1, orders + 1, dtype=np.int64), lines_per)
-    sizes = [_DAYS, 1440, n_customer(scale), _CD_N, _HD_N, n_address(scale),
-             n_customer(scale), _CD_N, _HD_N, n_address(scale),
-             _N_SHIP_MODES]
-    per_order = {"sold_date_sk": rng.integers(0, sizes[0], orders) + _SK0,
-                 "sold_time_sk": rng.integers(0, sizes[1], orders)}
-    for name, size in zip(_CHANNEL_PER_ORDER[2:], sizes[2:]):
-        per_order[name] = rng.integers(1, size + 1, orders)
-    for name, size in extra.items():
-        per_order[name] = rng.integers(1, size + 1, orders)
-    replay_items = None
-    if replay is not None:
-        r_cust, r_item, r_date = (np.asarray(a, dtype=np.int64)
-                                  for a in replay)
-        m = r_cust.shape[0]
-        per_order = {k: np.concatenate([v, rng.integers(1, int(v.max()) + 1,
-                                                        m)])
-                     for k, v in per_order.items()}
-        per_order["sold_date_sk"][-m:] = np.minimum(
-            r_date + rng.integers(1, 90, m), _SK0 + _DAYS - 1)
-        per_order["bill_customer_sk"][-m:] = r_cust
-        order_no = np.concatenate(
-            [order_no, np.arange(orders + 1, orders + m + 1, dtype=np.int64)])
-        replay_items = r_item
-        orders += m
-        n += m
-    per_order["ship_date_sk"] = np.minimum(
-        per_order["sold_date_sk"] + rng.integers(1, 121, orders),
-        _SK0 + _DAYS - 1)
-    p = _price_lines(rng, n)
-    ship_cost = np.round(p["qty"] * rng.uniform(0.5, 10.0, n), 2)
-    coupon = np.where(rng.random(n) < 0.1,
-                      np.round(p["ext_sales"] * rng.uniform(0, 0.5, n), 2),
-                      0.0)
-    net_paid = np.round(p["ext_sales"] - coupon, 2)
-    tax = np.round(net_paid * 0.08, 2)
-    for name, arr in per_order.items():
-        build, _ = _null_some(rng, DType.LONG,
-                              arr.astype(np.int64)[order_no - 1], 0.04)
-        t.add(f"{prefix}_{name}", DType.LONG, build)
-    item_sk = rng.integers(1, n_item(scale) + 1, n).astype(np.int64)
-    if replay_items is not None:
-        item_sk[-replay_items.shape[0]:] = replay_items
-    t.add(f"{prefix}_item_sk", DType.LONG, lambda: _i64(item_sk))
-    wh, _ = _null_some(rng, DType.LONG, rng.integers(
-        1, n_warehouse(scale) + 1, n).astype(np.int64), 0.04)
-    t.add(f"{prefix}_warehouse_sk", DType.LONG, wh)
-    promo, _ = _null_some(rng, DType.LONG, rng.integers(
-        1, n_promo(scale) + 1, n).astype(np.int64), 0.04)
-    t.add(f"{prefix}_promo_sk", DType.LONG, promo)
-    t.add(f"{prefix}_order_number", DType.LONG, lambda: _i64(order_no))
-    t.add(f"{prefix}_quantity", DType.INT, lambda: _i32(p["qty"]))
-    doubles = {
-        "wholesale_cost": lambda: p["wholesale"],
-        "list_price": lambda: p["list_price"],
-        "sales_price": lambda: p["sales_price"],
-        "ext_discount_amt": lambda: p["ext_discount"],
-        "ext_sales_price": lambda: p["ext_sales"],
-        "ext_wholesale_cost": lambda: p["ext_wholesale"],
-        "ext_list_price": lambda: p["ext_list"],
-        "ext_tax": lambda: tax, "coupon_amt": lambda: coupon,
-        "ext_ship_cost": lambda: ship_cost, "net_paid": lambda: net_paid,
-        "net_paid_inc_tax": lambda: np.round(net_paid + tax, 2),
-        "net_paid_inc_ship": lambda: np.round(net_paid + ship_cost, 2),
-        "net_profit": lambda: np.round(net_paid - p["ext_wholesale"], 2)}
-    for name, arr in doubles.items():
-        t.add(f"{prefix}_{name}", DType.DOUBLE, lambda arr=arr: _f64(arr()))
+class _StoreReturns:
+    """store_returns sampled from store_sales (8% of its lines, returned
+    1-60 days after the sale), drawn as the JAX generator's
+    ``gen_store_returns`` does; ``replay`` gives the (customer, item,
+    returned date) catalog_sales re-buys."""
+
+    def __init__(self, ss: _StoreSales, seed: int):
+        rng = np.random.default_rng(seed + 23)
+        take = np.flatnonzero(rng.random(ss.n) < 0.08)
+        k = take.shape[0]
+        sold_null = ss.nulls["ss_sold_date_sk"][take]
+        ret_date = np.minimum(
+            np.where(sold_null, _SK0, ss.arrays["ss_sold_date_sk"][take])
+            + rng.integers(1, 61, k), _SK0 + _DAYS - 1)
+        qty = ss.arrays["ss_quantity"][take]
+        net = ss.arrays["ss_net_paid"][take]
+        ret_qty = np.minimum(rng.integers(1, 101, k), qty).astype(np.int32)
+        amt = np.round(net * (ret_qty / np.maximum(qty, 1)), 2)
+        fee = np.round(rng.uniform(0.5, 100.0, k), 2)
+        time_ = rng.integers(0, 1440, k).astype(np.int64)
+        reason = rng.integers(1, 11, k).astype(np.int64)
+        reason_null = rng.random(k) < 0.04
+        cash = np.round(amt * rng.uniform(0.3, 1.0, k), 2)
+        self.n = k
+
+        def carried(name):
+            null = ss.nulls.get(name)
+            return ss.arrays[name][take], (None if null is None
+                                           else null[take])
+        #: name -> (type, values, null mask or None)
+        self.cols: Dict[str, tuple] = {
+            "sr_returned_date_sk": (DType.LONG, ret_date, sold_null),
+            "sr_return_time_sk": (DType.LONG, time_, None)}
+        for dst, src in (("item", "item"), ("customer", "customer"),
+                         ("cdemo", "cdemo"), ("hdemo", "hdemo"),
+                         ("addr", "addr"), ("store", "store")):
+            self.cols[f"sr_{dst}_sk"] = (DType.LONG,
+                                         *carried(f"ss_{src}_sk"))
+        self.cols["sr_reason_sk"] = (DType.LONG, reason, reason_null)
+        self.cols["sr_ticket_number"] = (DType.LONG,
+                                         *carried("ss_ticket_number"))
+        for name, dtype, vals in (
+                ("sr_return_quantity", DType.INT, ret_qty),
+                ("sr_return_amt", DType.DOUBLE, amt),
+                ("sr_return_tax", DType.DOUBLE, np.round(amt * 0.08, 2)),
+                ("sr_return_amt_inc_tax", DType.DOUBLE,
+                 np.round(amt * 1.08, 2)),
+                ("sr_fee", DType.DOUBLE, fee),
+                ("sr_refunded_cash", DType.DOUBLE, cash),
+                ("sr_net_loss", DType.DOUBLE, np.round(fee + amt * 0.1, 2))):
+            self.cols[name] = (dtype, vals, None)
+
+    def replay(self):
+        """Every third return with both a customer and a sale date."""
+        cust, cust_null = self.cols["sr_customer_sk"][1:]
+        date, date_null = self.cols["sr_returned_date_sk"][1:]
+        ok = np.flatnonzero(~cust_null & ~date_null)[::3]
+        return cust[ok], self.cols["sr_item_sk"][1][ok], date[ok]
+
+    def batch(self, columns: Optional[Sequence[str]]) -> HostBatch:
+        return _fact_batch(STORE_RETURNS_COLUMNS, self.cols, self.n, columns)
+
+
+def _fact_batch(order: Sequence[str], cols: Dict[str, tuple], n: int,
+                columns: Optional[Sequence[str]]) -> HostBatch:
+    """The columns asked for of a fact held as (type, values, null mask)."""
+    t = _Table(order, columns)
+    for name in order:
+        dtype, vals, null = cols[name]
+
+        def build(dtype=dtype, vals=vals, null=null):
+            col = _values(dtype, vals)
+            return col if null is None else _nullable(col, null)
+        t.add(name, dtype, build)
     return t.batch(n)
 
 
-def gen_catalog_sales(scale: float, seed: int,
-                      columns: Optional[Sequence[str]] = None,
-                      store_sales: Optional[_StoreSales] = None
-                      ) -> HostBatch:
-    ss = store_sales or _StoreSales(scale, seed)
-    return _channel_sales(scale, seed, "cs", {
+class _ChannelSales:
+    """The catalog/web sales fact as the JAX generator draws it: all lines
+    of an order share its customer, date and addresses; the warehouse
+    varies per line. ``replay`` is a (customer, item, date) triple appended
+    as single-line orders (catalog_sales' re-buys of returned store
+    items). Each column's values and null mask stay, for ``batch`` and for
+    the returns sampled from this fact."""
+
+    def __init__(self, scale: float, seed: int, prefix: str,
+                 extra: Dict[str, int], replay=None):
+        self.names = _channel_columns(prefix, tuple(extra))
+        rng = np.random.default_rng(seed + sum(prefix.encode()))
+        orders = n_orders(scale)
+        lines_per = rng.integers(1, 9, orders)
+        n = int(lines_per.sum())
+        order_no = np.repeat(np.arange(1, orders + 1, dtype=np.int64),
+                             lines_per)
+        sizes = [_DAYS, 1440, n_customer(scale), _CD_N, _HD_N,
+                 n_address(scale), n_customer(scale), _CD_N, _HD_N,
+                 n_address(scale), _N_SHIP_MODES]
+        per_order = {"sold_date_sk": rng.integers(0, sizes[0], orders)
+                     + _SK0,
+                     "sold_time_sk": rng.integers(0, sizes[1], orders)}
+        for name, size in zip(_CHANNEL_PER_ORDER[2:], sizes[2:]):
+            per_order[name] = rng.integers(1, size + 1, orders)
+        for name, size in extra.items():
+            per_order[name] = rng.integers(1, size + 1, orders)
+        replay_items = None
+        if replay is not None:
+            r_cust, r_item, r_date = (np.asarray(a, dtype=np.int64)
+                                      for a in replay)
+            m = r_cust.shape[0]
+            per_order = {k: np.concatenate(
+                [v, rng.integers(1, int(v.max()) + 1, m)])
+                for k, v in per_order.items()}
+            per_order["sold_date_sk"][-m:] = np.minimum(
+                r_date + rng.integers(1, 90, m), _SK0 + _DAYS - 1)
+            per_order["bill_customer_sk"][-m:] = r_cust
+            order_no = np.concatenate(
+                [order_no, np.arange(orders + 1, orders + m + 1,
+                                     dtype=np.int64)])
+            replay_items = r_item
+            orders += m
+            n += m
+        per_order["ship_date_sk"] = np.minimum(
+            per_order["sold_date_sk"] + rng.integers(1, 121, orders),
+            _SK0 + _DAYS - 1)
+        p = _price_lines(rng, n)
+        ship_cost = np.round(p["qty"] * rng.uniform(0.5, 10.0, n), 2)
+        coupon = np.where(rng.random(n) < 0.1,
+                          np.round(p["ext_sales"] * rng.uniform(0, 0.5, n),
+                                   2), 0.0)
+        net_paid = np.round(p["ext_sales"] - coupon, 2)
+        tax = np.round(net_paid * 0.08, 2)
+        self.n = n
+        #: name -> (type, values thunk, null mask or None)
+        self.cols: Dict[str, tuple] = {}
+
+        def add(name, dtype, values, null=None):
+            self.cols[f"{prefix}_{name}"] = (dtype, values, null)
+
+        for name, arr in per_order.items():
+            vals = arr.astype(np.int64)[order_no - 1]
+            add(name, DType.LONG, lambda v=vals: v,
+                rng.random(n) < 0.04)
+        item_sk = rng.integers(1, n_item(scale) + 1, n).astype(np.int64)
+        if replay_items is not None:
+            item_sk[-replay_items.shape[0]:] = replay_items
+        add("item_sk", DType.LONG, lambda: item_sk)
+        wh = rng.integers(1, n_warehouse(scale) + 1, n).astype(np.int64)
+        add("warehouse_sk", DType.LONG, lambda: wh, rng.random(n) < 0.04)
+        promo = rng.integers(1, n_promo(scale) + 1, n).astype(np.int64)
+        add("promo_sk", DType.LONG, lambda: promo, rng.random(n) < 0.04)
+        add("order_number", DType.LONG, lambda: order_no)
+        add("quantity", DType.INT, lambda: p["qty"])
+        doubles = {
+            "wholesale_cost": lambda: p["wholesale"],
+            "list_price": lambda: p["list_price"],
+            "sales_price": lambda: p["sales_price"],
+            "ext_discount_amt": lambda: p["ext_discount"],
+            "ext_sales_price": lambda: p["ext_sales"],
+            "ext_wholesale_cost": lambda: p["ext_wholesale"],
+            "ext_list_price": lambda: p["ext_list"],
+            "ext_tax": lambda: tax, "coupon_amt": lambda: coupon,
+            "ext_ship_cost": lambda: ship_cost,
+            "net_paid": lambda: net_paid,
+            "net_paid_inc_tax": lambda: np.round(net_paid + tax, 2),
+            "net_paid_inc_ship": lambda: np.round(net_paid + ship_cost, 2),
+            "net_profit": lambda: np.round(net_paid - p["ext_wholesale"],
+                                           2)}
+        for name, values in doubles.items():
+            add(name, DType.DOUBLE, values)
+
+    def values(self, name: str):
+        """(values, null mask or None) of a column."""
+        _, values, null = self.cols[name]
+        return values(), null
+
+    def batch(self, columns: Optional[Sequence[str]]) -> HostBatch:
+        t = _Table(self.names, columns)
+        for name in self.names:
+            dtype, values, null = self.cols[name]
+
+            def build(dtype=dtype, values=values, null=null):
+                col = _values(dtype, values())
+                return col if null is None else _nullable(col, null)
+            t.add(name, dtype, build)
+        return t.batch(self.n)
+
+
+def _catalog_sales(scale: float, seed: int, sr: "_StoreReturns"
+                   ) -> _ChannelSales:
+    return _ChannelSales(scale, seed, "cs", {
         "call_center_sk": n_call_center(scale),
-        "catalog_page_sk": n_catalog_page(scale)}, columns,
-        replay=_store_return_replay(ss, seed))
+        "catalog_page_sk": n_catalog_page(scale)}, replay=sr.replay())
+
+
+def _web_sales(scale: float, seed: int) -> _ChannelSales:
+    """The JAX generator's ``gen_web_sales_ds``."""
+    return _ChannelSales(scale, seed, "ws", {
+        "web_page_sk": n_web_page(scale), "web_site_sk": n_web_site(scale)})
+
+
+
+
+_CR_CARRY = (("cs_item_sk", "cr_item_sk"),
+             ("cs_order_number", "cr_order_number"),
+             ("cs_bill_customer_sk", "cr_refunded_customer_sk"),
+             ("cs_ship_customer_sk", "cr_returning_customer_sk"),
+             ("cs_bill_cdemo_sk", "cr_refunded_cdemo_sk"),
+             ("cs_bill_addr_sk", "cr_returning_addr_sk"),
+             ("cs_call_center_sk", "cr_call_center_sk"),
+             ("cs_catalog_page_sk", "cr_catalog_page_sk"),
+             ("cs_warehouse_sk", "cr_warehouse_sk"))
+_WR_CARRY = (("ws_item_sk", "wr_item_sk"),
+             ("ws_order_number", "wr_order_number"),
+             ("ws_bill_customer_sk", "wr_refunded_customer_sk"),
+             ("ws_bill_cdemo_sk", "wr_refunded_cdemo_sk"),
+             ("ws_bill_addr_sk", "wr_refunded_addr_sk"),
+             ("ws_ship_customer_sk", "wr_returning_customer_sk"),
+             ("ws_web_page_sk", "wr_web_page_sk"))
+
+
+def _returns_columns(rp: str, carry) -> tuple:
+    amount = "return_amount" if rp == "cr" else "return_amt"
+    return ((f"{rp}_returned_date_sk", f"{rp}_returned_time_sk")
+            + tuple(dst for _, dst in carry)
+            + tuple(f"{rp}_{c}" for c in (
+                "reason_sk", "return_quantity", amount, "return_tax",
+                "return_amt_inc_tax", "fee", "return_ship_cost",
+                "refunded_cash", "net_loss")))
+
+
+CATALOG_RETURNS_COLUMNS = _returns_columns("cr", _CR_CARRY)
+WEB_RETURNS_COLUMNS = _returns_columns("wr", _WR_CARRY)
+
+
+def _channel_returns(seed: int, sales: _ChannelSales, sp: str, rp: str,
+                     carry, columns: Optional[Sequence[str]],
+                     frac: float = 0.08) -> HostBatch:
+    """A returns fact sampled from its sales fact's lines (the same
+    order/item link), returned 1-60 days after the sale (the JAX
+    generator's ``_gen_channel_returns``)."""
+    rng = np.random.default_rng(seed + sum(rp.encode()))
+    take = np.flatnonzero(rng.random(sales.n) < frac)
+    k = take.shape[0]
+    sold, sold_null = sales.values(f"{sp}_sold_date_sk")
+    sold, sold_null = sold[take], sold_null[take]
+    ret_date = np.minimum(np.where(sold_null, _SK0, sold)
+                          + rng.integers(1, 61, k), _SK0 + _DAYS - 1)
+    qty = sales.values(f"{sp}_quantity")[0][take]
+    net = sales.values(f"{sp}_net_paid")[0][take]
+    ret_qty = np.minimum(rng.integers(1, 101, k), qty).astype(np.int32)
+    amt = np.round(net * (ret_qty / np.maximum(qty, 1)), 2)
+    fee = np.round(rng.uniform(0.5, 100.0, k), 2)
+    cols = {f"{rp}_returned_date_sk": (DType.LONG, ret_date, sold_null),
+            f"{rp}_returned_time_sk": (
+                DType.LONG, rng.integers(0, 1440, k).astype(np.int64), None)}
+    for src, dst in carry:
+        vals, null = sales.values(src)
+        cols[dst] = (DType.LONG, vals[take],
+                     None if null is None else null[take])
+    reason = rng.integers(1, 11, k).astype(np.int64)
+    cols[f"{rp}_reason_sk"] = (DType.LONG, reason, rng.random(k) < 0.04)
+    amount = "return_amount" if rp == "cr" else "return_amt"
+    ship = np.round(rng.uniform(0.5, 50.0, k) * ret_qty, 2)
+    cash = np.round(amt * rng.uniform(0.3, 1.0, k), 2)
+    for name, dtype, vals in (
+            ("return_quantity", DType.INT, ret_qty),
+            (amount, DType.DOUBLE, amt),
+            ("return_tax", DType.DOUBLE, np.round(amt * 0.08, 2)),
+            ("return_amt_inc_tax", DType.DOUBLE, np.round(amt * 1.08, 2)),
+            ("fee", DType.DOUBLE, fee),
+            ("return_ship_cost", DType.DOUBLE, ship),
+            ("refunded_cash", DType.DOUBLE, cash),
+            ("net_loss", DType.DOUBLE, np.round(fee + amt * 0.1, 2))):
+        cols[f"{rp}_{name}"] = (dtype, vals, None)
+    return _fact_batch(_returns_columns(rp, carry), cols, k, columns)
+
+
+INVENTORY_COLUMNS = ("inv_date_sk", "inv_item_sk", "inv_warehouse_sk",
+                     "inv_quantity_on_hand")
+
+
+def gen_inventory(scale: float, seed: int,
+                  columns: Optional[Sequence[str]] = None) -> HostBatch:
+    """Weekly per-item and warehouse snapshots over the whole calendar for
+    the first min(items, 300) items, zero-inflated Poisson stock per
+    item."""
+    t = _Table(INVENTORY_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 24)
+    items = min(n_item(scale), 300)
+    warehouses = n_warehouse(scale)
+    week_starts = np.arange(_SK0, _SK0 + _DAYS, 7, dtype=np.int64)
+    per_item = warehouses * week_starts.shape[0]
+    n = items * per_item
+    lam = np.exp(rng.uniform(np.log(0.3), np.log(300.0), items))
+    # the mid-price plant (gen_item's %25 == 7 band) keeps steady stock
+    lam[np.arange(items) % 25 == 7] = 150.0
+    qty = None
+    if t.need("inv_quantity_on_hand"):
+        qty = rng.poisson(np.repeat(lam, per_item)).astype(np.int32)
+    t.add("inv_date_sk", DType.LONG,
+          lambda: _i64(np.tile(week_starts, items * warehouses)))
+    t.add("inv_item_sk", DType.LONG, lambda: _i64(np.repeat(
+        np.arange(1, items + 1, dtype=np.int64), per_item)))
+    t.add("inv_warehouse_sk", DType.LONG, lambda: _i64(np.tile(np.repeat(
+        np.arange(1, warehouses + 1, dtype=np.int64),
+        week_starts.shape[0]), items)))
+    if qty is not None:
+        build, _ = _null_some(rng, DType.INT, qty, 0.02)
+        t.add("inv_quantity_on_hand", DType.INT, build)
+    return t.batch(n)
+
+
+WAREHOUSE_COLUMNS = ("w_warehouse_sk", "w_warehouse_id", "w_warehouse_name",
+                     "w_warehouse_sq_ft", "w_city", "w_county", "w_state",
+                     "w_country", "w_gmt_offset")
+WEB_SITE_COLUMNS = ("web_site_sk", "web_site_id", "web_name",
+                    "web_company_name", "web_state", "web_gmt_offset")
+WEB_PAGE_COLUMNS = ("wp_web_page_sk", "wp_web_page_id", "wp_char_count",
+                    "wp_link_count")
+CALL_CENTER_COLUMNS = ("cc_call_center_sk", "cc_call_center_id", "cc_name",
+                       "cc_manager", "cc_county")
+CATALOG_PAGE_COLUMNS = ("cp_catalog_page_sk", "cp_catalog_page_id",
+                        "cp_catalog_number", "cp_catalog_page_number")
+SHIP_MODE_COLUMNS = ("sm_ship_mode_sk", "sm_ship_mode_id", "sm_type",
+                     "sm_code", "sm_carrier")
+REASON_COLUMNS = ("r_reason_sk", "r_reason_id", "r_reason_desc")
+INCOME_BAND_COLUMNS = ("ib_income_band_sk", "ib_lower_bound",
+                       "ib_upper_bound")
+SHIP_TYPES = ["EXPRESS", "NEXT DAY", "OVERNIGHT", "REGULAR", "TWO DAY"]
+SHIP_CARRIERS = ["UPS", "FEDEX", "AIRBORNE", "USPS", "DHL", "TBS", "ZHOU",
+                 "LATVIAN", "ALLIANCE", "GREAT EASTERN", "DIAMOND", "RUPEKSA"]
+REASONS = ["Package was damaged", "Stopped working", "Did not get it on time",
+           "Not the product that was ordred", "Parts missing",
+           "Does not work with a product that I have",
+           "Gift exchange", "Did not like the color",
+           "Did not like the model", "Did not fit"]
+
+
+def gen_warehouse(scale: float, seed: int,
+                  columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_warehouse(scale)
+    t = _Table(WAREHOUSE_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 21)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    sq_ft = rng.integers(50_000, 1_000_000, n)
+    t.add("w_warehouse_sk", DType.LONG, lambda: _i64(sk))
+    t.add("w_warehouse_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("w_warehouse_name", DType.STRING, lambda: _strings(
+        np.char.add("Warehouse no ", sk.astype(str))))
+    t.add("w_warehouse_sq_ft", DType.INT, lambda: _i32(sq_ft))
+    t.add("w_city", DType.STRING, lambda: _cycle(CITIES, sk))
+    t.add("w_county", DType.STRING, lambda: _cycle(COUNTIES, sk))
+    t.add("w_state", DType.STRING, lambda: _cycle(STATES, sk))
+    t.add("w_country", DType.STRING, lambda: _vocab_strings(
+        ["United States"], np.zeros(n, np.int64)))
+    t.add("w_gmt_offset", DType.DOUBLE, lambda: _f64(-5.0 - ((sk - 1) % 4)))
+    return t.batch(n)
+
+
+def gen_web_site(scale: float, seed: int,
+                 columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_web_site(scale)
+    t = _Table(WEB_SITE_COLUMNS, columns)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    t.add("web_site_sk", DType.LONG, lambda: _i64(sk))
+    t.add("web_site_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("web_name", DType.STRING, lambda: _strings(
+        np.char.add("site_", ((sk - 1) % 4).astype(str))))
+    t.add("web_company_name", DType.STRING, lambda: _cycle(
+        ["pri", "able", "ought", "ese", "anti", "cally"], sk))
+    t.add("web_state", DType.STRING, lambda: _cycle(STATES, sk))
+    t.add("web_gmt_offset", DType.DOUBLE,
+          lambda: _f64(-5.0 - ((sk - 1) % 4)))
+    return t.batch(n)
+
+
+def gen_web_page(scale: float, seed: int,
+                 columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_web_page(scale)
+    t = _Table(WEB_PAGE_COLUMNS, columns)
+    rng = np.random.default_rng(seed + 22)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    chars = rng.integers(3000, 9000, n)
+    links = rng.integers(2, 25, n)
+    t.add("wp_web_page_sk", DType.LONG, lambda: _i64(sk))
+    t.add("wp_web_page_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("wp_char_count", DType.INT, lambda: _i32(chars))
+    t.add("wp_link_count", DType.INT, lambda: _i32(links))
+    return t.batch(n)
+
+
+def gen_call_center(scale: float, seed: int,
+                    columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_call_center(scale)
+    t = _Table(CALL_CENTER_COLUMNS, columns)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    t.add("cc_call_center_sk", DType.LONG, lambda: _i64(sk))
+    t.add("cc_call_center_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("cc_name", DType.STRING, lambda: _cycle(
+        ["NY Metro", "Mid Atlantic", "North Midwest", "Pacific NW"], sk))
+    t.add("cc_manager", DType.STRING, lambda: _cycle(FIRST_NAMES, sk))
+    t.add("cc_county", DType.STRING, lambda: _cycle(COUNTIES, sk))
+    return t.batch(n)
+
+
+def gen_catalog_page(scale: float, seed: int,
+                     columns: Optional[Sequence[str]] = None) -> HostBatch:
+    n = n_catalog_page(scale)
+    t = _Table(CATALOG_PAGE_COLUMNS, columns)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    t.add("cp_catalog_page_sk", DType.LONG, lambda: _i64(sk))
+    t.add("cp_catalog_page_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("cp_catalog_number", DType.INT, lambda: _i32((sk - 1) // 100 + 1))
+    t.add("cp_catalog_page_number", DType.INT,
+          lambda: _i32((sk - 1) % 100 + 1))
+    return t.batch(n)
+
+
+def gen_ship_mode(columns: Optional[Sequence[str]] = None) -> HostBatch:
+    """Each ship type with each of the first four carriers."""
+    t = _Table(SHIP_MODE_COLUMNS, columns)
+    n = len(SHIP_TYPES) * 4
+    i = np.arange(n, dtype=np.int64)
+    sk = i + 1
+    t.add("sm_ship_mode_sk", DType.LONG, lambda: _i64(sk))
+    t.add("sm_ship_mode_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("sm_type", DType.STRING, lambda: _vocab_strings(SHIP_TYPES, i // 4))
+    t.add("sm_code", DType.STRING,
+          lambda: _cycle(["AIR", "SURFACE", "SEA"], sk))
+    t.add("sm_carrier", DType.STRING,
+          lambda: _vocab_strings(SHIP_CARRIERS[:4], i % 4))
+    return t.batch(n)
+
+
+def gen_reason(columns: Optional[Sequence[str]] = None) -> HostBatch:
+    t = _Table(REASON_COLUMNS, columns)
+    n = len(REASONS)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    t.add("r_reason_sk", DType.LONG, lambda: _i64(sk))
+    t.add("r_reason_id", DType.STRING, lambda: _ids("AAAAAAAA", sk))
+    t.add("r_reason_desc", DType.STRING,
+          lambda: _vocab_strings(REASONS, sk - 1))
+    return t.batch(n)
+
+
+def gen_income_band(columns: Optional[Sequence[str]] = None) -> HostBatch:
+    t = _Table(INCOME_BAND_COLUMNS, columns)
+    sk = np.arange(1, 21, dtype=np.int64)
+    t.add("ib_income_band_sk", DType.LONG, lambda: _i64(sk))
+    t.add("ib_lower_bound", DType.INT, lambda: _i32((sk - 1) * 10000))
+    t.add("ib_upper_bound", DType.INT, lambda: _i32(sk * 10000 - 1))
+    return t.batch(20)
+
+
+def gen_store_returns(scale: float, seed: int,
+                      columns: Optional[Sequence[str]] = None) -> HostBatch:
+    return _StoreReturns(_StoreSales(scale, seed), seed).batch(columns)
+
+
+def gen_catalog_sales(scale: float, seed: int,
+                      columns: Optional[Sequence[str]] = None) -> HostBatch:
+    sr = _StoreReturns(_StoreSales(scale, seed), seed)
+    return _catalog_sales(scale, seed, sr).batch(columns)
+
+
+def gen_catalog_returns(scale: float, seed: int,
+                        columns: Optional[Sequence[str]] = None
+                        ) -> HostBatch:
+    sr = _StoreReturns(_StoreSales(scale, seed), seed)
+    return _channel_returns(seed, _catalog_sales(scale, seed, sr), "cs",
+                            "cr", _CR_CARRY, columns)
 
 
 def gen_web_sales(scale: float, seed: int,
                   columns: Optional[Sequence[str]] = None) -> HostBatch:
     """The JAX generator's ``gen_web_sales_ds``."""
-    return _channel_sales(scale, seed, "ws", {
-        "web_page_sk": n_web_page(scale), "web_site_sk": n_web_site(scale)},
-        columns)
+    return _web_sales(scale, seed).batch(columns)
+
+
+def gen_web_returns(scale: float, seed: int,
+                    columns: Optional[Sequence[str]] = None) -> HostBatch:
+    """The JAX generator's ``gen_web_returns_ds``."""
+    return _channel_returns(seed, _web_sales(scale, seed), "ws", "wr",
+                            _WR_CARRY, columns)
+
+
+#: gen_all's tables, in the JAX generator's order
+TABLES = ("date_dim", "time_dim", "item", "customer", "customer_address",
+          "customer_demographics", "household_demographics", "store",
+          "promotion", "warehouse", "web_site", "web_page", "call_center",
+          "catalog_page", "ship_mode", "reason", "income_band",
+          "store_sales", "store_returns", "catalog_sales", "catalog_returns",
+          "web_sales", "web_returns", "inventory")
 
 
 def gen_all(scale: float = 0.002, seed: int = 0,
-            columns: Optional[Dict[str, Sequence[str]]] = None
+            columns: Optional[Dict[str, Sequence[str]]] = None,
+            tables: Optional[Sequence[str]] = None
             ) -> Dict[str, HostBatch]:
-    """The twelve tables of the bench subset; ``columns`` maps a table to
-    the columns to build (a table it leaves out gets all of them)."""
+    """The 24 tables (``tables`` names a subset); ``columns`` maps a table
+    to the columns to build (a table it leaves out gets all of them). The
+    linked facts share one draw each of store_sales, store_returns,
+    catalog_sales and web_sales."""
     cols = columns or {}
-    ss = _StoreSales(scale, seed)
-    return {
-        "date_dim": gen_date_dim(cols.get("date_dim")),
-        "time_dim": gen_time_dim(cols.get("time_dim")),
-        "item": gen_item(scale, seed, cols.get("item")),
-        "customer": gen_customer(scale, seed, cols.get("customer")),
-        "customer_address": gen_customer_address(
-            scale, seed, cols.get("customer_address")),
-        "customer_demographics": gen_customer_demographics(
-            cols.get("customer_demographics")),
-        "household_demographics": gen_household_demographics(
-            cols.get("household_demographics")),
-        "store": gen_store(scale, seed, cols.get("store")),
-        "promotion": gen_promotion(scale, seed, cols.get("promotion")),
-        "store_sales": ss.batch(cols.get("store_sales")),
-        "catalog_sales": gen_catalog_sales(scale, seed,
-                                           cols.get("catalog_sales"), ss),
-        "web_sales": gen_web_sales(scale, seed, cols.get("web_sales")),
+    lazy: Dict[str, object] = {}
+
+    def memo(key, make):
+        if key not in lazy:
+            lazy[key] = make()
+        return lazy[key]
+
+    def ss():
+        return memo("ss", lambda: _StoreSales(scale, seed))
+
+    def sr():
+        return memo("sr", lambda: _StoreReturns(ss(), seed))
+
+    def cs():
+        return memo("cs", lambda: _catalog_sales(scale, seed, sr()))
+
+    def ws():
+        return memo("ws", lambda: _web_sales(scale, seed))
+
+    build = {
+        "date_dim": lambda c: gen_date_dim(c),
+        "time_dim": lambda c: gen_time_dim(c),
+        "item": lambda c: gen_item(scale, seed, c),
+        "customer": lambda c: gen_customer(scale, seed, c),
+        "customer_address": lambda c: gen_customer_address(scale, seed, c),
+        "customer_demographics": lambda c: gen_customer_demographics(c),
+        "household_demographics": lambda c: gen_household_demographics(c),
+        "store": lambda c: gen_store(scale, seed, c),
+        "promotion": lambda c: gen_promotion(scale, seed, c),
+        "warehouse": lambda c: gen_warehouse(scale, seed, c),
+        "web_site": lambda c: gen_web_site(scale, seed, c),
+        "web_page": lambda c: gen_web_page(scale, seed, c),
+        "call_center": lambda c: gen_call_center(scale, seed, c),
+        "catalog_page": lambda c: gen_catalog_page(scale, seed, c),
+        "ship_mode": lambda c: gen_ship_mode(c),
+        "reason": lambda c: gen_reason(c),
+        "income_band": lambda c: gen_income_band(c),
+        "store_sales": lambda c: ss().batch(c),
+        "store_returns": lambda c: sr().batch(c),
+        "catalog_sales": lambda c: cs().batch(c),
+        "catalog_returns": lambda c: _channel_returns(
+            seed, cs(), "cs", "cr", _CR_CARRY, c),
+        "web_sales": lambda c: ws().batch(c),
+        "web_returns": lambda c: _channel_returns(
+            seed, ws(), "ws", "wr", _WR_CARRY, c),
+        "inventory": lambda c: gen_inventory(scale, seed, c),
     }
+    names = TABLES if tables is None else tuple(tables)
+    return {t: build[t](cols.get(t)) for t in names}

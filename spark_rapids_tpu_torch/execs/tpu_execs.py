@@ -37,9 +37,11 @@ def colvs_of(batch: DeviceBatch) -> List[ColV]:
             for c in batch.columns]
 
 
-def eval_ctx(batch: DeviceBatch, ctx: ExecContext) -> EvalCtx:
+def eval_ctx(batch: DeviceBatch, ctx: ExecContext,
+             row_offset: int = 0) -> EvalCtx:
     return EvalCtx(colvs_of(batch), batch.capacity, batch.device,
-                   ctx.string_max_bytes, getattr(ctx, "partition_id", 0))
+                   ctx.string_max_bytes, getattr(ctx, "partition_id", 0),
+                   row_offset)
 
 
 def batch_of(schema: Schema, colvs, num_rows: int) -> DeviceBatch:
@@ -142,8 +144,12 @@ class TpuProjectExec(PhysicalExec):
         return width_scaled_estimate(self.children[0], self.output)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        # the partition's rows in the batches already projected: the row
+        # id's running offset
+        offset = 0
         for batch in self.children[0].execute(ctx):
-            ectx = eval_ctx(batch, ctx)
+            ectx = eval_ctx(batch, ctx, offset)
+            offset += batch.num_rows
             yield batch_of(self.output,
                            [bk.as_column(e.eval(ectx), batch.capacity)
                             for e in self.exprs], batch.num_rows)

@@ -1,8 +1,10 @@
-"""Arithmetic expressions (Spark non-ANSI semantics: integral add, subtract
-and multiply wrap like Java two's complement, as torch's do; ``Divide`` is
-always a double, and ``Divide`` and ``Pmod`` are null on a zero divisor).
-The JAX package's ``IntegralDivide`` and ``Remainder`` are not ported
-yet."""
+"""Arithmetic expressions (Spark non-ANSI semantics: integral add, subtract,
+multiply, negation and ``abs`` wrap like Java two's complement, as torch's
+do, so ``-Long.MinValue`` and ``abs(Long.MinValue)`` stay
+``Long.MinValue``; ``Divide`` is always a double, and ``Divide`` and
+``Pmod`` are null on a zero divisor; ``Least`` and ``Greatest`` skip nulls
+and order NaN above every other value). The JAX package's
+``IntegralDivide`` and ``Remainder`` are not ported yet."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +14,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.dtypes import DType
 from spark_rapids_tpu_torch.exprs.core import (BinaryExpression, ColV, EvalCtx,
                                                Expression, and_validity,
-                                               cast_operand)
+                                               cast_operand, widen)
 
 
 class _Arith(BinaryExpression):
@@ -103,3 +105,80 @@ class Pmod(_DivisorNullingBinary):
             return torch.where(m < 0, torch.fmod(m + safe, safe), m)
         safe = torch.where(safe == -1, 1, safe).to(safe.dtype)
         return torch.remainder(torch.remainder(l, safe) + safe, safe)
+
+
+class _Unary(Expression):
+    """A null-intolerant op on one operand, in the operand's type."""
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def nullable(self) -> bool:
+        return self.c.nullable()
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        return ColV(v.dtype, self.fn(v.data), v.validity,
+                    is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class UnaryMinus(_Unary):
+    c: Expression
+
+    def fn(self, d: torch.Tensor) -> torch.Tensor:
+        return -d
+
+
+@dataclass(frozen=True)
+class Abs(_Unary):
+    c: Expression
+
+    def fn(self, d: torch.Tensor) -> torch.Tensor:
+        return d.abs()
+
+
+class _LeastGreatest(Expression):
+    """least/greatest(...) over numbers or dates in their common type: nulls
+    are skipped (null only where every input is), NaN is greater than any
+    other value. Each input in turn replaces the running pick where it is
+    valid and better, or the pick is null, as in the JAX package."""
+    greatest = False
+
+    def dtype(self) -> DType:
+        return DType.common_type_all([e.dtype() for e in self.exprs])
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        dt = self.dtype()
+        if dt is DType.STRING:
+            raise NotImplementedError(
+                f"{type(self).__name__.lower()} over strings is not ported "
+                f"yet")
+        vals = [widen(e.eval(ctx), dt, ctx) for e in self.exprs]
+        data, valid = vals[0].data, vals[0].validity
+        for v in vals[1:]:
+            better = (_nan_gt(v.data, data) if self.greatest
+                      else _nan_gt(data, v.data))
+            take = v.validity & (better | ~valid)
+            data = torch.where(take, v.data, data)
+            valid = valid | v.validity
+        return ColV(dt, data, valid, is_scalar=all(v.is_scalar for v in vals))
+
+
+def _nan_gt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a > b with NaN above everything (Spark's ordering)."""
+    if not a.is_floating_point():
+        return a > b
+    a_nan, b_nan = torch.isnan(a), torch.isnan(b)
+    return (a_nan & ~b_nan) | (~b_nan & (a > b))
+
+
+@dataclass(frozen=True)
+class Least(_LeastGreatest):
+    exprs: tuple
+
+
+@dataclass(frozen=True)
+class Greatest(_LeastGreatest):
+    exprs: tuple
+    greatest = True

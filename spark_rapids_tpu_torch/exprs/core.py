@@ -31,17 +31,19 @@ class ColV:
 
 class EvalCtx:
     """Evaluation context: the child batch's columns as ColVs, their row
-    capacity, the device new tensors go to, the string width cap and the
-    partition being evaluated."""
+    capacity, the device new tensors go to, the string width cap, the
+    partition being evaluated and the count of that partition's rows in
+    the batches before this one (``row_offset``, read by the row id)."""
 
     def __init__(self, columns: Sequence[ColV], capacity: int,
                  device: torch.device, string_max_bytes: int = 256,
-                 partition_id: int = 0):
+                 partition_id: int = 0, row_offset: int = 0):
         self.columns = list(columns)
         self.capacity = capacity
         self.device = device
         self.string_max_bytes = string_max_bytes
         self.partition_id = partition_id
+        self.row_offset = row_offset
 
 
 class Expression:

@@ -1,6 +1,7 @@
-"""Date parts, ``Year``, ``Month`` and ``DayOfMonth``, and ``DateDiff``
-(the part of the JAX package's ``exprs/datetime.py`` the TPC-H and TPCx-BB
-queries need). Timestamps are UTC
+"""Date parts, ``Year``, ``Month``, ``DayOfMonth`` and ``WeekDay``, and
+``DateDiff``, ``DateAdd`` and ``DateSub`` (the part of the JAX package's
+``exprs/datetime.py`` the query suites and the SQL planner's function table
+need). Timestamps are UTC
 microseconds; the calendar comes from Howard Hinnant's civil-from-days,
 integer arithmetic only. torch's ``//`` on int64 floors, as numpy's does,
 so the era of a day before 1970 is the plain floor quotient."""
@@ -83,3 +84,48 @@ class DateDiff(Expression):
         return ColV(DType.INT, e.data.to(torch.int32) - s.data.to(torch.int32),
                     e.validity & s.validity,
                     is_scalar=e.is_scalar and s.is_scalar)
+
+
+class _DateShift(Expression):
+    """date_add/date_sub(date, days): the day number plus or minus the days
+    as int32, null where either is."""
+    sign = 1
+
+    def dtype(self) -> DType:
+        return DType.DATE
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v, n = self.c.eval(ctx), self.n.eval(ctx)
+        days = n.data.to(torch.int32)
+        data = (v.data + days if self.sign > 0 else v.data - days) \
+            .to(torch.int32)
+        return ColV(DType.DATE, data, v.validity & n.validity,
+                    is_scalar=v.is_scalar and n.is_scalar)
+
+
+@dataclass(frozen=True)
+class DateAdd(_DateShift):
+    c: Expression
+    n: Expression
+
+
+@dataclass(frozen=True)
+class DateSub(_DateShift):
+    c: Expression
+    n: Expression
+    sign = -1
+
+
+@dataclass(frozen=True)
+class WeekDay(Expression):
+    """weekday(date): 0 = Monday ... 6 = Sunday (1970-01-01 was a
+    Thursday, weekday 3)."""
+    c: Expression
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        data = torch.remainder(_days_of(v) + 3, 7).to(torch.int32)
+        return ColV(DType.INT, data, v.validity, is_scalar=v.is_scalar)

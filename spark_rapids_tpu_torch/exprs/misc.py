@@ -1,5 +1,5 @@
-"""Named expressions, sort ordering and the non-deterministic generator
-``rand``."""
+"""Named expressions, sort ordering and the non-deterministic generators
+``rand`` and ``monotonically_increasing_id``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -66,5 +66,30 @@ class Rand(Expression):
         rng = np.random.default_rng((self.seed, ctx.partition_id, 0))
         data = torch.from_numpy(rng.random(ctx.capacity)).to(ctx.device)
         return ColV(DType.DOUBLE, data,
+                    torch.ones(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device))
+
+
+@dataclass(frozen=True)
+class MonotonicallyIncreasingID(Expression):
+    """(partition_id << 33) + row_offset + the row's index in its batch,
+    where ``row_offset`` is the count of the partition's rows in its
+    earlier batches (``EvalCtx.row_offset``, kept by the project exec), so
+    the ids are unique in every partition of any number of batches. The JAX
+    package reads ``ctx.row_offset`` but nothing sets it, so its ids are
+    unique only while a partition is one batch; there the two agree. It
+    breaks a fused chain, as ``rand`` does."""
+
+    def dtype(self) -> DType:
+        return DType.LONG
+
+    def nullable(self) -> bool:
+        return False
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        data = ((ctx.partition_id << 33) + ctx.row_offset
+                + torch.arange(ctx.capacity, dtype=torch.int64,
+                               device=ctx.device))
+        return ColV(DType.LONG, data,
                     torch.ones(ctx.capacity, dtype=torch.bool,
                                device=ctx.device))

@@ -1,6 +1,9 @@
 """String predicates with a constant pattern, ``substring``,
-``substring_index`` and ``split(str, regex)[i]`` (the part of the JAX
-package's ``exprs/strings.py`` the TPC-H and TPCx-BB queries use), over
+``substring_index``, ``split(str, regex)[i]``, ``upper``/``lower`` (ASCII
+letters only, as the JAX package's device path), ``length`` (characters),
+the trims, ``concat``, the pads, ``locate``/``instr`` and ``replace`` (the
+part of the JAX package's ``exprs/strings.py`` the query suites and the SQL
+planner's function table use), over
 the byte-matrix layout through ``ops/strings.py``. A literal operand
 broadcasts to a column with ``bk.as_column`` (the JAX package's
 ``_as_column``)."""
@@ -254,3 +257,214 @@ class GetArrayItem(Expression):
         data, lengths, exists = sk.split_field(v.data, v.lengths, sel,
                                                span_len, self.ordinal)
         return ColV(DType.STRING, data, v.validity & exists, lengths)
+
+
+@dataclass(frozen=True)
+class Upper(Expression):
+    c: Expression
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        return ColV(DType.STRING, sk.upper_ascii(v.data), v.validity,
+                    v.lengths, is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class Lower(Expression):
+    c: Expression
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        return ColV(DType.STRING, sk.lower_ascii(v.data), v.validity,
+                    v.lengths, is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class Length(Expression):
+    """The length in characters (UTF-8 starts), as Spark's length()."""
+    c: Expression
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        return ColV(DType.INT, sk.char_lengths(v.data, v.lengths), v.validity,
+                    is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class Concat(Expression):
+    """concat(...): null where any input is; cut at the session's string
+    width in bytes."""
+    exprs: Tuple
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        vals = [bk.as_column(e.eval(ctx), ctx.capacity) for e in self.exprs]
+        out = vals[0]
+        for v in vals[1:]:
+            data, lengths = sk.concat2(out.data, out.lengths, v.data,
+                                       v.lengths, ctx.string_max_bytes)
+            out = ColV(DType.STRING, data, out.validity & v.validity, lengths)
+        return out
+
+
+class _TrimBase(Expression):
+    """trim/ltrim/rtrim with an optional literal set of ASCII trim
+    characters (a space by default)."""
+    left = True
+    right = True
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def _trim_chars(self) -> bytes:
+        if self.trim is None:
+            return b" "
+        if not isinstance(self.trim, Literal) or self.trim.value is None:
+            raise TypeError(f"{type(self).__name__} requires a literal "
+                            f"trim-character set")
+        chars = str(self.trim.value).encode("utf-8")
+        if any(b > 127 for b in chars):
+            raise TypeError(f"{type(self).__name__} trim-character set must "
+                            f"be ASCII (got {self.trim.value!r})")
+        return chars
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        start, new_len = sk.trim_bounds(v.data, v.lengths, self.left,
+                                        self.right, self._trim_chars())
+        data, lengths = sk.substring(v.data, v.lengths, start, new_len)
+        return ColV(DType.STRING, data, v.validity, lengths)
+
+
+@dataclass(frozen=True)
+class StringTrim(_TrimBase):
+    c: Expression
+    trim: Optional[Expression] = None
+
+
+@dataclass(frozen=True)
+class StringTrimLeft(_TrimBase):
+    c: Expression
+    trim: Optional[Expression] = None
+    right = False
+
+
+@dataclass(frozen=True)
+class StringTrimRight(_TrimBase):
+    c: Expression
+    trim: Optional[Expression] = None
+    left = False
+
+
+@dataclass(frozen=True)
+class StringLocate(Expression):
+    """locate(substr, str, start) with a literal substring and start: the
+    1-based character position of the first occurrence at or after
+    ``start``, 0 where there is none. A null start gives 0, a null
+    substring null, a start below 1 gives 0 and an empty substring 1."""
+    sub: Expression
+    c: Expression
+    start: Expression
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        if not isinstance(self.start, Literal):
+            raise TypeError("locate requires a literal start position")
+        needle = _literal_utf8(self.sub, "locate substring")
+        cap, device = ctx.capacity, ctx.device
+        if self.start.value is None:
+            return ColV(DType.INT, torch.zeros(cap, dtype=torch.int32,
+                                               device=device),
+                        torch.ones(cap, dtype=torch.bool, device=device))
+        if needle is None:
+            return all_null(DType.INT, ctx, 0)
+        start1 = int(self.start.value)
+        if start1 < 1:
+            data = torch.zeros(cap, dtype=torch.int32, device=device)
+        elif len(needle) == 0:
+            data = torch.ones(cap, dtype=torch.int32, device=device)
+        else:
+            data = sk.locate(v.data, v.lengths, needle, start1)
+        return ColV(DType.INT, data, v.validity)
+
+
+@dataclass(frozen=True)
+class StringReplace(Expression):
+    """replace(str, search, replace) with literal operands: a null operand
+    gives nulls, an empty search the input; the result is cut at the
+    session's string width."""
+    c: Expression
+    search: Expression
+    replace: Expression
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        search = _literal_utf8(self.search, "replace search")
+        repl = _literal_utf8(self.replace, "replace replacement")
+        if search is None or repl is None:
+            return all_null(DType.STRING, ctx, v.data.shape[-1])
+        if len(search) == 0:
+            return v
+        data, lengths = sk.replace_const(v.data, v.lengths, search, repl,
+                                         ctx.string_max_bytes)
+        return ColV(DType.STRING, data, v.validity, lengths)
+
+
+class _PadBase(Expression):
+    """lpad/rpad(str, len, pad) with a literal length and pad, in
+    characters. The output is as wide as the input, or as the surviving
+    prefix and the worst-case fill need, up to the session's string
+    width."""
+    side = ""
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        if not isinstance(self.length, Literal):
+            raise TypeError("pad length must be a literal")
+        pad_bytes = _literal_utf8(self.pad, "pad string")
+        width = v.data.shape[-1]
+        if self.length.value is None or pad_bytes is None:
+            return all_null(DType.STRING, ctx, width)
+        target = max(int(self.length.value), 0)
+        bound = (min(width, 4 * target)
+                 + sk.pad_fill_total_bytes(pad_bytes, target))
+        width_out = max(width, min(bound, ctx.string_max_bytes))
+        data, lengths = sk.pad(v.data, v.lengths, target, pad_bytes,
+                               self.side, width_out)
+        return ColV(DType.STRING, data, v.validity, lengths)
+
+
+@dataclass(frozen=True)
+class StringLPad(_PadBase):
+    c: Expression
+    length: Expression
+    pad: Expression
+    side = "left"
+
+
+@dataclass(frozen=True)
+class StringRPad(_PadBase):
+    c: Expression
+    length: Expression
+    pad: Expression
+    side = "right"

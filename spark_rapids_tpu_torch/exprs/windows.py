@@ -1,13 +1,14 @@
 """Window expressions (the JAX package's ``exprs/windows.py``): the frame
-spec, ``WindowExpression``, the three ranking functions and lead/lag.
+spec, ``WindowExpression``, the three ranking functions, ``ntile`` and
+lead/lag.
 
 A ``WindowExpression`` pairs a function (an aggregate function, or a
 window function) with its partition keys, order keys and frame. The window
 exec sorts once per (partition, order) spec and hands every expression
 under it one ``FrameCtx`` (``ops/window.py``): a ranking function reads
 its positions, lead and lag gather at an offset inside the partition, and
-an aggregate reduces its buffers over each row's frame. ntile,
-percent_rank and cume_dist are not ported yet.
+an aggregate reduces its buffers over each row's frame. percent_rank and
+cume_dist are not ported yet.
 """
 from __future__ import annotations
 
@@ -127,6 +128,37 @@ class DenseRank(WindowFunction):
         # the count of peer-group starts in (seg_first, idx]
         c = torch.cumsum((fr.peer_first == fr.idx).to(torch.int64), 0)
         return _rank_col(c - c[fr.seg_first.clamp(0, fr.capacity - 1)] + 1,
+                         fr)
+
+
+@dataclass(frozen=True)
+class NTile(WindowFunction):
+    """ntile(n), Spark's buckets: the first (rows % n) buckets of a
+    partition hold rows / n + 1 rows each, the rest rows / n."""
+    n: int = 1
+
+    def __post_init__(self):
+        if self.n < 1:
+            raise ValueError(f"ntile() parameter n must be positive, got "
+                             f"{self.n}")
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        i0 = fr.idx - fr.seg_first
+        rows = fr.seg_last - fr.seg_first + 1       # live rows, at least 1
+        base = torch.div(rows, self.n, rounding_mode="floor")
+        rem = rows - base * self.n
+        big = rem * (base + 1)
+        bucket_big = torch.div(i0, (base + 1).clamp(min=1),
+                               rounding_mode="floor")
+        bucket_small = rem + torch.div(i0 - big, base.clamp(min=1),
+                                       rounding_mode="floor")
+        return _rank_col(torch.where(i0 < big, bucket_big, bucket_small) + 1,
                          fr)
 
 

@@ -167,10 +167,20 @@ def as_column(v: ColV, capacity: int) -> ColV:
     return ColV(v.dtype, data, v.validity.expand(capacity), lengths)
 
 
+def _take(t: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``t[indices]`` along the rows; a 1-D integer index goes through
+    ``index_select``, the same gather, which torch's CPU build runs two to
+    three times faster than advanced indexing."""
+    if indices.dim() == 1 and not indices.dtype.is_floating_point \
+            and indices.dtype is not torch.bool:
+        return torch.index_select(t, 0, indices)
+    return t[indices]
+
+
 def take_colv(v: ColV, indices: torch.Tensor) -> ColV:
     """Gather rows of a column."""
-    return ColV(v.dtype, v.data[indices], v.validity[indices],
-                v.lengths[indices] if v.lengths is not None else None)
+    return ColV(v.dtype, _take(v.data, indices), _take(v.validity, indices),
+                _take(v.lengths, indices) if v.lengths is not None else None)
 
 
 def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Kernels over the device string layout: a ``uint8[n, W]`` byte matrix,
 zero padded, plus ``int32[n]`` lengths (the part of the JAX package's
 ``ops/strings.py`` that comparisons, joins, range bounds, the constant
-pattern predicates, ``substring``, ``substring_index`` and the split of a
-string at regex matches need).
+pattern predicates, ``substring``, ``substring_index``, the split of a
+string at regex matches, case mapping, trims, pads, ``locate``,
+``replace`` and ``concat`` need).
 
 A string scalar (a literal) is a ``uint8[W]`` vector with a 0-d length and
 broadcasts against a column. Spark orders strings by their unsigned UTF-8
@@ -255,3 +256,184 @@ def split_field(data: torch.Tensor, lengths: torch.Tensor, sel: torch.Tensor,
     d, l = substring(data, lengths, start.to(torch.int32),
                      (endp - start).clamp(min=0))
     return d, l, total >= k
+
+
+def upper_ascii(data: torch.Tensor) -> torch.Tensor:
+    """ASCII a-z to A-Z; every other byte (multibyte UTF-8 too) unchanged."""
+    return torch.where((data >= 97) & (data <= 122), data - 32, data)
+
+
+def lower_ascii(data: torch.Tensor) -> torch.Tensor:
+    return torch.where((data >= 65) & (data <= 90), data + 32, data)
+
+
+def locate(data: torch.Tensor, lengths: torch.Tensor, needle: bytes,
+           start1: int) -> torch.Tensor:
+    """The 1-based character position of the first occurrence of the
+    constant needle at or after the 1-based character ``start1``; 0 when
+    there is none (Spark's StringLocate counts characters)."""
+    n, width = data.shape
+    k = len(needle)
+    if k == 0 or k > width:
+        return torch.zeros(n, dtype=torch.int32, device=data.device)
+    start = torch.full((n,), start1 - 1, dtype=torch.int32,
+                       device=data.device)
+    byte_start = char_to_byte_offset(data, lengths, start)
+    ok = _needle_hits(data, lengths, needle)
+    ok = ok & (_positions(ok.shape[1], data.device)[None, :]
+               >= byte_start[:, None])
+    any_ok = ok.any(dim=-1)
+    first = _first_true(ok)
+    # the byte offset as a character position: the characters before it
+    before = (char_starts(data, lengths)
+              & (_positions(width, data.device)[None, :] < first[:, None])) \
+        .sum(dim=-1, dtype=torch.int32)
+    return torch.where(any_ok, before + 1, 0).to(torch.int32)
+
+
+def trim_bounds(data: torch.Tensor, lengths: torch.Tensor, left: bool,
+                right: bool, chars: bytes = b" "):
+    """(start, new length) after stripping any byte of ``chars`` from the
+    chosen ends (Spark's trim family; ASCII space by default)."""
+    width = data.shape[-1]
+    in_range = _positions(width, data.device)[None, :] < lengths[:, None]
+    member = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    for ch in bytearray(chars):
+        member |= data == ch
+    keepable = ~member & in_range
+    any_keep = keepable.any(dim=-1)
+    first = _first_true(keepable)
+    last = (width - 1 - _first_true(keepable.flip(-1))).to(torch.int32)
+    start = torch.where(any_keep & left, first, 0)
+    end = torch.where(any_keep, last + 1 if right else lengths, 0)
+    return start.to(torch.int32), (end - start).clamp(min=0).to(torch.int32)
+
+
+def _utf8_chars(b: bytes):
+    """``b`` cut at its UTF-8 character starts."""
+    starts = [i for i, c in enumerate(b) if (c & 0xC0) != 0x80]
+    return [b[s:e] for s, e in zip(starts, starts[1:] + [len(b)])]
+
+
+def pad_fill_total_bytes(pad_bytes: bytes, target: int) -> int:
+    """The bytes of ``target`` characters of the cyclic pad."""
+    chars = _utf8_chars(pad_bytes)
+    if not chars or target <= 0:
+        return 0
+    q, r = divmod(target, len(chars))
+    return q * sum(len(c) for c in chars) + sum(len(c) for c in chars[:r])
+
+
+def pad(data: torch.Tensor, lengths: torch.Tensor, target: int,
+        pad_bytes: bytes, side: str, width: int):
+    """lpad/rpad to ``target`` characters with the cyclic constant pad, at
+    ``width`` bytes; a longer string is cut to ``target`` characters and an
+    empty pad can only cut. A cut at the width ends on a character
+    boundary -> (data, lengths)."""
+    device = data.device
+    data = pad_width(data, width)
+    j = _positions(width, device)[None, :]
+    charcnt = char_lengths(data, lengths)
+    keep_bytes = char_to_byte_offset(
+        data, lengths, torch.clamp(charcnt, max=target))
+    pchars = _utf8_chars(pad_bytes)
+    if not pchars:
+        keep = j < keep_bytes[:, None]
+        return torch.where(keep, data, 0).to(torch.uint8), keep_bytes
+    # the first T fill characters (a literal, so built on the host) and the
+    # bytes of the first m of them; T stops at the width, past which every
+    # fill byte is cut
+    T = min(target, width)
+    fill = b"".join(pchars[i % len(pchars)] for i in range(T))
+    fill_len = np.zeros(T + 1, dtype=np.int32)
+    acc = 0
+    for m in range(T):
+        acc += len(pchars[m % len(pchars)])
+        fill_len[m + 1] = acc
+    farr = (_const_bytes(fill, device) if fill
+            else torch.zeros(1, dtype=torch.uint8, device=device))
+    pad_chars = (target - charcnt.to(torch.int64)).clamp(0, T)
+    fill_bytes = torch.from_numpy(fill_len).to(device)[pad_chars]
+    new_len = torch.clamp(keep_bytes + fill_bytes, max=width).to(torch.int32)
+    fcap = max(len(fill), 1)
+    if side == "right":
+        from_fill = j >= keep_bytes[:, None]
+        fidx = (j - keep_bytes[:, None]).clamp(0, fcap - 1)
+        out = torch.where(from_fill, farr[fidx.to(torch.int64)], data)
+    else:
+        from_fill = j < fill_bytes[:, None]
+        fidx = j.clamp(0, fcap - 1).expand_as(data)
+        src = (j - fill_bytes[:, None]).clamp(0, width - 1)
+        moved = data.gather(1, src.to(torch.int64))
+        out = torch.where(from_fill, farr[fidx.to(torch.int64)], moved)
+    # round a cut at the width down to a character boundary: the last
+    # character start within the kept bytes and its lead byte's length
+    # decide whether that character survives whole
+    start_keep = ((out & 0xC0) != 0x80) & (j < new_len[:, None])
+    s = (width - 1 - _first_true(start_keep.flip(-1))).to(torch.int64)
+    lead = out.gather(1, s[:, None])[:, 0]
+    clen = torch.where(lead < 0xC0, 1, torch.where(
+        lead < 0xE0, 2, torch.where(lead < 0xF0, 3, 4)))
+    new_len = torch.where(new_len > 0,
+                          torch.where(s + clen <= new_len, new_len, s),
+                          new_len).to(torch.int32)
+    keep = j < new_len[:, None]
+    return torch.where(keep, out, 0).to(torch.uint8), new_len
+
+
+def replace_const(data: torch.Tensor, lengths: torch.Tensor, search: bytes,
+                  repl: bytes, width_out: int):
+    """replace(str, search, repl) with constant operands: the greedy
+    left-to-right occurrences, each emitting the whole replacement, the
+    other bytes passing through, cut at ``width_out`` bytes."""
+    sel, plain = greedy_matches(data, lengths, search)
+    return reassemble_spans(data, sel, plain, repl, width_out)
+
+
+def reassemble_spans(data: torch.Tensor, sel: torch.Tensor,
+                     plain: torch.Tensor, repl: bytes, width_out: int):
+    """Rank-gather reassembly: ``sel`` marks span starts (each emits
+    ``repl``), ``plain`` is 1 where a byte passes through. Each emitting
+    byte goes to its exclusive running offset; every output position reads
+    the last emitting byte at or before it (a scatter of maxima, then a
+    running max) -> (data, lengths)."""
+    n, width = data.shape
+    device = data.device
+    r = len(repl)
+    emit = torch.where(sel, r, plain).to(torch.int32)
+    csum = torch.cumsum(emit, dim=-1, dtype=torch.int32)
+    dst = csum - emit
+    new_len = torch.clamp(csum[:, -1], max=width_out).to(torch.int32)
+    o = _positions(width_out, device)
+    emitting = (emit > 0) & (dst < width_out)
+    d = torch.where(emitting, dst, width_out - 1).to(torch.int64)
+    vals = torch.where(emitting, _positions(width, device)[None, :], -1) \
+        .to(torch.int32)
+    head = torch.full((n, width_out), -1, dtype=torch.int32, device=device)
+    head.scatter_reduce_(1, d, vals, reduce="amax", include_self=True)
+    inv = torch.cummax(head, dim=1).values.clamp(0, width - 1) \
+        .to(torch.int64)
+    src_char = data.gather(1, inv)
+    is_repl = sel.gather(1, inv)
+    kk = o[None, :] - dst.gather(1, inv)
+    if r > 0:
+        repl_char = _const_bytes(repl, device)[
+            kk.clamp(0, r - 1).to(torch.int64)]
+    else:
+        repl_char = torch.zeros_like(src_char)
+    out = torch.where(is_repl, repl_char, src_char)
+    keep = o[None, :] < new_len[:, None]
+    return torch.where(keep, out, 0).to(torch.uint8), new_len
+
+
+def concat2(ld: torch.Tensor, ll: torch.Tensor, rd: torch.Tensor,
+            rl: torch.Tensor, width: int):
+    """Two string columns end to end, cut at ``width`` bytes."""
+    ld, rd = pad_width(ld, width), pad_width(rd, width)
+    pos = _positions(width, ld.device)[None, :]
+    from_right = pos >= ll[:, None]
+    ridx = (pos - ll[:, None]).clamp(0, width - 1).to(torch.int64)
+    out = torch.where(from_right, rd.gather(1, ridx), ld)
+    new_len = torch.clamp(ll + rl, max=width).to(torch.int32)
+    keep = pos < new_len[:, None]
+    return torch.where(keep, out, 0).to(torch.uint8), new_len

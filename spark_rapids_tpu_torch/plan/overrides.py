@@ -24,8 +24,9 @@ def _substitute_refs(e: Expression, repl) -> Expression:
 
 
 def _has_nondeterministic(e: Expression) -> bool:
-    from spark_rapids_tpu_torch.exprs.misc import Rand
-    if isinstance(e, Rand):
+    from spark_rapids_tpu_torch.exprs.misc import (MonotonicallyIncreasingID,
+                                                   Rand)
+    if isinstance(e, (Rand, MonotonicallyIncreasingID)):
         return True
     return any(_has_nondeterministic(c) for c in e.children)
 

@@ -64,6 +64,13 @@ for q in ("q2", "q18", "q23", "q20", "q22", "q28"):
     res = tpcxbb_queries.QUERIES[q]({k: sess.create_dataframe(v)
                                      for k, v in bb.items()}).collect()
     assert res.num_rows > 0, (q, res.num_rows)
+# the SQL frontend: TPC-H Q6's text over temp views
+import spark_rapids_tpu_torch.sql
+from spark_rapids_tpu_torch.benchmarks.tpch_sql import SQL_QUERIES
+for name, hb in td.gen_all(0.0005, 3).items():
+    sess.create_dataframe(hb).createOrReplaceTempView(name)
+res = sess.sql(SQL_QUERIES[6]).collect()
+assert res.num_rows == 1 and res.columns[0].validity[0], res.num_rows
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -81,10 +88,10 @@ def _clean_env():
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     """Every module imports, and TPC-H Q1 (also through the default path's
-    fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22 and
+    fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22,
     the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
-    q23, q28) run, with no jax, nothing of the JAX package and no pyarrow
-    loaded."""
+    q23, q28) and TPC-H Q6's SQL text through ``TpuSession.sql`` run,
+    with no jax, nothing of the JAX package and no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
