@@ -6,7 +6,9 @@ Phases:
   2. build every hand-written kernel from csrc/ with nvcc, one nvcc per
      source, all started together; then make the port's CPU runs that
      phases 9-11 and 13 hold the card against, in CPU_WORKERS processes,
-     and wait for them all, so that no CPU work runs beside a timed phase;
+     while a thread of this process generates the run's tables for phases
+     3-14, and wait for both, so that no CPU work runs beside a timed
+     phase;
   3. hold each kernel against its plain PyTorch version on the card:
      - the partition-reorder kernel at the main path's shape (lineitem, 8
        hash partitions on l_orderkey), at n = 2 and n = 32, on a ragged
@@ -84,12 +86,11 @@ Phases:
      those exchanges build from each sales fact, timed and bounded there;
      each query cold and warm (the warm result equal to the cold one) with
      its wall times, rows, peak device memory, reorder launches (one per hash
-     exchange, every one kept) and those kept, joins and aggregate modes;
-     q72, if it runs out of device memory (its first join pairs every catalog
-     line with all the inventory rows of its item), again alone at the
-     largest of SF 5, 2 and 1 that fits, printed beside the error and the
-     peak, its numbers kept apart from the sums, the geomean and the
-     launches (any other failure fails the phase); q23 with dmaConsolidate on (a compact launch per kept reorder
+     exchange, every one kept) and those kept, joins, aggregate modes,
+     the operators out of core and the bytes spilled per tier (q72, whose
+     first join pairs every catalog line with all the inventory rows of
+     its item, takes its largest joins out of core under pressure); q23
+     with dmaConsolidate on (a compact launch per kept reorder
      output; the result equal to the default run's); the geomean of the 14
      bench queries' warm walls (bench.py's TPCDS_BENCH_QUERIES, the series of
      earlier runs) and of all 99, with the cold and warm sums, on lines of
@@ -115,10 +116,12 @@ Phases:
      pipelined upload, the admission semaphore, the streaming collect)
      against ALL_OFF (fusion, scan cache, pipeline and streaming collect
      off, single-shot uploads): every query of the three suites at the
-     check scales on the card both ways, equal bit for
-     bit in the same row order, with each query's fused stages and ops; Q1 and Q3 at the run's
+     check scales with ALL_OFF, equal bit for bit in the same row order to
+     its default run of phases 9-11, with each query's fused stages and
+     ops; Q1 and Q3 at the run's
      scale (orders and lineitem hash 8) and Q1 over the plain lineitem,
-     both ways, cold and warm, with walls, peak device memory, reorder
+     both ways, cold and warm (the plain Q1 also, once, with each of
+     ALL_OFF's keys alone, bit for bit against its default run), with walls, peak device memory, reorder
      launches and those kept (with --profile the device busy time over the
      warm wall); lineitem uploaded in 1 Mi-row chunks and in a single shot,
      twice each, byte-equal, with their times; its TPC-DS part keeps the
@@ -136,7 +139,28 @@ Phases:
      phases 9's and 10's tables, cold and warm as their DataFrame runs,
      each launching the reorder kernel and equal to its DataFrame query's
      result, and Q21's row ids (its non-equality correlation's semi/anti
-     join) checked for repeats.
+     join) checked for repeats;
+ 14. slice 10's out-of-core layer (memory/grace.py, plan/footprint.py):
+     every query of the three suites at the check scales with
+     memory.outOfCore.forcePartitions=4, each equal to its default run of
+     phases 9-11 (unordered; floats within REL_TOL), every grouped
+     aggregate, keyed join and sort that ran having gone out of core;
+     then at the run's scale Q1 hash 8, Q3 and TPC-DS q67 with
+     forcePartitions=8, and Q3 with memory.faults.plan
+     budget_clamp:fraction=0.05 and alloc_fail:op=join,after=1 (the
+     reactive path), cold and warm, each equal to its default run, with
+     walls, peak device memory, the operators out of core (trigger,
+     sizing, partitions, depth) and the bytes spilled per tier.
+
+Phases 9-11 and 13 print, per query, the operators that went out of core
+and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
+of the card's memory at SF 10 and SF 5 before slice 10, runs at the run's
+scale with the other 98: its largest joins go out of core under pressure
+(PERF.md, slice 10).
+
+Usage beside the smoke run: --memory-profile QUERY ... measures where the
+named TPC-DS queries' device memory goes, operator by operator, at
+--memory-profile-sf (default 5 and 2), and prints no result line.
 
 The sessions run the port's defaults, so phases 6-11 take the default
 path too; their warm runs read the scan cache (a query's pruned tables are
@@ -145,9 +169,9 @@ made once per phase), and a cold run starts with the cache cleared.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after; comparison launches are not counted. Each phase's
 seconds are printed. Prints one JSON line of per-kernel numbers: phase
-10's launches over the TPC-DS queries that ran at the run's scale and q5
-(and launches_kept, those whose output was used; a query cut to a smaller
-scale under tpcds_oom_cut; the compact kernel's from the dma-on q23) with the
+10's launches over the 99 TPC-DS queries and q5 (and launches_kept,
+those whose output was used; the compact kernel's from the dma-on q23)
+with the
 times, bounds and errors of phase 10's check on the widest input of each
 sales fact (summed over the inputs, each under "inputs"), phase 11's
 TPCx-BB and phase 9's TPC-H readings (launches and their checks,
@@ -159,7 +183,8 @@ line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
        [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.5]
-       [--bb-check-sf 1.0]
+       [--bb-check-sf 1.0] [--memory-profile QUERY ...
+       [--memory-profile-sf SF ...]]
 """
 from __future__ import annotations
 
@@ -168,6 +193,7 @@ import concurrent.futures
 import datetime
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1222,27 +1248,37 @@ def query_frames(sess, pruned, repartition=True):
 
 
 def result_rows(hb):
-    """A result's rows as tuples (None for null, bytes for strings)."""
+    """A result's rows as tuples (None for null, bytes for strings), read
+    a column at a time."""
+    n = hb.num_rows
     cols = []
-    for f, c in zip(hb.schema, hb.columns):
-        vals = []
-        for r in range(hb.num_rows):
-            if not c.validity[r]:
-                vals.append(None)
-            elif c.lengths is not None:
-                vals.append(bytes(c.data[r, :c.lengths[r]]))
-            else:
-                vals.append(c.data[r].item())
+    for c in hb.columns:
+        valid = c.validity[:n].tolist()
+        if c.lengths is not None:
+            # a string column: uint8 rows of width w, each cut at its length
+            w = c.data.shape[1]
+            buf = c.data[:n].tobytes()
+            vals = [buf[r * w:r * w + ln] if v else None for r, (v, ln)
+                    in enumerate(zip(valid, c.lengths[:n].tolist()))]
+        else:
+            vals = [x if v else None
+                    for x, v in zip(c.data[:n].tolist(), valid)]
         cols.append(vals)
     return list(zip(*cols))
 
 
-def _sort_key(row):
+def sorted_rows(rows):
     """Rows of a query whose sort can tie, in one canonical order: floats
-    rounded (they agree to 1e-9, not bit for bit), nulls first."""
-    return tuple((0,) if v is None else
-                 (1, round(v, 6) if isinstance(v, float) else v)
-                 for v in row)
+    rounded (they agree to 1e-9, not bit for bit), nulls first. Each
+    value's key is its (not null, value) pair, flattened into one tuple
+    per row."""
+    keys = []
+    for col in zip(*rows):
+        keys.append([v is not None for v in col])
+        keys.append([0 if v is None else round(v, 6)
+                     if isinstance(v, float) else v for v in col])
+    keys = list(zip(*keys))
+    return [rows[i] for i in sorted(range(len(rows)), key=keys.__getitem__)]
 
 
 def check_same_result(name, got, want, ties, positional=False):
@@ -1258,13 +1294,13 @@ def check_same_result(name, got, want, ties, positional=False):
                              f"of {want.schema.names()}")
     g, w = result_rows(got), result_rows(want)
     if ties:
-        g, w = sorted(g, key=_sort_key), sorted(w, key=_sort_key)
+        g, w = sorted_rows(g), sorted_rows(w)
     worst = 0.0
     for i, (a, b) in enumerate(zip(g, w)):
         for x, y in zip(a, b):
             if isinstance(y, float) and x is not None:
-                if np.isnan(y) or np.isnan(x):
-                    ok = np.isnan(x) and np.isnan(y)
+                if math.isnan(y) or math.isnan(x):
+                    ok = math.isnan(x) and math.isnan(y)
                 else:
                     err = abs(x - y) / max(abs(y), 1e-300)
                     worst = max(worst, err)
@@ -1332,7 +1368,7 @@ def check_against_cpu(label, sf, specs, refs):
 #: references: torch's CPU operators use extra threads poorly at the
 #: check scales, so several processes of few threads finish sooner than
 #: one process with every core
-CPU_WORKERS, CPU_THREADS = 4, 2
+CPU_WORKERS, CPU_THREADS = 8, 1
 #: a CPU worker's query builds, per (suite, scale, seed)
 _WORKER_SPECS: dict = {}
 
@@ -1379,15 +1415,46 @@ def cpu_references(jobs):
     return refs
 
 
-def run_cold_warm(specs, all_kept, oom_ok=()):
+def grace_summary(plan):
+    """The operators of ``plan`` that went out of core (memory/grace.py),
+    each as "Exec:trigger/sized_by/SxF/partitions/depth"; trigger is
+    forced, predicted (the footprint contract's hint) or reactive
+    (pressure while staging), sized_by force, observed (the inputs' stage
+    statistics), hint or fanout; S top-level splits (a join splits each
+    side, every stream partition that goes out of core splits on its own)
+    of F partitions each; partitions made in all, at every depth."""
+    out = []
+    for n in plan.walk() if plan is not None else ():
+        g = getattr(n, "grace_stats", None)
+        if g:
+            out.append(f"{n.name.replace('Tpu', '').replace('Exec', '')}:"
+                       f"{g.get('trigger')}/{g.get('sized_by')}/"
+                       f"{g.get('splits', 0)}x{g.get('fanout', 0)}/"
+                       f"{g.get('partitions', 0)}/{g.get('depth', 0)}")
+    return out
+
+
+def spilled_bytes():
+    """Bytes the store chain has spilled to the host and to disk."""
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    dm = DeviceManager.peek()
+    return dm.spilled_bytes() if dm is not None else {"host": 0, "disk": 0}
+
+
+def spilled_since(before):
+    now = spilled_bytes()
+    return {k: max(now[k] - before[k], 0) / 1e9 for k in now}
+
+
+def run_cold_warm(specs, all_kept, conf=None):
     """Each query of ``specs`` cold then warm on the card (the warm result
-    must equal the cold one), with its wall times, rows, peak device
-    memory, reorder launches and launches kept (the hash exchanges that
-    used the kernel's output rather than the sort path; every one with
-    ``all_kept``), join strategies and aggregate grouping modes. A query
-    of ``oom_ok`` that runs out of device memory is recorded and skipped;
-    any other failure raises. Returns (per-query numbers, warm results,
-    {query: its out-of-memory record})."""
+    must equal the cold one), under ``conf`` (default the benchmark conf),
+    with its wall times, rows, peak device memory, reorder launches and
+    launches kept (the hash exchanges that used the kernel's output rather
+    than the sort path; every one with ``all_kept``), join strategies,
+    aggregate grouping modes, the operators that went out of core and the
+    bytes spilled per tier. Any failure raises. Returns (per-query
+    numbers, warm results)."""
     import torch
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
@@ -1397,8 +1464,9 @@ def run_cold_warm(specs, all_kept, oom_ok=()):
 
     from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
 
-    sess = TpuSession(BENCH_CONF)
-    results, nums, ooms = {}, {}, {}
+    conf = conf or BENCH_CONF
+    sess = TpuSession(conf)
+    results, nums = {}, {}
     for name, build, ties, partitioned in specs:
         # a cold run finds nothing cached; the warm run reads the scan
         # cache, and the peak counts the query's cached tables
@@ -1407,21 +1475,12 @@ def run_cold_warm(specs, all_kept, oom_ok=()):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        try:
-            cold, cold_s, launches, _, kept, plan = run_query(sess, name,
-                                                              build)
-            warm, warm_s = run_query(sess, name, build)[:2]
-        except torch.cuda.OutOfMemoryError as e:
-            if name not in oom_ok:
-                raise
-            ooms[name] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                          "error": str(e).splitlines()[0]}
-            print(f"{name}: out of device memory at peak "
-                  f"{ooms[name]['peak_gb']:.2f} GB: {ooms[name]['error']}")
-            sess = TpuSession(BENCH_CONF)
-            release_device()
-            continue
+        spill0 = spilled_bytes()
+        cold, cold_s, launches, _, kept, plan = run_query(sess, name, build)
+        grace = grace_summary(plan)
+        warm, warm_s = run_query(sess, name, build)[:2]
         peak = torch.cuda.max_memory_allocated() / 1e9
+        spilled = spilled_since(spill0)
         check_same_result(f"{name} warm against cold", warm, cold, ties)
         if partitioned and launches < 1:
             raise AssertionError(f"{name} reads a hash-repartitioned table "
@@ -1438,15 +1497,18 @@ def run_cold_warm(specs, all_kept, oom_ok=()):
                  if isinstance(e, TpuHashAggregateExec)]
         nums[name] = {"rows": warm.num_rows, "cold_s": cold_s,
                       "warm_s": warm_s, "peak_gb": peak,
-                      "launches": launches, "launches_kept": kept}
+                      "launches": launches, "launches_kept": kept,
+                      "grace": grace, "spilled_gb": spilled}
         print(f"{name}: rows={warm.num_rows} cold_s={cold_s:.4f} "
               f"warm_s={warm_s:.4f} peak_device_gb={peak:.2f} "
               f"reorder_launches={launches} launches_kept={kept} "
               f"splits_kernel_sort={splits} joins={joins} "
-              f"aggregate_modes={modes}")
+              f"aggregate_modes={modes} out_of_core={grace} "
+              f"spilled_host_gb={spilled['host']:.3f} "
+              f"spilled_disk_gb={spilled['disk']:.3f}")
         results[name] = warm
         del cold, plan
-    return nums, results, ooms
+    return nums, results
 
 
 def run_dma(name, build, want):
@@ -1618,7 +1680,7 @@ def phase_tpch(tables):
     (per-query numbers, the dma-on Q18's (reorder, compact, kept)
     launches)."""
     specs = tpch_specs(tables)
-    nums, results, _ = run_cold_warm(specs, all_kept=False)
+    nums, results = run_cold_warm(specs, all_kept=False)
     dma18 = run_dma("q18", dict((s[0], s[1]) for s in specs)["q18"],
                     results["q18"])
     check_q13_q22(results, tables)
@@ -1645,10 +1707,6 @@ SUITE_TIES = {
 #: the fact tables, hash-repartitioned 8 ways on their item keys
 FACT_KEYS = {"store_sales": "ss_item_sk", "catalog_sales": "cs_item_sk",
              "web_sales": "ws_item_sk"}
-#: the query whose first join pairs every catalog line with all the
-#: inventory rows of its item; at SF 10 it may not fit one card
-OOM_QUERY = "q72"
-OOM_SCALES = (5.0, 2.0, 1.0)
 
 
 def tpcds_queries():
@@ -1763,28 +1821,6 @@ def phase_suite_kernels(tables, device):
     return check_kernels_on(inputs, device)[1:]
 
 
-def run_at_smaller_scale(q, seed):
-    """``q`` alone, cold and warm, at the largest of ``OOM_SCALES`` at which
-    it fits the card. Returns (scale, numbers) or raises."""
-    import torch
-    for sf in OOM_SCALES:
-        tables = suite_tables(sf, seed, [q])
-        try:
-            nums = run_cold_warm(suite_specs(tables, [q]),
-                                 all_kept=True)[0]
-        except torch.cuda.OutOfMemoryError as e:
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            print(f"{q} sf={sf}: out of device memory (peak {peak:.2f} GB): "
-                  f"{str(e).splitlines()[0]}")
-            del tables
-            release_device()
-            continue
-        print(f"{q} runs at sf={sf}: " + json.dumps(nums[q]))
-        return sf, nums[q]
-    raise AssertionError(f"{q} does not fit the card even at sf="
-                         f"{OOM_SCALES[-1]}")
-
-
 def release_device():
     """Drop everything a failed query left on the card."""
     import torch
@@ -1795,41 +1831,28 @@ def release_device():
     torch.cuda.empty_cache()
 
 
-def phase_suite(tables, seed):
+def phase_suite(tables):
     """The 99 TPC-DS queries and TPCx-BB q5 at the run's scale, the fact
     tables hash-repartitioned 8 ways on their item keys, cold and warm
-    (``run_cold_warm``); ``OOM_QUERY``, if it runs out of device memory,
-    again alone at the largest smaller scale that fits; then q23 with
+    (``run_cold_warm``; q72's largest joins go out of core); then q23 with
     dmaConsolidate on; then the geomean of the 14 bench queries' warm
     walls (the series of earlier runs) and of all 99 TPC-DS warm walls, on
     lines of their own. Every hash exchange must use the reorder kernel's
-    output. A query cut to a smaller scale has its numbers in the cut
-    only: the sums, the geomean and the launches count the queries that
-    ran at the run's scale. Returns (per-query numbers, the dma-on q23's
-    (reorder, compact, kept) launches, the card's warm results, the
-    out-of-memory cut or None)."""
+    output. Returns (per-query numbers, the dma-on q23's (reorder,
+    compact, kept) launches, the card's warm results)."""
     specs = suite_specs(tables)
-    nums, results, ooms = run_cold_warm(specs, all_kept=True,
-                                        oom_ok=(OOM_QUERY,))
-    cut = None
-    if ooms:
-        sf, n = run_at_smaller_scale(OOM_QUERY, seed)
-        cut = {"query": OOM_QUERY, "sf": sf, "oom_at_run_scale": ooms,
-               **n}
-        print(json.dumps({"tpcds_oom_cut": cut}))
+    nums, results = run_cold_warm(specs, all_kept=True)
     dma23 = run_dma("q23", dict((s[0], s[1]) for s in specs)["q23"],
                     results["q23"])
     bench = [nums[q]["warm_s"] for q in TPCDS_QUERIES]
     print(json.dumps({"tpcds_warm_geomean_s": float(np.exp(np.mean(
         np.log(bench)))), "queries": len(bench)}))
-    ran = [q for q in tpcds_queries() if q in nums]
-    every = [nums[q]["warm_s"] for q in ran]
+    every = [nums[q]["warm_s"] for q in tpcds_queries()]
     print(json.dumps({"tpcds99_warm_geomean_s": float(np.exp(np.mean(
         np.log(every)))), "queries": len(every),
-        "cold_sum_s": sum(nums[q]["cold_s"] for q in ran),
-        "warm_sum_s": sum(every),
-        "not_at_run_scale": sorted(set(tpcds_queries()) - set(ran))}))
-    return nums, dma23, results, cut
+        "cold_sum_s": sum(nums[q]["cold_s"] for q in tpcds_queries()),
+        "warm_sum_s": sum(every)}))
+    return nums, dma23, results
 
 
 # ------------------------------------------------------------------ phase 11
@@ -1903,8 +1926,7 @@ def phase_bb_check(sf, seed, refs):
     tables = bb_tables(sf, seed)
     print(f"tpcxbb sf={sf}: tables generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    check_against_cpu("tpcxbb", sf, bb_specs(tables), refs)
-    return tables
+    return tables, check_against_cpu("tpcxbb", sf, bb_specs(tables), refs)
 
 
 def phase_bb_kernels(tables, device):
@@ -1957,7 +1979,7 @@ def phase_bb(tables):
     warm walls on its own line. Returns (per-query numbers, the dma-on
     run's (reorder, compact, kept) launches)."""
     specs = bb_specs(tables)
-    nums, results, _ = run_cold_warm(specs, all_kept=False)
+    nums, results = run_cold_warm(specs, all_kept=False)
     dma = run_dma(BB_DMA_QUERY, dict((s[0], s[1]) for s in specs)[
         BB_DMA_QUERY], results[BB_DMA_QUERY])
     warm = [nums[q]["warm_s"] for q in bb_queries()]
@@ -2007,34 +2029,34 @@ def fusion_counts(plan):
     return st["fused_stages"], st["fused_ops"]
 
 
-def default_vs_all_off(label, sf, specs):
-    """Every query of ``specs`` on the card with the default conf and with
-    ALL_OFF: the results must be equal bit for bit, in the same row order.
-    Prints each query's fused stages and ops. Returns the reorder launches
-    of each run."""
+def default_vs_all_off(label, sf, specs, wants):
+    """Every query of ``specs`` on the card with ALL_OFF against its
+    default-conf result ``wants[name]`` (phases 9-11's check runs, made in
+    a session of the same conf): equal bit for bit, in the same row
+    order. Prints each query's fused stages and ops (from its default
+    plan, planned again, not run). Returns the reorder launches of each
+    all-off run."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
     on = TpuSession(BENCH_CONF)
     off = TpuSession({**BENCH_CONF, **ALL_OFF})
     launches = {}
-    totals = [0.0, 0.0, 0, 0]
+    totals = [0.0, 0, 0]
     for name, build, _, _ in specs:
-        got, on_s, on_n = run_query(on, name, build)[:3]
-        stages, ops = fusion_counts(on.last_plan)
-        want, off_s, off_n = run_query(off, name, build)[:3]
+        stages, ops = fusion_counts(build(on).physical_plan())
+        got, off_s, off_n = run_query(off, name, build)[:3]
         if fusion_counts(off.last_plan) != (0, 0):
             raise AssertionError(f"{name}: the all-off plan fused a stage")
-        check_same_bits(f"{label} {name} default against all-off", got, want)
-        launches[f"phase12 {label} {name} default"] = on_n
+        check_same_bits(f"{label} {name} default against all-off",
+                        wants[name], got)
         launches[f"phase12 {label} {name} all-off"] = off_n
-        totals = [totals[0] + on_s, totals[1] + off_s, totals[2] + stages,
-                  totals[3] + ops]
+        totals = [totals[0] + off_s, totals[1] + stages, totals[2] + ops]
         print(f"{label} {name} sf={sf}: rows={got.num_rows} fused_stages="
-              f"{stages} fused_ops={ops} default_s={on_s:.4f} all_off_s="
-              f"{off_s:.4f} reorder_launches={on_n}/{off_n}, bit-identical")
+              f"{stages} fused_ops={ops} all_off_s={off_s:.4f} "
+              f"reorder_launches={off_n}, bit-identical")
     print(f"{label} sf={sf} default against all-off: {len(specs)} queries "
-          f"bit-identical, {totals[2]} fused stages of {totals[3]} ops, "
-          f"default {totals[0]:.2f} s, all-off {totals[1]:.2f} s")
+          f"bit-identical, {totals[1]} fused stages of {totals[2]} ops, "
+          f"all-off {totals[0]:.2f} s")
     return launches
 
 
@@ -2042,9 +2064,10 @@ def sf10_both_ways(tables, profile_dir=None):
     """Q1 and Q3 over the run's tables, orders and lineitem hash 8, and Q1
     over the plain lineitem (the port aggregates above the single-partition
     exchange, so only the plain Q1 folds its filter into the aggregate),
-    with the default conf and with ALL_OFF (the plain Q1 also with each of
-    ALL_OFF's keys alone), cold and warm, in two passes, the second in the
-    reverse order (a wall depends on what ran before it): walls, peak
+    with the default conf and with ALL_OFF, cold and warm, in two passes,
+    the second in the reverse order (a wall depends on what ran before
+    it); the plain Q1 also with each of ALL_OFF's keys alone, in the first
+    pass only: walls, peak
     device memory, reorder launches and those kept, fused stages; with
     ``profile_dir`` the device busy time over the warm wall. The two ways'
     results must be equal bit for bit. Returns the reorder launches of each
@@ -2056,18 +2079,18 @@ def sf10_both_ways(tables, profile_dir=None):
     from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
     launches = {}
     both = (("default", BENCH_CONF), ("all-off", {**BENCH_CONF, **ALL_OFF}))
-    # the plain Q1 also runs with one piece off at a time: which of them
-    # moves the cold and the warm wall
+    # the plain Q1 also runs with one piece off at a time, once: which of
+    # them moves the cold and the warm wall
     one_off = tuple((f"{k.split('.', 3)[3]}={v}", {**BENCH_CONF, k: v})
                     for k, v in ALL_OFF.items())
-    for label, q, rep, ways in (("q1", 1, True, both),
-                                ("q1 plain", 1, False,
-                                 both[:1] + one_off + both[1:]),
-                                ("q3", 3, True, both)):
+    for label, q, rep, first in (("q1", 1, True, both),
+                                 ("q1 plain", 1, False,
+                                  both[:1] + one_off + both[1:]),
+                                 ("q3", 3, True, both)):
         pruned = query_tables(tables, q)
         results = {}
-        for pas, (way, conf) in enumerate(ways + ways[::-1]):
-            pas //= len(ways)
+        for pas, (way, conf) in [(0, w) for w in first] \
+                + [(1, w) for w in both[::-1]]:
 
             def build(sess, q=q, rep=rep):
                 return QUERIES[q](query_frames(sess, pruned, rep))
@@ -2158,20 +2181,24 @@ def chunked_upload_check(hb, device):
           "shot")
 
 
-def phase_default_path(check, check_sf, bb_check_sf, tables, device,
-                       profile_dir=None):
+def phase_default_path(check, check_results, check_sf, bb_check_sf,
+                       tables, device, profile_dir=None):
     """Phase 12: the default path against ALL_OFF on the card: every query
-    of the three suites at the check scales, bit for bit; Q1 and Q3 over
-    the run's tables both ways, cold and warm; one chunked and one
+    of the three suites at the check scales (the TPC-DS bench subset and
+    q5), bit for bit against the default runs of phases 9-11; Q1 and Q3
+    over the run's tables both ways, cold and warm; one chunked and one
     single-shot upload of lineitem, byte-equal. Returns the reorder
     launches of every run."""
     launches = default_vs_all_off("tpch", check_sf,
-                                  tpch_specs(check["tpch"]))
+                                  tpch_specs(check["tpch"]),
+                                  check_results["tpch"])
     launches.update(default_vs_all_off("tpcds+q5", check_sf,
                                        suite_specs(check["suite"],
-                                                   SUITE_BENCH)))
+                                                   SUITE_BENCH),
+                                       check_results["suite"]))
     launches.update(default_vs_all_off("tpcxbb", bb_check_sf,
-                                       bb_specs(check["bb"])))
+                                       bb_specs(check["bb"]),
+                                       check_results["bb"]))
     launches.update(sf10_both_ways(tables, profile_dir))
     chunked_upload_check(tables["lineitem"], device)
     return launches
@@ -2414,7 +2441,7 @@ def phase_sql_at_scale(tpch_tables_sf, tpch_results, ds_tables_sf,
             wants[name] = (ds_results[q], q in SQL_TIES)
         specs.append((name, lambda sess, p=pruned, k=keys, t=text: (
             view_frames(sess, p, k), sess.sql(t))[1], wants[name][1], True))
-    nums, results, _ = run_cold_warm(specs, all_kept=False)
+    nums, results = run_cold_warm(specs, all_kept=False)
     for name, _, _, _ in specs:
         want, ties = wants[name]
         check_same_result(f"{name} against its DataFrame query",
@@ -2432,11 +2459,477 @@ def phase_sql_at_scale(tpch_tables_sf, tpch_results, ds_tables_sf,
     return nums, {"ids": n_ids, "repeated": repeats}
 
 
+# ------------------------------------------------------------------ phase 14
+#: the grace conf keys phase 14 drives
+FORCE_KEY = "spark.rapids.tpu.memory.outOfCore.forcePartitions"
+FAULTS_KEY = "spark.rapids.tpu.memory.faults.plan"
+#: the SF-10 runs of phase 14: (label, query, conf keys); Q3's two fault
+#: plans take the reactive path (a clamped budget, a failed admission)
+OOC_AT_SCALE = (("q1 hash8 force8", ("tpch", 1), {FORCE_KEY: "8"}),
+                ("q3 force8", ("tpch", 3), {FORCE_KEY: "8"}),
+                ("q67 force8", ("tpcds", "q67"), {FORCE_KEY: "8"}),
+                ("q3 budget_clamp", ("tpch", 3),
+                 {FAULTS_KEY: "budget_clamp:fraction=0.05"}),
+                ("q3 alloc_fail", ("tpch", 3),
+                 {FAULTS_KEY: "alloc_fail:op=join,after=1"}))
+
+
+def _keyed(node):
+    """An operator that can go out of core: a grouped aggregate, a keyed
+    join or a sort."""
+    from spark_rapids_tpu_torch.execs.join_execs import \
+        TpuShuffledHashJoinExec
+    from spark_rapids_tpu_torch.execs.tpu_execs import (TpuHashAggregateExec,
+                                                        TpuSortExec)
+    return (isinstance(node, TpuSortExec)
+            or (isinstance(node, TpuHashAggregateExec) and node.grouping)
+            or (isinstance(node, TpuShuffledHashJoinExec)
+                and node.left_keys))
+
+
+def forced_against_default(label, sf, specs, wants):
+    """Every query of ``specs`` on the card with forcePartitions=4 against
+    its default run's result ``wants[name]`` (phases 9-11's check runs):
+    equal, unordered (grace emits a grouped result's partitions in turn),
+    floats within REL_TOL; every operator that can go out of core and ran
+    must have gone. Returns the reorder launches of each run."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory import grace
+    sess = TpuSession({**BENCH_CONF, FORCE_KEY: "4"})
+    launches, total, ops, parts = {}, 0.0, 0, 0
+    for name, build, _, _ in specs:
+        before = grace.counters()["spill_partitions"]
+        got, secs, n, _, _, plan = run_query(sess, name, build)
+        check_same_result(f"{label} {name} forcePartitions=4 against the "
+                          f"default run", got, wants[name], True)
+        keyed = [x for x in plan.walk() if _keyed(x)]
+        went = [x for x in keyed if getattr(x, "grace_stats", None)]
+        if bool(went) != bool(keyed) or any(
+                x.grace_stats["trigger"] != "forced" for x in went):
+            raise AssertionError(f"{label} {name}: forced out of core "
+                                 f"{grace_summary(plan)} of {len(keyed)} "
+                                 f"operators that can go")
+        made = grace.counters()["spill_partitions"] - before
+        total, ops, parts = total + secs, ops + len(went), parts + made
+        launches[f"phase14 {label} {name} force4"] = n
+        print(f"{label} {name} sf={sf} force4: rows={got.num_rows} "
+              f"s={secs:.4f} out_of_core={grace_summary(plan)}, equal to "
+              f"the default run")
+    print(f"{label} sf={sf} forcePartitions=4: {len(specs)} queries in "
+          f"{total:.2f} s, {ops} operators out of core in {parts} "
+          f"partitions, every result equal to the default run")
+    return launches
+
+
+def phase_out_of_core(check, check_results, check_pruned, check_sf,
+                      bb_check_sf, tpch_sf_tables, tpch_results,
+                      ds_sf_tables, ds_results):
+    """Phase 14, out-of-core: every query of the three suites at the check
+    scales with forcePartitions=4, each equal to its default run; then at
+    the run's scale Q1 hash 8, Q3 and TPC-DS q67 with forcePartitions=8,
+    and Q3 with a budget_clamp and an alloc_fail fault plan, cold and warm
+    (walls, peak memory, the operators out of core with their trigger,
+    partitions and depth, bytes spilled per tier), each equal to its
+    default run of phase 9 or 10. Returns the reorder launches per
+    path."""
+    launches = forced_against_default(
+        "tpch", check_sf, tpch_specs(check["tpch"], check_pruned["tpch"]),
+        check_results["tpch"])
+    launches.update(forced_against_default(
+        "tpcds+q5", check_sf, suite_specs(check["suite"],
+                                          pruned=check_pruned["suite"]),
+        check_results["suite"]))
+    launches.update(forced_against_default(
+        "tpcxbb", bb_check_sf, bb_specs(check["bb"]), check_results["bb"]))
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    for label, (suite, q), keys in OOC_AT_SCALE:
+        if suite == "tpch":
+            pruned = query_tables(tpch_sf_tables, q)
+            want, ties = tpch_results[f"q{q}"], q in TPCH_TIES
+            spec = (label, lambda sess, q=q, p=pruned: QUERIES[q](
+                query_frames(sess, p)), ties, True)
+        else:
+            pruned = suite_query_tables(ds_sf_tables, q)
+            want, ties = ds_results[q], True
+            spec = (label, lambda sess, q=q, p=pruned: suite_query(q)[0](
+                suite_frames(sess, p)), ties, True)
+        nums, results = run_cold_warm([spec], all_kept=False,
+                                         conf={**BENCH_CONF, **keys})
+        check_same_result(f"{label} against the default run",
+                          results[label], want, True)
+        if not nums[label]["grace"]:
+            raise AssertionError(f"{label}: no operator went out of core")
+        launches[f"phase14 {label}"] = nums[label]["launches"]
+        print(json.dumps({"phase14": {"run": label, **nums[label]}}))
+    return launches
+
+
 #: the suites a CPU worker runs: name -> (make tables, make specs)
 SUITES = {"tpch": (tpch_tables, tpch_specs),
           "suite": (suite_tables, suite_specs),
           "bb": (bb_tables, bb_specs),
           "functions": (function_tables, function_specs)}
+
+
+# ------------------------------------------------- where a query's memory goes
+class _ExecMemory:
+    """Per-operator device memory of one query run: each exec's execute()
+    generator is wrapped so that every step into it is measured. A node's
+    own peak is the highest ``max_memory_allocated`` reached while its own
+    code ran (its children's steps excluded); its inclusive peak counts
+    its children's too. Rows, batches and bytes are what it handed up."""
+
+    def __init__(self):
+        self.nodes = {}          # id(exec) -> stats dict
+        self.stack = []          # frames of the steps in progress
+        #: (operators in progress, live bytes by site) at the first OOM
+        self.oom = None
+
+    def wrap(self, node, gen):
+        import torch
+        st = self.nodes.setdefault(id(node), {
+            "node": node, "rows": 0, "batches": 0, "out_bytes": 0,
+            "own_peak": 0, "incl_peak": 0, "live_at_yield": 0})
+        while True:
+            torch.cuda.synchronize()
+            if self.stack:
+                # the parent's own work up to here
+                parent = self.stack[-1]
+                parent["own"] = max(parent["own"],
+                                    torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            frame = {"own": 0, "incl": 0, "st": st}
+            self.stack.append(frame)
+            try:
+                batch = next(gen)
+            except StopIteration:
+                self._leave(frame)
+                return
+            except BaseException as e:
+                if isinstance(e, torch.cuda.OutOfMemoryError) \
+                        and self.oom is None:
+                    # the first frame to see it: every operator in
+                    # progress still holds its tensors
+                    self.oom = ([f["st"]["node"].name for f in self.stack],
+                                _oom_sites(torch.cuda.memory._snapshot()))
+                self._leave(frame)
+                raise
+            self._leave(frame)
+            rows = getattr(batch, "num_rows", 0)
+            st["rows"] += rows
+            st["batches"] += 1
+            if hasattr(batch, "device_size_bytes"):
+                st["out_bytes"] += batch.device_size_bytes
+            st["live_at_yield"] = max(st["live_at_yield"],
+                                      torch.cuda.memory_allocated())
+            yield batch
+
+    def _leave(self, frame):
+        import torch
+        torch.cuda.synchronize()
+        top = self.stack.pop()
+        assert top is frame
+        now = torch.cuda.max_memory_allocated()
+        frame["own"] = max(frame["own"], now)
+        frame["incl"] = max(frame["incl"], frame["own"])
+        st = frame["st"]
+        st["own_peak"] = max(st["own_peak"], frame["own"])
+        st["incl_peak"] = max(st["incl_peak"], frame["incl"])
+        torch.cuda.reset_peak_memory_stats()
+        if self.stack:
+            parent = self.stack[-1]
+            parent["incl"] = max(parent["incl"], frame["incl"])
+
+    def install(self):
+        """Wrap every exec class's execute; returns the undo function."""
+        from spark_rapids_tpu_torch.execs.base import PhysicalExec
+
+        def subclasses(cls):
+            for sc in cls.__subclasses__():
+                yield sc
+                yield from subclasses(sc)
+        import importlib
+        import pkgutil
+        import spark_rapids_tpu_torch.execs as ex
+        for info in pkgutil.iter_modules(ex.__path__):
+            importlib.import_module(f"spark_rapids_tpu_torch.execs.{info.name}")
+        saved = []
+        prof = self
+        for cls in set(subclasses(PhysicalExec)):
+            raw = cls.__dict__.get("execute")
+            if raw is None:
+                continue
+
+            def execute(self, ctx, _raw=raw):
+                return prof.wrap(self, _raw(self, ctx))
+            saved.append((cls, raw))
+            cls.execute = execute
+
+        def undo():
+            for cls, raw in saved:
+                cls.execute = raw
+        return undo
+
+
+def _oom_sites(snapshot, top=12):
+    """Live device bytes of a memory snapshot grouped by the innermost
+    port frame that allocated them."""
+    sites = {}
+    for seg in snapshot.get("segments", ()):
+        for blk in seg.get("blocks", ()):
+            if blk.get("state") != "active_allocated":
+                continue
+            frames = blk.get("frames") or (blk.get("history") or [{}])[-1] \
+                .get("frames", [])
+            site = "unknown"
+            for fr in frames:
+                fn = fr.get("filename", "")
+                if "spark_rapids_tpu_torch" in fn:
+                    site = (fn.split("spark_rapids_tpu_torch/")[-1]
+                            + f":{fr.get('line')} {fr.get('name')}")
+                    break
+            sites[site] = sites.get(site, 0) + blk.get("size", 0)
+    return sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+
+
+def memory_profile(queries, scales, seed):
+    """Each of ``queries`` (suite names) alone, cold, at each of
+    ``scales``, the fact tables hash 8 as in phase 10, with every
+    operator's device memory measured (``_ExecMemory``); on an
+    out-of-memory error, the live bytes grouped by allocation site and the
+    operators whose steps were in progress. Prints one line per operator
+    and a JSON line per run."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    budget = None
+    for sf in scales:
+        tables = suite_tables(sf, seed, list(queries))
+        for name, build, _, _ in suite_specs(tables, list(queries)):
+            # no producer threads: the steps are measured on one stack
+            sess = TpuSession({**BENCH_CONF,
+                               "spark.rapids.tpu.transfer.pipeline.enabled":
+                                   "false"})
+            release_device()
+            torch.cuda.reset_peak_memory_stats()
+            prof = _ExecMemory()
+            undo = prof.install()
+            torch.cuda.memory._record_memory_history(max_entries=200000)
+            oom, sites, inflight = None, [], []
+            spill0 = spilled_bytes()
+            t0 = time.perf_counter()
+            try:
+                df = build(sess)
+                df.collect()
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0]
+                inflight, sites = prof.oom or ([], _oom_sites(
+                    torch.cuda.memory._snapshot()))
+                prof.stack.clear()
+            finally:
+                torch.cuda.memory._record_memory_history(enabled=None)
+                undo()
+            secs = time.perf_counter() - t0
+            from spark_rapids_tpu_torch.memory.device_manager import \
+                DeviceManager
+            dm = DeviceManager.peek()
+            budget = dm.device_budget if dm is not None else budget
+            plan = sess.last_plan
+            order = {id(n): i for i, n in enumerate(plan.walk())} \
+                if plan is not None else {}
+            rows = sorted(prof.nodes.values(),
+                          key=lambda s: order.get(id(s["node"]), 1 << 30))
+            for st in rows:
+                n = st["node"]
+                kids = [prof.nodes.get(id(c)) for c in n.children]
+                staged = sum(k["out_bytes"] for k in kids if k)
+                est = None
+                sizes = [c.size_estimate() for c in n.children]
+                if n.children and all(s is not None for s in sizes):
+                    est = 3 * sum(sizes)
+                depth = 0
+                if plan is not None:
+                    for path_node, d in _depths(plan):
+                        if path_node is n:
+                            depth = d
+                print(f"{name} sf={sf} {'  ' * depth}{n.name}: "
+                      f"rows={st['rows']} batches={st['batches']} "
+                      f"out_gb={st['out_bytes'] / 1e9:.3f} "
+                      f"own_peak_gb={st['own_peak'] / 1e9:.2f} "
+                      f"incl_peak_gb={st['incl_peak'] / 1e9:.2f} "
+                      f"staged_input_x3_gb={3 * staged / 1e9:.2f} "
+                      f"static_3x_estimate_gb="
+                      f"{'None' if est is None else f'{est / 1e9:.2f}'}")
+            peak = max((s["incl_peak"] for s in rows), default=0)
+            top = max(rows, key=lambda s: s["own_peak"], default=None)
+            print(json.dumps({"memory_profile": {
+                "query": name, "sf": sf, "seconds": secs,
+                "peak_gb": peak / 1e9, "oom": oom,
+                "out_of_core": grace_summary(plan),
+                "spilled_gb": spilled_since(spill0),
+                "budget_gb": None if budget is None else budget / 1e9,
+                "grace_threshold_gb": None if budget is None
+                else 0.8 * budget / 1e9,
+                "peak_operator": None if top is None else top["node"].name,
+                "in_flight_at_oom": inflight,
+                "live_gb_by_site_at_oom": [(s, b / 1e9) for s, b in sites]}}))
+            del prof, rows, plan, sess
+            release_device()
+        del tables
+
+
+def _unaligned_segment_sum(contrib, seg_ids, num_segments,
+                           ids_sorted=False):
+    """ops/batch_kernels.py's ``segment_sum`` with its segments as they lie
+    (one ``torch.segment_reduce``, no aligned layout): the yardstick
+    ``segment_sum_cost`` holds the shipped sum against."""
+    import torch
+    if not contrib.is_floating_point() or contrib.device.type == "cpu":
+        return contrib.new_zeros(num_segments).index_add_(0, seg_ids, contrib)
+    if not ids_sorted:
+        order = torch.sort(seg_ids, stable=True).indices
+        seg_ids, contrib = seg_ids[order], contrib[order]
+    lengths = torch.bincount(seg_ids, minlength=num_segments)
+    return torch.segment_reduce(contrib, "sum", lengths=lengths, unsafe=True)
+
+
+def segment_sum_cost(sf, seed, reps=20):
+    """What the aligned layout of the GPU float segment sums costs
+    (``segment_sum``, whose segments start on a 32-byte boundary so that a
+    group sums to the same bits wherever its rows sit): the 30 TPCx-BB and
+    the 14 TPC-DS bench queries at ``sf``, each cold, then warm with the
+    shipped sum and the unaligned one in turns (aligned, unaligned,
+    unaligned, aligned), in one process over the same tables; the
+    (rows, segments, dtype) shapes the aligned runs gave the sum; then the
+    sum alone at the largest of those shapes and at fixed ones, both ways,
+    by CUDA events, with the device bytes each call allocates. Prints JSON
+    lines; no result line."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.ops import batch_kernels as bk
+    shipped = bk.segment_sum
+    seen = {}
+
+    def recording(contrib, seg_ids, num_segments, ids_sorted=False):
+        key = (int(contrib.shape[0]), int(num_segments), str(contrib.dtype))
+        seen[key] = seen.get(key, 0) + 1
+        return shipped(contrib, seg_ids, num_segments, ids_sorted)
+
+    ways = (("aligned", recording), ("unaligned", _unaligned_segment_sum))
+    walls = {}
+    try:
+        for suite, make, specs in (
+                ("tpcxbb", lambda: bb_tables(sf, seed), bb_specs),
+                ("tpcds bench", lambda: suite_tables(sf, seed, TPCDS_QUERIES),
+                 lambda t: suite_specs(t, TPCDS_QUERIES))):
+            tables = make()
+            sess = TpuSession(BENCH_CONF)
+            for name, build, ties, _ in specs(tables):
+                release_device()
+                bk.segment_sum = shipped
+                run_query(sess, name, build)
+                got = {}
+                for way, fn in ways + ways[::-1]:
+                    bk.segment_sum = fn
+                    res, secs = run_query(sess, name, build)[:2]
+                    walls.setdefault((suite, way), {}).setdefault(
+                        name, []).append(secs)
+                    if way in got:
+                        check_same_bits(f"{name} {way} again", res, got[way])
+                    got.setdefault(way, res)
+                check_same_result(f"{name} unaligned against aligned",
+                                  got["unaligned"], got["aligned"], ties)
+                bk.segment_sum = shipped
+            del tables, sess
+            release_device()
+    finally:
+        bk.segment_sum = shipped
+    for (suite, way), per in walls.items():
+        mean = [float(np.mean(v)) for v in per.values()]
+        print(json.dumps({"segment_sum_cost": {
+            "suite": suite, "sf": sf, "way": way, "queries": len(per),
+            "warm_geomean_s": float(np.exp(np.mean(np.log(mean)))),
+            "warm_sum_s": float(np.sum(mean)),
+            "warm_s": {q: v for q, v in per.items()}}}))
+    top = sorted((k for k in seen if "float" in k[2]),
+                 key=lambda k: -k[0] * k[1])[:4]
+    print(json.dumps({"segment_sum_shapes": {
+        "calls": sum(seen.values()), "distinct": len(seen),
+        "max_rows": max((k[0] for k in seen), default=0),
+        "max_segments": max((k[1] for k in seen), default=0),
+        "largest": [list(k) + [seen[k]] for k in top]}}))
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fixed = [(30_000_000, 100, "torch.float64"),
+             (30_000_000, 180_000, "torch.float64"),
+             (30_000_000, 1_000_000, "torch.float64"),
+             (4_000_000, 4_000_000, "torch.float64"),
+             (30_000_000, 1_000_000, "torch.float32")]
+    for rows, segs, dt in [(r, s, d) for r, s, d in top] + fixed:
+        dtype = getattr(torch, dt.split(".")[1])
+        ids = torch.sort(torch.randint(0, segs, (rows,), device=device,
+                                       generator=gen)).values
+        contrib = torch.randn(rows, device=device, generator=gen,
+                              dtype=torch.float64).to(dtype)
+        out = {}
+        for way, fn in (("aligned", shipped),
+                        ("unaligned", _unaligned_segment_sum)):
+            fn(contrib, ids, segs, True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = fn(contrib, ids, segs, True)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            times = []
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(contrib, ids, segs, True)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            out[way] = (float(np.median(times)), extra, res)
+        diff = float((out["aligned"][2] - out["unaligned"][2]).abs().max())
+        print(json.dumps({"segment_sum_alone": {
+            "rows": rows, "segments": segs, "dtype": dt,
+            "aligned_ms": out["aligned"][0],
+            "unaligned_ms": out["unaligned"][0],
+            "aligned_call_bytes": out["aligned"][1],
+            "unaligned_call_bytes": out["unaligned"][1],
+            "max_abs_diff": diff}}))
+        del ids, contrib, out, res
+        torch.cuda.empty_cache()
+
+
+def run_tables(sf, seed, kernels_only):
+    """The tables of the run's scale every phase reads, generated at once
+    (phase 2 makes them while the CPU workers run) -> ({"lineitem",
+    "q1_reference", "q3", "tpch", "suite", "bb"}, seconds per set)."""
+    from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
+    made, secs = {}, {}
+    sets = (("lineitem", lambda: gen_lineitem(sf, seed=seed)),
+            ("q1_reference", lambda: q1_numpy(made["lineitem"])),
+            ("q3", lambda: q3_tables(sf, seed)),
+            ("tpch", lambda: tpch_tables(sf, seed)),
+            ("suite", lambda: suite_tables(sf, seed)),
+            ("bb", lambda: bb_tables(sf, seed)))
+    for key, make in sets[:1] if kernels_only else sets:
+        t0 = time.perf_counter()
+        made[key] = make()
+        secs[key] = time.perf_counter() - t0
+    return made, secs
+
+
+def _depths(plan, d=0):
+    yield plan, d
+    for c in plan.children:
+        yield from _depths(c, d + 1)
 
 
 def main() -> int:
@@ -2452,15 +2945,28 @@ def main() -> int:
                          "kernel); prints no result line")
     ap.add_argument("--check-sf", type=float, default=0.5,
                     help="scale of phase 9's, 10's and 13's checks of "
-                         "every query on the card against the CPU and of "
-                         "the SQL texts against the DataFrame queries")
+                         "every query on the card against the CPU, of "
+                         "the SQL texts against the DataFrame queries and "
+                         "of phase 14's forced runs")
     ap.add_argument("--bb-check-sf", type=float, default=1.0,
                     help="scale of phase 11's check of the 30 TPCx-BB "
-                         "queries on the card against the CPU")
+                         "queries on the card against the CPU and of "
+                         "their forced runs in phase 14")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one exchange run with dmaConsolidate "
                          "off and on, one Q1 run and one Q3 run, and write "
                          "their per-kernel device times as tables to DIR")
+    ap.add_argument("--memory-profile", nargs="+", metavar="QUERY",
+                    help="only measure where these TPC-DS queries' device "
+                         "memory goes, operator by operator, at "
+                         "--memory-profile-sf; prints no result line")
+    ap.add_argument("--memory-profile-sf", type=float, nargs="+",
+                    default=(5.0, 2.0), metavar="SF")
+    ap.add_argument("--segment-sum-cost", action="store_true",
+                    help="only measure what the aligned GPU float segment "
+                         "sums cost against unaligned ones, end to end on "
+                         "TPCx-BB and the TPC-DS bench queries at --sf and "
+                         "alone; prints no result line")
     args = ap.parse_args()
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
@@ -2473,6 +2979,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    if args.memory_profile:
+        memory_profile(args.memory_profile, args.memory_profile_sf,
+                       args.seed)
+        print(f"gpu: {gpu_line()}")
+        return 0
+    if args.segment_sum_cost:
+        segment_sum_cost(args.sf, args.seed)
+        print(f"gpu: {gpu_line()}")
+        return 0
     clock = [time.perf_counter()]
 
     def phase_done(name):
@@ -2482,21 +2997,27 @@ def main() -> int:
 
     build_kernels()
     phase_done("2 build")
-    from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
-    if not args.kernels_only:
-        refs = cpu_references((
-            ("suite", args.check_sf, args.seed, suite_names()),
-            ("tpch", args.check_sf, args.seed, [f"q{q}" for q in QUERIES]),
-            ("bb", args.bb_check_sf, args.seed, bb_queries()),
-            ("functions", args.check_sf, args.seed, list(FUNCTION_SQL))))
-        phase_done(f"2 cpu references ({CPU_WORKERS} workers of "
-                   f"{CPU_THREADS} threads)")
+    with concurrent.futures.ThreadPoolExecutor(1) as gen:
+        making = gen.submit(run_tables, args.sf, args.seed,
+                            args.kernels_only)
+        if not args.kernels_only:
+            refs = cpu_references((
+                ("suite", args.check_sf, args.seed, suite_names()),
+                ("tpch", args.check_sf, args.seed,
+                 [f"q{q}" for q in QUERIES]),
+                ("bb", args.bb_check_sf, args.seed, bb_queries()),
+                ("functions", args.check_sf, args.seed,
+                 list(FUNCTION_SQL))))
+        made, gen_s = making.result()
+    print(f"tables sf={args.sf} generated beside the CPU workers: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in gen_s.items()))
+    phase_done(f"2 cpu references ({CPU_WORKERS} workers of "
+               f"{CPU_THREADS} threads) and the run's tables")
     device = torch.device("cuda", 0)
-    lineitem = gen_lineitem(args.sf, seed=args.seed)
-    reference = q1_numpy(lineitem)
-    print(f"lineitem sf={args.sf}: {lineitem.num_rows} rows generated and "
-          f"reference Q1 computed in {time.perf_counter() - clock[0]:.2f} s")
+    lineitem = made.pop("lineitem")
+    reference = made.pop("q1_reference", None)
+    print(f"lineitem sf={args.sf}: {lineitem.num_rows} rows")
     lineitem_nums = phase_kernels(lineitem, device, args.tile_sweep)
     phase_done("3 kernels")
     if args.kernels_only:
@@ -2513,11 +3034,10 @@ def main() -> int:
                                                 args.profile)}
     del lineitem, reference
     phase_done("6 q1")
-    tables = q3_tables(args.sf, args.seed)
+    tables = made.pop("q3")
     print(f"q3 tables sf={args.sf}: customer {tables['customer'].num_rows}, "
           f"orders {tables['orders'].num_rows}, lineitem "
-          f"{tables['lineitem'].num_rows} rows generated in "
-          f"{time.perf_counter() - clock[0]:.2f} s")
+          f"{tables['lineitem'].num_rows} rows")
     overflow, *q3_nums = phase_q3_kernels(tables, device)
     phase_done("7 q3 kernel checks")
     q3_launches = phase_q3(tables, overflow, args.profile)
@@ -2531,10 +3051,9 @@ def main() -> int:
     check["tpch"], check_results["tpch"], check_pruned["tpch"] = \
         phase_tpch_check(args.check_sf, args.seed, refs["tpch"])
     phase_done(f"9 tpch sf={args.check_sf} against the cpu")
-    tables = tpch_tables(args.sf, args.seed)
+    tables = made.pop("tpch")
     print(f"tpch tables sf={args.sf}: " + ", ".join(
-        f"{k} {v.num_rows}" for k, v in tables.items())
-        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+        f"{k} {v.num_rows}" for k, v in tables.items()) + " rows")
     tpch_kernel_nums = phase_tpch_kernels(tables, device)
     phase_done("9 tpch kernel checks")
     dfa_device_ms(tables, device)
@@ -2550,15 +3069,14 @@ def main() -> int:
         phase_suite_check(args.check_sf, args.seed,
                           refs["suite"])
     phase_done(f"10 tpcds+q5 sf={args.check_sf} against the cpu")
-    tables = suite_tables(args.sf, args.seed)
+    tables = made.pop("suite")
     print(f"tpcds tables sf={args.sf}: " + ", ".join(
         f"{k} {v.num_rows}" for k, v in tables["ds"].items())
         + "; tpcxbb: " + ", ".join(
-        f"{k} {v.num_rows}" for k, v in tables["bb"].items())
-        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+        f"{k} {v.num_rows}" for k, v in tables["bb"].items()) + " rows")
     suite_kernel_nums = phase_suite_kernels(tables, device)
     phase_done("10 tpcds kernel checks")
-    suite, dma23, suite_results, oom_cut = phase_suite(tables, args.seed)
+    suite, dma23, suite_results = phase_suite(tables)
     suite_sf_tables = tables       # phase 13 runs queries over them
     del tables
     phase_done(f"10 tpcds+q5 sf={args.sf}")
@@ -2566,15 +3084,12 @@ def main() -> int:
                                      "compact": dma23[1]}
     for q, n in suite.items():
         by_path[q] = {"reorder": n["launches"]}
-    if oom_cut is not None:
-        by_path[f"{OOM_QUERY} sf={oom_cut['sf']}"] = {
-            "reorder": oom_cut["launches"]}
-    check["bb"] = phase_bb_check(args.bb_check_sf, args.seed, refs["bb"])
+    check["bb"], check_results["bb"] = phase_bb_check(
+        args.bb_check_sf, args.seed, refs["bb"])
     phase_done(f"11 tpcxbb sf={args.bb_check_sf} against the cpu")
-    tables = bb_tables(args.sf, args.seed)
+    tables = made.pop("bb")
     print(f"tpcxbb tables sf={args.sf}: " + ", ".join(
-        f"{k} {v.num_rows}" for k, v in tables.items())
-        + f" rows generated in {time.perf_counter() - clock[0]:.2f} s")
+        f"{k} {v.num_rows}" for k, v in tables.items()) + " rows")
     bb_kernel_nums = phase_bb_kernels(tables, device)
     split_dfa_ms(tables, device)
     phase_done("11 tpcxbb kernel checks")
@@ -2585,23 +3100,27 @@ def main() -> int:
         "reorder": dma_bb[0], "compact": dma_bb[1]}
     for q, n in bb.items():
         by_path[f"tpcxbb {q}"] = {"reorder": n["launches"]}
-    for path, n in phase_default_path(check, args.check_sf, args.bb_check_sf,
-                                      tpch_sf_tables, device,
-                                      args.profile).items():
+    for path, n in phase_default_path(check, check_results, args.check_sf,
+                                      args.bb_check_sf, tpch_sf_tables,
+                                      device, args.profile).items():
         by_path[path] = {"reorder": n}
-    del check
     phase_done("12 default path against all-off")
     for path, n in phase_sql_check(args.check_sf, args.seed, check_results,
                                    check_pruned, refs["functions"]).items():
         by_path[path] = {"reorder": n}
-    del check_results, check_pruned
     phase_done(f"13 sql sf={args.check_sf}")
     sql_nums, row_ids = phase_sql_at_scale(tpch_sf_tables, tpch_results,
                                            suite_sf_tables, suite_results)
     for q, n in sql_nums.items():
         by_path[q] = {"reorder": n["launches"]}
-    del tpch_sf_tables, suite_sf_tables
     phase_done(f"13 sql sf={args.sf}")
+    for path, n in phase_out_of_core(
+            check, check_results, check_pruned, args.check_sf,
+            args.bb_check_sf, tpch_sf_tables, tpch_results,
+            suite_sf_tables, suite_results).items():
+        by_path[path] = {"reorder": n}
+    del check, check_results, check_pruned, tpch_sf_tables, suite_sf_tables
+    phase_done("14 out of core")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -2642,8 +3161,6 @@ def main() -> int:
             record["phase13_sql"] = dict(zip(
                 ("launches", "launches_kept"), readings[name]["sql"]),
                 row_ids=row_ids)
-        if oom_cut is not None:
-            record["tpcds_oom_cut"] = oom_cut
         records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")

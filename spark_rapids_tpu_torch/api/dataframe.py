@@ -274,7 +274,30 @@ class DataFrame:
         return self._plan.schema().names()
 
     def physical_plan(self) -> PhysicalExec:
-        return plan_physical(self._plan, self.session.conf)
+        """The device plan of this DataFrame, its cached subtrees replaced
+        by scans of their buffers (materializing any cache entry it reads
+        for the first time)."""
+        return plan_physical(self.session.cache_manager.prepare(self._plan),
+                             self.session.conf, self.session.device)
+
+    def cache(self) -> "DataFrame":
+        """Mark this DataFrame cached: the first action that reads it
+        stores its result batches in the spillable store and later plans
+        containing it scan them (memory/df_cache.py)."""
+        return self.persist()
+
+    def persist(self, storage_level: Optional[str] = None) -> "DataFrame":
+        # one storage level: the tiered store spills as it must
+        self.session.cache_manager.add(self._plan)
+        return self
+
+    def unpersist(self, blocking: bool = False) -> "DataFrame":
+        self.session.cache_manager.remove(self._plan)
+        return self
+
+    @property
+    def is_cached(self) -> bool:
+        return self.session.cache_manager.lookup(self._plan) is not None
 
     def collect(self) -> HostBatch:
         """Run the query on the session's device -> the result rows. The
@@ -483,6 +506,13 @@ class TpuSession:
         #: guards the view table: views may be registered while another
         #: thread plans SQL that reads them
         self._views_lock = threading.Lock()
+        from spark_rapids_tpu_torch.memory.df_cache import CacheManager
+        #: the cached DataFrames (``DataFrame.cache``)
+        self.cache_manager = CacheManager(self)
+
+    def clear_cache(self) -> None:
+        """Unpersist every cached DataFrame of this session."""
+        self.cache_manager.clear()
 
     def table(self, name: str) -> DataFrame:
         with self._views_lock:

@@ -107,17 +107,19 @@ class HostBatch:
 
 def concat_host_batches(batches: List[HostBatch], schema: Schema) -> HostBatch:
     """Row-concatenate host batches of one schema (strings padded to the
-    widest matrix)."""
+    widest matrix); no batch gives an empty one."""
     cols = []
     for ci, f in enumerate(schema):
         parts = [b.columns[ci] for b in batches]
-        validity = np.concatenate([p.validity for p in parts])
+        validity = (np.concatenate([p.validity for p in parts]) if parts
+                    else np.zeros(0, bool))
         if f.dtype is DType.STRING:
             width = max((p.data.shape[1] for p in parts), default=8)
             data = np.concatenate(
                 [np.pad(p.data, ((0, 0), (0, width - p.data.shape[1])))
                  for p in parts]) if parts else np.zeros((0, width), np.uint8)
-            lengths = np.concatenate([p.lengths for p in parts])
+            lengths = (np.concatenate([p.lengths for p in parts]) if parts
+                       else np.zeros(0, np.int32))
             cols.append(HostColumn(f.dtype, data, validity, lengths))
         else:
             data = (np.concatenate([p.data for p in parts]) if parts

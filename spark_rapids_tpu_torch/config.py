@@ -49,6 +49,12 @@ def _non_negative(name: str) -> Callable[[Any], Optional[str]]:
     return check
 
 
+def _fraction(name: str) -> Callable[[Any], Optional[str]]:
+    def check(v: Any) -> Optional[str]:
+        return None if 0.0 < v <= 1.0 else f"{name} must be in (0, 1], got {v}"
+    return check
+
+
 def _conf(key: str, conf_type: type, default: Any, doc: str,
           checker: Optional[Callable[[Any], Optional[str]]] = None
           ) -> ConfEntry:
@@ -119,6 +125,64 @@ HOST_SPILL_STORAGE_SIZE = _conf(
     "does not fit spills on to disk.",
     checker=lambda v: (None if v > 0
                        else f"spillStorageSize must be > 0, got {v}"))
+
+
+OOC_ENABLED = _conf(
+    "memory.outOfCore.enabled", bool, True,
+    "Out-of-core execution for the hash aggregate, the shuffled and "
+    "broadcast hash joins and the sort (memory/grace.py): when an "
+    "operator's working set will not fit the device budget (the planner's "
+    "footprint estimate up front, or pressure while it stages its input), "
+    "the input is hash- or range-partitioned by key into spillable "
+    "partitions across the device -> host -> disk tiers and the operator "
+    "runs once per partition. With ample budget the single pass runs "
+    "unchanged.")
+
+OOC_HEADROOM = _conf(
+    "memory.outOfCore.headroomFraction", float, 0.8,
+    "Fraction of the free device budget an operator's estimated working "
+    "set may occupy before the out-of-core path engages; the rest is "
+    "headroom for the operator's own intermediates.",
+    checker=_fraction("headroomFraction"))
+
+OOC_FANOUT = _conf(
+    "memory.outOfCore.fanout", int, 8,
+    "Grace partitions per recursion level when pressure triggers "
+    "partitioning without a plan-time estimate or observed statistics; "
+    "each level re-partitions with a depth-salted hash.",
+    checker=_positive("outOfCore.fanout"))
+
+OOC_MAX_PARTITIONS = _conf(
+    "memory.outOfCore.maxPartitions", int, 256,
+    "Upper bound on the grace partitions one operator makes per recursion "
+    "level.", checker=_positive("outOfCore.maxPartitions"))
+
+OOC_MAX_DEPTH = _conf(
+    "memory.outOfCore.maxRecursionDepth", int, 4,
+    "Bound on grace recursion depth; a partition still over budget at the "
+    "deepest level (one giant key group) runs in a single pass there.",
+    checker=_positive("outOfCore.maxRecursionDepth"))
+
+OOC_FORCE_PARTITIONS = _conf(
+    "memory.outOfCore.forcePartitions", int, 0,
+    "Force every out-of-core-capable operator to grace-partition its input "
+    "into this many partitions whatever the budget (0 disables): the "
+    "degraded path's test knob.",
+    checker=_non_negative("outOfCore.forcePartitions"))
+
+MEMORY_FAULTS_PLAN = _conf(
+    "memory.faults.plan", str, "",
+    "Deterministic device-memory fault plan (empty: no faults), "
+    "semicolon-separated specs such as "
+    "'alloc_fail:op=agg,after=1;budget_clamp:fraction=0.25' "
+    "(memory/faults.py): alloc_fail fails the Nth working-set admission "
+    "check of a matching operator, budget_clamp shrinks the budget it "
+    "sees. Keys: op (agg | join | sort | *), after, count, fraction.")
+
+MEMORY_FAULTS_SEED = _conf(
+    "memory.faults.seed", int, 0,
+    "Identity of the memory fault schedule: (plan, seed) keys one "
+    "process-wide set of event counters; a new seed starts a fresh run.")
 
 
 SCAN_CACHE_ENABLED = _conf(

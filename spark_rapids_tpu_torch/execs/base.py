@@ -57,6 +57,17 @@ class PhysicalExec:
     #: yields DeviceBatches (False for the host leaf and the download)
     is_device = True
 
+    #: the size_estimate contract (tests/test_torch_out_of_core.py audits
+    #: it): every exec class defines size_estimate below PhysicalExec, or
+    #: says here why None is the only honest answer
+    size_estimate_none_reason: Optional[str] = None
+
+    #: plan-time out-of-core hint (plan/footprint.py): when > 0 the
+    #: planner predicted this operator's working set over the device
+    #: budget, and it grace-partitions its input into this many spillable
+    #: partitions up front (memory/grace.py)
+    grace_partitions: int = 0
+
     def __init__(self, children: Sequence["PhysicalExec"], output: Schema):
         self.children: Tuple[PhysicalExec, ...] = tuple(children)
         self.output = output
@@ -78,6 +89,15 @@ class PhysicalExec:
         estimates, which the planner's broadcast choice reads: a side of
         unknown size is never broadcast). Narrowing operators pass their
         child's estimate through as an upper bound."""
+        return None
+
+    def working_set_estimate(self) -> Optional[int]:
+        """Estimated peak device bytes while this operator runs: the
+        footprint contract plan/footprint.py holds against the device
+        budget. Streaming operators hold one batch at a time (None); the
+        working-set operators (hash aggregate, hash joins, sort) give
+        ``working_set_factor`` times the sum of their children's
+        estimates."""
         return None
 
     def tree_string(self, indent: int = 0) -> str:

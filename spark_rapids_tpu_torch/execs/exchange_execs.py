@@ -132,19 +132,22 @@ def key_hashes(keys: Sequence[ColV], cap: int) -> List[torch.Tensor]:
             for v in (bk.as_column(k, cap) for k in keys)]
 
 
-def _mix_partition_ids(hashes: Sequence[torch.Tensor],
-                       n: int) -> torch.Tensor:
+def _mix_partition_ids(hashes: Sequence[torch.Tensor], n: int,
+                       seed: Optional[int] = None) -> torch.Tensor:
     if not hashes:
         raise ValueError("hash partitioning needs at least one key")
-    h = torch.full_like(hashes[0], _H_SEED)
+    h = torch.full_like(hashes[0], _H_SEED if seed is None else seed)
     for ch in hashes:
         h = _fmix32((h * 31 + ch) & _M32)
     return (h % n).to(torch.int32)
 
 
-def hash_partition_ids(keys: Sequence[ColV], cap: int, n: int) -> torch.Tensor:
-    """Target partition id (int32) per row from the key columns."""
-    return _mix_partition_ids(key_hashes(keys, cap), n)
+def hash_partition_ids(keys: Sequence[ColV], cap: int, n: int,
+                       seed: Optional[int] = None) -> torch.Tensor:
+    """Target partition id (int32) per row from the key columns. ``seed``
+    (default the exchange's) lets the grace partitioner hash each
+    recursion depth differently (memory/grace.py)."""
+    return _mix_partition_ids(key_hashes(keys, cap), n, seed)
 
 
 # ------------------------------------------------------------------ range bounds
@@ -249,15 +252,23 @@ def _compute_pids(part: Partitioning, cap: int, offset: int,
 
 
 # ------------------------------------------------------------------ sort path
-def split_by_pid(colvs: Sequence[ColV], pids: torch.Tensor, num_rows: int,
-                 n: int) -> Tuple[List[ColV], List[int]]:
-    """Stable partition-major reorder + per-partition counts; dead rows go
-    to a virtual partition n at the back."""
+def pid_order(pids: torch.Tensor, num_rows: int,
+              n: int) -> Tuple[torch.Tensor, List[int]]:
+    """The stable partition-major row order and the per-partition counts
+    (one host read); dead rows go to a virtual partition n at the back."""
     cap = pids.shape[0]
     key = torch.where(bk.alive_mask(cap, num_rows, pids.device), pids, n)
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key.to(torch.int64), minlength=n + 1)[:n]
-    return [bk.take_colv(v, order) for v in colvs], counts.tolist()
+    return order, counts.tolist()
+
+
+def split_by_pid(colvs: Sequence[ColV], pids: torch.Tensor, num_rows: int,
+                 n: int) -> Tuple[List[ColV], List[int]]:
+    """Stable partition-major reorder + per-partition counts; dead rows go
+    to a virtual partition n at the back."""
+    order, counts = pid_order(pids, num_rows, n)
+    return [bk.take_colv(v, order) for v in colvs], counts
 
 
 def _slice_padded(colvs: Sequence[ColV], schema: Schema, start: int,

@@ -1,15 +1,18 @@
 """Join physical operators: the shuffled and the broadcast hash join, and
 the keyless broadcast nested-loop join and cartesian product (the JAX
-package's ``execs/join_execs.py`` without its grace and encoded-domain
-branches, which wait for those subsystems).
+package's ``execs/join_execs.py`` without its encoded-domain branch, which
+waits for that subsystem).
 
 Both run ``ops/join.py``'s two phases over the concatenation of each side's
 batches: the size phase, one host read of the output total, the gather at
 the total's capacity bucket. A residual condition of an inner join is a
 filter over the joined rows. The broadcast join differs only in its plan:
 its build child is a broadcast exchange that every stream partition reads.
-The keyless joins run the same exec with the ``cross`` kernel and their
-condition as the filter.
+Under memory pressure a keyed join goes out of core (memory/grace.py):
+both sides are hash-partitioned on their keys with the same salt and each
+pair of partitions runs the single pass. The keyless joins run the same
+exec with the ``cross`` kernel and their condition as the filter, always
+in one pass (they have no key to split by).
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ def legal_broadcast_sides(how: str) -> List[int]:
 class TpuShuffledHashJoinExec(PhysicalExec):
     """Equi-join of the two children's batches of one partition."""
 
+    #: the output's multiplicity depends on the keys' (size_estimate)
+    size_estimate_none_reason = ("join output multiplicity is unknown "
+                                 "without key statistics")
+
+    #: both sides resident + the gather output while the join runs: the
+    #: footprint contract's and the pressure check's factor
+    working_set_factor = 3.0
+
     def __init__(self, left: PhysicalExec, right: PhysicalExec, how: str,
                  left_keys: Tuple[Expression, ...],
                  right_keys: Tuple[Expression, ...], output: Schema,
@@ -64,13 +75,62 @@ class TpuShuffledHashJoinExec(PhysicalExec):
         return self.how not in ("left_semi", "left_anti")
 
     def size_estimate(self) -> Optional[int]:
-        # the output's multiplicity is unknown without key statistics
-        return None
+        return None             # size_estimate_none_reason
+
+    def working_set_estimate(self) -> Optional[int]:
+        sizes = [c.size_estimate() for c in self.children]
+        if any(s is None for s in sizes):
+            return None
+        return int(sum(sizes) * self.working_set_factor)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        lbatches = list(self.children[0].execute(ctx))
-        rbatches = list(self.children[1].execute(ctx))
-        yield self._single_pass(ctx, lbatches, rbatches)
+        from spark_rapids_tpu_torch.memory import grace
+        left = self.children[0].execute(ctx)
+        right = self.children[1].execute(ctx)
+        ooc = (grace.controller_for(self, ctx, "join",
+                                    self.left_keys + self.right_keys)
+               if self.left_keys else None)
+        if ooc is None:
+            yield self._single_pass(ctx, list(left), list(right))
+            return
+        mode, payload = ooc.stage_two(left, right, self.left_keys,
+                                      self.right_keys)
+        if mode == "inline":
+            yield self._single_pass(ctx, *payload)
+            return
+        yield from self._grace_execute(ctx, ooc, *payload)
+
+    def _grace_execute(self, ctx: ExecContext, ooc, lparts,
+                       rparts) -> Iterator[DeviceBatch]:
+        """Both sides partitioned by the same depth-salted hash of their
+        keys, so every key's rows (and the null-key outer rows: nulls hash
+        to one constant) meet in exactly one pair of partitions; the
+        per-pair joins union to the global result. A pair still over
+        budget re-partitions both sides with a deeper salt, unless the
+        split proved degenerate (one indivisible key group on both
+        sides)."""
+        try:
+            degenerate = lparts.degenerate and rparts.degenerate
+            for pid in range(lparts.n):
+                nbytes = lparts.bytes_of(pid) + rparts.bytes_of(pid)
+                if nbytes == 0:
+                    continue
+                if not degenerate and ooc.should_recurse(nbytes,
+                                                         lparts.depth):
+                    # drain() feeds each side's re-split one piece at a time
+                    lsub = ooc.partition(lparts.drain(pid), self.left_keys,
+                                         depth=lparts.depth + 1)
+                    rsub = ooc.partition(rparts.drain(pid), self.right_keys,
+                                         depth=rparts.depth + 1)
+                    yield from self._grace_execute(ctx, ooc, lsub, rsub)
+                else:
+                    lbatches = lparts.take(pid)
+                    rbatches = rparts.take(pid)
+                    if lbatches or rbatches:
+                        yield self._single_pass(ctx, lbatches, rbatches)
+        finally:
+            lparts.close()
+            rparts.close()
 
     def _single_pass(self, ctx: ExecContext, lbatches,
                      rbatches) -> DeviceBatch:
@@ -78,6 +138,8 @@ class TpuShuffledHashJoinExec(PhysicalExec):
                                    ctx.device)
         rb = concat_device_batches(rbatches, self.children[1].output,
                                    ctx.device)
+        # the concatenations are all the pass needs
+        del lbatches[:], rbatches[:]
         S, B = lb.capacity, rb.capacity
         l_cols, r_cols = colvs_of(lb), colvs_of(rb)
         smax = ctx.string_max_bytes

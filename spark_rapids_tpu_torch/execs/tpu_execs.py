@@ -178,7 +178,15 @@ class TpuHashAggregateExec(PhysicalExec):
     its flag: one-hot, then hash, then the exact sort (the JAX package's
     ``tpu_execs.py`` escalation). A folded filter (``pre_filter``, over the
     child's output) masks the input rows in every mode (``group_aggregate``'s
-    ``extra_mask``), so the filtered batch never materializes."""
+    ``extra_mask``), so the filtered batch never materializes. Under
+    memory pressure a grouped aggregate goes out of core
+    (memory/grace.py): its input is hash-partitioned on the grouping keys
+    and each partition runs this single pass, the folded filter with it."""
+
+    #: peak device bytes per input byte while the aggregation runs (input,
+    #: the grouping passes, the compacted output): the footprint contract's
+    #: and the pressure check's factor (memory/grace.py)
+    working_set_factor = 3.0
 
     def __init__(self, grouping: Tuple[Expression, ...],
                  aggregates: Tuple[Expression, ...], child: PhysicalExec,
@@ -194,13 +202,57 @@ class TpuHashAggregateExec(PhysicalExec):
         # groups never outnumber input rows
         return width_scaled_estimate(self.children[0], self.output)
 
+    def working_set_estimate(self) -> Optional[int]:
+        sz = self.children[0].size_estimate()
+        return None if sz is None else int(sz * self.working_set_factor)
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         return self._aggregate(ctx, self.children[0].execute(ctx))
 
     def _aggregate(self, ctx: ExecContext,
                    source: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
-        batch = concat_device_batches(list(source), self.children[0].output,
+        """The single pass, or, through the grace controller, one pass per
+        hash partition of the input."""
+        from spark_rapids_tpu_torch.memory import grace
+        ooc = (grace.controller_for(self, ctx, "agg", self.grouping)
+               if self.grouping else None)
+        if ooc is None:
+            yield from self._single_pass(ctx, list(source))
+            return
+        mode, payload = ooc.stage(source, self.grouping)
+        if mode == "inline":
+            yield from self._single_pass(ctx, payload)
+            return
+        yield from self._grace_execute(ctx, ooc, payload)
+
+    def _grace_execute(self, ctx: ExecContext, ooc,
+                       parts) -> Iterator[DeviceBatch]:
+        """Every partition holds whole key groups (hash-routed), so the
+        per-partition results union to the global aggregation; a partition
+        still over budget re-partitions with a deeper hash salt until it
+        fits, the depth bound stops it, or a split proves degenerate (one
+        indivisible key group)."""
+        try:
+            degenerate = parts.degenerate
+            for pid in parts.nonempty():
+                if not degenerate and ooc.should_recurse(
+                        parts.bytes_of(pid), parts.depth):
+                    # drain() feeds the re-split one piece at a time
+                    sub = ooc.partition(parts.drain(pid), self.grouping,
+                                        depth=parts.depth + 1)
+                    yield from self._grace_execute(ctx, ooc, sub)
+                else:
+                    batches = parts.take(pid)
+                    if batches:
+                        yield from self._single_pass(ctx, batches)
+        finally:
+            parts.close()
+
+    def _single_pass(self, ctx: ExecContext,
+                     batches: List[DeviceBatch]) -> Iterator[DeviceBatch]:
+        batch = concat_device_batches(batches, self.children[0].output,
                                       ctx.device)
+        del batches[:]      # the concatenation is all this pass needs
         fns = tuple(a.c if isinstance(a, Alias) else a for a in self.aggregates)
         # the subtrees a fold repeated, evaluated once (exprs/cse.py)
         ng = len(self.grouping)
@@ -227,6 +279,12 @@ class TpuHashAggregateExec(PhysicalExec):
 
 
 class TpuSortExec(PhysicalExec):
+    """A stable sort of the concatenated input; under memory pressure an
+    external sort by range partitioning (memory/grace.py)."""
+
+    #: input + the sort's key passes + the sorted output
+    working_set_factor = 3.0
+
     def __init__(self, orders: Tuple[SortOrder, ...], child: PhysicalExec):
         super().__init__((child,), child.output)
         self.orders = orders
@@ -234,9 +292,53 @@ class TpuSortExec(PhysicalExec):
     def size_estimate(self) -> Optional[int]:
         return self.children[0].size_estimate()      # a permutation
 
+    def working_set_estimate(self) -> Optional[int]:
+        sz = self.children[0].size_estimate()
+        return None if sz is None else int(sz * self.working_set_factor)
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        batch = concat_device_batches(list(self.children[0].execute(ctx)),
-                                      self.output, ctx.device)
+        from spark_rapids_tpu_torch.memory import grace
+        source = self.children[0].execute(ctx)
+        ooc = grace.controller_for(self, ctx, "sort", (), orders=self.orders)
+        if ooc is None:
+            yield from self._single_pass(ctx, list(source))
+            return
+        mode, payload = ooc.stage(source, (), orders=self.orders)
+        if mode == "inline":
+            yield from self._single_pass(ctx, payload)
+            return
+        yield from self._grace_execute(ctx, ooc, payload)
+
+    def _grace_execute(self, ctx: ExecContext, ooc,
+                       parts) -> Iterator[DeviceBatch]:
+        """External sort by order-preserving range partitioning: sampled
+        bounds split the key space, ties share a partition, and the
+        per-partition stable sorts emitted in bound order are the merged
+        output, bit-identical to the single pass. A skewed partition
+        re-partitions on its own resampled bounds until it fits, the depth
+        bound stops it, or a split proves degenerate."""
+        try:
+            degenerate = parts.degenerate
+            for pid in parts.nonempty():
+                sub = None
+                if not degenerate and ooc.should_recurse(
+                        parts.bytes_of(pid), parts.depth):
+                    sub = ooc.partition(parts.drain(pid), (),
+                                        depth=parts.depth + 1,
+                                        orders=self.orders)
+                if sub is not None:
+                    yield from self._grace_execute(ctx, ooc, sub)
+                else:
+                    batches = parts.take(pid)
+                    if batches:
+                        yield from self._single_pass(ctx, batches)
+        finally:
+            parts.close()
+
+    def _single_pass(self, ctx: ExecContext,
+                     batches: List[DeviceBatch]) -> Iterator[DeviceBatch]:
+        batch = concat_device_batches(batches, self.output, ctx.device)
+        del batches[:]
         if batch.num_rows:
             ectx = eval_ctx(batch, ctx)
             alive = bk.alive_mask(batch.capacity, batch.num_rows, batch.device)

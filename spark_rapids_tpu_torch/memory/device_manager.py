@@ -59,6 +59,15 @@ class DeviceManager:
         #: first exchange (execs/exchange_execs.py _local_shuffle_env)
         self.shuffle_env = None
 
+    def spilled_bytes(self) -> dict:
+        """Bytes spilled since the manager was made, by the tier they
+        landed on: {"host": ..., "disk": ...}."""
+        from spark_rapids_tpu_torch.memory.buffer import StorageTier
+        stores = (self.device_store, self.host_store, self.disk_store)
+        return {name: sum(s.spilled_to[t] for s in stores)
+                for name, t in (("host", StorageTier.HOST),
+                                ("disk", StorageTier.DISK))}
+
     @property
     def is_idle(self) -> bool:
         return not (len(self.device_store) or len(self.host_store)

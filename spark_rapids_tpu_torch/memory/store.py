@@ -8,7 +8,11 @@ coldest host buffers to disk, or goes to disk itself. The port's counterpart
 of the JAX package's ``memory/store.py``, with the same spill order, so the
 same sequence of adds leaves each buffer on the same tier. The device
 tier's admission also counts the scan cache's bytes and shrinks the cache
-before it spills (``DeviceMemoryStore.ensure_capacity``).
+before it spills (``DeviceMemoryStore.ensure_capacity``), and it tells
+its pressure listeners whenever it had to spill (memory/grace.py
+subscribes while an operator stages its input). Each store counts the
+bytes it spilled by the tier they landed on (``spilled_to``), as plain
+counters: the JAX package's metrics registry is not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +28,13 @@ from spark_rapids_tpu_torch.memory.buffer import (BufferId, SpillableBuffer,
 from spark_rapids_tpu_torch.native import (PyAddressSpaceAllocator,
                                            PyHashedPriorityQueue)
 
+#: user-cached DataFrame batches (df.cache()): colder than working
+#: batches, warmer than grace partitions and shuffle buffers
+CACHE_BUFFER_PRIORITY = 25.0
+#: out-of-core grace partitions (memory/grace.py): they exist because the
+#: working set is over budget, so they go down the tiers before the cache,
+#: but after shuffle buffers, which outlive the operator
+GRACE_PARTITION_PRIORITY = 10.0
 #: shuffle map outputs are the coldest buffers: they spill first
 SHUFFLE_BUFFER_PRIORITY = 0.0
 
@@ -97,6 +108,9 @@ class BufferStore:
         self._spill_queue = PyHashedPriorityQueue()
         self._used = 0
         self.spill_store: Optional["BufferStore"] = None
+        #: bytes this store spilled, by the tier they landed on
+        self.spilled_to: Dict[StorageTier, int] = {StorageTier.HOST: 0,
+                                                   StorageTier.DISK: 0}
 
     # ---- admission -------------------------------------------------------------
     def add_buffer(self, buf: SpillableBuffer) -> None:
@@ -145,11 +159,17 @@ class BufferStore:
             raise MemoryError(
                 f"store tier {self.tier.name} over budget with no spill store")
         try:
-            self.spill_store.add_buffer(self._move_down(buf))
+            moved = self._move_down(buf)
+            self.spill_store.add_buffer(moved)
         except Exception:
             # failed mid-move (a full disk): the victim stays tracked here
             self._readmit(buf)
             raise
+        # the tier the buffer landed on: a host-arena overflow admits a
+        # disk copy instead of ``moved`` and counts it itself
+        if moved.owner_store is not None:
+            with self._lock:
+                self.spilled_to[moved.tier] += buf.size_bytes
         self.catalog.unregister(buf)
         buf.close()
 
@@ -198,6 +218,36 @@ class DeviceMemoryStore(BufferStore):
     owns the memory itself)."""
 
     tier = StorageTier.DEVICE
+
+    def __init__(self, catalog: BufferCatalog,
+                 budget_bytes: Optional[int] = None):
+        super().__init__(catalog, budget_bytes)
+        #: budget-pressure callbacks, fn(spilled_bytes), fired whenever this
+        #: tier had to push buffers down the chain to make room. Operators
+        #: subscribe while staging their input (memory/grace.py), so
+        #: pressure from any query flips them into the partitioned path.
+        self._pressure_listeners: List = []
+
+    def add_pressure_listener(self, fn) -> None:
+        with self._lock:
+            self._pressure_listeners.append(fn)
+
+    def remove_pressure_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._pressure_listeners:
+                self._pressure_listeners.remove(fn)
+
+    def _notify_pressure(self, spilled_bytes: int) -> None:
+        with self._lock:
+            listeners = list(self._pressure_listeners)
+        for fn in listeners:
+            fn(spilled_bytes)
+
+    def spill_to_size(self, target_bytes: int) -> int:
+        spilled = super().spill_to_size(target_bytes)
+        if spilled > 0:
+            self._notify_pressure(spilled)
+        return spilled
 
     def add_batch(self, buffer_id: BufferId, batch,
                   spill_priority: float = 0.0) -> SpillableBuffer:
@@ -271,6 +321,8 @@ class HostMemoryStore(BufferStore):
                         f"host spill arena exhausted ({need} bytes needed, "
                         f"largest free block {self.arena.largest_free_block})")
                 self.spill_store.add_buffer(self._move_down(buf))
+                with self._lock:
+                    self.spilled_to[StorageTier.DISK] += buf.size_bytes
                 buf.close()
                 return
         super().add_buffer(buf)

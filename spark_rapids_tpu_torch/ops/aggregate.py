@@ -38,7 +38,7 @@ have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -231,25 +231,39 @@ def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
 
 
 def _reduce_buffer(b: ColV, kind: str, gids: torch.Tensor,
-                   out_cap: int) -> ColV:
+                   out_cap: int, alive: Optional[torch.Tensor] = None
+                   ) -> ColV:
     """One buffer reduced per group id (rows in group order: ``gids``
-    non-decreasing)."""
+    non-decreasing). With ``alive`` (false only on the dead rows at the
+    back), the dead rows reduce into a spare segment past ``out_cap``
+    instead of the last group's: a group's segment then holds its own rows
+    only, so its float sum does not change with the batch's capacity (a
+    grace partition is a smaller batch)."""
     if b.dtype is DType.STRING:
         return _segment_minmax_string(b, gids, out_cap, kind)
-    data, valid = bk.segment_reduce(b.data, b.validity, gids, out_cap, kind,
-                                    ids_sorted=True)
-    return ColV(b.dtype, data, valid)
+    if alive is None:
+        data, valid = bk.segment_reduce(b.data, b.validity, gids, out_cap,
+                                        kind, ids_sorted=True)
+        return ColV(b.dtype, data, valid)
+    gids = torch.where(alive, gids, out_cap)
+    data, valid = bk.segment_reduce(b.data, b.validity & alive, gids,
+                                    out_cap + 1, kind, ids_sorted=True)
+    return ColV(b.dtype, data[:out_cap], valid[:out_cap])
 
 
 def _segment_reduce_all(agg_fns, projections, order, gids, out_cap,
-                        sorted_alive):
+                        sorted_alive, dead_last: bool = True):
     """Every buffer taken in ``order`` and reduced per group id (dead rows
-    share the last group's id; only the picks need ``sorted_alive`` to
-    pass them over, every other buffer's dead rows are invalid)."""
+    share the last group's id; the picks need ``sorted_alive`` to pass them
+    over, every other buffer's dead rows are invalid). ``dead_last``: the
+    order puts the dead rows at the back, so they reduce into a spare
+    segment (``_reduce_buffer``)."""
+    spare = sorted_alive if dead_last else None
     return [[_pick(bk.take_colv(b, order), spec, gids, out_cap, out_cap,
                    sorted_alive)
              if spec.kind in ("first", "last") else
-             _reduce_buffer(bk.take_colv(b, order), spec.kind, gids, out_cap)
+             _reduce_buffer(bk.take_colv(b, order), spec.kind, gids, out_cap,
+                            spare)
              for spec, b in zip(fn.buffer_specs(), bufs)]
             for fn, bufs in zip(agg_fns, projections)]
 
@@ -292,8 +306,10 @@ def _global_aggregate(projections, agg_fns, alive) -> AggResult:
     aggregate and its empty-input row)."""
     order = torch.arange(alive.shape[0], device=alive.device)
     out_cap = bucket_capacity(1)
+    # rows in input order: a filtered-out row sits anywhere
     reduced = _segment_reduce_all(agg_fns, projections, order,
-                                  torch.zeros_like(order), out_cap, alive)
+                                  torch.zeros_like(order), out_cap, alive,
+                                  dead_last=False)
     return _finish([], reduced, agg_fns, 1, out_cap, False, alive.device)
 
 
@@ -378,7 +394,8 @@ def _reduce_phase_scan(sorted_keys, agg_fns, sorted_projs, gids,
                                               gids_b, out_cap, sorted_alive))
                 continue
             if spec.kind != "sum" or b.dtype.is_floating:
-                reduced.append(_reduce_buffer(b, spec.kind, gids_b, out_cap))
+                reduced.append(_reduce_buffer(b, spec.kind, gids_b, out_cap,
+                                              sorted_alive))
                 continue
             data = seg_sum(torch.where(b.validity, b.data, 0)
                            .to(b.data.dtype))

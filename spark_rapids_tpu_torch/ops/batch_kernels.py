@@ -355,6 +355,10 @@ def segment_pick(validity: torch.Tensor, seg_ids: torch.Tensor,
     return pick.clamp(0, max(n - 1, 0)), has
 
 
+#: segment starts are aligned to this many bytes before a GPU segment sum
+_SEGMENT_ALIGN_BYTES = 32
+
+
 def segment_sum(contrib: torch.Tensor, seg_ids: torch.Tensor,
                 num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
     """Per-segment sum. Integer sums come out the same in any order, and
@@ -364,14 +368,42 @@ def segment_sum(contrib: torch.Tensor, seg_ids: torch.Tensor,
     (``torch.segment_reduce`` over the rows sorted by segment). The same
     rows then give the same bits every time, which Q15's equality of a sum
     with the max of the same sums computed in another pass needs.
+
+    ``torch.segment_reduce`` (CUB's segmented reduce) loads a segment in
+    vectors when its start is aligned and element by element when not, and
+    the two associate the sum differently; so each segment is laid out to
+    start on a ``_SEGMENT_ALIGN_BYTES`` boundary, zero-padded (adding +0.0
+    changes no sum: the reduction starts from +0.0). A segment's sum then
+    depends only on its rows, wherever they sit: a grace partition, which
+    moves a group's rows to another offset, sums them to the same bits.
     ``ids_sorted`` says the ids are already non-decreasing."""
     if not contrib.is_floating_point() or contrib.device.type == "cpu":
         return contrib.new_zeros(num_segments).index_add_(0, seg_ids, contrib)
     if not ids_sorted:
         order = torch.sort(seg_ids, stable=True).indices
         seg_ids, contrib = seg_ids[order], contrib[order]
+    aligned, padded = align_segments(contrib, seg_ids, num_segments)
+    return torch.segment_reduce(aligned, "sum", lengths=padded, unsafe=True)
+
+
+def align_segments(contrib: torch.Tensor, seg_ids: torch.Tensor,
+                   num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``contrib`` grouped by the non-decreasing ``seg_ids``, laid out so
+    that every segment starts on a ``_SEGMENT_ALIGN_BYTES`` boundary, the
+    gaps zero -> (laid out values, padded segment lengths). Sized without
+    a host read: at most step - 1 pads per segment; the tail past the last
+    segment is never read."""
     lengths = torch.bincount(seg_ids, minlength=num_segments)
-    return torch.segment_reduce(contrib, "sum", lengths=lengths, unsafe=True)
+    step = max(1, _SEGMENT_ALIGN_BYTES // contrib.element_size())
+    padded = (lengths + (step - 1)) // step * step
+    shift = (torch.cumsum(padded, 0) - padded) - (torch.cumsum(lengths, 0)
+                                                  - lengths)
+    pos = torch.arange(contrib.shape[0], device=contrib.device) \
+        + shift[seg_ids]
+    aligned = contrib.new_zeros(contrib.shape[0]
+                                + (step - 1) * num_segments)
+    aligned[pos] = contrib
+    return aligned, padded
 
 
 def segment_reduce(data: torch.Tensor, validity: torch.Tensor,

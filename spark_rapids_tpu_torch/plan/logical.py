@@ -1,6 +1,6 @@
 """Logical plan nodes produced by the DataFrame API (the subset this port
 plans: scan, project, filter, aggregate, sort, limit, join, repartition,
-union, expand, generate and window)."""
+union, expand, generate and window, and a cached subtree)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -240,3 +240,15 @@ class Window(LogicalPlan):
             b = bind_expression(e, cs)
             fields.append(Field(e.name_hint, b.dtype(), b.nullable()))
         return Schema(fields)
+
+
+@dataclass(eq=False)
+class CachedRelation(LogicalPlan):
+    """A subtree replaced by its cached materialization (Spark's
+    InMemoryRelation role): ``entry`` is a memory.df_cache.CachedData, and
+    two CachedRelations are the same relation when they reference the same
+    entry (identity equality)."""
+    entry: object
+
+    def schema(self) -> Schema:
+        return self.entry.logical.schema()

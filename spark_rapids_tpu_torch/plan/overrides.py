@@ -2,7 +2,9 @@
 converts a plan onto the device, in the same order (``plan/planner.py``
 ``plan_physical``): whole-stage fusion (plan/fusion.py), then the
 filter-into-aggregate fold (``fuse_device_ops``), which runs whether or not
-fusion is on, then the pipeline boundaries (``insert_pipeline``). The port
+fusion is on, then the pipeline boundaries (``insert_pipeline``), and last
+the footprint contract over the final tree
+(``plan/footprint.py::annotate_out_of_core``). The port
 plans straight onto the device operators, so the rest of that module (the
 CPU-to-device conversion and its tagging) has no counterpart here.
 """

@@ -40,18 +40,23 @@ from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.plan import logical as lp
 
 
-def plan_physical(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
+def plan_physical(plan: lp.LogicalPlan, conf: TpuConf,
+                  device=None) -> PhysicalExec:
     """Device plan for ``plan``, ending in the download transition, through
     the JAX package's rewrites in its order: whole-stage fusion
-    (``sql.fusion.enabled``), the filter-into-aggregate fold (always), then
-    the pipeline boundaries over the uploads
-    (``transfer.pipeline.enabled``)."""
+    (``sql.fusion.enabled``), the filter-into-aggregate fold (always), the
+    pipeline boundaries over the uploads (``transfer.pipeline.enabled``),
+    and last the footprint contract over the final tree
+    (``memory.outOfCore.enabled``; ``device`` sizes its budget when no
+    memory manager exists yet)."""
+    from spark_rapids_tpu_torch.plan.footprint import annotate_out_of_core
     from spark_rapids_tpu_torch.plan.fusion import fuse_stages
     from spark_rapids_tpu_torch.plan.overrides import (fuse_device_ops,
                                                        insert_pipeline)
     device_plan = fuse_device_ops(fuse_stages(
         ensure_requirements(_plan_node(plan, conf)), conf))
-    return DeviceToHostExec(insert_pipeline(device_plan, conf))
+    return annotate_out_of_core(
+        DeviceToHostExec(insert_pipeline(device_plan, conf)), conf, device)
 
 
 def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
@@ -106,6 +111,9 @@ def _check_float_aggs(aggs, conf: TpuConf) -> None:
 def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
     if isinstance(plan, lp.LocalRelation):
         return HostToDeviceExec(CpuLocalScanExec(plan.batch))
+    if isinstance(plan, lp.CachedRelation):
+        from spark_rapids_tpu_torch.execs.cache_execs import TpuCachedScanExec
+        return TpuCachedScanExec(plan.entry, plan.schema())
     if isinstance(plan, lp.Join):
         return _plan_join(plan, conf)
     if isinstance(plan, lp.Union):

@@ -635,3 +635,85 @@ def test_cuda_pipeline_under_one_permit_finishes(cuda):
     assert [n for n in sess.last_plan.walk()
             if isinstance(n, PipelinedExec)] or (os.cpu_count() or 1) < 2
     assert DeviceManager.peek().semaphore.active_holders == 0
+
+
+def _rows_by_key(hb, keys=1):
+    """A host batch's columns with its rows ordered by its first ``keys``
+    columns (unique together), as numpy byte strings per column."""
+    n = hb.num_rows
+    order = np.lexsort([hb.columns[i].data[:n]
+                        for i in reversed(range(keys))])
+    out = []
+    for c in hb.columns:
+        if c.lengths is None:
+            data = c.data[:n][order].tobytes()
+        else:
+            data = [bytes(c.data[r, :c.lengths[r]]) for r in order]
+        out.append((c.validity[:n][order].tobytes(), data))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["l_linenumber", "l_suppkey", "l_orderkey"])
+def test_cuda_forced_partition_float_sums_equal_single_pass(cuda, key):
+    """Float sums of an aggregate forced through four grace partitions,
+    three times, give the single pass's bits, in the one-hot, hash and
+    sort grouping modes: a partition keeps each group's rows in input
+    order and the card reduces each group in row order."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory import grace
+    li = td.gen_all(0.1, 42)["lineitem"]
+
+    def run(conf):
+        DeviceManager.shutdown()
+        sess = TpuSession(conf, device="cuda")
+        res = (sess.create_dataframe(li).groupBy(key)
+               .agg(F.sum("l_extendedprice").alias("s"),
+                    F.sum("l_discount").alias("d"),
+                    F.count(F.lit(1)).alias("n")).collect())
+        return _rows_by_key(res), sess
+    single, _ = run(BENCH_CONF)
+    grace.reset_counters()
+    for _ in range(3):
+        forced, sess = run({**BENCH_CONF, "spark.rapids.tpu.memory."
+                            "outOfCore.forcePartitions": "4"})
+        assert forced == single
+    assert grace.counters()["spill_partitions"] == 12
+    assert [n.grace_stats["partitions"] for n in sess.last_plan.walk()
+            if hasattr(n, "grace_stats")] == [4]
+
+
+@pytest.mark.cuda
+def test_cuda_grace_join_through_host_tier_equals_single_pass(cuda):
+    """A join forced through grace partitions under a 1 MiB device store:
+    its pieces spill to the host tier and come back, and the joined rows
+    equal the single pass's byte for byte."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    tables = td.gen_all(0.05, 42)
+
+    def run(conf):
+        DeviceManager.shutdown()
+        sess = TpuSession(conf, device="cuda")
+        res = (sess.create_dataframe(tables["lineitem"])
+               .join(sess.create_dataframe(tables["orders"]),
+                     [("l_orderkey", "o_orderkey")])
+               .select("l_orderkey", "l_linenumber", "o_totalprice",
+                       "l_extendedprice", F.col("o_orderpriority"))
+               .collect())
+        return _rows_by_key(res, keys=2), DeviceManager.peek()
+    single, _ = run(BENCH_CONF)
+    forced, dm = run({**BENCH_CONF,
+                      "spark.rapids.tpu.memory.outOfCore.forcePartitions":
+                          "4",
+                      "spark.rapids.tpu.memory.tpu.poolSizeBytes":
+                          str(1 << 20),
+                      "spark.rapids.tpu.sql.scanCache.enabled": "false"})
+    assert dm.spilled_bytes()["host"] > 0
+    assert forced == single
+    assert not dm.catalog.ids()

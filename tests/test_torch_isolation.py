@@ -71,6 +71,20 @@ for name, hb in td.gen_all(0.0005, 3).items():
     sess.create_dataframe(hb).createOrReplaceTempView(name)
 res = sess.sql(SQL_QUERIES[6]).collect()
 assert res.num_rows == 1 and res.columns[0].validity[0], res.num_rows
+# out of core: Q3 with every keyed operator forced through grace, and a
+# cached DataFrame served from the spillable store
+from spark_rapids_tpu_torch.execs.cache_execs import TpuCachedScanExec
+from spark_rapids_tpu_torch.memory import grace
+forced = TpuSession({**BENCH_CONF, "spark.rapids.tpu.memory.outOfCore."
+                     "forcePartitions": "4"}, device="cpu")
+fdfs = {k: forced.create_dataframe(g(0.002, 1)) for k, g in (
+    ("customer", td.gen_customer), ("orders", td.gen_orders),
+    ("lineitem", td.gen_lineitem_full))}
+assert q3(fdfs).collect().num_rows == 10
+assert grace.counters()["spill_partitions"] > 0
+cached = forced.create_dataframe(gen_lineitem(0.0005, 4)).cache()
+assert q1(cached).collect().num_rows == q1(cached).collect().num_rows == 6
+assert any(isinstance(n, TpuCachedScanExec) for n in forced.last_plan.walk())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -90,8 +104,10 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     """Every module imports, and TPC-H Q1 (also through the default path's
     fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22,
     the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
-    q23, q28) and TPC-H Q6's SQL text through ``TpuSession.sql`` run,
-    with no jax, nothing of the JAX package and no pyarrow loaded."""
+    q23, q28), TPC-H Q6's SQL text through ``TpuSession.sql``, Q3 forced
+    out of core (memory/grace.py) and Q1 over a cached DataFrame
+    (memory/df_cache.py) run, with no jax, nothing of the JAX package and
+    no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
