@@ -5,7 +5,7 @@ Phases:
   1. require a CUDA device; print the card's name and power limit;
   2. build every hand-written kernel from csrc/ with nvcc, one nvcc per
      source, all started together; then make the port's CPU runs that
-     phases 9-11 and 13 hold the card against, in CPU_WORKERS processes,
+     phases 9-11, 13 and 15 hold the card against, in CPU_WORKERS processes,
      while a thread of this process generates the run's tables for phases
      3-14, and wait for both, so that no CPU work runs beside a timed
      phase;
@@ -150,7 +150,22 @@ Phases:
      budget_clamp:fraction=0.05 and alloc_fail:op=join,after=1 (the
      reactive path), cold and warm, each equal to its default run, with
      walls, peak device memory, the operators out of core (trigger,
-     sizing, partitions, depth) and the bytes spilled per tier.
+     sizing, partitions, depth) and the bytes spilled per tier;
+ 15. the expression and SQL surface (benchmarks/sql_surface.py):
+     ``%`` as a grouping key, casts to strings fed to concat and length,
+     regexp_replace, the unix-time conversions, percent_rank and
+     cume_dist, framed min/max (a number and a string) by SQL, a PIVOT;
+     initcap and rlike, the day and time parts, framed first/last with
+     and without ignore nulls, the bitwise operators, shifts and
+     transcendentals as DataFrames; the TPC-DS spec's query38
+     (INTERSECT) and query87 (EXCEPT) with their semi/anti-join rewrites;
+     first at --check-sf on the card against the port's CPU run (bit for
+     bit, but the PIVOT's float sums within REL_TOL and the libm
+     functions within TRANSCENDENTAL_ULPS), and TPC-DS q51 at
+     Q51_CHECK_SF (its running float sum) against its CPU run; then each
+     query at the run's scale over phase 10's tables (the sales facts
+     hash 8), cold and warm, with walls, reorder launches and peak device
+     memory; each spec text must equal its rewrite.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -175,8 +190,8 @@ with the
 times, bounds and errors of phase 10's check on the widest input of each
 sales fact (summed over the inputs, each under "inputs"), phase 11's
 TPCx-BB and phase 9's TPC-H readings (launches and their checks,
-likewise), phase 13's SQL launches at the run's scale, phase 7's reading
-on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
+likewise), phase 13's SQL launches at the run's scale, phase 15's
+surface launches, phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
 launches under launches_by_path; then as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
@@ -2566,11 +2581,122 @@ def phase_out_of_core(check, check_results, check_pruned, check_sf,
     return launches
 
 
+# ------------------------------------------------------------------ phase 15
+#: the scale of q51's check on the card against the CPU: its running float
+#: sum per item differed there by 4.2e-9 relative before the framed sums
+#: restarted at each partition
+Q51_CHECK_SF = 0.25
+#: how the card's surface results are held against the CPU's: bit for bit,
+#: but the variableFloatAgg sums (REL_TOL) and the libm functions (ulps)
+SURFACE_FLOAT_SUMS = {"pivot"}
+TRANSCENDENTAL_ULPS = 4
+#: the DataFrame surface queries that read store_sales (hash 8: each must
+#: launch the reorder kernel)
+SURFACE_DF_FACTS = {"framed_first_last", "bitwise_math"}
+
+
+def surface_tables(sf, seed):
+    from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    return dd.gen_all(sf, seed, ss.COLUMNS, tables=list(ss.COLUMNS))
+
+
+def surface_specs(tables):
+    """The surface queries (benchmarks/sql_surface.py) as (name, build,
+    ties, reads a fact) over views of ``tables``, the sales facts hash 8
+    on their item keys: the SQL texts by ``TpuSession.sql``, the
+    DataFrame queries over the same frames, and the spec's q38 and q87
+    with their rewrites."""
+    from spark_rapids_tpu_torch import exprs as E
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+    from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+
+    def sql(text):
+        return lambda sess: (view_frames(sess, tables, FACT_KEYS),
+                             sess.sql(text))[1]
+    specs = [(name, sql(text), False, "_sales" in text)
+             for name, text in ss.SQL.items()]
+    specs += [(name, lambda sess, b=build: b(view_frames(
+        sess, tables, FACT_KEYS), F, Window, E), False,
+        name in SURFACE_DF_FACTS) for name, build in ss.DATAFRAME.items()]
+    for q, (spec, rewrite) in ss.SET_OPS.items():
+        specs += [(f"{q} spec", sql(spec), False, True),
+                  (f"{q} rewrite", sql(rewrite), False, True)]
+    return specs
+
+
+def surface_names():
+    from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+    return (list(ss.SQL) + list(ss.DATAFRAME)
+            + [f"{q} {k}" for q in ss.SET_OPS for k in ("spec", "rewrite")])
+
+
+def check_surface(name, label, got, want):
+    """Surface query ``name``'s result on the card against the CPU's: bit
+    for bit, but the float sums within REL_TOL and the libm functions
+    within TRANSCENDENTAL_ULPS. Returns how it was held, for the log."""
+    from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+    if name in SURFACE_FLOAT_SUMS:
+        worst = check_same_result(label, got, want, False)
+        return f"within {worst:.3e} relative (the float-sum carve-out) of"
+    if name in ss.TRANSCENDENTAL:
+        worst = check_same_bits_ulps(label, got, want, TRANSCENDENTAL_ULPS)
+        return (f"within {TRANSCENDENTAL_ULPS} ulps (the largest "
+                f"difference {worst} ulps) of")
+    check_same_bits(label, got, want)
+    return "bit-identical to"
+
+
+def phase_surface(check_sf, seed, refs, q51_refs, ds_sf_tables):
+    """Phase 15, the expression and SQL surface: at ``check_sf`` every
+    surface query on the card against the port's CPU run (``refs``), and
+    q51 at Q51_CHECK_SF against its CPU run (``q51_refs``); then every
+    surface query at the run's scale over phase 10's tables (the columns
+    they read), cold and warm, with walls, reorder launches and peak
+    memory; the spec's q38 and q87 must equal their rewrites at both
+    scales. Returns (per-query numbers at the run's scale, reorder
+    launches per path)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    launches = {}
+    gpu = TpuSession(BENCH_CONF)
+    specs = surface_specs(surface_tables(check_sf, seed))
+    for name, build, _, _ in specs:
+        want, cpu_s = refs[name]
+        got, secs, n = run_query(gpu, name, build)[:3]
+        how = check_surface(name, f"surface {name} sf={check_sf} cuda "
+                                  f"against cpu", got, want)
+        launches[f"phase15 {name} sf={check_sf}"] = n
+        print(f"surface {name} sf={check_sf}: rows={got.num_rows} "
+              f"cuda_s={secs:.4f} cpu_s={cpu_s:.4f} reorder_launches={n}, "
+              f"{how} the CPU run")
+    q51 = check_against_cpu("q51", Q51_CHECK_SF, suite_specs(
+        suite_tables(Q51_CHECK_SF, seed, ["q51"]), ["q51"]), q51_refs)
+    del q51
+    tables = {t: ds_sf_tables[t].select(cols)
+              for t, cols in ss.COLUMNS.items()}
+    nums, results = run_cold_warm(surface_specs(tables), all_kept=False)
+    for q in ss.SET_OPS:
+        check_same_result(f"surface {q} spec against its rewrite",
+                          results[f"{q} spec"], results[f"{q} rewrite"],
+                          False, positional=True)
+        print(f"surface {q} spec: {result_rows(results[f'{q} spec'])} "
+              f"equal to its rewrite")
+    for name, n in nums.items():
+        launches[f"phase15 {name}"] = n["launches"]
+    return nums, launches
+
+
 #: the suites a CPU worker runs: name -> (make tables, make specs)
 SUITES = {"tpch": (tpch_tables, tpch_specs),
           "suite": (suite_tables, suite_specs),
           "bb": (bb_tables, bb_specs),
-          "functions": (function_tables, function_specs)}
+          "functions": (function_tables, function_specs),
+          "surface": (surface_tables, surface_specs),
+          "q51": (lambda sf, seed: suite_tables(sf, seed, ["q51"]),
+                  lambda tables: suite_specs(tables, ["q51"]))}
 
 
 # ------------------------------------------------- where a query's memory goes
@@ -2944,8 +3070,8 @@ def main() -> int:
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
     ap.add_argument("--check-sf", type=float, default=0.5,
-                    help="scale of phase 9's, 10's and 13's checks of "
-                         "every query on the card against the CPU, of "
+                    help="scale of phase 9's, 10's, 13's and 15's checks "
+                         "of every query on the card against the CPU, of "
                          "the SQL texts against the DataFrame queries and "
                          "of phase 14's forced runs")
     ap.add_argument("--bb-check-sf", type=float, default=1.0,
@@ -3008,7 +3134,9 @@ def main() -> int:
                  [f"q{q}" for q in QUERIES]),
                 ("bb", args.bb_check_sf, args.seed, bb_queries()),
                 ("functions", args.check_sf, args.seed,
-                 list(FUNCTION_SQL))))
+                 list(FUNCTION_SQL)),
+                ("surface", args.check_sf, args.seed, surface_names()),
+                ("q51", Q51_CHECK_SF, args.seed, ["q51"])))
         made, gen_s = making.result()
     print(f"tables sf={args.sf} generated beside the CPU workers: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in gen_s.items()))
@@ -3119,22 +3247,30 @@ def main() -> int:
             args.bb_check_sf, tpch_sf_tables, tpch_results,
             suite_sf_tables, suite_results).items():
         by_path[path] = {"reorder": n}
-    del check, check_results, check_pruned, tpch_sf_tables, suite_sf_tables
+    del check, check_results, check_pruned, tpch_sf_tables
     phase_done("14 out of core")
+    surface, surface_launches = phase_surface(
+        args.check_sf, args.seed, refs["surface"], refs["q51"],
+        suite_sf_tables["ds"])
+    by_path.update({p: {"reorder": n} for p, n in surface_launches.items()})
+    del suite_sf_tables
+    phase_done("15 sql surface")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
     # the dma-on q23, beside the times, bounds and errors of the widest
     # input of each sales fact those queries give the kernels. Phase 11's
     # TPCx-BB reading, phase 9's TPC-H reading, phase 13's SQL launches at
-    # the run's scale, phase 7's reading on Q3's inputs, phase 3's at Q1's
-    # lineitem shape and every path's launches stand beside them.
+    # the run's scale, phase 15's surface launches at the run's scale,
+    # phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem shape
+    # and every path's launches stand beside them.
     def launch_sums(runs):
         return (sum(n["launches"] for n in runs.values()),
                 sum(n["launches_kept"] for n in runs.values()))
     readings = {
         "reorder": {"suite": launch_sums(suite), "bb": launch_sums(bb),
-                    "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums)},
+                    "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums),
+                    "surface": launch_sums(surface)},
         "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
                     "tpch": dma18[1:]}}
     records = []
@@ -3157,10 +3293,12 @@ def main() -> int:
                   "launches_by_path": {p: v[name]
                                        for p, v in by_path.items()
                                        if name in v}}
-        if name in readings and "sql" in readings[name]:
+        if "sql" in readings[name]:
             record["phase13_sql"] = dict(zip(
                 ("launches", "launches_kept"), readings[name]["sql"]),
                 row_ids=row_ids)
+            record["phase15_surface"] = dict(zip(
+                ("launches", "launches_kept"), readings[name]["surface"]))
         records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")

@@ -4,16 +4,17 @@ from __future__ import annotations
 from typing import Any, Union
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType
-from spark_rapids_tpu_torch.exprs import (Add, Alias, And, Cast, Contains,
-                                          Divide,
+from spark_rapids_tpu_torch.exprs import (Add, Alias, And, BitwiseAnd,
+                                          BitwiseOr, BitwiseXor, Cast,
+                                          Contains, Divide,
                                           EndsWith, EqualNullSafe, EqualTo,
                                           Expression, GreaterThan,
                                           GreaterThanOrEqual, In, InSet,
                                           IsNan, IsNotNull, IsNull, LessThan,
                                           LessThanOrEqual, Like, Literal,
                                           Multiply, Not, NotEqual, Or,
-                                          SortOrder, StartsWith, Subtract,
-                                          UnaryMinus)
+                                          Remainder, RLike, SortOrder,
+                                          StartsWith, Subtract, UnaryMinus)
 from spark_rapids_tpu_torch.exprs.strings import GetArrayItem
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 
@@ -38,6 +39,7 @@ class Column:
     def __rmul__(self, o): return Column(Multiply(_expr(o), self.expr))
     def __truediv__(self, o): return Column(Divide(self.expr, _expr(o)))
     def __rtruediv__(self, o): return Column(Divide(_expr(o), self.expr))
+    def __mod__(self, o): return Column(Remainder(self.expr, _expr(o)))
     def __neg__(self): return Column(UnaryMinus(self.expr))
 
     # comparisons
@@ -53,6 +55,11 @@ class Column:
     def __and__(self, o): return Column(And(self.expr, _expr(o)))
     def __or__(self, o): return Column(Or(self.expr, _expr(o)))
     def __invert__(self): return Column(Not(self.expr))
+
+    # bitwise
+    def bitwiseAND(self, o): return Column(BitwiseAnd(self.expr, _expr(o)))
+    def bitwiseOR(self, o): return Column(BitwiseOr(self.expr, _expr(o)))
+    def bitwiseXOR(self, o): return Column(BitwiseXor(self.expr, _expr(o)))
 
     # nulls and membership
     def isNull(self): return Column(IsNull(self.expr))
@@ -76,6 +83,7 @@ class Column:
     def endswith(self, p): return Column(EndsWith(self.expr, _expr(p)))
     def contains(self, p): return Column(Contains(self.expr, _expr(p)))
     def like(self, p): return Column(Like(self.expr, _expr(p)))
+    def rlike(self, p): return Column(RLike(self.expr, _expr(p)))
 
     # arrays: an item of array(...) or of split(...)
     def getItem(self, i: int) -> "Column":

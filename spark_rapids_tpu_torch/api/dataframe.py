@@ -14,15 +14,20 @@ from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch import device as device_mod
 from spark_rapids_tpu_torch.api.column import Column
 from spark_rapids_tpu_torch.columnar.dtypes import DType
-from spark_rapids_tpu_torch.columnar.host import HostBatch, concat_host_batches
+from spark_rapids_tpu_torch.columnar.host import (HostBatch,
+                                                  concat_host_batches,
+                                                  string_batch)
 from spark_rapids_tpu_torch.columnar.transfer import (PendingDownload,
                                                       start_download)
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.execs.tpu_execs import DeviceToHostExec
-from spark_rapids_tpu_torch.exprs import (Alias, Coalesce, DistinctAgg,
-                                          First, IsNull, Literal,
+from spark_rapids_tpu_torch.exprs import (Alias, AtLeastNNonNulls, Cast,
+                                          Coalesce, DistinctAgg,
+                                          First, IsNull, Literal, NaNvl,
                                           SortOrder, UnresolvedAttribute)
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.exprs.core import Expression
 from spark_rapids_tpu_torch.exprs.generators import Explode
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
@@ -99,6 +104,54 @@ def _tree_has(e, cls) -> bool:
     return isinstance(e, cls) or any(_tree_has(c, cls) for c in e.children)
 
 
+class Row(dict):
+    """A collected row: a dict with attribute access (pyspark's Row)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}={v!r}" for k, v in self.items())
+        return f"Row({inner})"
+
+
+def _show_cell(v, width: int) -> str:
+    s = "null" if v is None else str(v)
+    if width and len(s) > width:
+        # pyspark: a plain cut below 4 characters, an ellipsis otherwise
+        s = s[:width] if width < 4 else s[:width - 3] + "..."
+    return s
+
+
+def _columns_pylist(batch: HostBatch) -> List[List[Any]]:
+    return [c.to_pylist(batch.num_rows) for c in batch.columns]
+
+
+def _null_safe_set_op(left: "DataFrame", right: "DataFrame",
+                      mode: str) -> "DataFrame":
+    """SQL's INTERSECT and EXCEPT (distinct rows, nulls equal, columns by
+    position): tag each side's distinct rows 1 or 2, union them, group by
+    every column (grouping takes null == null) and keep the groups by the
+    sides that had them."""
+    from spark_rapids_tpu_torch.api import functions as F
+    names = left.columns
+    if len(names) != len(right.columns):
+        raise ValueError(f"set operation column-count mismatch: {names} vs "
+                         f"{right.columns}")
+    la = left.dropDuplicates().withColumn("__setf", F.lit(1))
+    rb = right.toDF(*names).dropDuplicates().withColumn("__setf", F.lit(2))
+    agg = (la.union(rb).groupBy(*names)
+           .agg(F.min("__setf").alias("__mn"), F.max("__setf").alias("__mx")))
+    if mode == "intersect":
+        agg = agg.filter((F.col("__mn") == 1) & (F.col("__mx") == 2))
+    else:
+        agg = agg.filter(F.col("__mx") == 1)
+    return agg.select(*names)
+
+
 class DataFrame:
     def __init__(self, logical: lp.LogicalPlan, session: "TpuSession"):
         self._plan = logical
@@ -135,6 +188,8 @@ class DataFrame:
     def filter(self, cond: Column) -> "DataFrame":
         return DataFrame(lp.Filter(cond.expr, self._plan), self.session)
 
+    where = filter
+
     def groupBy(self, *cols: Union[str, Column]) -> "GroupedData":
         return GroupedData(self, tuple(_to_expr(c) for c in cols))
 
@@ -153,6 +208,8 @@ class DataFrame:
             e = _to_expr(c)
             orders.append(e if isinstance(e, SortOrder) else SortOrder(e))
         return DataFrame(lp.Sort(tuple(orders), self._plan), self.session)
+
+    orderBy = sort
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(lp.Limit(n, self._plan), self.session)
@@ -261,6 +318,178 @@ class DataFrame:
         return DataFrame(
             lp.Repartition(n, self._plan, tuple(_to_expr(c) for c in cols)),
             self.session)
+
+    def toDF(self, *names: str) -> "DataFrame":
+        cur = self.columns
+        if len(names) != len(cur):
+            raise ValueError(f"toDF needs {len(cur)} names, got {len(names)}")
+        return DataFrame(lp.Project(tuple(
+            Alias(UnresolvedAttribute(o), n) for o, n in zip(cur, names)),
+            self._plan), self.session)
+
+    def withColumnsRenamed(self, mapping: Dict[str, str]) -> "DataFrame":
+        return DataFrame(lp.Project(tuple(
+            Alias(UnresolvedAttribute(n), mapping.get(n, n))
+            for n in self.columns), self._plan), self.session)
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows in both (SQL INTERSECT: nulls compare
+        equal)."""
+        return _null_safe_set_op(self, other, "intersect")
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows of this one that the other lacks (SQL
+        EXCEPT)."""
+        return _null_safe_set_op(self, other, "subtract")
+
+    def exceptAll(self, other: "DataFrame") -> "DataFrame":
+        raise NotImplementedError(
+            "exceptAll (bag semantics) is not supported; use subtract() "
+            "for SQL EXCEPT (distinct) semantics")
+
+    def dropna(self, how: str = "any", thresh: Optional[int] = None,
+               subset: Optional[List[str]] = None) -> "DataFrame":
+        """pyspark's na.drop: a row stays with at least ``thresh`` non-null
+        values among ``subset`` (all of them for "any", one for "all"); a
+        float NaN counts as null (``AtLeastNNonNulls``)."""
+        if how not in ("any", "all"):
+            raise ValueError(f"how must be 'any' or 'all', got {how!r}")
+        names = subset or self.columns
+        need = thresh if thresh is not None else (
+            len(names) if how == "any" else 1)
+        cond = AtLeastNNonNulls(need, tuple(UnresolvedAttribute(n)
+                                            for n in names))
+        return DataFrame(lp.Filter(cond, self._plan), self.session)
+
+    def fillna(self, value, subset: Optional[List[str]] = None
+               ) -> "DataFrame":
+        """pyspark's na.fill: a value (or one per column name) replaces the
+        nulls of the columns of a matching type, and NaN in float columns;
+        the result keeps the column's type."""
+        schema = self.schema()
+        names = subset or self.columns
+        by_col = value if isinstance(value, dict) else {n: value
+                                                        for n in names}
+        exprs = []
+        for f in schema:
+            v = by_col.get(f.name)
+            src: Any = UnresolvedAttribute(f.name)
+            compatible = v is not None and (
+                (f.dtype.is_numeric and isinstance(v, (int, float))
+                 and not isinstance(v, bool))
+                or (f.dtype is DType.STRING and isinstance(v, str))
+                or (f.dtype is DType.BOOLEAN and isinstance(v, bool)))
+            if not compatible:
+                exprs.append(src)
+                continue
+            if f.dtype.is_floating:
+                src = NaNvl(src, Literal.of(float(v)))
+            filled: Any = Coalesce((src, Literal.of(v)))
+            if f.dtype.is_numeric and isinstance(v, float):
+                # Spark casts back: a double fill never widens the column
+                filled = Cast(filled, f.dtype)
+            exprs.append(Alias(filled, f.name))
+        return DataFrame(lp.Project(tuple(exprs), self._plan), self.session)
+
+    def sample(self, withReplacement=None, fraction=None, seed=None
+               ) -> "DataFrame":
+        """A Bernoulli sample without replacement, ``rand(seed) <
+        fraction``, in both pyspark call forms: ``sample(fraction[,
+        seed])`` and ``sample(withReplacement, fraction[, seed])``."""
+        from spark_rapids_tpu_torch.api import functions as F
+        if not isinstance(withReplacement, bool) and \
+                withReplacement is not None:
+            withReplacement, fraction, seed = (
+                None, withReplacement,
+                fraction if fraction is not None else seed)
+        if withReplacement:
+            raise NotImplementedError(
+                "sample(withReplacement=True) is not supported")
+        if fraction is None:
+            raise TypeError("sample() needs a fraction")
+        if seed is None:
+            # pyspark draws a fresh seed for every unseeded call
+            import random
+            seed = random.randint(0, 2**31 - 1)
+        return self.filter(F.rand(int(seed)) < float(fraction))
+
+    def count(self) -> int:
+        from spark_rapids_tpu_torch.api.functions import count
+        res = self.agg(count().alias("count")).collect()
+        return int(res.columns[0].data[0])
+
+    def _rows(self) -> List[Row]:
+        batch = self.collect()
+        names = batch.schema.names()
+        return [Row(zip(names, vals))
+                for vals in zip(*_columns_pylist(batch))]
+
+    def take(self, n: int) -> List[Row]:
+        return self.limit(n)._rows()
+
+    def head(self, n: Optional[int] = None):
+        """head() -> the first Row or None; head(n) -> a list of Rows."""
+        if n is None:
+            rows = self.take(1)
+            return rows[0] if rows else None
+        return self.take(n)
+
+    def first(self):
+        return self.head()
+
+    def show(self, n: int = 20, truncate: Union[bool, int] = True) -> None:
+        """Print the first n rows as pyspark formats them."""
+        width = 20 if truncate is True else (0 if truncate is False
+                                             else int(truncate))
+        batch = self.limit(n).collect()
+        names = batch.schema.names()
+        cols = [[_show_cell(v, width) for v in vals]
+                for vals in _columns_pylist(batch)]
+        widths = [max([len(nm)] + [len(v) for v in col])
+                  for nm, col in zip(names, cols)]
+        sep = "+" + "+".join("-" * w for w in widths) + "+"
+        print(sep)
+        print("|" + "|".join(nm.rjust(w) for nm, w in zip(names, widths))
+              + "|")
+        print(sep)
+        for r in range(batch.num_rows):
+            print("|" + "|".join(cols[i][r].rjust(widths[i])
+                                 for i in range(len(names))) + "|")
+        print(sep)
+
+    def printSchema(self) -> None:
+        lines = ["root"]
+        for f in self.schema():
+            lines.append(f" |-- {f.name}: {f.dtype.value} "
+                         f"(nullable = {str(f.nullable).lower()})")
+        print("\n".join(lines))
+
+    def describe(self, *cols: str) -> "DataFrame":
+        """count, mean, stddev, min and max of each column (the numeric and
+        string ones by default) as strings in a ``summary`` table, from one
+        aggregation (pyspark's describe)."""
+        from spark_rapids_tpu_torch.api import functions as F
+        schema = self.schema()
+        names = list(cols) or [f.name for f in schema
+                               if f.dtype.is_numeric
+                               or f.dtype is DType.STRING]
+        stat_fns = {"count": F.count, "mean": F.avg, "stddev": F.stddev,
+                    "min": F.min, "max": F.max}
+        aggs = []
+        for nm in names:
+            dt = schema[schema.index_of(nm)].dtype
+            for stat, fn in stat_fns.items():
+                if stat in ("mean", "stddev") and not dt.is_numeric:
+                    continue
+                aggs.append(fn(nm).alias(f"{stat}__{nm}"))
+        out = self.agg(*aggs).collect()
+        vals = {f.name: c.to_pylist(1)[0]
+                for f, c in zip(out.schema, out.columns)}
+        rows = [[stat] + [None if vals.get(f"{stat}__{nm}") is None
+                          else str(vals[f"{stat}__{nm}"]) for nm in names]
+                for stat in stat_fns]
+        return self.session.create_dataframe(string_batch(
+            ["summary"] + names, rows, self.session.conf.string_max_bytes))
 
     def createOrReplaceTempView(self, name: str) -> None:
         """Register this DataFrame for ``session.sql``."""
@@ -383,8 +612,87 @@ class GroupedData:
         self._df = df
         self._grouping = grouping
         self._mode = mode
+        #: (pivot column, its values) after ``pivot``
+        self._pivot: Optional[tuple] = None
+
+    def pivot(self, col_name: str, values: Optional[List] = None
+              ) -> "GroupedData":
+        """Spark's pivot: one output column per pivot value (and per
+        aggregate). Without ``values`` the column's distinct values are
+        queried first, sorted, a null first, as Spark does."""
+        if self._mode != "groupby":
+            raise NotImplementedError("pivot with rollup/cube")
+        if values is None:
+            batch = self._df.select(col_name).distinct().collect()
+            vals = batch.columns[0].to_pylist(batch.num_rows)
+            values = sorted([v for v in vals if v is not None],
+                            key=lambda v: (str(type(v)), v))
+            if any(v is None for v in vals):
+                values.insert(0, None)
+        g = GroupedData(self._df, self._grouping)
+        g._pivot = (col_name, list(values))
+        return g
+
+    def _pivot_agg(self, cols) -> DataFrame:
+        """Catalyst's single-aggregation pivot: each aggregate becomes one
+        conditional aggregate per pivot value, ``agg(when(p == v, input))``
+        named ``v`` (one unaliased aggregate) or ``v_<name>``."""
+        from spark_rapids_tpu_torch.api import functions as F
+        pcol, values = self._pivot
+        aggs = []
+        for v in values:
+            for c in cols:
+                e, suffix = c.expr, None
+                if isinstance(e, Alias):
+                    e, suffix = e.c, e.name
+                if not isinstance(e, AggregateFunction):
+                    raise NotImplementedError(
+                        "pivot aggregates must be plain aggregate "
+                        "functions (optionally aliased), e.g. sum(col)")
+
+                def gate(child: Expression, v=v) -> Expression:
+                    # a null pivot value matches with isNull (Spark's
+                    # 'null' pivot column)
+                    match = (F.col(pcol).isNull() if v is None
+                             else F.col(pcol) == F.lit(v))
+                    return (F.when(match, Column(child))
+                            .otherwise(F.lit(None))).expr
+
+                gated = (DistinctAgg(e.inner.map_children(gate))
+                         if isinstance(e, DistinctAgg)
+                         else e.map_children(gate))
+                base = "null" if v is None else str(v)
+                name = (base if len(cols) == 1 and suffix is None
+                        else f"{base}_{suffix or e.name_hint}")
+                aggs.append(Column(Alias(gated, name)))
+        return GroupedData(self._df, self._grouping).agg(*aggs)
+
+    def count(self) -> DataFrame:
+        from spark_rapids_tpu_torch.api.functions import count
+        return self.agg(count().alias("count"))
+
+    def _simple(self, fname: str, *cols: str) -> DataFrame:
+        from spark_rapids_tpu_torch.api import functions as F
+        fn = getattr(F, fname)
+        names = cols or [f.name for f in self._df.schema()
+                         if f.dtype.is_numeric]
+        return self.agg(*[fn(n).alias(f"{fname}({n})") for n in names])
+
+    def sum(self, *cols: str) -> DataFrame:  # noqa: A003 - mirrors pyspark
+        return self._simple("sum", *cols)
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self._simple("avg", *cols)
+
+    def min(self, *cols: str) -> DataFrame:  # noqa: A003 - mirrors pyspark
+        return self._simple("min", *cols)
+
+    def max(self, *cols: str) -> DataFrame:  # noqa: A003 - mirrors pyspark
+        return self._simple("max", *cols)
 
     def agg(self, *cols: Column) -> DataFrame:
+        if self._pivot is not None:
+            return self._pivot_agg(cols)
         aggs = [c.expr if isinstance(c.expr, Alias)
                 else Alias(c.expr, c.expr.name_hint) for c in cols]
         for a in aggs:

@@ -1,32 +1,28 @@
-"""Column functions (pyspark.sql.functions-style): the ones the 22 TPC-H
-queries, the 99 TPC-DS queries, the 30 TPCx-BB queries and the SQL
-planner's function table use."""
+"""Column functions (pyspark.sql.functions-style): the JAX package's
+``api/functions.py`` but ``udf`` and the input-file functions, which wait
+for the UDF compiler and the file scan."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union
 
 from spark_rapids_tpu_torch.api.column import Column, _expr
-from spark_rapids_tpu_torch.exprs import (Abs, Average, CaseWhen, Ceil,
-                                          Coalesce, Concat, Corr, Count,
-                                          CovarPop, CovarSamp, DateAdd,
-                                          DateDiff, DateSub, DayOfMonth,
-                                          DistinctAgg, First, Floor,
-                                          Greatest, Last, Least, Length,
-                                          Literal, Lower, Max, Min,
-                                          MonotonicallyIncreasingID, Month,
-                                          NaNvl, Pmod, Pow, Round, Sqrt,
-                                          StddevPop, StddevSamp,
-                                          StringLocate, StringLPad,
-                                          StringReplace, StringRPad,
-                                          StringSplit, StringTrim,
-                                          StringTrimLeft, StringTrimRight,
-                                          Substring, SubstringIndex, Sum,
-                                          UnresolvedAttribute, Upper,
-                                          VariancePop, VarianceSamp, WeekDay,
-                                          Year)
+from spark_rapids_tpu_torch.exprs import (
+    Abs, Acos, Acosh, Asin, Asinh, Atan, Atan2, Atanh, Average, CaseWhen,
+    Cbrt, Ceil, Coalesce, Concat, Corr, Cos, Cosh, Cot, Count, CovarPop,
+    CovarSamp, DateAdd, DateDiff, DateSub, DayOfMonth, DayOfWeek, DayOfYear,
+    DistinctAgg, Exp, Expm1, First, Floor, FromUnixTime, Greatest, Hour,
+    InitCap, Last, LastDay, Least, Length, Literal, Log, Log1p, Log2, Log10,
+    Logarithm, Lower, Max, Min, Minute, MonotonicallyIncreasingID, Month,
+    NaNvl, Pmod, Pow, Quarter, RegExpReplace, Rint, Round, Second, Signum,
+    Sin, Sinh, SparkPartitionID, Sqrt, StddevPop, StddevSamp, StringLocate,
+    StringLPad, StringReplace, StringRPad, StringSplit, StringTrim,
+    StringTrimLeft, StringTrimRight, Substring, SubstringIndex, Sum, Tan,
+    Tanh, ToDegrees, ToRadians, ToUnixTimestamp, UnixTimestamp,
+    UnresolvedAttribute, Upper, VariancePop, VarianceSamp, WeekDay, Year)
 from spark_rapids_tpu_torch.exprs.generators import CreateArray, Explode
 from spark_rapids_tpu_torch.exprs.misc import Rand
-from spark_rapids_tpu_torch.exprs.windows import (DenseRank, Lag, Lead, NTile,
+from spark_rapids_tpu_torch.exprs.windows import (CumeDist, DenseRank, Lag,
+                                                  Lead, NTile, PercentRank,
                                                   Rank, RowNumber)
 
 
@@ -44,6 +40,10 @@ def rand(seed: int = 0) -> Column:
 
 def monotonically_increasing_id() -> Column:
     return Column(MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Column:
+    return Column(SparkPartitionID())
 
 
 def _c(c: Union[str, Column]):
@@ -66,6 +66,9 @@ def avg(c: Union[str, Column]) -> Column:
     return Column(Average(_c(c)))
 
 
+mean = avg
+
+
 def min(c: Union[str, Column]) -> Column:  # noqa: A001 - mirrors pyspark
     return Column(Min(_c(c)))
 
@@ -86,13 +89,21 @@ def countDistinct(c: Union[str, Column]) -> Column:
     return Column(DistinctAgg(count(c).expr))
 
 
+count_distinct = countDistinct
+
+
 def sumDistinct(c: Union[str, Column]) -> Column:
     return Column(DistinctAgg(Sum(_c(c))))
+
+
+sum_distinct = sumDistinct
 
 
 def stddev(c: Union[str, Column]) -> Column:
     return Column(StddevSamp(_c(c)))
 
+
+stddev_samp = stddev
 
 
 def stddev_pop(c: Union[str, Column]) -> Column:
@@ -102,6 +113,8 @@ def stddev_pop(c: Union[str, Column]) -> Column:
 def variance(c: Union[str, Column]) -> Column:
     return Column(VarianceSamp(_c(c)))
 
+
+var_samp = variance
 
 
 def var_pop(c: Union[str, Column]) -> Column:
@@ -162,8 +175,40 @@ def _unary(cls):
 
 abs = _unary(Abs)  # noqa: A001 - mirrors pyspark
 sqrt = _unary(Sqrt)
+cbrt = _unary(Cbrt)
+exp = _unary(Exp)
+expm1 = _unary(Expm1)
+log = _unary(Log)
+log2 = _unary(Log2)
+log10 = _unary(Log10)
+log1p = _unary(Log1p)
+sin = _unary(Sin)
+cos = _unary(Cos)
+tan = _unary(Tan)
+cot = _unary(Cot)
+asin = _unary(Asin)
+acos = _unary(Acos)
+atan = _unary(Atan)
+sinh = _unary(Sinh)
+cosh = _unary(Cosh)
+tanh = _unary(Tanh)
+asinh = _unary(Asinh)
+acosh = _unary(Acosh)
+atanh = _unary(Atanh)
+degrees = _unary(ToDegrees)
+radians = _unary(ToRadians)
+signum = _unary(Signum)
 floor = _unary(Floor)
 ceil = _unary(Ceil)
+rint = _unary(Rint)
+
+
+def atan2(a, b) -> Column:
+    return Column(Atan2(_expr(a), _expr(b)))
+
+
+def log_base(base: float, c: Union[str, Column]) -> Column:
+    return Column(Logarithm(Literal.of(float(base)), _c(c)))
 
 
 def pow(a, b) -> Column:  # noqa: A001 - mirrors pyspark
@@ -181,8 +226,29 @@ def round(c: Union[str, Column], scale: int = 0) -> Column:  # noqa: A001
 # strings and dates
 upper = _unary(Upper)
 lower = _unary(Lower)
+initcap = _unary(InitCap)
 length = _unary(Length)
 trim = _unary(StringTrim)
+year = _unary(Year)
+month = _unary(Month)
+dayofmonth = _unary(DayOfMonth)
+dayofweek = _unary(DayOfWeek)
+dayofyear = _unary(DayOfYear)
+quarter = _unary(Quarter)
+hour = _unary(Hour)
+minute = _unary(Minute)
+second = _unary(Second)
+last_day = _unary(LastDay)
+weekday = _unary(WeekDay)
+unix_timestamp = _unary(UnixTimestamp)
+to_unix_timestamp = _unary(ToUnixTimestamp)
+from_unixtime = _unary(FromUnixTime)
+
+
+def regexp_replace(c: Union[str, Column], pattern: str,
+                   replacement: str = "") -> Column:
+    return Column(RegExpReplace(_c(c), Literal.of(pattern),
+                                Literal.of(replacement)))
 
 
 def concat(*cols) -> Column:
@@ -231,9 +297,6 @@ def date_sub(c, days) -> Column:
                           _expr(days)))
 
 
-def weekday(c: Union[str, Column]) -> Column:
-    return Column(WeekDay(_c(c)))
-
 
 def substring(c: Union[str, Column], pos: int, length: int) -> Column:
     return Column(Substring(_c(c), Literal.of(pos), Literal.of(length)))
@@ -258,16 +321,7 @@ def datediff(end, start) -> Column:
     return Column(DateDiff(_expr(end), _expr(start)))
 
 
-def year(c: Union[str, Column]) -> Column:
-    return Column(Year(_c(c)))
 
-
-def month(c: Union[str, Column]) -> Column:
-    return Column(Month(_c(c)))
-
-
-def dayofmonth(c: Union[str, Column]) -> Column:
-    return Column(DayOfMonth(_c(c)))
 
 
 # arrays and generators
@@ -316,6 +370,14 @@ def rank() -> Column:
 
 def dense_rank() -> Column:
     return Column(DenseRank())
+
+
+def percent_rank() -> Column:
+    return Column(PercentRank())
+
+
+def cume_dist() -> Column:
+    return Column(CumeDist())
 
 
 def ntile(n: int) -> Column:

@@ -6,13 +6,18 @@ This is the port's host representation: the engine takes and returns
 """
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
 from spark_rapids_tpu_torch.columnar.dtypes import (DType, Field, Schema,
                                                     string_width_bucket)
+
+
+_EPOCH_DATE = datetime.date(1970, 1, 1)
+_EPOCH_TS = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
 
 
 @dataclass(frozen=True)
@@ -21,6 +26,27 @@ class HostColumn:
     data: np.ndarray                  # [rows] or [rows, width] uint8 strings
     validity: np.ndarray              # bool[rows]
     lengths: Optional[np.ndarray] = None   # int32[rows], strings only
+
+    def to_pylist(self, num_rows: int) -> List[Any]:
+        """The first ``num_rows`` values as Python objects, as arrow's
+        ``to_pylist`` gives them: None for a null, str for a string,
+        ``datetime.date`` for a date, a UTC ``datetime.datetime`` for a
+        timestamp, and bool, int or float for the rest."""
+        valid = self.validity[:num_rows]
+        if self.dtype is DType.STRING:
+            vals = [bytes(r[:n]).decode("utf-8") for r, n in
+                    zip(self.data[:num_rows], self.lengths[:num_rows])]
+        elif self.dtype is DType.DATE:
+            vals = [_EPOCH_DATE + datetime.timedelta(days=int(d))
+                    for d in self.data[:num_rows]]
+        elif self.dtype is DType.TIMESTAMP:
+            vals = [_EPOCH_TS + datetime.timedelta(microseconds=int(us))
+                    for us in self.data[:num_rows]]
+        elif self.dtype is DType.NULL:
+            vals = [None] * num_rows
+        else:
+            vals = self.data[:num_rows].tolist()
+        return [v if ok else None for v, ok in zip(vals, valid)]
 
 
 @dataclass(frozen=True)
@@ -207,3 +233,24 @@ def _column_to_arrow(dtype: DType, col: HostColumn, num_rows: int):
     out = pa.Array.from_buffers(storage, num_rows, [vbuf, dbuf], null_count)
     return out.cast(_arrow_type(dtype)) if not storage.equals(
         _arrow_type(dtype)) else out
+
+
+def string_batch(names: List[str], rows: List[List[Optional[str]]],
+                 string_max_bytes: int = 256) -> HostBatch:
+    """A batch of nullable string columns from rows of Python strings
+    (None for a null), as arrow builds one from a list of rows."""
+    cols = []
+    for j in range(len(names)):
+        vals = [r[j] for r in rows]
+        raw = [b"" if v is None else v.encode("utf-8") for v in vals]
+        lengths = np.array([len(b) for b in raw], np.int32)
+        width = string_width_bucket(int(lengths.max(initial=0)),
+                                    string_max_bytes)
+        data = np.zeros((len(raw), width), np.uint8)
+        for i, b in enumerate(raw):
+            data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        cols.append(HostColumn(DType.STRING, data,
+                               np.array([v is not None for v in vals], bool),
+                               lengths))
+    return HostBatch(Schema([Field(n, DType.STRING, True) for n in names]),
+                     tuple(cols), len(rows))

@@ -72,7 +72,8 @@ def evaluate_window(ctx: EvalCtx, wexprs: Tuple[Expression, ...],
             lo, hi, empty = wk.frame_bounds(fr, frame.frame_type,
                                             frame.lower, frame.upper)
             reduced = [wk.frame_reduce_buffer(fr, bk.as_column(b, cap),
-                                              s.kind, lo, hi, empty)
+                                              s.kind, lo, hi, empty,
+                                              s.ignore_nulls)
                        for b, s in zip(fn.project(sctx), fn.buffer_specs())]
             res = fn.evaluate(reduced)
             out.append(res.with_validity(res.validity & fr.salive))

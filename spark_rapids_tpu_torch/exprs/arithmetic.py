@@ -1,10 +1,10 @@
 """Arithmetic expressions (Spark non-ANSI semantics: integral add, subtract,
 multiply, negation and ``abs`` wrap like Java two's complement, as torch's
 do, so ``-Long.MinValue`` and ``abs(Long.MinValue)`` stay
-``Long.MinValue``; ``Divide`` is always a double, and ``Divide`` and
-``Pmod`` are null on a zero divisor; ``Least`` and ``Greatest`` skip nulls
-and order NaN above every other value). The JAX package's
-``IntegralDivide`` and ``Remainder`` are not ported yet."""
+``Long.MinValue``; ``Divide`` is always a double; ``div`` is a LONG
+truncated toward zero; ``%`` takes the dividend's sign; ``Divide``,
+``div``, ``%`` and ``Pmod`` are null on a zero divisor; ``Least`` and
+``Greatest`` skip nulls and order NaN above every other value)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -86,6 +86,46 @@ class Divide(_DivisorNullingBinary):
 
 
 @dataclass(frozen=True)
+class IntegralDivide(_DivisorNullingBinary):
+    """``div``: both operands as LONG, the quotient truncated toward zero
+    (Java's ``/``). A divisor of -1 negates, so Long.MIN div -1 wraps to
+    Long.MIN, as Java and the JAX device path give it, and never reaches
+    the hardware's division trap."""
+    l: Expression
+    r: Expression
+
+    def operand_dtype(self) -> DType:
+        return DType.LONG
+
+    def dtype(self) -> DType:
+        return DType.LONG
+
+    def do_div(self, l, safe):
+        minus_one = safe == -1
+        q = torch.div(l, torch.where(minus_one, 1, safe).to(safe.dtype),
+                      rounding_mode="trunc")
+        return torch.where(minus_one, -l, q)
+
+
+@dataclass(frozen=True)
+class Remainder(_DivisorNullingBinary):
+    """``%``: the remainder with the dividend's sign (Java's ``%``, C's
+    ``fmod`` for floats), in the operands' common type. A divisor of -1
+    gives 0 for every dividend and is taken as 1, which keeps Long.MIN %
+    -1 off the hardware's division trap."""
+    l: Expression
+    r: Expression
+
+    def dtype(self) -> DType:
+        return self.operand_dtype()
+
+    def do_div(self, l, safe):
+        if not l.is_floating_point():
+            safe = torch.where(safe == -1, 1, safe).to(safe.dtype)
+        return torch.fmod(l, safe)
+
+
+@dataclass(frozen=True)
 class Pmod(_DivisorNullingBinary):
     """pmod(a, b): the remainder with the divisor's sign, in the operands'
     common type. Integers take the floor remainder twice, as the JAX
@@ -128,6 +168,14 @@ class UnaryMinus(_Unary):
 
     def fn(self, d: torch.Tensor) -> torch.Tensor:
         return -d
+
+
+@dataclass(frozen=True)
+class UnaryPositive(_Unary):
+    c: Expression
+
+    def fn(self, d: torch.Tensor) -> torch.Tensor:
+        return d
 
 
 @dataclass(frozen=True)

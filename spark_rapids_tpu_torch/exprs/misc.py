@@ -1,5 +1,8 @@
-"""Named expressions, sort ordering and the non-deterministic generators
-``rand`` and ``monotonically_increasing_id``."""
+"""Named expressions, sort ordering, the non-deterministic generators
+``rand`` and ``monotonically_increasing_id``, the partition id and the
+float normalisation Catalyst plans before grouping (the JAX package's
+``exprs/misc.py`` without its input-file metadata, which belongs to the
+file scan)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -93,3 +96,55 @@ class MonotonicallyIncreasingID(Expression):
         return ColV(DType.LONG, data,
                     torch.ones(ctx.capacity, dtype=torch.bool,
                                device=ctx.device))
+
+
+@dataclass(frozen=True)
+class SparkPartitionID(Expression):
+    """The ordinal of the partition being evaluated."""
+
+    def dtype(self) -> DType:
+        return DType.INT
+
+    def nullable(self) -> bool:
+        return False
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        return ColV(DType.INT, torch.full((ctx.capacity,), ctx.partition_id,
+                                          dtype=torch.int32,
+                                          device=ctx.device),
+                    torch.ones(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device))
+
+
+@dataclass(frozen=True)
+class KnownFloatingPointNormalized(Expression):
+    """Catalyst's marker over an already normalized float: its input."""
+    c: Expression
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def nullable(self) -> bool:
+        return self.c.nullable()
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        return self.c.eval(ctx)
+
+
+@dataclass(frozen=True)
+class NormalizeNaNAndZero(Expression):
+    """Every NaN to the one canonical NaN and -0.0 to 0.0 (before grouping
+    or a join)."""
+    c: Expression
+
+    def dtype(self) -> DType:
+        return self.c.dtype()
+
+    def nullable(self) -> bool:
+        return self.c.nullable()
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        d = torch.where(torch.isnan(v.data), float("nan"), v.data)
+        return ColV(v.dtype, torch.where(d == 0, 0.0, d).to(v.data.dtype),
+                    v.validity, is_scalar=v.is_scalar)

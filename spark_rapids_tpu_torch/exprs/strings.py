@@ -1,10 +1,10 @@
-"""String predicates with a constant pattern, ``substring``,
-``substring_index``, ``split(str, regex)[i]``, ``upper``/``lower`` (ASCII
-letters only, as the JAX package's device path), ``length`` (characters),
-the trims, ``concat``, the pads, ``locate``/``instr`` and ``replace`` (the
-part of the JAX package's ``exprs/strings.py`` the query suites and the SQL
-planner's function table use), over
-the byte-matrix layout through ``ops/strings.py``. A literal operand
+"""String predicates with a constant pattern (``rlike`` among them),
+``substring``, ``substring_index``, ``split(str, regex)[i]``,
+``regexp_replace``, ``upper``/``lower``/``initcap`` (ASCII letters only,
+as the JAX package's device path), ``length`` (characters), the trims,
+``concat``, the pads, ``locate``/``instr`` and ``replace`` (the JAX
+package's ``exprs/strings.py``), over the byte-matrix layout through
+``ops/strings.py``. A literal operand
 broadcasts to a column with ``bk.as_column`` (the JAX package's
 ``_as_column``)."""
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import DType
+from spark_rapids_tpu_torch.columnar.dtypes import DType, string_width_bucket
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 from spark_rapids_tpu_torch.exprs.literals import Literal
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
@@ -301,8 +301,9 @@ class Length(Expression):
 
 @dataclass(frozen=True)
 class Concat(Expression):
-    """concat(...): null where any input is; cut at the session's string
-    width in bytes."""
+    """concat(...): null where any input is; as wide as the inputs
+    together (their width bucket), cut at the session's string width in
+    bytes."""
     exprs: Tuple
 
     def dtype(self) -> DType:
@@ -312,8 +313,10 @@ class Concat(Expression):
         vals = [bk.as_column(e.eval(ctx), ctx.capacity) for e in self.exprs]
         out = vals[0]
         for v in vals[1:]:
+            width = string_width_bucket(out.data.shape[-1] + v.data.shape[-1],
+                                        ctx.string_max_bytes)
             data, lengths = sk.concat2(out.data, out.lengths, v.data,
-                                       v.lengths, ctx.string_max_bytes)
+                                       v.lengths, width)
             out = ColV(DType.STRING, data, out.validity & v.validity, lengths)
         return out
 
@@ -468,3 +471,66 @@ class StringRPad(_PadBase):
     length: Expression
     pad: Expression
     side = "right"
+
+
+@dataclass(frozen=True)
+class InitCap(Expression):
+    """initcap: the letter after each space upper case, every other letter
+    lower case (Spark's ``toLowerCase().toTitleCase()``; ASCII letters
+    only, as ``upper``/``lower``)."""
+    c: Expression
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def nullable(self) -> bool:
+        return self.c.nullable()
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = self.c.eval(ctx)
+        return ColV(DType.STRING, sk.initcap(v.data), v.validity, v.lengths,
+                    is_scalar=v.is_scalar)
+
+
+@dataclass(frozen=True)
+class RLike(_ConstPatternPredicate):
+    """str RLIKE pattern: Java's ``Pattern.find``, a match anywhere, by the
+    byte DFA with a leading any-byte loop (the JAX package's device path:
+    '.' consumes one byte)."""
+    c: Expression
+    p: Expression
+
+    def do_match(self, col):
+        dfa = rk.compile_dfa(self.pattern.decode("utf-8"), search=True)
+        return rk.dfa_match(dfa, col.data, col.lengths, search=True)
+
+
+@dataclass(frozen=True)
+class RegExpReplace(Expression):
+    """regexp_replace(str, pattern, replacement) with a literal pattern and
+    replacement (no group references): the leftmost non-overlapping
+    matches, each the longest from its start (the byte DFA's span search,
+    as the JAX device path finds them), each replaced whole; the result is
+    cut at the session's string width. A null pattern or replacement gives
+    nulls; a pattern that can match the empty string is refused."""
+    c: Expression
+    pattern_e: Expression
+    replacement: Expression
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        v = bk.as_column(self.c.eval(ctx), ctx.capacity)
+        pat = _literal_utf8(self.pattern_e, "regexp pattern")
+        repl = _literal_utf8(self.replacement, "regexp replacement")
+        if pat is None or repl is None:
+            return all_null(DType.STRING, ctx, v.data.shape[-1])
+        sel, span_len = regex_spans(pat.decode(), v.data, v.lengths)
+        inside = sk.spans_inside(sel, span_len)
+        pos = torch.arange(v.data.shape[-1], device=v.data.device)
+        plain = ((pos[None, :] < v.lengths[:, None]) & ~(sel | inside)) \
+            .to(torch.int32)
+        data, lengths = sk.reassemble_spans(v.data, sel, plain, repl,
+                                            ctx.string_max_bytes)
+        return ColV(DType.STRING, data, v.validity, lengths)

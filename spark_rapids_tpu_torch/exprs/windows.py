@@ -1,14 +1,13 @@
 """Window expressions (the JAX package's ``exprs/windows.py``): the frame
-spec, ``WindowExpression``, the three ranking functions, ``ntile`` and
-lead/lag.
+spec, ``WindowExpression``, the three ranking functions,
+``percent_rank``, ``cume_dist``, ``ntile`` and lead/lag.
 
 A ``WindowExpression`` pairs a function (an aggregate function, or a
 window function) with its partition keys, order keys and frame. The window
 exec sorts once per (partition, order) spec and hands every expression
 under it one ``FrameCtx`` (``ops/window.py``): a ranking function reads
 its positions, lead and lag gather at an offset inside the partition, and
-an aggregate reduces its buffers over each row's frame. percent_rank and
-cume_dist are not ported yet.
+an aggregate reduces its buffers over each row's frame.
 """
 from __future__ import annotations
 
@@ -129,6 +128,43 @@ class DenseRank(WindowFunction):
         c = torch.cumsum((fr.peer_first == fr.idx).to(torch.int64), 0)
         return _rank_col(c - c[fr.seg_first.clamp(0, fr.capacity - 1)] + 1,
                          fr)
+
+
+def _seg_size(fr) -> torch.Tensor:
+    """The live rows of each row's partition (at least 1)."""
+    return (fr.seg_last - fr.seg_first + 1).to(torch.float64)
+
+
+@dataclass(frozen=True)
+class PercentRank(WindowFunction):
+    """(rank - 1) / (rows - 1), 0 in a partition of one row."""
+
+    def dtype(self) -> DType:
+        return DType.DOUBLE
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        rank = (fr.peer_first - fr.seg_first).to(torch.float64)
+        size = _seg_size(fr)
+        return ColV(DType.DOUBLE, torch.where(
+            size > 1, rank / (size - 1).clamp(min=1), 0.0), fr.salive)
+
+
+@dataclass(frozen=True)
+class CumeDist(WindowFunction):
+    """The share of the partition's rows up to the row's last peer."""
+
+    def dtype(self) -> DType:
+        return DType.DOUBLE
+
+    def nullable(self) -> bool:
+        return False
+
+    def window_eval(self, ctx: EvalCtx, fr) -> ColV:
+        upto = (fr.peer_last - fr.seg_first + 1).to(torch.float64)
+        return ColV(DType.DOUBLE, upto / _seg_size(fr), fr.salive)
 
 
 @dataclass(frozen=True)

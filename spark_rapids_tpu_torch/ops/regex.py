@@ -1,7 +1,7 @@
 """Regex matching as a DFA over the byte matrix (the JAX package's
-``ops/regex.py``: its pattern compiler, copied, the anchored
-``dfa_match`` and the span search ``dfa_find_spans`` /
-``regex_greedy_spans`` that split() cuts at).
+``ops/regex.py``: its pattern compiler, copied, ``dfa_match`` anchored
+and in search mode, and the span search ``dfa_find_spans`` /
+``regex_greedy_spans`` that split() and regexp_replace() cut at).
 
 Patterns are plan-time literals, so compilation runs on the host: the regex
 subset parses to a Thompson NFA, subset construction gives a dense DFA
@@ -286,19 +286,23 @@ def like_to_regex(pattern: str, escape: str = "\\") -> str:
 # ---------------------------------------------------------------------------
 # the matcher
 # ---------------------------------------------------------------------------
-def dfa_match(dfa: Dfa, data, lengths):
-    """bool[n]: each row (its first ``length`` bytes) matches the anchored
-    DFA: the state reached at the row's length is accepting."""
+def dfa_match(dfa: Dfa, data, lengths, search: bool = False):
+    """bool[n]: each row (its first ``length`` bytes) matches the DFA.
+    Anchored, the state reached at the row's length is accepting (a match
+    of the whole row). With ``search`` any state within the row that is
+    accepting counts: with a DFA compiled with ``search=True`` that is a
+    match anywhere (RLIKE)."""
     n, width = data.shape
     device = data.device
     flat = torch.from_numpy(dfa.trans.reshape(-1).astype(np.int64)) \
         .to(device)
     accept = torch.from_numpy(dfa.accept).to(device)
     state = torch.full((n,), dfa.start, dtype=torch.int64, device=device)
-    hit = accept[state] & (lengths == 0)
+    hit = accept[state] & (True if search else lengths == 0)
     for j in range(width):
         state = flat[state * 256 + data[:, j].to(torch.int64)]
-        hit |= accept[state] & (lengths == j + 1)
+        hit |= accept[state] & ((lengths >= j + 1) if search
+                                else (lengths == j + 1))
     return hit
 
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar.dtypes import string_width_bucket
+
 
 def pad_width(data: torch.Tensor, width: int) -> torch.Tensor:
     """Zero-pad a byte matrix (or a scalar's byte vector) to ``width``."""
@@ -265,6 +267,59 @@ def upper_ascii(data: torch.Tensor) -> torch.Tensor:
 
 def lower_ascii(data: torch.Tensor) -> torch.Tensor:
     return torch.where((data >= 65) & (data <= 90), data + 32, data)
+
+
+def initcap(data: torch.Tensor) -> torch.Tensor:
+    """Spark's initcap (``toLowerCase().toTitleCase()``, ASCII letters
+    only): every letter lower case, then the first byte and every byte
+    after a space upper case."""
+    low = lower_ascii(data)
+    after_space = torch.cat([torch.ones_like(data[..., :1], dtype=torch.bool),
+                             data[..., :-1] == 32], dim=-1)
+    return torch.where(after_space, upper_ascii(low), low)
+
+
+#: the most decimal digits of an int64 (Long.MIN has 19 and a sign)
+_MAX_DIGITS = 19
+
+
+def int_to_string(v: torch.Tensor, width: int):
+    """Integral values -> their decimal strings ``(data, lengths)``, as
+    wide as the width bucket of Long.MIN's 20 characters, at most
+    ``width``.
+    Digits come from the non-positive magnitude (``-|v|``, which every
+    int64 has, Long.MIN too) by truncating division by powers of ten."""
+    v = v.to(torch.int64)
+    n = v.shape[0]
+    neg = v < 0
+    m = torch.where(neg, v, -v)                          # -|v|
+    powers = torch.tensor([10 ** (_MAX_DIGITS - 1 - i)
+                           for i in range(_MAX_DIGITS)], dtype=torch.int64,
+                          device=v.device)
+    digits = -torch.fmod(torch.div(m[:, None], powers, rounding_mode="trunc"),
+                         10)                              # [n, 19], MSD first
+    nonzero = digits != 0
+    ndigits = torch.where(nonzero.any(dim=-1),
+                          _MAX_DIGITS - nonzero.to(torch.uint8)
+                          .argmax(dim=-1), 1).to(torch.int32)
+    nlen = ndigits + neg.to(torch.int32)
+    out_w = string_width_bucket(_MAX_DIGITS + 1, width)
+    j = _positions(out_w, v.device)[None, :]
+    src = (_MAX_DIGITS - ndigits[:, None] + j - neg.to(torch.int32)[:, None])
+    out = digits.gather(1, src.clamp(0, _MAX_DIGITS - 1).to(torch.int64)) + 48
+    out = torch.where(neg[:, None] & (j == 0), 45, out)
+    keep = j < nlen[:, None]
+    return torch.where(keep, out, 0).to(torch.uint8).reshape(n, out_w), nlen
+
+
+def bool_to_string(v: torch.Tensor, width: int):
+    """Booleans -> ``true``/``false`` ``(data, lengths)``, 8 bytes wide
+    (``width``, the session's cap, is at least that)."""
+    rows = torch.zeros((2, 8), dtype=torch.uint8)
+    rows[0, :5] = torch.tensor(list(b"false"), dtype=torch.uint8)
+    rows[1, :4] = torch.tensor(list(b"true"), dtype=torch.uint8)
+    rows = rows.to(v.device)
+    return rows[v.to(torch.int64)], torch.where(v, 4, 5).to(torch.int32)
 
 
 def locate(data: torch.Tensor, lengths: torch.Tensor, needle: bytes,

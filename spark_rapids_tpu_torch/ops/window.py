@@ -1,5 +1,5 @@
-"""Window positions, frames and framed sums (the JAX package's
-``ops/window.py``, without the framed min/max, first and last).
+"""Window positions, frames and framed reductions (the JAX package's
+``ops/window.py``).
 
 One sort by (partition keys, order keys) puts every partition's rows in a
 contiguous run in order; ``build_frame_ctx`` then gives each row, in that
@@ -15,12 +15,12 @@ holds the direction-normalised key values that RANGE offsets search.
 ``frame_bounds`` turns a ROWS or RANGE frame into an inclusive row interval
 per row: ROWS by index arithmetic clipped to the partition, RANGE offsets
 by a per-row binary search over the order values. ``frame_reduce_buffer``
-reduces an aggregate's sum buffer over those intervals (so a sum, a count
-or an average is framed): a difference of an exclusive prefix sum at the
-two ends. A float prefix sum on the GPU is taken in a fixed order
-(``prefix_sum``), so the same rows give the same bits every run. Framed
-min and max (the JAX package's sparse-table RMQ), first and last are not
-ported yet.
+reduces an aggregate's buffer over those intervals by its kind: a sum (so
+a sum, a count or an average is framed) as a difference of prefix sums
+that restart at each partition, taken in one order on every device
+(``segmented_prefix_sum``); min and max by the JAX package's sparse-table
+range query; first and last by the frame's ends or, ignoring nulls, a
+binary search over the running count of valid rows.
 """
 from __future__ import annotations
 
@@ -33,10 +33,6 @@ import torch
 from spark_rapids_tpu_torch.columnar.dtypes import DType
 from spark_rapids_tpu_torch.exprs.core import ColV
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
-
-#: row length of ``prefix_sum``'s fixed-order blocks
-_SCAN_BLOCK = 1024
-
 
 @dataclass
 class FrameCtx:
@@ -180,46 +176,205 @@ def frame_bounds(fr: FrameCtx, frame_type: str, lower, upper):
     return lo, hi, (lo > hi) | ~fr.salive
 
 
-def prefix_sum(a: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum. An integer sum is exact in any order and the
-    CPU adds in row order; on the GPU a float sum adds in a fixed order:
-    within rows of ``_SCAN_BLOCK`` values (torch's per-row scan of a 2-D
-    tensor), then the rows' totals the same way. torch's 1-D CUDA scan
-    (CUB's decoupled look-back) is not used for floats: which partial sums
-    it combines depends on timing, and with them the last bits."""
-    if not a.is_floating_point() or a.device.type == "cpu":
-        return torch.cumsum(a, 0)
+def segmented_prefix_sum(a: torch.Tensor,
+                         seg_first: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum restarting at each row's ``seg_first``. An
+    integer sum is exact in any order: one running sum, less its value
+    before the segment. A float sum adds by doubling distances (step d:
+    each row adds the row d before it when that row is in its segment):
+    the same element-wise additions of the same operands on every device,
+    so the CPU and the GPU give the same bits, and a segment's sums never
+    carry the rounding of the rows before it."""
+    if not a.is_floating_point():
+        c = torch.cumsum(a, 0)
+        before = torch.where(seg_first > 0,
+                             c[(seg_first - 1).clamp(min=0)], 0)
+        return c - before.to(c.dtype)
     n = a.shape[0]
-    rows = max(2, -(-n // _SCAN_BLOCK))   # two rows keep the 2-D kernel
-    blocks = torch.nn.functional.pad(a, (0, rows * _SCAN_BLOCK - n)) \
-        .view(rows, _SCAN_BLOCK)
-    c = torch.cumsum(blocks, dim=1)
-    if n <= _SCAN_BLOCK:
-        return c[0, :n]
-    carry = prefix_sum(c[:, -1])
-    carry = torch.cat([carry.new_zeros(1), carry[:-1]])
-    return (c + carry[:, None]).view(-1)[:n]
+    idx = torch.arange(n, device=a.device)
+    d = 1
+    while d < n:
+        take = idx - d >= seg_first
+        shifted = torch.nn.functional.pad(a[:-d], (d, 0))
+        a = a + torch.where(take, shifted, 0.0).to(a.dtype)
+        d *= 2
+    return a
 
 
-def _exclusive_prefix_sum(a: torch.Tensor) -> torch.Tensor:
-    """p[0] = 0, p[i] = sum(a[:i]) (n + 1 values)."""
-    return torch.cat([a.new_zeros(1), prefix_sum(a)])
+def _exclusive_count(flag: torch.Tensor) -> torch.Tensor:
+    """c[0] = 0, c[i] = the set flags among the first i (n + 1 values)."""
+    return torch.cat([flag.new_zeros(1, dtype=torch.int64),
+                      torch.cumsum(flag.to(torch.int64), 0)])
 
 
-def frame_reduce_buffer(fr: FrameCtx, buf: ColV, kind: str, lo, hi,
-                        empty) -> ColV:
-    """One aggregate's ``sum`` buffer reduced over each row's frame
-    [lo, hi] (the group-by reduction kind, so an aggregate's ``project``
-    and ``evaluate`` serve windows unchanged); valid where a valid row
-    takes part."""
-    if kind != "sum":
-        raise NotImplementedError(
-            f"framed {kind} (the JAX package's RMQ and end picks) is not "
-            f"ported yet")
+def _rmq_table(data: torch.Tensor, neutral, pick, levels: int):
+    """The sparse table of range minima (or maxima) for ``levels`` levels:
+    level k holds the pick of the 2^k rows from each row (the neutral value
+    past the end)."""
+    tables = [data]
+    for k in range(1, levels):
+        w = 1 << (k - 1)
+        t = tables[-1]
+        tables.append(pick(t, torch.cat([t[w:], torch.full(
+            (w,), neutral, dtype=t.dtype, device=t.device)])))
+    return torch.stack(tables)
+
+
+def rmq_reduce(data: torch.Tensor, neutral, kind: str, lo, hi, empty):
+    """Min or max over each row's inclusive [lo, hi], the neutral value
+    where the frame is empty: two lookups in a sparse table, as the JAX
+    package's ``rmq_reduce``. The table gets only the levels the longest
+    frame needs (level k answers every frame of 2^k to 2^(k+1) - 1 rows),
+    so a frame of a few rows costs a few copies of the column."""
+    cap = data.shape[0]
+    pick = _min_pick if kind == "min" else _max_pick
+    length = torch.clamp(hi - lo + 1, min=1, max=max(cap, 1))
+    k = torch.floor(torch.log2(length.to(torch.float64))).to(torch.int64)
+    table = _rmq_table(data, neutral, pick, int(k.max()) + 1 if cap else 1)
+    a = table[k, lo.clamp(0, cap - 1)]
+    b = table[k, (hi - (1 << k) + 1).clamp(0, cap - 1)]
+    return torch.where(empty, torch.tensor(neutral, dtype=data.dtype,
+                                           device=data.device), pick(a, b))
+
+
+def _min_pick(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The smaller, -0.0 below 0.0 (XLA's min, the JAX device path's;
+    ``torch.minimum`` returns either zero)."""
+    if not a.is_floating_point():
+        return torch.minimum(a, b)
+    return torch.where((a < b) | ((a == b) & torch.signbit(a)), a, b)
+
+
+def _max_pick(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not a.is_floating_point():
+        return torch.maximum(a, b)
+    return torch.where((a > b) | ((a == b) & ~torch.signbit(a)), a, b)
+
+
+def frame_reduce_buffer(fr: FrameCtx, buf: ColV, kind: str, lo, hi, empty,
+                        ignore_nulls: bool = False) -> ColV:
+    """One aggregate buffer reduced over each row's frame [lo, hi] by the
+    buffer's reduction kind (the group-by kinds, so an aggregate's
+    ``project`` and ``evaluate`` serve windows unchanged), valid where a
+    valid row takes part: ``sum`` as a difference of the partition's
+    prefix sums (``segmented_prefix_sum``), ``min``/``max`` by the sparse
+    table (strings by their rank in byte order), ``first``/``last`` the
+    frame's end row, or with ``ignore_nulls`` its first or last valid
+    row."""
     participating = buf.validity & fr.salive
-    pcount = _exclusive_prefix_sum(participating.to(torch.int64))
+    pcount = _exclusive_count(participating)
     lo_c = torch.where(empty, 0, lo)
     hi1 = torch.where(empty, 0, hi + 1)
-    p = _exclusive_prefix_sum(torch.where(participating, buf.data, 0)
-                              .to(buf.data.dtype))
-    return ColV(buf.dtype, p[hi1] - p[lo_c], (pcount[hi1] - pcount[lo_c]) > 0)
+    any_valid = (pcount[hi1] - pcount[lo_c]) > 0
+    if kind == "sum":
+        contrib = torch.where(participating, buf.data, 0).to(buf.data.dtype)
+        p = segmented_prefix_sum(contrib, fr.seg_first)
+        before = torch.where(lo_c > fr.seg_first, p[(lo_c - 1).clamp(min=0)],
+                             0).to(p.dtype)
+        data = torch.where(empty, 0, p[(hi1 - 1).clamp(min=0)] - before)
+        if contrib.is_floating_point():
+            data = _whole_column_nonfinite(contrib, lo_c, hi1, data)
+        return ColV(buf.dtype, data.to(p.dtype), any_valid)
+    if kind in ("min", "max"):
+        if buf.dtype is DType.STRING:
+            return _frame_minmax_string(fr, buf, kind, lo, hi, empty,
+                                        participating, any_valid)
+        return _frame_minmax(buf, kind, lo, hi, empty, participating,
+                             pcount, lo_c, hi1, any_valid)
+    if kind not in ("first", "last"):
+        raise ValueError(kind)
+    if not ignore_nulls:
+        pos = (lo if kind == "first" else hi).clamp(0, fr.capacity - 1)
+        valid = ~empty & buf.validity[pos] & fr.salive[pos]
+    else:
+        cnt_incl = pcount[1:]
+        if kind == "first":
+            # the first row of the frame past the count before it
+            pos = _bsearch(cnt_incl, pcount[lo_c], lo_c, hi1, "right")
+        else:
+            # the row where the count reaches the frame's total
+            pos = _bsearch(cnt_incl, pcount[hi1] - 1, lo_c, hi1, "right")
+        pos = pos.clamp(0, fr.capacity - 1)
+        valid = any_valid & ~empty
+    return bk.take_colv(buf, pos).with_validity(valid)
+
+
+def _whole_column_nonfinite(contrib: torch.Tensor, lo_c, hi1,
+                            data: torch.Tensor) -> torch.Tensor:
+    """The JAX device path's framed float sum is ``p[hi + 1] - p[lo]`` of
+    the whole column's prefix sums, so a NaN or an infinity anywhere
+    before a frame's end makes it non-finite, in later partitions too.
+    Each prefix's class (finite, +inf, -inf, NaN) follows from exact
+    counts of the NaNs and infinities before it, and the difference of
+    two classes from IEEE's rules; the constants keep one NaN bit pattern
+    on every device. Where both ends are finite the partition's own sum
+    stands."""
+    def ends(flag):
+        c = _exclusive_count(flag)
+        return c[hi1] > 0, c[lo_c] > 0
+    (nan_a, nan_b), (pos_a, pos_b), (neg_a, neg_b) = (
+        ends(torch.isnan(contrib)), ends(contrib == math.inf),
+        ends(contrib == -math.inf))
+    nan_a, nan_b = nan_a | (pos_a & neg_a), nan_b | (pos_b & neg_b)
+    pos_a, neg_a = pos_a & ~nan_a, neg_a & ~nan_a
+    pos_b, neg_b = pos_b & ~nan_b, neg_b & ~nan_b
+    # b's prefix lies inside a's, so an infinite b has an infinite a
+    nan = nan_a | nan_b | (pos_a & pos_b) | (neg_a & neg_b)
+    out = torch.where(pos_a, math.inf, torch.where(neg_a, -math.inf, data))
+    return torch.where(nan, math.nan, out).to(data.dtype)
+
+
+def _frame_minmax(buf: ColV, kind: str, lo, hi, empty, participating,
+                  pcount, lo_c, hi1, any_valid) -> ColV:
+    """Numeric framed min/max in Spark's order: NaN is above every value,
+    so it is taken as +inf for the table and counted; a max that saw a
+    NaN is NaN, a min only when every valid value was."""
+    from spark_rapids_tpu_torch.exprs.aggregates import _reduce_neutral
+    dt = buf.dtype
+    d = buf.data
+    if dt is DType.BOOLEAN:
+        neutral = int(kind == "min")
+        contrib = torch.where(participating, d.to(torch.int8), neutral) \
+            .to(torch.int8)
+        res = rmq_reduce(contrib, neutral, kind, lo, hi, empty)
+        return ColV(dt, res.to(torch.bool), any_valid)
+    if not dt.is_floating:
+        neutral = _reduce_neutral(kind, dt)
+        contrib = torch.where(participating, d, neutral).to(d.dtype)
+        return ColV(dt, rmq_reduce(contrib, neutral, kind, lo, hi, empty),
+                    any_valid)
+    nan = torch.isnan(d) & participating
+    neutral = math.inf if kind == "min" else -math.inf
+    contrib = torch.where(participating, torch.where(nan, math.inf, d),
+                          neutral).to(d.dtype)
+    res = rmq_reduce(contrib, neutral, kind, lo, hi, empty)
+    ncount = _exclusive_count(nan)
+    n_nan = ncount[hi1] - ncount[lo_c]
+    if kind == "max":
+        res = torch.where(n_nan > 0, math.nan, res)
+    else:
+        vcount = pcount[hi1] - pcount[lo_c]
+        res = torch.where((vcount > 0) & (n_nan == vcount), math.nan, res)
+    return ColV(dt, res.to(d.dtype), any_valid)
+
+
+def _frame_minmax_string(fr: FrameCtx, buf: ColV, kind: str, lo, hi, empty,
+                         participating, any_valid) -> ColV:
+    """Framed min/max of strings: each valid row's rank in byte order (one
+    sort), the integer table over the ranks, then the row of the picked
+    rank."""
+    n = fr.capacity
+    order = bk.sort_indices([(buf, True, True)], participating)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, dtype=order.dtype, device=order.device)
+    if kind == "min":
+        key = torch.where(participating, rank, n + 1)
+        res = rmq_reduce(key, n + 1, "min", lo, hi, empty)
+        has = res <= n
+    else:
+        key = torch.where(participating, rank, -1)
+        res = rmq_reduce(key, -1, "max", lo, hi, empty)
+        has = res >= 0
+    pick = order[res.clamp(0, n - 1)]
+    out = bk.take_colv(buf, pick)
+    return out.with_validity(has & any_valid & out.validity)

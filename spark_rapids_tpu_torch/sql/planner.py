@@ -23,10 +23,9 @@ Constant folding: date +/- interval arithmetic folds at plan time; interval
 day arithmetic over columns lowers to date_add/date_sub.
 
 The JAX package's planner onto the port's ``api`` and ``exprs``: the plan
-runs on the session's device. What the port has not ported yet (three
-entries of ``_FUNCS``, ``percent_rank`` and ``cume_dist``, ``%``,
-INTERSECT/EXCEPT and PIVOT) raises ``SqlError`` at plan time, naming it;
-nothing falls back to another engine.
+runs on the session's device, and every function, operator, set operation
+and clause the JAX planner takes is planned; nothing falls back to another
+engine.
 """
 from __future__ import annotations
 
@@ -39,10 +38,6 @@ from spark_rapids_tpu_torch.sql import ast as A
 from spark_rapids_tpu_torch.sql.lexer import SqlError
 
 col = F.col
-
-
-def _not_ported(what: str):
-    raise SqlError(f"{what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -221,15 +216,20 @@ _FUNCS = {
                                  else 1),
     "replace": lambda a: F.replace(a[0], _str(a[1]),
                                    _str(a[2]) if len(a) > 2 else ""),
-    "regexp_replace": lambda a: _not_ported("function 'regexp_replace'"),
+    "regexp_replace": lambda a: F.regexp_replace(a[0], _str(a[1]),
+                                                 _str(a[2])),
     "nvl": lambda a: (F.coalesce(*a) if len(a) == 2
                       else _arity_error("nvl", 2, len(a))),
     "nanvl": lambda a: F.nanvl(a[0], a[1]),
     "pmod": lambda a: F.pmod(a[0], a[1]),
     "char_length": lambda a: F.length(a[0]),
     "weekday": lambda a: F.weekday(a[0]),
-    "from_unixtime": lambda a: _not_ported("function 'from_unixtime'"),
-    "unix_timestamp": lambda a: _not_ported("function 'unix_timestamp'"),
+    "from_unixtime": lambda a: (F.from_unixtime(a[0]) if len(a) == 1
+                                else _arity_error("from_unixtime with a "
+                                                  "format", 1, len(a))),
+    "unix_timestamp": lambda a: (F.unix_timestamp(a[0]) if len(a) == 1
+                                 else _arity_error("unix_timestamp with a "
+                                                   "format", 1, len(a))),
     "substring_index": lambda a: F.substring_index(a[0], _str(a[1]),
                                                    _int(a[2])),
 }
@@ -391,7 +391,7 @@ def _binop(node: A.BinOp, scope: Scope) -> Column:
     if op == "/":
         return l / r
     if op == "%":
-        _not_ported("operator '%' (Remainder)")
+        return l % r
     if op == "=":
         return l == r
     if op == "<>":
@@ -470,10 +470,7 @@ def _window_func(node: A.WindowFuncCall, scope: Scope) -> Column:
             "the aggregate under OVER also appears as a plain aggregate; "
             "alias the plain aggregate and window over the alias instead")
     if f.name in _WINDOW_FUNCS:
-        make = getattr(F, _WINDOW_FUNCS[f.name], None)
-        if make is None:
-            _not_ported(f"window function {f.name!r}")
-        fn = make()
+        fn = getattr(F, _WINDOW_FUNCS[f.name])()
     elif f.name == "ntile":
         if len(f.args) != 1 or not isinstance(f.args[0], A.Lit):
             raise SqlError("ntile(n) needs an integer literal")
@@ -550,8 +547,10 @@ class SqlPlanner:
             # left arm's output names
             rdf = rdf.select(*[col(rn).alias(ln)
                                for rn, ln in zip(rnames, lnames)])
-            if stmt.op in ("intersect", "except"):
-                _not_ported(stmt.op.upper())
+            if stmt.op == "intersect":
+                return ldf.intersect(rdf), lnames
+            if stmt.op == "except":
+                return ldf.subtract(rdf), lnames
             df = ldf.union(rdf)
             if stmt.op == "union":      # UNION (distinct)
                 df = df.distinct()
@@ -642,8 +641,61 @@ class SqlPlanner:
                                 for c in out_names])
             return _Rel(rel.alias, pref, out_names)
         if isinstance(rel, A.PivotRef):
-            _not_ported("PIVOT")
+            return self._load_pivot(rel)
         raise SqlError(f"unsupported FROM item {type(rel).__name__}")
+
+    def _load_pivot(self, rel: "A.PivotRef") -> _Rel:
+        """Spark SQL PIVOT: implicit group-by over every column not
+        consumed by the pivot column or the aggregates, then
+        GroupedData.pivot."""
+        from spark_rapids_tpu_torch.exprs import Alias as EAlias
+        base = self._load_relation(rel.child)
+        scope = Scope([(base.alias, base.raw_cols)])
+        pivot_pref = scope.resolve(rel.pivot_col)
+        consumed = {pivot_pref}
+        agg_cols = []
+        multi = len(rel.aggs) > 1
+        for e, al in rel.aggs:
+            for ref in _refs(e):
+                consumed.add(scope.resolve(ref))
+            c = to_column(e, scope)
+            if al is not None:
+                c = Column(EAlias(c.expr, al))
+            elif multi:
+                raise SqlError(
+                    "PIVOT with multiple aggregates needs an alias on "
+                    "each (agg AS name)")
+            agg_cols.append(c)
+        group_pref = [f"{base.alias}.{c}" for c in base.raw_cols
+                      if f"{base.alias}.{c}" not in consumed]
+        values = [v for v, _ in rel.values]
+        out = (base.df.groupBy(*[col(g) for g in group_pref])
+               .pivot(pivot_pref, values).agg(*agg_cols))
+        # value aliases rename the generated columns (IN (1 AS one)).
+        # GroupedData names plain '{value}' ONLY for a single unaliased
+        # aggregate; any alias (or multiple aggs) appends '_{aggAlias}'
+        suffixes = ([al for _, al in rel.aggs]
+                    if (multi or rel.aggs[0][1] is not None) else None)
+        renames = {}
+        for v, val_alias in rel.values:
+            if val_alias is None:
+                continue
+            vbase = "null" if v is None else str(v)
+            if suffixes is None:
+                renames[vbase] = val_alias
+            else:
+                for al in suffixes:
+                    renames[f"{vbase}_{al}"] = f"{val_alias}_{al}"
+        if renames:
+            out = out.withColumnsRenamed(renames)
+        alias = rel.alias or base.alias
+        raw = ([c.split(".", 1)[1] for c in group_pref]
+               + [c for c in out.columns if c not in group_pref])
+        pref = out.select(
+            *[col(c).alias(f"{alias}.{c.split('.', 1)[1]}")
+              if c in group_pref else col(c).alias(f"{alias}.{c}")
+              for c in out.columns])
+        return _Rel(alias, pref, raw)
 
     def _nullable_aliases(self, stmt: A.Select):
         """Aliases whose columns may be null-extended by an outer join (the
@@ -943,7 +995,7 @@ class SqlPlanner:
             _, names = self.plan(rel.query)
             return names
         if isinstance(rel, A.PivotRef):
-            _not_ported("PIVOT")
+            return self._load_pivot(rel).raw_cols
         raise SqlError(f"unsupported FROM item {type(rel).__name__}")
 
     def _plan_from_where(self, stmt: A.Select):

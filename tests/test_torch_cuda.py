@@ -717,3 +717,89 @@ def test_cuda_grace_join_through_host_tier_equals_single_pass(cuda):
     assert dm.spilled_bytes()["host"] > 0
     assert forced == single
     assert not dm.catalog.ids()
+
+
+@pytest.mark.cuda
+def test_cuda_floor_ceil_saturate_as_cpu(cuda):
+    """floor and ceil of +-inf, 1e300, 9.3e18 and NaN saturate at the long
+    bounds and take NaN to 0, on the card as on the CPU."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs import BoundReference, Ceil, Floor
+    from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
+    vals = np.array([np.inf, -np.inf, 1e300, -1e300, 9.3e18, -9.3e18,
+                     np.nan, 2.5, -2.5, -0.0])
+    i64 = np.iinfo(np.int64)
+    want = {Floor: [i64.max, i64.min, i64.max, i64.min, i64.max, i64.min, 0,
+                    2, -3, 0],
+            Ceil: [i64.max, i64.min, i64.max, i64.min, i64.max, i64.min, 0,
+                   3, -2, 0]}
+    for cls, expect in want.items():
+        for dev in ("cuda", "cpu"):
+            col = ColV(DType.DOUBLE, torch.from_numpy(vals).to(dev),
+                       torch.ones(len(vals), dtype=torch.bool, device=dev))
+            out = cls(BoundReference(0, DType.DOUBLE)).eval(
+                EvalCtx([col], len(vals), torch.device(dev)))
+            assert out.data.cpu().tolist() == expect, (cls, dev)
+
+
+def _window_case(dev, n, seed):
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.exprs.core import ColV
+    rng = np.random.default_rng(seed)
+    vals = rng.choice(np.r_[rng.standard_normal(64) * 1e3,
+                            [0.0, -0.0, np.nan, np.inf]], n)
+    words = np.zeros((n, 8), np.uint8)
+    words[:, :3] = rng.integers(97, 100, (n, 3))
+    cols = [(DType.LONG, rng.integers(0, 500, n)),
+            (DType.LONG, rng.integers(0, 100_000, n)),
+            (DType.DOUBLE, vals)]
+    valid = torch.from_numpy(rng.random(n) > 0.1)
+    out = [ColV(t, torch.from_numpy(a).to(dev), valid.to(dev))
+           for t, a in cols]
+    out.append(ColV(DType.STRING, torch.from_numpy(words).to(dev),
+                    valid.to(dev),
+                    torch.full((n,), 3, dtype=torch.int32, device=dev)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [("rows", -3, 0), ("rows", None, 0),
+                                   ("range", -50, 20)])
+def test_cuda_framed_min_max_first_last_repeat_and_equal_cpu(cuda, frame):
+    """Framed min/max (doubles with NaN and -0.0, strings), first/last
+    with and without ignore nulls, percent_rank's and cume_dist's
+    divisions and the framed float sum: the card gives the same bits on
+    every run, and the CPU's."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    from spark_rapids_tpu_torch.execs.window_execs import evaluate_window
+    from spark_rapids_tpu_torch.exprs import (Alias, BoundReference, First,
+                                              Last, Max, Min, SortOrder, Sum)
+    from spark_rapids_tpu_torch.exprs.core import EvalCtx
+    from spark_rapids_tpu_torch.exprs.windows import (CumeDist, PercentRank,
+                                                      WindowExpression,
+                                                      WindowFrame)
+    n = 1 << 20
+    refs = [BoundReference(i, t) for i, t in enumerate(
+        (DType.LONG, DType.LONG, DType.DOUBLE, DType.STRING))]
+    spec = dict(part_keys=(refs[0],), orders=(SortOrder(refs[1]),))
+    framed = dict(spec, frame=WindowFrame(*frame))
+    fns = [Max(refs[2]), Min(refs[2]), Min(refs[3]), Max(refs[3]),
+           First(refs[2]), Last(refs[2], True), Sum(refs[2])]
+    wexprs = tuple(Alias(WindowExpression(f, **framed), f"w{i}")
+                   for i, f in enumerate(fns))
+    ranks = (Alias(WindowExpression(PercentRank(), **spec), "pr"),
+             Alias(WindowExpression(CumeDist(), **spec), "cd"))
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        cols = _window_case(dev, n, seed=3)
+        ctx = EvalCtx(cols, n, torch.device(dev))
+        res = evaluate_window(ctx, wexprs, n)[4:] + \
+            evaluate_window(ctx, ranks, n)[4:]
+        runs.append([(r.data.cpu(), r.validity.cpu()) for r in res])
+    def bits(t):
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+    for a, b, c in zip(*runs):
+        assert torch.equal(a[1], b[1]) and torch.equal(a[1], c[1])
+        v = a[1]
+        assert torch.equal(bits(a[0][v]), bits(b[0][v]))
+        assert torch.equal(bits(a[0][v]), bits(c[0][v]))

@@ -85,6 +85,19 @@ assert grace.counters()["spill_partitions"] > 0
 cached = forced.create_dataframe(gen_lineitem(0.0005, 4)).cache()
 assert q1(cached).collect().num_rows == q1(cached).collect().num_rows == 6
 assert any(isinstance(n, TpuCachedScanExec) for n in forced.last_plan.walk())
+# the expression and SQL surface: %, casts to strings, regexp_replace,
+# percent_rank, a framed max, PIVOT, EXCEPT, and show and describe
+from spark_rapids_tpu_torch.benchmarks import sql_surface as ss
+from spark_rapids_tpu_torch.benchmarks import tpcds_data as dsd
+surf = TpuSession(BENCH_CONF, device="cpu")
+for k, v in dsd.gen_all(0.002, 0, ss.COLUMNS,
+                        tables=list(ss.COLUMNS)).items():
+    surf.create_dataframe(v).createOrReplaceTempView(k)
+for name in ("remainder", "cast_string", "regexp_replace",
+             "percent_rank_cume_dist", "framed_min_max", "pivot"):
+    surf.sql(ss.SQL[name]).collect()
+assert surf.sql(ss.Q87_SPEC).collect().num_rows == 1
+surf.table("item").select("i_item_sk", "i_brand").describe().show()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -105,9 +118,10 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22,
     the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
     q23, q28), TPC-H Q6's SQL text through ``TpuSession.sql``, Q3 forced
-    out of core (memory/grace.py) and Q1 over a cached DataFrame
-    (memory/df_cache.py) run, with no jax, nothing of the JAX package and
-    no pyarrow loaded."""
+    out of core (memory/grace.py), Q1 over a cached DataFrame
+    (memory/df_cache.py) and the expression and SQL surface's queries
+    (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
+    no jax, nothing of the JAX package and no pyarrow loaded."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)

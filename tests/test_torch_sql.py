@@ -12,8 +12,9 @@
   within relative 1e-9);
 - tests/test_sql.py's parser and planner unit statements, where their
   functions are ported, equal the JAX numpy engine's run; a statement
-  whose function or clause is not ported raises ``SqlError`` naming it
-  with "not ported yet", at plan time;
+  that the port refused until it had their functions (INTERSECT, EXCEPT,
+  PIVOT, ``%``, ``regexp_replace``, the unix-time conversions,
+  ``percent_rank`` and ``cume_dist``) equals the reference;
 - one statement per function the SQL planner's table gained with this
   slice, over nulls, NaN and multibyte strings.
 """
@@ -287,25 +288,22 @@ UNIT = [
 ]
 
 #: statements the port does not plan yet, with the name its error gives
-NOT_PORTED = [
-    ("intersect", "select a from ta intersect select b from tb",
-     "INTERSECT"),
-    ("except", "select a from ta except select b from tb", "EXCEPT"),
+#: statements the port refused at plan time until it had their functions,
+#: set operations and clauses; each now equals the reference
+FORMERLY_REFUSED = [
+    ("intersect", "select a from ta intersect select b from tb", False),
+    ("except", "select a from ta except select b from tb", False),
     ("pivot", "select * from sales pivot (sum(amt) for q in ('q1', 'q2')) "
-     "order by year", "PIVOT"),
+     "order by year", True),
     ("pivot_unaliased_subquery", "select * from (select year, q, amt from "
-     "sales) pivot (sum(amt) for q in ('q1', 'q2')) order by year",
-     "PIVOT"),
-    ("regexp_replace", "select regexp_replace(s, 'l+', 'L') from ts",
-     "regexp_replace"),
-    ("from_unixtime", "select from_unixtime(n) from ts", "from_unixtime"),
-    ("unix_timestamp", "select unix_timestamp(s) from ts",
-     "unix_timestamp"),
-    ("percent_rank", "select percent_rank() over (order by v) from tw",
-     "percent_rank"),
-    ("cume_dist", "select cume_dist() over (order by v) from tw",
-     "cume_dist"),
-    ("remainder", "select v % 3 from tw", "%"),
+     "sales) pivot (sum(amt) for q in ('q1', 'q2')) order by year", True),
+    ("regexp_replace", "select regexp_replace(s, 'l+', 'L') from ts", False),
+    ("from_unixtime", "select from_unixtime(n) from ts", False),
+    ("unix_timestamp", "select unix_timestamp(d) from dates", False),
+    ("percent_rank", "select v, percent_rank() over (order by v) from tw",
+     False),
+    ("cume_dist", "select v, cume_dist() over (order by v) from tw", False),
+    ("remainder", "select v % 3, v from tw", False),
 ]
 
 #: statements both engines refuse, and the error's pattern
@@ -331,21 +329,31 @@ REFUSED = [
 ]
 
 
+#: statements held against the JAX device path (its TPU session on the
+#: CPU): floor/ceil of +-inf, 1e300 and NaN, where the JAX numpy engine's
+#: conversion gives Long.MIN and the device path Spark's saturation
+_DEVICE_YARDSTICK = {"floor_ceil_sqrt_pow"}
+
+
 @pytest.fixture(scope="module")
 def unit_sessions():
     jsess = JaxSession({**CONF, "spark.rapids.tpu.sql.enabled": "false"})
+    jdev = JaxSession(CONF)
     sess = TpuSession(CONF, device="cpu")
     for name, table in _unit_tables().items():
         jsess.create_dataframe(table).createOrReplaceTempView(name)
+        jdev.create_dataframe(table).createOrReplaceTempView(name)
         sess.create_dataframe(table).createOrReplaceTempView(name)
-    return jsess, sess
+    return jsess, sess, jdev
 
 
 @pytest.mark.parametrize("name,stmt,ordered", UNIT,
                          ids=[u[0] for u in UNIT])
 def test_unit_statement_matches_reference(unit_sessions, name, stmt,
                                           ordered):
-    jsess, sess = unit_sessions
+    jsess, sess, jdev = unit_sessions
+    if name in _DEVICE_YARDSTICK:
+        jsess = jdev
     assert _tree(parse_sql(stmt)) == _tree(jparse(stmt))
     want = jsess.sql(stmt).collect()
     got = sess.sql(stmt).collect()
@@ -354,22 +362,19 @@ def test_unit_statement_matches_reference(unit_sessions, name, stmt,
                         approx_float=1e-9)
 
 
-@pytest.mark.parametrize("name,stmt,what", NOT_PORTED,
-                         ids=[u[0] for u in NOT_PORTED])
-def test_unported_statement_raises_at_plan_time(unit_sessions, name, stmt,
-                                                what):
-    _, sess = unit_sessions
-    assert _tree(parse_sql(stmt)) == _tree(jparse(stmt))
-    with pytest.raises(SqlError, match="not ported yet") as err:
-        sess.sql(stmt)
-    assert what in str(err.value)
+@pytest.mark.parametrize("name,stmt,ordered", FORMERLY_REFUSED,
+                         ids=[u[0] for u in FORMERLY_REFUSED])
+def test_formerly_refused_statement_matches_reference(unit_sessions, name,
+                                                      stmt, ordered):
+    test_unit_statement_matches_reference(unit_sessions, name, stmt,
+                                          ordered)
 
 
 @pytest.mark.parametrize("name,stmt,err,jerr,pattern", REFUSED,
                          ids=[u[0] for u in REFUSED])
 def test_refused_statement_raises_as_reference(unit_sessions, name, stmt,
                                                err, jerr, pattern):
-    jsess, sess = unit_sessions
+    jsess, sess, _ = unit_sessions
     with pytest.raises(jerr, match=pattern):
         jsess.sql(stmt)
     with pytest.raises(err, match=pattern):
