@@ -165,7 +165,32 @@ Phases:
      Q51_CHECK_SF (its running float sum) against its CPU run; then each
      query at the run's scale over phase 10's tables (the sales facts
      hash 8), cold and warm, with walls, reorder launches and peak device
-     memory; each spec text must equal its rewrite.
+     memory; each spec text must equal its rewrite;
+ 16. slice 12's main path, the parquet scan and the encoded domain
+     (``TpuSession.read.parquet``): phase 2 writes lineitem (Q1's columns
+     and l_orderkey) and store_sales, item and date_dim (the columns of
+     q3, q42, q52 and q55) at the run's scale with pyarrow into a
+     temporary directory, 16 row groups each (bench.py:1192); TPC-H Q1
+     cold from lineitem.parquet with io.scan.prefetchBatches 2 and 0 and
+     io.parquet.deviceDictDecode.enabled on and off (bench.py's cold conf:
+     no scan cache, 16-byte strings), each equal to phase 6's in-memory
+     cold Q1 (exact but the float sums, within REL_TOL), with the cold
+     walls, serial_s/pipelined_s, the staged and decoded-equivalent bytes,
+     the operators planned onto and run on the encoded domain; the upload
+     rate of one row group encoded and decoded; TPC-H lineitem's
+     dictionary strings and doubles from parquet hash-exchanged 8 ways
+     with sql.exchange.keepEncodings on (every map batch must take the
+     encoded split) and off (every one the reorder kernel), the
+     partitions holding the same rows; q3, q42, q52 and q55 from parquet
+     with store_sales hash 8 on ss_item_sk and keepEncodings off (q3 on
+     too; off must launch the reorder kernel), each equal to phase 10's
+     result, and q3 with dmaConsolidate on (one compact launch per kept
+     reorder output), printing each exchange's kernel, sort-path and
+     encoded splits; then at --check-sf
+     Q1 and q3 from files sorted on the pushed-down column, through a
+     filter that must clip row groups and an input_file_name() filter,
+     against the port's CPU run of the same files. It prints its seconds
+     against a bound of 180 s.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -191,8 +216,10 @@ times, bounds and errors of phase 10's check on the widest input of each
 sales fact (summed over the inputs, each under "inputs"), phase 11's
 TPCx-BB and phase 9's TPC-H readings (launches and their checks,
 likewise), phase 13's SQL launches at the run's scale, phase 15's
-surface launches, phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
-launches under launches_by_path; then as its last line
+surface launches, phase 16's parquet launches (with the exchanges' encoded
+splits), phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem
+shape, and every path's launches under launches_by_path; then as its last
+line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
@@ -212,6 +239,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import numpy as np
 
@@ -529,10 +557,11 @@ def read_launches():
 
 
 def run_exchange(batch, part, conf, device):
-    """One TpuShuffleExchangeExec over a resident one-batch leaf: every
-    reduce partition read back through the shuffle catalog, then the
-    action's cleanups. Returns (exec, partitions, seconds, tiers), where
-    tiers counts the map outputs on (device, host, disk) before the read."""
+    """One TpuShuffleExchangeExec over a resident leaf of one batch (or a
+    list of them): every reduce partition read back through the shuffle
+    catalog, then the action's cleanups. Returns (exec, partitions,
+    seconds, tiers), where tiers counts the map outputs on (device, host,
+    disk) before the read."""
     import torch
     from spark_rapids_tpu_torch.config import TpuConf
     from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
@@ -544,11 +573,11 @@ def run_exchange(batch, part, conf, device):
         # holds the batch on the instance, not in a closure: a class is
         # freed only by the cycle collector, the instance with the exchange
         def __init__(self, b):
-            super().__init__(b.schema)
-            self.batch = b
+            self.batches = b if isinstance(b, list) else [b]
+            super().__init__(self.batches[0].schema)
 
         def execute(self, ctx):
-            yield self.batch
+            yield from self.batches
 
     tconf = TpuConf(conf)
     dm = DeviceManager.initialize(tconf, device)
@@ -868,7 +897,19 @@ def phase_main_path(lineitem, reference, profile_dir=None):
     torch.cuda.synchronize()
     print(f"q1 (no repartition): s={time.perf_counter() - t0:.4f}")
     check_q1("q1 plain", res, reference)
-    return launches
+    # phase 16's reference: the in-memory cold Q1 under bench.py's cold
+    # conf (no scan cache, 16-byte strings)
+    cold = TpuSession({**BENCH_CONF, **COLD_KEYS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = q1(cold.create_dataframe(lineitem)).collect()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check_q1("q1 plain cold", res, reference)
+    print(f"q1 (no repartition, no scan cache, 16-byte strings): "
+          f"cold_s={cold_s:.4f}")
+    return launches, (res, cold_s)
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2689,6 +2730,420 @@ def phase_surface(check_sf, seed, refs, q51_refs, ds_sf_tables):
     return nums, launches
 
 
+# ------------------------------------------------------------------ phase 16
+#: the TPC-DS queries phase 16 reads from parquet
+PARQUET_DS = ("q3", "q42", "q52", "q55")
+#: bench.py::_bench_tpch_cold's conf over the benchmark conf: no scan
+#: cache, 16-byte strings
+COLD_KEYS = {"spark.rapids.tpu.sql.scanCache.enabled": "false",
+             "spark.rapids.tpu.sql.string.maxBytes": "16"}
+PREFETCH_KEY = "spark.rapids.tpu.io.scan.prefetchBatches"
+DICT_KEY = "spark.rapids.tpu.io.parquet.deviceDictDecode.enabled"
+KEEP_KEY = "spark.rapids.tpu.sql.exchange.keepEncodings"
+DMA_KEY = "spark.rapids.tpu.shuffle.kernel.dmaConsolidate.enabled"
+#: the check scale's pushed-down filters: the check files are sorted on
+#: these columns, so the filters clip row groups
+Q1_SINCE = datetime.date(1995, 6, 17)
+SS_SINCE = 2451000
+PHASE16_BOUND_S = 180.0
+#: the TPC-H lineitem columns phase 16's exchange reads from parquet: the
+#: dictionary strings and doubles make the index form save over a quarter
+#: of a row's exchange bytes, so the encoded split pre-empts the kernel
+EXCHANGE_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice",
+                    "l_discount", "l_returnflag", "l_linestatus",
+                    "l_shipinstruct", "l_shipmode")
+
+
+def write_parquet(hb, path, sort_by=None):
+    """One table as a parquet file of 16 row groups (bench.py:1192's
+    ``row_group_size = rows // 16``), written by pyarrow."""
+    import pyarrow.parquet as pq
+    t = hb.to_arrow()
+    if sort_by:
+        t = t.sort_by(sort_by)
+    pq.write_table(t, path, row_group_size=max(1, t.num_rows // 16))
+    return path
+
+
+def parquet_files(directory, lineitem, ds_tables, tag, sort=False,
+                  tpch_lineitem=None):
+    """lineitem (Q1's columns and l_orderkey) and the three TPC-DS tables
+    of PARQUET_DS (with the columns those queries read) as parquet files
+    under ``directory``; with ``sort`` lineitem sorted by ship date and
+    store_sales by sale date; with ``tpch_lineitem`` its EXCHANGE_COLUMNS
+    as "exchange_lineitem". Returns {table: path}."""
+    paths = {"lineitem": write_parquet(
+        lineitem, os.path.join(directory, f"{tag}_lineitem.parquet"),
+        "l_shipdate" if sort else None)}
+    if tpch_lineitem is not None:
+        paths["exchange_lineitem"] = write_parquet(
+            tpch_lineitem.select(list(EXCHANGE_COLUMNS)),
+            os.path.join(directory, f"{tag}_exchange_lineitem.parquet"))
+    for t, names in tpcds_columns(PARQUET_DS).items():
+        paths[t] = write_parquet(
+            ds_tables[t].select(names),
+            os.path.join(directory, f"{tag}_{t}.parquet"),
+            "ss_sold_date_sk" if sort and t == "store_sales" else None)
+    return paths
+
+
+def parquet_ds_frames(sess, paths, q, since=None, by_name=False):
+    """Query ``q``'s tables read from parquet, store_sales hash 8 on its
+    item key (optionally after a pushed-down sale-date filter and an
+    input_file_name() filter)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    dfs = {}
+    for t in suite_query(q)[1]:
+        df = sess.read.parquet(paths[t])
+        if t == "store_sales":
+            if since is not None:
+                df = df.filter(F.col("ss_sold_date_sk") >= since)
+            if by_name:
+                df = df.filter(F.input_file_name().endswith(".parquet"))
+            df = df.repartition(8, FACT_KEYS[t])
+        dfs[t] = df
+    return dfs
+
+
+def exchange_splits(plan):
+    """(kernel, sort path, encoded) splits summed over a plan's hash
+    exchanges."""
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    ex = [e for e in plan.walk() if isinstance(e, TpuShuffleExchangeExec)
+          and isinstance(e.partitioning, HashPartitioning)]
+    return (sum(e.kernel_splits for e in ex),
+            sum(e.sort_path_splits for e in ex),
+            sum(e.encoded_splits for e in ex))
+
+
+def on_indices(plan):
+    """The operators of a plan that ran on dictionary indices."""
+    return [type(n).__name__ for n in plan.walk()
+            if getattr(n, "encoded_batches", 0)]
+
+
+def upload_rates(path, device, chunk_rows):
+    """The first row group of ``path`` as the scan stages it (encoded)
+    and decoded on the host: each uploaded 3 times with a synchronize,
+    the best wall's rate over the bytes staged for the link. Returns
+    {form: (bytes, seconds)}."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+    from spark_rapids_tpu_torch.columnar import encoding as ce
+    from spark_rapids_tpu_torch.columnar.dtypes import Schema
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    from spark_rapids_tpu_torch.columnar.transfer import (_host_buffers,
+                                                          upload_arrow,
+                                                          upload_table)
+    from spark_rapids_tpu_torch.io.datasource import PartitionedFile
+    from spark_rapids_tpu_torch.io.parquet import (_iter_file_tables,
+                                                   schema_of_arrow)
+    schema = schema_of_arrow(pq.read_schema(path))
+    table = next(_iter_file_tables(
+        PartitionedFile(path), schema, Schema([]), (), 1 << 31, 1 << 31,
+        device_dict=True, device_rle=True, unifier=ce.DictionaryUnifier()))
+    decoded = HostBatch.from_arrow(pa.table(
+        [c.combine_chunks().cast(c.type.value_type)
+         if pa.types.is_dictionary(c.type) else c for c in table.columns],
+        names=table.column_names), 16)
+    out = {}
+    for form, up in (("encoded", lambda: upload_arrow(
+                         table, device, 16, chunk_rows=chunk_rows)),
+                     ("decoded", lambda: upload_table(
+                         decoded, device, chunk_rows=chunk_rows))):
+        best = float("inf")
+        for _ in range(3):
+            ce.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            up()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        staged = (ce.counters()["encoded_bytes"] if form == "encoded" else
+                  sum(a.nbytes for b in _host_buffers(decoded) for a in b))
+        out[form] = (staged, best)
+    return out, table.num_rows
+
+
+def row_hashes(batch):
+    """A 64-bit hash of every live row's bits (validity, lengths and the
+    data bytes of each column, null rows as zeros), so two splits' pieces
+    can be held equal as multisets of rows."""
+    import torch
+    n = batch.num_rows
+    h = torch.zeros(n, dtype=torch.int64, device=batch.columns[0].data.device)
+    for c in batch.columns:
+        valid = c.validity[:n]
+        words = [valid.to(torch.int64)]
+        if c.lengths is not None:
+            words.append(torch.where(valid, c.lengths[:n], 0).to(torch.int64))
+        b = c.data[:n].reshape(n, -1).contiguous().view(torch.uint8)
+        b = torch.nn.functional.pad(b * valid[:, None],
+                                    (0, (-b.shape[1]) % 8))
+        words.extend(b.contiguous().view(torch.int64).unbind(1))
+        for w in words:
+            h = h * 0x100000001B3 + w       # FNV-style, wrapping
+    return h
+
+
+def partition_digests(parts):
+    """Per reduce partition: its sorted row hashes."""
+    import torch
+    return [torch.sort(torch.cat([row_hashes(b) for b in bs]))[0]
+            if bs else None for bs in parts]
+
+
+def exchange_encoded_against_kernel(path, device):
+    """TPC-H lineitem's EXCHANGE_COLUMNS read from parquet by the device
+    scan and hash-exchanged 8 ways on l_orderkey, keepEncodings on then
+    off over the same batches: on, every map batch must take the encoded
+    split (the indices save over a quarter of a row's bytes) and no
+    reorder launch; off, every one the reorder kernel. The reduce
+    partitions must hold the same rows (the kernel's consolidation orders
+    a partition's rows by 8-row blocks, so rows compare as sorted hashes),
+    and the encoded pieces keep their dictionaries. Returns {path:
+    (reorder, compact, reorder kept, encoded splits)}."""
+    import pyarrow.parquet as pq
+    import torch
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.execs.base import ExecContext
+    from spark_rapids_tpu_torch.execs.exchange_execs import HashPartitioning
+    from spark_rapids_tpu_torch.exprs.core import (UnresolvedAttribute,
+                                                   bind_expression)
+    from spark_rapids_tpu_torch.io.datasource import PartitionedFile
+    from spark_rapids_tpu_torch.io.parquet import (TpuParquetScanExec,
+                                                   schema_of_arrow)
+    scan = TpuParquetScanExec((PartitionedFile(path),),
+                              schema_of_arrow(pq.read_schema(path)))
+    batches = list(scan.execute(ExecContext(TpuConf(BENCH_CONF), device)))
+    rows = sum(b.num_rows for b in batches)
+    encoded_cols = sum(c.encoding is not None and c.encoding.token is not None
+                       for c in batches[0].columns)
+    key = bind_expression(UnresolvedAttribute("l_orderkey"),
+                          batches[0].schema)
+    digests, launches = {}, {}
+    for keep in ("true", "false"):
+        reset_launches()
+        ex, parts, secs, _ = run_exchange(
+            batches, HashPartitioning(8, (key,)),
+            {**BENCH_CONF, KEEP_KEY: keep}, device)
+        reorder_n, compact_n = read_launches()
+        splits = (ex.kernel_splits, ex.sort_path_splits, ex.encoded_splits)
+        # off, a batch whose piece overflows its quota takes the sort path
+        # after its launch
+        if (splits[2], reorder_n, splits[0] > 0) != (
+                (len(batches), 0, False) if keep == "true" else
+                (0, len(batches), True)):
+            raise AssertionError(
+                f"lineitem exchange keepEncodings={keep}: splits "
+                f"kernel/sort/encoded {splits}, {reorder_n} reorder "
+                f"launches for {len(batches)} map batches")
+        kept = sum(c.encoding is not None for bs in parts for b in bs
+                   for c in b.columns)
+        if keep == "true" and not kept:
+            raise AssertionError("lineitem exchange: the encoded pieces "
+                                 "lost their dictionaries")
+        if sum(b.num_rows for bs in parts for b in bs) != rows:
+            raise AssertionError(f"lineitem exchange keepEncodings={keep}: "
+                                 f"rows lost")
+        digests[keep] = partition_digests(parts)
+        del parts, ex
+        launches[f"phase16 lineitem exchange keepEncodings={keep}"] = (
+            reorder_n, compact_n, splits[0], splits[2])
+        print(f"lineitem parquet exchange hash(8, l_orderkey) keepEncodings="
+              f"{keep}: rows={rows} map_batches={len(batches)} "
+              f"encoded_columns={encoded_cols} s={secs:.4f} reorder_launches"
+              f"={reorder_n} splits_kernel_sort_encoded={splits} "
+              f"encoded_columns_out={kept}")
+    for p, (a, b) in enumerate(zip(digests["true"], digests["false"])):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"lineitem exchange: partition {p}'s rows "
+                                 f"differ between the encoded and the "
+                                 f"kernel split")
+    print("lineitem parquet exchange: the encoded split's partitions hold "
+          "the kernel split's rows")
+    del batches, digests
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parquet(paths, q1_cold, ds_wants, check_sf, seed, directory):
+    """Phase 16 (slice 12's main path): the parquet scan and the encoded
+    domain. Q1 cold from lineitem.parquet with prefetchBatches 2 and 0 and
+    deviceDictDecode on and off, each equal to phase 6's in-memory cold Q1;
+    the upload's rates for the encoded and the decoded form of a row group;
+    TPC-H lineitem's exchange from parquet with keepEncodings on (the
+    encoded split) against off (the reorder kernel) over the same batches;
+    TPC-DS q3, q42, q52 and q55 from parquet with store_sales hash 8 and
+    keepEncodings off (q3 on too), each equal to phase 10's result, and q3
+    with dmaConsolidate on (a compact launch per kept reorder output);
+    then at ``check_sf`` Q1 and q3 from sorted files through a pushed-down
+    filter that clips row groups and input_file_name(), against the port's
+    CPU run of the same files. Returns (reorder launches, compact
+    launches, reorder launches kept, encoded splits) per path."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    from spark_rapids_tpu_torch.benchmarks.tpch import (BENCH_CONF,
+                                                        gen_lineitem, q1)
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch.columnar import encoding as ce
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.io.parquet import TpuParquetScanExec
+    from spark_rapids_tpu_torch.plan.encoded import count_encoded_domain
+    t_phase = time.perf_counter()
+    q1_want, inmem_s = q1_cold
+    launches = {}
+    walls = {}
+    # the decode on in ABBA order (the first run also starts the page
+    # decode processes), then off
+    for dict_on, depth, turn in (("true", 2, 0), ("true", 0, 0),
+                                 ("true", 0, 1), ("true", 2, 1),
+                                 ("false", 2, 0), ("false", 0, 0)):
+        conf = {**BENCH_CONF, **COLD_KEYS, PREFETCH_KEY: str(depth),
+                DICT_KEY: dict_on}
+        sess = TpuSession(conf)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ce.reset_counters()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = q1(sess.read.parquet(paths["lineitem"])).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        walls.setdefault((dict_on, depth), []).append(wall)
+        c = ce.counters()
+        plan = sess.last_plan
+        name = (f"q1 parquet deviceDictDecode={dict_on} "
+                f"prefetchBatches={depth}" + (" again" if turn else ""))
+        check_same_result(f"{name} against the in-memory cold q1", res,
+                          q1_want, False)
+        ops = on_indices(plan)
+        if dict_on == "true" and (
+                c["encoded_bytes"] >= c["decoded_equivalent_bytes"]
+                or not ops):
+            raise AssertionError(f"{name}: the encoded path did not "
+                                 f"run: {c}, on indices {ops}")
+        launches[f"phase16 {name}"] = read_launches() + (0, 0)
+        batches = sum(n.batches_read for n in plan.walk()
+                      if isinstance(n, TpuParquetScanExec))
+        print(f"{name}: cold_s={wall:.4f} in_memory_cold_s={inmem_s:.4f}"
+              f" staged_gb={c['encoded_bytes'] / 1e9:.4f} "
+              f"decoded_equivalent_gb="
+              f"{c['decoded_equivalent_bytes'] / 1e9:.4f} "
+              f"encoded_domain_operators={count_encoded_domain(plan)} "
+              f"ran_on_indices={ops} scan_batches={batches}, equal to the "
+              f"in-memory cold q1")
+    for dict_on in ("true", "false"):
+        serial, pipelined = (float(np.mean(walls[dict_on, d]))
+                             for d in (0, 2))
+        print(f"q1 parquet deviceDictDecode={dict_on}: serial_s/pipelined_s"
+              f"={serial / pipelined:.4f} (means of {walls[dict_on, 0]} and "
+              f"{walls[dict_on, 2]})")
+    rates, rows = upload_rates(
+        paths["lineitem"], sess.device,
+        TpuConf(BENCH_CONF).get(cfg.TRANSFER_CHUNK_ROWS))
+    print("q1 parquet row group upload: rows=" + str(rows) + " " + " ".join(
+        f"{form}_gb={b / 1e9:.4f} {form}_s={s:.4f} "
+        f"{form}_gb_per_s={b / s / 1e9:.3f}"
+        for form, (b, s) in rates.items()))
+    launches.update(exchange_encoded_against_kernel(
+        paths["exchange_lineitem"], sess.device))
+    # TPC-DS from parquet, store_sales hash 8
+    ds_conf = {**BENCH_CONF, "spark.rapids.tpu.sql.scanCache.enabled":
+               "false"}
+    # keepEncodings on takes the kernel as off does here (store_sales keeps
+    # only int columns encoded, under the quarter rule), so q3 alone runs
+    # both ways; the lineitem exchange above takes the encoded split
+    runs = [("q3", "true", {})] + [(q, "false", {}) for q in PARQUET_DS]
+    runs.append(("q3", "false", {DMA_KEY: "true"}))
+    for q, keep, extra in runs:
+        sess = TpuSession({**ds_conf, KEEP_KEY: keep, **extra})
+        reset_launches()
+        t0 = time.perf_counter()
+        res = suite_query(q)[0](parquet_ds_frames(sess, paths, q)).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reorder_n, compact_n = read_launches()
+        kernel, sort_path, encoded = exchange_splits(sess.last_plan)
+        name = f"{q} parquet keepEncodings={keep}" + (
+            " dmaConsolidate" if extra else "")
+        check_same_result(f"{name} against phase 10", res, ds_wants[q],
+                          q in SUITE_TIES)
+        if keep == "false" and reorder_n < 1:
+            raise AssertionError(f"{name}: the reorder kernel did not "
+                                 f"launch")
+        if extra and (compact_n < 1 or compact_n != kernel):
+            raise AssertionError(f"{name}: {compact_n} compact launches "
+                                 f"for {kernel} kept reorder outputs")
+        launches[f"phase16 {name}"] = (reorder_n, compact_n, kernel,
+                                       encoded)
+        print(f"{name}: rows={res.num_rows} cold_s={wall:.4f} "
+              f"reorder_launches={reorder_n} launches_kept={kernel} "
+              f"compact_launches={compact_n} splits_kernel_sort_encoded="
+              f"{(kernel, sort_path, encoded)} encoded_domain_operators="
+              f"{count_encoded_domain(sess.last_plan)} ran_on_indices="
+              f"{on_indices(sess.last_plan)}, equal to phase 10")
+    # the check scale against the port's CPU run of the same files
+    check = parquet_files(
+        directory, gen_lineitem(check_sf, seed=seed),
+        dd.gen_all(check_sf, seed, tpcds_columns(PARQUET_DS),
+                   tables=list(tpcds_columns(PARQUET_DS))), "check",
+        sort=True)
+    wide = {**BENCH_CONF, "spark.rapids.tpu.sql.scanCache.enabled": "false"}
+
+    def q1_check(sess):
+        from spark_rapids_tpu_torch.api import functions as F
+        li = (sess.read.parquet(check["lineitem"])
+              .filter(F.col("l_shipdate") >= F.lit(Q1_SINCE))
+              .filter(F.input_file_name().endswith(".parquet")))
+        return q1(li)
+
+    def q3_check(sess):
+        return suite_query("q3")[0](parquet_ds_frames(
+            sess, check, "q3", since=SS_SINCE, by_name=True))
+
+    for name, build, table, ties in (("q1", q1_check, "lineitem", False),
+                                     ("q3", q3_check, "store_sales", True)):
+        t0 = time.perf_counter()
+        want = build(TpuSession(wide, device="cpu")).collect()
+        cpu_s = time.perf_counter() - t0
+        sess = TpuSession(wide)
+        t0 = time.perf_counter()
+        got = build(sess).collect()
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        scans = [n for n in sess.last_plan.walk()
+                 if isinstance(n, TpuParquetScanExec)
+                 and n.paths == (check[table],)]
+        total = pq.ParquetFile(check[table]).metadata.num_rows
+        read = sum(n.rows_read for n in scans)
+        if not 0 < read < total:
+            raise AssertionError(f"{name} check: the pushed-down filter "
+                                 f"read {read} of {total} rows")
+        worst = check_same_result(f"{name} parquet sf={check_sf} against "
+                                  f"the cpu", got, want, ties)
+        print(f"{name} parquet sf={check_sf} pushdown+input_file_name: "
+              f"rows={got.num_rows} scanned {read} of {total} {table} rows "
+              f"cuda_s={cuda_s:.4f} cpu_s={cpu_s:.4f}, equal to the CPU run "
+              f"(worst relative float error {worst:.3e})")
+    from spark_rapids_tpu_torch.io import page_pool
+    gc.collect()                # a left scan hands its workers back
+    page_pool.shutdown()        # the scans' page-decode processes
+    if page_pool.live_workers():
+        raise AssertionError(f"{page_pool.live_workers()} page-decode "
+                             f"processes left running")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 16 parquet: {secs:.2f} s against the bound of "
+          f"{PHASE16_BOUND_S:.0f} s")
+    return launches
+
+
 #: the suites a CPU worker runs: name -> (make tables, make specs)
 SUITES = {"tpch": (tpch_tables, tpch_specs),
           "suite": (suite_tables, suite_specs),
@@ -3033,10 +3488,12 @@ def segment_sum_cost(sf, seed, reps=20):
         torch.cuda.empty_cache()
 
 
-def run_tables(sf, seed, kernels_only):
+def run_tables(sf, seed, kernels_only, directory):
     """The tables of the run's scale every phase reads, generated at once
-    (phase 2 makes them while the CPU workers run) -> ({"lineitem",
-    "q1_reference", "q3", "tpch", "suite", "bb"}, seconds per set)."""
+    (phase 2 makes them while the CPU workers run), and phase 16's parquet
+    files written from them under ``directory`` -> ({"lineitem",
+    "q1_reference", "q3", "tpch", "suite", "parquet", "bb"}, seconds per
+    set)."""
     from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
     made, secs = {}, {}
     sets = (("lineitem", lambda: gen_lineitem(sf, seed=seed)),
@@ -3044,6 +3501,9 @@ def run_tables(sf, seed, kernels_only):
             ("q3", lambda: q3_tables(sf, seed)),
             ("tpch", lambda: tpch_tables(sf, seed)),
             ("suite", lambda: suite_tables(sf, seed)),
+            ("parquet", lambda: parquet_files(
+                directory, made["lineitem"], made["suite"]["ds"], "run",
+                tpch_lineitem=made["tpch"]["lineitem"])),
             ("bb", lambda: bb_tables(sf, seed)))
     for key, make in sets[:1] if kernels_only else sets:
         t0 = time.perf_counter()
@@ -3124,9 +3584,11 @@ def main() -> int:
     build_kernels()
     phase_done("2 build")
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    # phase 16's parquet files; removed when phase 16 ends (or at exit)
+    parquet_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_")
     with concurrent.futures.ThreadPoolExecutor(1) as gen:
         making = gen.submit(run_tables, args.sf, args.seed,
-                            args.kernels_only)
+                            args.kernels_only, parquet_dir.name)
         if not args.kernels_only:
             refs = cpu_references((
                 ("suite", args.check_sf, args.seed, suite_names()),
@@ -3158,8 +3620,9 @@ def main() -> int:
     phase_done("4 exchange")
     phase_spill(args.seed, device)
     phase_done("5 spill")
-    by_path["q1"] = {"reorder": phase_main_path(lineitem, reference,
-                                                args.profile)}
+    q1_launches, q1_cold = phase_main_path(lineitem, reference,
+                                           args.profile)
+    by_path["q1"] = {"reorder": q1_launches}
     del lineitem, reference
     phase_done("6 q1")
     tables = made.pop("q3")
@@ -3255,6 +3718,12 @@ def main() -> int:
     by_path.update({p: {"reorder": n} for p, n in surface_launches.items()})
     del suite_sf_tables
     phase_done("15 sql surface")
+    parquet = phase_parquet(made.pop("parquet"), q1_cold, suite_results,
+                            args.check_sf, args.seed, parquet_dir.name)
+    parquet_dir.cleanup()
+    for path, n in parquet.items():
+        by_path[path] = {"reorder": n[0], "compact": n[1]}
+    phase_done("16 parquet")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -3267,12 +3736,19 @@ def main() -> int:
     def launch_sums(runs):
         return (sum(n["launches"] for n in runs.values()),
                 sum(n["launches_kept"] for n in runs.values()))
+    # phase 16: reorder launches, compact launches, reorder launches kept,
+    # encoded splits; the compact kernel's kept launches are the kept
+    # reorder outputs of the run it launched in (phase 16 holds them equal)
+    pq_r, pq_c, pq_kept, pq_enc = (sum(n[i] for n in parquet.values())
+                                   for i in range(4))
+    pq_c_kept = sum(n[2] for n in parquet.values() if n[1])
     readings = {
         "reorder": {"suite": launch_sums(suite), "bb": launch_sums(bb),
                     "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums),
-                    "surface": launch_sums(surface)},
+                    "surface": launch_sums(surface),
+                    "parquet": (pq_r, pq_kept)},
         "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
-                    "tpch": dma18[1:]}}
+                    "tpch": dma18[1:], "parquet": (pq_c, pq_c_kept)}}
     records = []
     for i, name in enumerate(("reorder", "compact")):
         for label, (launches, kept) in readings[name].items():
@@ -3293,6 +3769,9 @@ def main() -> int:
                   "launches_by_path": {p: v[name]
                                        for p, v in by_path.items()
                                        if name in v}}
+        record["phase16_parquet"] = dict(zip(
+            ("launches", "launches_kept"), readings[name]["parquet"]),
+            encoded_splits=pq_enc)
         if "sql" in readings[name]:
             record["phase13_sql"] = dict(zip(
                 ("launches", "launches_kept"), readings[name]["sql"]),

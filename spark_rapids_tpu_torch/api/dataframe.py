@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional, Union
 from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch import device as device_mod
 from spark_rapids_tpu_torch.api.column import Column
-from spark_rapids_tpu_torch.columnar.dtypes import DType
+from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
 from spark_rapids_tpu_torch.columnar.host import (HostBatch,
                                                   concat_host_batches,
                                                   string_batch)
@@ -799,6 +799,38 @@ class GroupedData:
         return DataFrame(lp.Project(final, agg), self._df.session)
 
 
+class DataFrameReader:
+    """``session.read``: options, then ``parquet(paths...)`` (the JAX
+    package's reader; the port reads parquet only)."""
+
+    def __init__(self, session: "TpuSession"):
+        self.session = session
+        self._options: Dict[str, str] = {}
+
+    def option(self, k: str, v) -> "DataFrameReader":
+        self._options[k] = str(v)
+        return self
+
+    def parquet(self, *paths: str) -> DataFrame:
+        """A DataFrame over parquet files or directories: hive-style
+        ``key=value`` directories become partition columns appended to the
+        data schema of the first file."""
+        import pyarrow.parquet as pq
+
+        from spark_rapids_tpu_torch.io.datasource import \
+            discover_partitioned_files
+        from spark_rapids_tpu_torch.io.parquet import schema_of_arrow
+        files, pschema = discover_partitioned_files(paths, "parquet")
+        if not files:
+            raise FileNotFoundError(f"no parquet files under {paths}")
+        data_schema = schema_of_arrow(pq.read_schema(files[0].path))
+        full = Schema(list(data_schema.fields) + list(pschema.fields))
+        return DataFrame(lp.FileScan("parquet", tuple(paths), full,
+                                     tuple(self._options.items()),
+                                     files=files, partition_schema=pschema),
+                         self.session)
+
+
 class TpuSession:
     """Session: the conf (the JAX package's ``spark.rapids.tpu.*`` keys) and
     the device every query runs on. The device is the GPU unless the caller
@@ -842,6 +874,10 @@ class TpuSession:
         from spark_rapids_tpu_torch.sql.planner import SqlPlanner
         df, _names = SqlPlanner(self).plan(parse_sql(query))
         return df
+
+    @property
+    def read(self) -> DataFrameReader:
+        return DataFrameReader(self)
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a HostBatch, or over an arrow table (converted

@@ -46,6 +46,23 @@ def spark_partition_id() -> Column:
     return Column(SparkPartitionID())
 
 
+def input_file_name() -> Column:
+    """Path of the file the row was read from; the scan's hidden metadata
+    columns carry it per batch."""
+    from spark_rapids_tpu_torch.exprs.misc import InputFileName
+    return Column(InputFileName())
+
+
+def input_file_block_start() -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import InputFileBlockStart
+    return Column(InputFileBlockStart())
+
+
+def input_file_block_length() -> Column:
+    from spark_rapids_tpu_torch.exprs.misc import InputFileBlockLength
+    return Column(InputFileBlockLength())
+
+
 def _c(c: Union[str, Column]):
     return col(c).expr if isinstance(c, str) else c.expr
 

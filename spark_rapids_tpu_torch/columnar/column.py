@@ -4,7 +4,9 @@
 - validity is a ``bool[capacity]`` tensor;
 - strings are a ``uint8[capacity, width]`` matrix plus an ``int32[capacity]``
   length vector;
-- padding rows (index >= num_rows) are invalid, with length 0 and zeroed data.
+- padding rows (index >= num_rows) are invalid, with length 0 and zeroed data;
+- a column uploaded from a dictionary-encoded arrow column keeps the
+  encoding (``encoding``) beside the decoded data.
 
 The JAX package's DOUBLE ``bits`` sibling does not exist here: float64 is
 native on the GPU, so ``data.view(torch.uint8)`` gives a double's bytes.
@@ -12,7 +14,7 @@ native on the GPU, so ``data.view(torch.uint8)`` gives a double's bytes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -25,6 +27,10 @@ class DeviceColumn:
     data: torch.Tensor                     # [capacity] or [capacity, width]
     validity: torch.Tensor                 # bool[capacity]
     lengths: Optional[torch.Tensor] = None  # int32[capacity], strings only
+    #: the dictionary encoding the column arrived in, kept beside the
+    #: decoded data (columnar/encoding.py ``DictEncoding``); operators that
+    #: rebuild columns drop it
+    encoding: Optional[Any] = None
 
     def __post_init__(self):
         if self.dtype is DType.STRING and self.lengths is None:

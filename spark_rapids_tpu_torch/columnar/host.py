@@ -103,6 +103,15 @@ class HostBatch:
             arr = (chunked.chunk(0) if chunked.num_chunks == 1
                    else pa.concat_arrays(chunked.chunks))
             dt = _dtype_from_arrow(f.type)
+            if isinstance(arr, pa.DictionaryArray):
+                # the host layout has no dictionary form: decode here (the
+                # encoded upload, columnar/transfer.py ``upload_arrow``,
+                # keeps it and decodes on the device)
+                arr = arr.cast(arr.type.value_type)
+            if pa.types.is_run_end_encoded(arr.type):
+                from spark_rapids_tpu_torch.columnar.encoding import \
+                    ree_to_plain
+                arr = ree_to_plain(arr)
             fields.append(Field(f.name, dt, f.nullable))
             validity = (np.ones(len(arr), np.bool_) if arr.null_count == 0
                         else np.asarray(arr.is_valid()).astype(np.bool_))
@@ -156,6 +165,9 @@ def concat_host_batches(batches: List[HostBatch], schema: Schema) -> HostBatch:
 
 def _dtype_from_arrow(t) -> DType:
     import pyarrow as pa
+    if pa.types.is_dictionary(t) or pa.types.is_run_end_encoded(t):
+        # an encoded column's SQL type is its value type
+        return _dtype_from_arrow(t.value_type)
     if pa.types.is_timestamp(t):
         return DType.TIMESTAMP
     if pa.types.is_string(t) or pa.types.is_large_string(t):

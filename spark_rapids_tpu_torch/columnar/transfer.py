@@ -92,10 +92,13 @@ def chunk_bounds(hb: HostBatch, chunk_rows: int) -> List[int]:
     ends (``HostBatch.batch_ends``) while keeping every chunk under about
     ``chunk_rows`` rows; an oversized record batch is split at
     ``chunk_rows``. The JAX package's rule, over the same edges."""
-    n = hb.num_rows
+    return _bounds(hb.num_rows, hb.batch_ends, chunk_rows)
+
+
+def _bounds(n: int, batch_ends, chunk_rows: int) -> List[int]:
     if chunk_rows <= 0 or n <= chunk_rows:
         return [0]
-    edges = {0} | {e for e in hb.batch_ends if 0 < e < n}
+    edges = {0} | {e for e in batch_ends if 0 < e < n}
     bounds = [0]
     for edge in sorted(edges | {n}):
         while edge - bounds[-1] > chunk_rows:
@@ -172,11 +175,34 @@ def upload_table(hb: HostBatch, device: torch.device, chunk_rows: int = 0,
                          upload_overlap_efficiency=0.0,
                          inflight_high_water=1)
         return out
-    n = hb.num_rows
-    cap = capacity or bucket_capacity(n)
-    cuda = device.type == "cuda"
     per_column = _host_buffers(hb)
-    host = [a for bufs in per_column for a in bufs]
+    outs = _upload_rows([a for bufs in per_column for a in bufs],
+                        hb.num_rows, capacity or bucket_capacity(hb.num_rows),
+                        device, bounds, max_inflight, stats, t_start)
+    done = iter(outs)
+    return _columns(hb, [[next(done) for _ in bufs] for bufs in per_column])
+
+
+def _upload_rows(host: List[np.ndarray], n: int, cap: int,
+                 device: torch.device, bounds: List[int], max_inflight: int,
+                 stats: Optional[Dict[str, Any]] = None,
+                 t_start: Optional[float] = None) -> List[torch.Tensor]:
+    """Row buffers of ``n`` rows -> device tensors of ``cap`` rows (zeroed
+    past ``n``), chunk by chunk at ``bounds`` through pinned slabs staged by
+    the numpy pool, so no torch CPU copy runs on the calling thread (a scan's
+    producer thread among them). On the CPU a single chunk is one
+    ``to_device`` per buffer."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    if len(bounds) < 2 and device.type != "cuda":
+        outs = [to_device(a, cap, device) for a in host]
+        if stats is not None:
+            _finish(device)
+            wall = time.perf_counter() - t_start
+            stats.update(chunks=1, wall_s=wall, stage_s=wall,
+                         upload_overlap_efficiency=0.0,
+                         inflight_high_water=1)
+        return outs
+    cuda = device.type == "cuda"
     dtypes = [torch.from_numpy(np.empty(0, a.dtype)).dtype for a in host]
     outs = []
     for a, dt in zip(host, dtypes):
@@ -220,8 +246,7 @@ def upload_table(hb: HostBatch, device: torch.device, chunk_rows: int = 0,
                      upload_overlap_efficiency=min(1.0, stage_s / wall)
                      if wall > 0 else 0.0,
                      inflight_high_water=max(peak, 1))
-    done = iter(outs)
-    return _columns(hb, [[next(done) for _ in bufs] for bufs in per_column])
+    return outs
 
 
 def _finish(device: torch.device) -> None:
@@ -238,6 +263,174 @@ def upload_table_conf(hb: HostBatch, device: torch.device, conf,
                         chunk_rows=conf.get(cfg.TRANSFER_CHUNK_ROWS),
                         max_inflight=conf.get(cfg.TRANSFER_MAX_INFLIGHT),
                         capacity=capacity)
+
+
+def _narrow_index_dtype(k: int):
+    """The narrowest index type the link carries for a k-entry dictionary
+    (torch's uint16 is thin, so int16 is the middle step)."""
+    return np.uint8 if k <= 0xFF else np.int16 if k <= 0x7FFF else np.int32
+
+
+def _staged_values(arr, string_max_bytes: int) -> HostColumn:
+    """A dictionary's or a run form's values as one host column."""
+    import pyarrow as pa
+    return HostBatch.from_arrow(pa.table({"v": arr}),
+                                string_max_bytes).columns[0]
+
+
+def upload_arrow(table, device: torch.device, string_max_bytes: int = 256,
+                 chunk_rows: int = 0, max_inflight: int = 2) -> DeviceBatch:
+    """Arrow table -> DeviceBatch, with encoded columns decoded on the
+    device (the JAX package's ``DeviceBatch.from_arrow``):
+
+    - a dictionary column ships its index vector at the narrowest width
+      (uint8, int16 or int32; widened to int32 on the device) and its
+      dictionary once (a string dictionary as its byte matrix plus
+      lengths), and decodes with one ``index_select``; when the dictionary
+      is unique the column keeps it as its ``DictEncoding`` (token from the
+      field metadata);
+    - a run-end-encoded column ships (run_ends, per-run values) and
+      expands with a searchsorted gather (``expand_ree_device``);
+    - every other column takes the decoded layout.
+
+    The per-row buffers (plain columns, indices, the validity of columns
+    with nulls) go through the same chunked, pinned upload as
+    ``upload_table``, one device tensor per buffer, so a chunk boundary
+    never splits a dictionary: every chunk's indices point into the one
+    uploaded dictionary. A null-free encoded column's validity is made on
+    the device. The staged bytes and what the decoded forms would have
+    staged are counted (``encoding.counters()``).
+
+    A string dictionary's matrix is as wide as its longest value, which
+    may be wider than any row of this batch: the decoded column is then
+    ``capacity x that width``, at most ``string.maxBytes`` wide, the bound
+    the decoded upload has too."""
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch.columnar import encoding as ce
+    from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
+    from spark_rapids_tpu_torch.columnar.host import _dtype_from_arrow
+    ends_at, off = [], 0
+    for b in table.to_batches():
+        off += b.num_rows
+        if off < table.num_rows:
+            ends_at.append(off)
+    n = table.num_rows
+    cap = bucket_capacity(n)
+    fields: List[Field] = []
+    plans: List[tuple] = []
+    plain: List[int] = []
+    rows: List[np.ndarray] = []     # the per-row buffers, in upload order
+    enc_bytes = dec_bytes = 0
+    for i, (f, chunked) in enumerate(zip(table.schema, table.columns)):
+        arr = (chunked.chunk(0) if chunked.num_chunks == 1
+               else chunked.combine_chunks())
+        dt = _dtype_from_arrow(f.type)
+        fields.append(Field(f.name, dt, f.nullable))
+        if pa.types.is_run_end_encoded(arr.type):
+            ends, vals = ce.ree_staged(arr)
+            if len(ends) and dt is not DType.STRING:
+                hv = _staged_values(vals, string_max_bytes)
+                rvalid = None if hv.validity.all() else hv.validity
+                plans.append(("ree", ends, hv.data, rvalid))
+                staged = ends.nbytes + hv.data.nbytes + (
+                    rvalid.nbytes if rvalid is not None else 0)
+                enc_bytes += staged
+                dec_bytes += n * hv.data.itemsize + (
+                    n if rvalid is not None else 0)
+                continue
+        if (isinstance(arr, pa.DictionaryArray) and len(arr.dictionary)
+                and arr.dictionary.null_count == 0):
+            idx = arr.indices
+            k = len(arr.dictionary)
+            np_idx = np.asarray(idx.fill_null(0)).astype(
+                _narrow_index_dtype(k))
+            validity = (None if idx.null_count == 0
+                        else np.asarray(idx.is_valid()).astype(np.bool_))
+            hv = _staged_values(arr.dictionary, string_max_bytes)
+            unique = ce.dictionary_is_unique(hv.data, hv.lengths)
+            plans.append(("dict", len(rows), validity is not None, hv,
+                          ce.field_token(table.schema, i), unique))
+            rows.append(np_idx)
+            if validity is not None:
+                rows.append(validity)
+            vb = validity.nbytes if validity is not None else 0
+            enc_bytes += np_idx.nbytes + vb + hv.data.nbytes + (
+                hv.lengths.nbytes if hv.lengths is not None else 0)
+            row_b = int(np.prod(hv.data.shape[1:])) * hv.data.itemsize
+            dec_bytes += n * row_b + vb + (
+                n * 4 if hv.lengths is not None else 0)
+            continue
+        plans.append(("plain", len(plain)))
+        plain.append(i)
+    # the rest converts as an in-memory table does (an empty dictionary, an
+    # empty or string run form decode on the host there)
+    hb = HostBatch.from_arrow(
+        pa.table([table.column(i) for i in plain],
+                 names=[table.schema.field(i).name for i in plain]),
+        string_max_bytes) if plain else None
+    plain_bufs = _host_buffers(hb) if hb is not None else []
+    plain_at = []
+    for bufs in plain_bufs:
+        plain_at.append(len(rows))
+        rows.extend(bufs)
+        nb = sum(a.nbytes for a in bufs)
+        enc_bytes += nb
+        dec_bytes += nb
+    ce.count("encoded_bytes", enc_bytes)
+    ce.count("decoded_equivalent_bytes", dec_bytes)
+    outs = _upload_rows(rows, n, cap, device,
+                        _bounds(n, ends_at, chunk_rows), max_inflight)
+    alive = torch.arange(cap, device=device) < n
+    cols = []
+    for f, plan in zip(fields, plans):
+        kind = plan[0]
+        if kind == "plain":
+            j = plain_at[plan[1]]
+            ts = outs[j:j + (3 if f.dtype is DType.STRING else 2)]
+            cols.append(DeviceColumn(f.dtype, *ts))
+        elif kind == "ree":
+            _, ends, vdata, rvalid = plan
+            r = len(ends)
+            data, ridx = ce.expand_ree_device(
+                to_device(ends, r, device), to_device(vdata, r, device), cap)
+            if rvalid is None:
+                validity = alive
+            else:
+                validity = (to_device(rvalid, r, device).index_select(0, ridx)
+                            & alive)
+            cols.append(DeviceColumn(f.dtype, _zero_invalid(data, validity),
+                                     validity))
+        else:
+            _, j, has_valid, hv, token, unique = plan
+            idx = outs[j].to(torch.int32)
+            validity = outs[j + 1] if has_valid else alive
+            k = hv.data.shape[0]
+            values = to_device(hv.data, k, device)
+            data = _zero_invalid(values.index_select(0, idx), validity)
+            lengths = dlen = None
+            if hv.lengths is not None:
+                dlen = to_device(hv.lengths, k, device)
+                lengths = _zero_invalid(dlen.index_select(0, idx), validity)
+            enc = ce.DictEncoding(idx, values, dlen, token) if unique else None
+            cols.append(DeviceColumn(f.dtype, data, validity, lengths, enc))
+    return DeviceBatch(Schema(fields), tuple(cols), n)
+
+
+def _zero_invalid(t: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
+    """Zero the rows of a gathered buffer that are null or padding, as the
+    decoded layout holds them."""
+    keep = validity.reshape((-1,) + (1,) * (t.dim() - 1))
+    return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                            device=t.device))
+
+
+def upload_arrow_conf(table, device: torch.device, conf) -> DeviceBatch:
+    """``upload_arrow`` with the string width and chunking of a TpuConf."""
+    from spark_rapids_tpu_torch import config as cfg
+    return upload_arrow(table, device, conf.string_max_bytes,
+                        chunk_rows=conf.get(cfg.TRANSFER_CHUNK_ROWS),
+                        max_inflight=conf.get(cfg.TRANSFER_MAX_INFLIGHT))
 
 
 def download(batch: DeviceBatch) -> HostBatch:

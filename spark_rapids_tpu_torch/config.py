@@ -257,6 +257,71 @@ CONCURRENT_TPU_TASKS = _conf(
     checker=_positive("concurrentTpuTasks"))
 
 
+# ------------------------------------------------------------- file scans
+PARQUET_ENABLED = _conf(
+    "sql.format.parquet.enabled", bool, True,
+    "Parquet on the device as a whole. The port has no CPU engine to fall "
+    "back to, so with this (or sql.format.parquet.read.enabled) off a "
+    "parquet scan does not plan.")
+
+PARQUET_READ_ENABLED = _conf(
+    "sql.format.parquet.read.enabled", bool, True,
+    "Parquet scans on the device (see sql.format.parquet.enabled).")
+
+PARQUET_WRITE_ENABLED = _conf(
+    "sql.format.parquet.write.enabled", bool, True,
+    "Parquet writes on the device; the port has no writer yet.")
+
+MAX_READER_BATCH_SIZE_ROWS = _conf(
+    "sql.reader.batchSizeRows", int, 2147483647,
+    "Soft cap on rows per batch produced by scans "
+    "(spark.rapids.sql.reader.batchSizeRows).",
+    checker=_positive("batchSizeRows"))
+
+MAX_READER_BATCH_SIZE_BYTES = _conf(
+    "sql.reader.batchSizeBytes", int, 2147483647,
+    "Soft cap on bytes per batch produced by scans, from the file's "
+    "average row width (spark.rapids.sql.reader.batchSizeBytes).",
+    checker=_positive("batchSizeBytes"))
+
+PARQUET_DEVICE_DICT = _conf(
+    "io.parquet.deviceDictDecode.enabled", bool, True,
+    "Parquet scans read fixed-width columns straight from the page bytes "
+    "in the file's own dictionary encoding (io/parquet_pages.py) and "
+    "strings through pyarrow's dictionary read: narrow indices and the "
+    "dictionary cross the host link and decode on the device with a "
+    "gather. Off, every column decodes on the host.")
+
+PARQUET_DEVICE_RLE = _conf(
+    "io.parquet.deviceRleExpand.enabled", bool, True,
+    "With deviceDictDecode: a null-free column chunk whose index stream is "
+    "mostly RLE runs crosses the link as (run ends, run values) and "
+    "expands on the device with a searchsorted gather.")
+
+ENCODED_DOMAIN = _conf(
+    "sql.encodedDomain.enabled", bool, True,
+    "Filters, group-by keys and equi-join keys run on dictionary indices "
+    "where a column kept its encoding (DeviceColumn.encoding): a "
+    "single-column predicate evaluates over the k dictionary values and "
+    "gathers per row, grouping keys are the int32 indices and decode only "
+    "for the surviving groups, and joins match on (remapped) indices.")
+
+EXCHANGE_KEEP_ENCODINGS = _conf(
+    "sql.exchange.keepEncodings", bool, True,
+    "Hash and round-robin exchanges carry token-carrying dictionary "
+    "columns as int32 indices through a sort-path split and re-attach the "
+    "dictionary to every piece, so the encoded domain works after the "
+    "exchange. Where the partition-reorder kernel would launch, the "
+    "encoded split is taken only when the indices save at least a quarter "
+    "of the batch's per-row bytes.")
+
+SCAN_PREFETCH_BATCHES = _conf(
+    "io.scan.prefetchBatches", int, 2,
+    "Device parquet scans decode and upload this many batches ahead of the "
+    "consumer on a producer thread; 0 reads serially (as does a one-core "
+    "host).")
+
+
 class TpuConf:
     """Immutable snapshot of configuration overrides."""
 

@@ -278,6 +278,82 @@ def _slice_padded(colvs: Sequence[ColV], schema: Schema, start: int,
                              for v in colvs], cnt)
 
 
+# ------------------------------------------------------------------ encoded split
+def _exchange_encodings(ctx: ExecContext, db: DeviceBatch) -> dict:
+    """Columns whose dictionary encoding rides through the exchange
+    (sql.exchange.keepEncodings): only token-carrying encodings, whose
+    scan-wide dictionary every piece of every batch shares."""
+    if not ctx.conf.get(cfg.EXCHANGE_KEEP_ENCODINGS):
+        return {}
+    return {ci: c.encoding for ci, c in enumerate(db.columns)
+            if c.encoding is not None and c.encoding.token is not None}
+
+
+def _encoded_split_preferred(ctx: ExecContext, part: Partitioning,
+                             db: DeviceBatch, enc: dict) -> bool:
+    """Whether the encoded sort-path split pre-empts the reorder kernel.
+    Where the kernel would not launch (tensors off CUDA, kernel mode off,
+    a range exchange) the encoded split always wins over the plain sort
+    path. Where it would, the indices must save at least a quarter of the
+    batch's per-row bytes, so one small encoded column among wide decoded
+    ones does not cost the kernel."""
+    kernel_possible = (db.device.type == "cuda"
+                       and ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off"
+                       and not isinstance(part, RangePartitioning))
+    if not kernel_possible:
+        return True
+    saved = total = 0
+    for ci, c in enumerate(db.columns):
+        width = int(np.prod(c.data.shape[1:])) if c.data.dim() > 1 else 1
+        row_b = c.data.element_size() * width + 1       # + validity byte
+        if c.lengths is not None:
+            row_b += 4
+        total += row_b
+        if ci in enc:
+            saved += max(0, row_b - 5)    # indices: 4 B + validity byte
+    return total > 0 and saved / total >= 0.25
+
+
+def _split_encoded(db: DeviceBatch, pids: torch.Tensor, n: int,
+                   enc: dict) -> List[Tuple[int, DeviceBatch]]:
+    """The sort-path split with the encoded columns moved as their int32
+    indices: each piece gathers its rows from the stable partition order,
+    decodes them from the shared dictionary once and keeps the encoding
+    (same dictionary, same token)."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.columnar.encoding import DictEncoding
+    wire = [ColV(DType.INT, enc[ci].indices, c.validity) if ci in enc
+            else ColV(c.dtype, c.data, c.validity, c.lengths)
+            for ci, c in enumerate(db.columns)]
+    order, counts = pid_order(pids, db.num_rows, n)
+    pieces, start = [], 0
+    for j, cnt in enumerate(counts):
+        if not cnt:
+            continue
+        rows, cap = order[start:start + cnt], bucket_capacity(cnt)
+        start += cnt
+        cols = []
+        for ci, (f, v) in enumerate(zip(db.schema, wire)):
+            w = bk.take_padded(v, rows, cap)
+            if ci not in enc:
+                cols.append(DeviceColumn(f.dtype, w.data, w.validity,
+                                         w.lengths))
+                continue
+            e = enc[ci]
+            keep = w.validity
+            data = e.values.index_select(0, w.data)
+            data = torch.where(
+                keep.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                torch.zeros((), dtype=data.dtype, device=data.device))
+            lengths = (None if e.lengths is None else torch.where(
+                keep, e.lengths.index_select(0, w.data), 0))
+            cols.append(DeviceColumn(
+                f.dtype, data, keep, lengths,
+                DictEncoding(w.data, e.values, e.lengths, e.token)))
+        pieces.append((j, DeviceBatch(db.schema, tuple(cols), cnt)))
+    return pieces
+
+
 # ------------------------------------------------------------------ stage stats
 #: k-minimum-values sketch width: the 64 smallest distinct key hashes bound
 #: the distinct estimate's error around 1/sqrt(k), ~12%
@@ -490,9 +566,11 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         super().__init__(partitioning, child)
         self._shuffle_id: Optional[int] = None
-        #: map batches split by the reorder kernel / by the sort path
+        #: map batches split by the reorder kernel / by the sort path /
+        #: by the sort path carrying dictionary indices
         self.kernel_splits = 0
         self.sort_path_splits = 0
+        self.encoded_splits = 0
         #: a range partitioning's bounds (one ColV of n - 1 rows per order
         #: key), set when the map side runs
         self.range_bounds: Optional[List[ColV]] = None
@@ -616,6 +694,12 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
         else:
             pids = _compute_pids(part, db.capacity, offset, hashes,
                                  db.device)
+        enc = _exchange_encodings(ctx, db)
+        if enc and _encoded_split_preferred(ctx, part, db, enc):
+            from spark_rapids_tpu_torch.columnar.encoding import count
+            self.encoded_splits += 1
+            count("exchange_encoded_ops")
+            return _split_encoded(db, pids, n, enc)
         if ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off" and \
                 not isinstance(part, RangePartitioning):
             pieces = self._kernel_split(ctx, db, pids, n)

@@ -21,9 +21,11 @@ XLA's common-subexpression pass does for the JAX package.
   expressions. Fusion off builds the same trees (plan/overrides.py
   ``fuse_device_ops``), which keeps fused and unfused runs bit-identical.
 
-The encoded domain (dictionary-encoded predicates) is not ported. The
-stages keep their ``fused_ops`` and a ``batches_not_materialized`` count as
-plain attributes (the JAX package's metrics are not ported).
+Where the input batches kept dictionary encodings (plan/encoded.py marks
+``encoded_domain_ok``), each variant's predicate is rewritten per batch onto
+the dictionaries (exprs/encoded.py), as a filter's is. The stages keep
+their ``fused_ops`` and a ``batches_not_materialized`` count as plain
+attributes (the JAX package's metrics are not ported).
 """
 from __future__ import annotations
 
@@ -53,6 +55,10 @@ class FusedStageExec(PhysicalExec):
     #: (display only)
     stage_id = 0
 
+    #: set by plan/encoded.py: the child chain can deliver encoded batches,
+    #: so the variants' predicates may run over the dictionaries
+    encoded_domain_ok = False
+
     def __init__(self, fused_ops: Tuple[Tuple[str, Schema], ...],
                  variants: Tuple[Variant, ...],
                  child: PhysicalExec, output: Schema,
@@ -72,6 +78,12 @@ class FusedStageExec(PhysicalExec):
             out.append((flat[i:i + len(exprs)], flat[i + len(exprs)]))
             i += len(exprs) + 1
         self._evaluated = tuple(out)
+        #: batches of the last execution whose predicates ran on indices
+        self.encoded_batches = 0
+
+    @property
+    def has_predicate(self) -> bool:
+        return any(pred is not None for _, pred in self.variants)
 
     def size_estimate(self) -> Optional[int]:
         if len(self.variants) > 1:
@@ -87,13 +99,26 @@ class FusedStageExec(PhysicalExec):
         return "\n".join(lines)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from spark_rapids_tpu_torch import config as cfg
+        use_enc = (self.encoded_domain_ok
+                   and ctx.conf.get(cfg.ENCODED_DOMAIN))
+        self.encoded_batches = 0
         for batch in self.children[0].execute(ctx):
             cap = batch.capacity
             ectx = te.eval_ctx(batch, ctx)
             add_shared_columns(ectx, self._shared)
+            evaluated = self._evaluated
+            if use_enc:
+                evaluated = tuple(
+                    (exprs, None if pred is None else
+                     te.encoded_predicate(pred, batch, ectx))
+                    for exprs, pred in evaluated)
+                if ectx.encodings:
+                    self.encoded_batches += 1
+                    te._count_encoded_op()
             alive = None
             self.batches_not_materialized += self.saved_per_batch
-            for exprs, pred in self._evaluated:
+            for exprs, pred in evaluated:
                 outs = [bk.as_column(e.eval(ectx), cap) for e in exprs]
                 if pred is None:
                     yield te.batch_of(self.output, outs, batch.num_rows)

@@ -1,7 +1,6 @@
 """Join physical operators: the shuffled and the broadcast hash join, and
 the keyless broadcast nested-loop join and cartesian product (the JAX
-package's ``execs/join_execs.py`` without its encoded-domain branch, which
-waits for that subsystem).
+package's ``execs/join_execs.py``).
 
 Both run ``ops/join.py``'s two phases over the concatenation of each side's
 batches: the size phase, one host read of the output total, the gather at
@@ -12,7 +11,10 @@ Under memory pressure a keyed join goes out of core (memory/grace.py):
 both sides are hash-partitioned on their keys with the same salt and each
 pair of partitions runs the single pass. The keyless joins run the same
 exec with the ``cross`` kernel and their condition as the filter, always
-in one pass (they have no key to split by).
+in one pass (they have no key to split by). An equi-key pair whose two
+columns kept their dictionary encodings matches on the int32 indices
+(``_encoded_key_pairs``): directly when the sides share a dictionary
+stream, through a k_l x k_r remap of the right dictionary otherwise.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import Schema, bucket_capacity
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of, colvs_of,
                                                     concat_device_batches)
-from spark_rapids_tpu_torch.exprs.core import EvalCtx, Expression
+from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
 from spark_rapids_tpu_torch.ops import join as jk
 
@@ -52,6 +54,14 @@ class TpuShuffledHashJoinExec(PhysicalExec):
     #: footprint contract's and the pressure check's factor
     working_set_factor = 3.0
 
+    #: set by plan/encoded.py: equi-key pairs whose both sides kept their
+    #: dictionary encoding match on indices
+    encoded_domain_ok = False
+
+    #: different-dictionary remaps above this k_l * k_r stay decoded (the
+    #: equality matrix would no longer be small)
+    _REMAP_CELLS_CAP = 1 << 22
+
     def __init__(self, left: PhysicalExec, right: PhysicalExec, how: str,
                  left_keys: Tuple[Expression, ...],
                  right_keys: Tuple[Expression, ...], output: Schema,
@@ -69,6 +79,8 @@ class TpuShuffledHashJoinExec(PhysicalExec):
         #: the side materialized as the build table; a broadcast join's
         #: planner wraps that child in a broadcast exchange
         self.build_side = build_side
+        #: passes of the last execution that matched keys on indices
+        self.encoded_batches = 0
 
     @property
     def includes_right_columns(self) -> bool:
@@ -83,8 +95,60 @@ class TpuShuffledHashJoinExec(PhysicalExec):
             return None
         return int(sum(sizes) * self.working_set_factor)
 
+    def _encoded_key_pairs(self, ctx: ExecContext, lb: DeviceBatch,
+                           rb: DeviceBatch):
+        """The key pairs that match on dictionary indices: both keys plain
+        references to encoded columns of one non-float type, and either one
+        dictionary stream or a remap under the cell cap. Float keys stay
+        decoded (index identity is finer than float equality)."""
+        from spark_rapids_tpu_torch import config as cfg
+        from spark_rapids_tpu_torch.columnar import encoding as cenc
+        from spark_rapids_tpu_torch.exprs import encoded as ed
+        from spark_rapids_tpu_torch.exprs.core import BoundReference
+        if not (self.encoded_domain_ok
+                and ctx.conf.get(cfg.ENCODED_DOMAIN)):
+            return ()
+        lspecs = {s.ordinal: s for s in cenc.enc_specs_of(lb)}
+        rspecs = {s.ordinal: s for s in cenc.enc_specs_of(rb)}
+        pairs = []
+        for pos, (lk, rk) in enumerate(zip(self.left_keys,
+                                           self.right_keys)):
+            if not (isinstance(lk, BoundReference)
+                    and isinstance(rk, BoundReference)):
+                continue
+            ls, rs = lspecs.get(lk.ordinal), rspecs.get(rk.ordinal)
+            if ls is None or rs is None or ls.dtype != rs.dtype:
+                continue
+            if ls.dtype.is_floating:
+                continue
+            le = lb.columns[lk.ordinal].encoding
+            re_ = rb.columns[rk.ordinal].encoding
+            same = le.token is not None and le.token == re_.token
+            if not same and ls.k * rs.k > self._REMAP_CELLS_CAP:
+                continue
+            pairs.append(ed.EncJoinKey(pos, ls, rs, same))
+        return tuple(pairs)
+
+    def _index_keys(self, pairs, lb: DeviceBatch, rb: DeviceBatch,
+                    lkeys: List[ColV], rkeys: List[ColV]) -> None:
+        """Replace the paired key columns by their (remapped) indices."""
+        from spark_rapids_tpu_torch.columnar.dtypes import DType
+        from spark_rapids_tpu_torch.columnar.encoding import EncView
+        from spark_rapids_tpu_torch.exprs import encoded as ed
+        for p in pairs:
+            lv = EncView(p.left, lb.columns[p.left.ordinal].encoding)
+            rv = EncView(p.right, rb.columns[p.right.ordinal].encoding)
+            r_idx = rv.indices
+            if not p.same_token:
+                remap = ed.dict_remap(lv.values, rv.values, p.left.k)
+                r_idx = remap.index_select(0, rv.indices)
+            lkeys[p.pos] = ColV(DType.INT, lv.indices,
+                                lkeys[p.pos].validity)
+            rkeys[p.pos] = ColV(DType.INT, r_idx, rkeys[p.pos].validity)
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from spark_rapids_tpu_torch.memory import grace
+        self.encoded_batches = 0
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         ooc = (grace.controller_for(self, ctx, "join",
@@ -148,8 +212,16 @@ class TpuShuffledHashJoinExec(PhysicalExec):
             ectx = EvalCtx(cols, cap, ctx.device, smax)
             return [bk.as_column(e.eval(ectx), cap) for e in exprs]
 
-        sized = jk.join_size(keys(l_cols, S, self.left_keys),
-                             keys(r_cols, B, self.right_keys),
+        lkeys = keys(l_cols, S, self.left_keys)
+        rkeys = keys(r_cols, B, self.right_keys)
+        pairs = self._encoded_key_pairs(ctx, lb, rb)
+        if pairs:
+            from spark_rapids_tpu_torch.execs.tpu_execs import \
+                _count_encoded_op
+            self._index_keys(pairs, lb, rb, lkeys, rkeys)
+            self.encoded_batches += 1
+            _count_encoded_op()
+        sized = jk.join_size(lkeys, rkeys,
                              bk.alive_mask(S, lb.num_rows, ctx.device),
                              bk.alive_mask(B, rb.num_rows, ctx.device),
                              self.how)

@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch.execs.cpu_execs import (CpuLocalScanExec,
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
 from spark_rapids_tpu_torch.exprs.cse import (add_shared_columns,
                                               common_subexpressions)
+from spark_rapids_tpu_torch.exprs import encoded as ed
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
 from spark_rapids_tpu_torch.ops.aggregate import (group_aggregate,
@@ -53,7 +54,11 @@ def batch_of(schema: Schema, colvs, num_rows: int) -> DeviceBatch:
 def concat_device_batches(batches: List[DeviceBatch], schema: Schema,
                           device: torch.device) -> DeviceBatch:
     """Concatenate the live rows of batches into one batch of the total's
-    capacity bucket (string matrices padded to the widest)."""
+    capacity bucket (string matrices padded to the widest). A column keeps
+    its dictionary encoding when every contributor carries one from the
+    same dictionary stream (one DictionaryUnifier token): the dictionaries
+    are then prefix-compatible, so the concatenated indices stay valid
+    against the largest contributor's dictionary."""
     batches = [b for b in batches if b.num_rows > 0]
     if not batches:
         return DeviceBatch.empty(schema, device)
@@ -77,8 +82,29 @@ def concat_device_batches(batches: List[DeviceBatch], schema: Schema,
             lengths = pad_rows(torch.cat([c.lengths[:b.num_rows]
                                           for c, b in zip(parts, batches)]),
                                cap)
-        cols.append(DeviceColumn(f.dtype, data, validity, lengths))
+        cols.append(DeviceColumn(f.dtype, data, validity, lengths,
+                                 _carried_encoding(parts, batches, cap)))
     return DeviceBatch(schema, tuple(cols), total)
+
+
+def _carried_encoding(parts: List[DeviceColumn], batches: List[DeviceBatch],
+                      cap: int):
+    """The concatenation's encoding, or None when the contributors do not
+    all share one token."""
+    encs = [c.encoding for c in parts]
+    if not all(e is not None and e.token is not None for e in encs) or \
+            len({e.token for e in encs}) != 1:
+        return None
+    from spark_rapids_tpu_torch.columnar.encoding import DictEncoding
+    indices = pad_rows(torch.cat([e.indices[:b.num_rows]
+                                  for e, b in zip(encs, batches)]), cap)
+    big = max(encs, key=lambda e: e.k)
+    return DictEncoding(indices, big.values, big.lengths, big.token)
+
+
+def _count_encoded_op() -> None:
+    from spark_rapids_tpu_torch.columnar import encoding as cenc
+    cenc.count("encoded_domain_ops")
 
 
 # ---------------------------------------------------------------- transitions
@@ -155,17 +181,49 @@ class TpuProjectExec(PhysicalExec):
                             for e in self.exprs], batch.num_rows)
 
 
+def encoded_predicate(pred: Expression, batch: DeviceBatch, ectx: EvalCtx
+                      ) -> Expression:
+    """``pred`` with its single-encoded-column subtrees rewritten onto the
+    batch's dictionaries (exprs/encoded.py); the views it needs go into
+    ``ectx``. Unchanged when no column of the batch kept an encoding."""
+    from spark_rapids_tpu_torch.columnar import encoding as cenc
+    from spark_rapids_tpu_torch.exprs import encoded as ed
+    specs = cenc.enc_specs_of(batch)
+    if not specs:
+        return pred
+    pred, used = ed.rewrite_predicate(pred, specs)
+    if used:
+        ectx.encodings.update(cenc.enc_views(batch, used))
+    return pred
+
+
 class TpuFilterExec(PhysicalExec):
+    #: set by plan/encoded.py: the child chain can deliver batches whose
+    #: columns kept their dictionary encoding, so single-column predicates
+    #: may run over the k dictionary slots and gather
+    encoded_domain_ok = False
+
     def __init__(self, condition: Expression, child: PhysicalExec):
         super().__init__((child,), child.output)
         self.condition = condition
+        #: batches of the last execution that ran on dictionary indices
+        self.encoded_batches = 0
 
     def size_estimate(self) -> Optional[int]:
         return self.children[0].size_estimate()      # an upper bound
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        use_enc = (self.encoded_domain_ok
+                   and ctx.conf.get(cfg.ENCODED_DOMAIN))
+        self.encoded_batches = 0
         for batch in self.children[0].execute(ctx):
-            pred = self.condition.eval(eval_ctx(batch, ctx))
+            ectx = eval_ctx(batch, ctx)
+            cond = (encoded_predicate(self.condition, batch, ectx)
+                    if use_enc else self.condition)
+            if ectx.encodings:
+                self.encoded_batches += 1
+                _count_encoded_op()
+            pred = cond.eval(ectx)
             alive = bk.alive_mask(batch.capacity, batch.num_rows, batch.device)
             keep = (pred.data & pred.validity) & alive
             cols, n = bk.compact(keep, colvs_of(batch))
@@ -188,6 +246,12 @@ class TpuHashAggregateExec(PhysicalExec):
     #: and the pressure check's factor (memory/grace.py)
     working_set_factor = 3.0
 
+    #: set by plan/encoded.py: grouping keys that are plain references to
+    #: encoded columns group on the int32 dictionary indices, and decode
+    #: only for the surviving groups; the folded filter's single-column
+    #: subtrees run over the dictionaries
+    encoded_domain_ok = False
+
     def __init__(self, grouping: Tuple[Expression, ...],
                  aggregates: Tuple[Expression, ...], child: PhysicalExec,
                  output: Schema, pre_filter: Optional[Expression] = None):
@@ -197,6 +261,8 @@ class TpuHashAggregateExec(PhysicalExec):
         self.pre_filter = pre_filter
         #: grouping modes run by the last execution, in order
         self.modes_run: List[str] = []
+        #: passes of the last execution that ran on dictionary indices
+        self.encoded_batches = 0
 
     def size_estimate(self) -> Optional[int]:
         # groups never outnumber input rows
@@ -207,6 +273,7 @@ class TpuHashAggregateExec(PhysicalExec):
         return None if sz is None else int(sz * self.working_set_factor)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        self.encoded_batches = 0
         return self._aggregate(ctx, self.children[0].execute(ctx))
 
     def _aggregate(self, ctx: ExecContext,
@@ -254,12 +321,14 @@ class TpuHashAggregateExec(PhysicalExec):
                                       ctx.device)
         del batches[:]      # the concatenation is all this pass needs
         fns = tuple(a.c if isinstance(a, Alias) else a for a in self.aggregates)
+        grouping, pre_filter, subs, views = self._encoded_rewrite(ctx, batch)
         # the subtrees a fold repeated, evaluated once (exprs/cse.py)
-        ng = len(self.grouping)
+        ng = len(grouping)
         shared, roots = common_subexpressions(
-            self.grouping + fns + (self.pre_filter,), len(batch.columns))
+            grouping + fns + (pre_filter,), len(batch.columns))
         grouping, fns, pre_filter = roots[:ng], roots[ng:-1], roots[-1]
         base = eval_ctx(batch, ctx)
+        base.encodings = views
         add_shared_columns(base, shared)
         mask = None
         if pre_filter is not None:
@@ -270,12 +339,41 @@ class TpuHashAggregateExec(PhysicalExec):
             self.modes_run.append(mode)
             ectx = eval_ctx(batch, ctx)
             ectx.columns = list(base.columns)
+            ectx.encodings = views
             key_cols, res_cols, n, flagged = group_aggregate(
                 ectx, grouping, fns, batch.num_rows, batch.capacity,
                 grouping=mode, extra_mask=mask)
             if not flagged:
                 break
-        yield batch_of(self.output, list(key_cols) + list(res_cols), n)
+        key_cols = list(key_cols)
+        for j, spec in subs.items():
+            # late materialization: only the groups' key values decode
+            key_cols[j] = ed.materialize_key(base, spec, key_cols[j])
+        yield batch_of(self.output, key_cols + list(res_cols), n)
+
+    def _encoded_rewrite(self, ctx: ExecContext, batch: DeviceBatch):
+        """(grouping, pre_filter, {key position: EncSpec}, EncViews): the
+        grouping keys on encoded columns as index keys and the folded
+        filter's single-column subtrees over the dictionaries, when this
+        operator may run on the encoded domain and the batch kept an
+        encoding; else the operator's own expressions."""
+        from spark_rapids_tpu_torch.columnar import encoding as cenc
+        grouping, pre = self.grouping, self.pre_filter
+        if not (self.encoded_domain_ok
+                and ctx.conf.get(cfg.ENCODED_DOMAIN)):
+            return grouping, pre, {}, {}
+        specs = cenc.enc_specs_of(batch)
+        if not specs:
+            return grouping, pre, {}, {}
+        grouping, subs, used_g = ed.rewrite_grouping(grouping, specs)
+        used_p: Tuple = ()
+        if pre is not None:
+            pre, used_p = ed.rewrite_predicate(pre, specs)
+        merged = {s.ordinal: s for s in tuple(used_g) + tuple(used_p)}
+        if merged:
+            self.encoded_batches += 1
+            _count_encoded_op()
+        return grouping, pre, subs, cenc.enc_views(batch, merged.values())
 
 
 class TpuSortExec(PhysicalExec):

@@ -44,6 +44,9 @@ class EvalCtx:
         self.string_max_bytes = string_max_bytes
         self.partition_id = partition_id
         self.row_offset = row_offset
+        #: EncViews by column ordinal, set where an operator runs on the
+        #: encoded domain (exprs/encoded.py)
+        self.encodings = {}
 
 
 class Expression:
@@ -139,10 +142,18 @@ class BoundReference(Expression):
 
 
 def bind_expression(expr: Expression, schema: Schema) -> Expression:
-    """Replace every UnresolvedAttribute with a BoundReference."""
+    """Replace every UnresolvedAttribute with a BoundReference, and an
+    input-file marker with the scan's hidden column when the schema has
+    it."""
+    from spark_rapids_tpu_torch.exprs.misc import _InputFileMeta
+
     def rec(e: Expression) -> Expression:
         if isinstance(e, UnresolvedAttribute):
             i = schema.index_of(e.name)
+            f = schema[i]
+            return BoundReference(i, f.dtype, f.nullable, f.name)
+        if isinstance(e, _InputFileMeta) and e._col in schema.names():
+            i = schema.index_of(e._col)
             f = schema[i]
             return BoundReference(i, f.dtype, f.nullable, f.name)
         return e.map_children(rec)

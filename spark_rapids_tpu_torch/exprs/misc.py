@@ -148,3 +148,65 @@ class NormalizeNaNAndZero(Expression):
         d = torch.where(torch.isnan(v.data), float("nan"), v.data)
         return ColV(v.dtype, torch.where(d == 0, 0.0, d).to(v.data.dtype),
                     v.validity, is_scalar=v.is_scalar)
+
+
+# ---------------------------------------------------------------- input file
+#: hidden column names a file scan emits when the plan references input-file
+#: metadata (InputFileName / InputFileBlockStart / InputFileBlockLength ride
+#: the scan's per-file values)
+INPUT_FILE_NAME_COL = "__input_file_name"
+INPUT_FILE_START_COL = "__input_file_block_start"
+INPUT_FILE_LENGTH_COL = "__input_file_block_length"
+
+#: the spec of the hidden trio, (name, dtype, default outside a file scan),
+#: shared by FileScan.schema(), the planner's union defaults and the scan
+INPUT_FILE_META_SPEC = (
+    (INPUT_FILE_NAME_COL, DType.STRING, ""),
+    (INPUT_FILE_START_COL, DType.LONG, -1),
+    (INPUT_FILE_LENGTH_COL, DType.LONG, -1),
+)
+
+
+@dataclass(frozen=True)
+class _InputFileMeta(Expression):
+    """Marker bound by the planner to the scan's hidden metadata column.
+    Rows not produced by a file scan get '' / -1 (Spark's defaults)."""
+
+    _col = ""
+
+    def nullable(self) -> bool:
+        return False
+
+    def eval(self, ctx: EvalCtx) -> ColV:
+        raise TypeError(
+            f"{type(self).__name__} must be bound against a file scan "
+            "(no file-scan source below this expression)")
+
+    @property
+    def name_hint(self) -> str:
+        import re
+        return re.sub(r"(?<!^)(?=[A-Z])", "_", type(self).__name__).lower()
+
+
+@dataclass(frozen=True)
+class InputFileName(_InputFileMeta):
+    _col = INPUT_FILE_NAME_COL
+
+    def dtype(self) -> DType:
+        return DType.STRING
+
+
+@dataclass(frozen=True)
+class InputFileBlockStart(_InputFileMeta):
+    _col = INPUT_FILE_START_COL
+
+    def dtype(self) -> DType:
+        return DType.LONG
+
+
+@dataclass(frozen=True)
+class InputFileBlockLength(_InputFileMeta):
+    _col = INPUT_FILE_LENGTH_COL
+
+    def dtype(self) -> DType:
+        return DType.LONG

@@ -7,7 +7,10 @@ crc32 is checked before it is read back). The payload moves as the flat
 column list (data, validity, [lengths] per column) plus the schema, so any
 tier can rebuild the batch. The port's counterpart of the JAX package's
 ``memory/buffer.py``; the DOUBLE ``bits`` sibling does not exist here
-(float64 is native on the GPU).
+(float64 is native on the GPU). The DEVICE tier also keeps the columns'
+dictionary encodings (an exchange piece's, so the encoded domain works
+after the exchange); a spill to the host or disk drops them, and the batch
+comes back decoded only.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import io
 import os
 import zlib
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,15 +75,17 @@ def _flatten(batch: DeviceBatch) -> List[torch.Tensor]:
     return out
 
 
-def _rebuild(schema: Schema, arrays: List[torch.Tensor],
-             num_rows: int) -> DeviceBatch:
+def _rebuild(schema: Schema, arrays: List[torch.Tensor], num_rows: int,
+             encodings: Tuple = ()) -> DeviceBatch:
     cols, i = [], 0
-    for f in schema:
+    for j, f in enumerate(schema):
+        enc = encodings[j] if encodings else None
         if f.dtype is DType.STRING:
-            cols.append(DeviceColumn(f.dtype, *arrays[i:i + 3]))
+            cols.append(DeviceColumn(f.dtype, *arrays[i:i + 3], enc))
             i += 3
         else:
-            cols.append(DeviceColumn(f.dtype, arrays[i], arrays[i + 1]))
+            cols.append(DeviceColumn(f.dtype, arrays[i], arrays[i + 1],
+                                     None, enc))
             i += 2
     return DeviceBatch(schema, tuple(cols), num_rows)
 
@@ -97,7 +102,8 @@ class SpillableBuffer(Retainable):
     def __init__(self, buffer_id: BufferId, schema: Schema, num_rows: int,
                  tier: StorageTier, payload, size_bytes: int,
                  spill_priority: float, device: torch.device,
-                 disk_crc32: Optional[int] = None):
+                 disk_crc32: Optional[int] = None,
+                 encodings: Tuple = ()):
         super().__init__()
         self.id = buffer_id
         self.schema = schema
@@ -111,22 +117,31 @@ class SpillableBuffer(Retainable):
         self.device = device
         #: crc32 over the npz file's bytes (DISK tier only)
         self.disk_crc32 = disk_crc32
+        #: per-column DictEncoding or None (DEVICE tier only)
+        self.encodings = encodings
         self.owner_store = None         # set by BufferStore.add_buffer
 
     @staticmethod
     def from_batch(buffer_id: BufferId, batch: DeviceBatch,
                    spill_priority: float = 0.0) -> "SpillableBuffer":
         arrays = _flatten(batch)
+        encodings = tuple(c.encoding for c in batch.columns)
+        if not any(e is not None for e in encodings):
+            encodings = ()
+        # a piece's own index vector; the dictionary is shared by the pieces
+        enc_bytes = _nbytes([e.indices for e in encodings if e is not None])
         return SpillableBuffer(buffer_id, batch.schema, batch.num_rows,
-                               StorageTier.DEVICE, arrays, _nbytes(arrays),
-                               spill_priority, batch.device)
+                               StorageTier.DEVICE, arrays,
+                               _nbytes(arrays) + enc_bytes, spill_priority,
+                               batch.device, encodings=encodings)
 
     # ---- materialization -------------------------------------------------------
     def get_batch(self) -> DeviceBatch:
         """The batch on its device (copied up from the host or disk tier)."""
         if self.tier == StorageTier.DEVICE:
-            arrays = self.payload
-        elif self.tier == StorageTier.HOST:
+            return _rebuild(self.schema, self.payload, self.num_rows,
+                            self.encodings)
+        if self.tier == StorageTier.HOST:
             arrays = [t.to(self.device, non_blocking=True)
                       for t in self.payload]
         else:

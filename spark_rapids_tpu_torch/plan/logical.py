@@ -1,9 +1,10 @@
 """Logical plan nodes produced by the DataFrame API (the subset this port
-plans: scan, project, filter, aggregate, sort, limit, join, repartition,
-union, expand, generate and window, and a cached subtree)."""
+plans: an in-memory or a file scan, project, filter, aggregate, sort,
+limit, join, repartition, union, expand, generate and window, and a cached
+subtree)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Field, Schema
@@ -27,6 +28,30 @@ class LocalRelation(LogicalPlan):
 
     def schema(self) -> Schema:
         return self.batch.schema
+
+
+@dataclass
+class FileScan(LogicalPlan):
+    """A scan of files (the port reads parquet)."""
+    fmt: str
+    paths: Tuple[str, ...]
+    read_schema: Schema           # the full schema, partition columns too
+    options: Tuple[Tuple[str, str], ...] = ()
+    filters: Tuple[Expression, ...] = ()   # pushed-down predicates
+    #: hive-partition discovery results (io.datasource.PartitionedFile)
+    files: Tuple = ()
+    partition_schema: Schema = field(default_factory=lambda: Schema([]))
+    #: emit the hidden per-file metadata columns (set by the planner when
+    #: the query references input_file_name() or the block expressions)
+    with_file_meta: bool = False
+
+    def schema(self) -> Schema:
+        if not self.with_file_meta:
+            return self.read_schema
+        from spark_rapids_tpu_torch.exprs.misc import INPUT_FILE_META_SPEC
+        return Schema(list(self.read_schema.fields) + [
+            Field(name, dtype, False)
+            for name, dtype, _default in INPUT_FILE_META_SPEC])
 
 
 @dataclass

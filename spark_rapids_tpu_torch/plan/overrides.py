@@ -87,11 +87,11 @@ def fuse_device_ops(plan: PhysicalExec) -> PhysicalExec:
 
 
 def insert_pipeline(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
-    """Wrap the upload under each device operator in a PipelinedExec, so up
-    to ``transfer.pipeline.depth`` batches are in flight between the
-    producing upload and the consuming stage instead of the strict
-    pull-per-batch lockstep. Skipped on a single-core host: the producer
-    thread needs a spare core."""
+    """Wrap the upload or file scan under each device operator in a
+    PipelinedExec, so up to ``transfer.pipeline.depth`` batches are in
+    flight between the producing source and the consuming stage instead of
+    the strict pull-per-batch lockstep. Skipped on a single-core host: the
+    producer thread needs a spare core."""
     from spark_rapids_tpu_torch.execs.pipeline import PipelinedExec
     depth = conf.get(cfg.TRANSFER_PIPELINE_DEPTH)
     if not conf.get(cfg.TRANSFER_PIPELINE_ENABLED) or depth <= 0:
@@ -99,11 +99,14 @@ def insert_pipeline(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
     if (os.cpu_count() or 1) < 2:
         return plan
 
+    def is_source(node: PhysicalExec) -> bool:
+        return (isinstance(node, te.HostToDeviceExec)
+                or getattr(node, "is_file_scan", False))
+
     def fix(node: PhysicalExec) -> PhysicalExec:
         if not node.is_device or isinstance(node, PipelinedExec):
             return node
-        new_children = [PipelinedExec(c, depth)
-                        if isinstance(c, te.HostToDeviceExec) else c
+        new_children = [PipelinedExec(c, depth) if is_source(c) else c
                         for c in node.children]
         if all(a is b for a, b in zip(new_children, node.children)):
             return node

@@ -49,14 +49,120 @@ def plan_physical(plan: lp.LogicalPlan, conf: TpuConf,
     and last the footprint contract over the final tree
     (``memory.outOfCore.enabled``; ``device`` sizes its budget when no
     memory manager exists yet)."""
+    from spark_rapids_tpu_torch.plan.encoded import mark_encoded_domain
     from spark_rapids_tpu_torch.plan.footprint import annotate_out_of_core
     from spark_rapids_tpu_torch.plan.fusion import fuse_stages
     from spark_rapids_tpu_torch.plan.overrides import (fuse_device_ops,
                                                        insert_pipeline)
+    plan = _resolve_input_file_meta(plan)
     device_plan = fuse_device_ops(fuse_stages(
         ensure_requirements(_plan_node(plan, conf)), conf))
-    return annotate_out_of_core(
-        DeviceToHostExec(insert_pipeline(device_plan, conf)), conf, device)
+    device_plan = mark_encoded_domain(insert_pipeline(device_plan, conf),
+                                      conf)
+    return annotate_out_of_core(DeviceToHostExec(device_plan), conf, device)
+
+
+def _resolve_input_file_meta(plan: lp.LogicalPlan) -> lp.LogicalPlan:
+    """When an expression references input-file metadata
+    (InputFileName/BlockStart/BlockLength), flip every file scan below it
+    to emit the hidden per-file columns, thread them through the
+    projections in between, give union branches without a file scan
+    Spark's defaults ('' / -1), and strip them from the root's output, as
+    the JAX planner does. Binding then resolves the markers to the hidden
+    columns."""
+    import dataclasses
+
+    from spark_rapids_tpu_torch.exprs.core import UnresolvedAttribute
+    from spark_rapids_tpu_torch.exprs.literals import Literal
+    from spark_rapids_tpu_torch.exprs.misc import (INPUT_FILE_META_SPEC,
+                                                   _InputFileMeta)
+
+    def expr_has(e: Expression) -> bool:
+        if isinstance(e, _InputFileMeta):
+            return True
+        return any(expr_has(c) for c in e.children)
+
+    def any_exprs(obj, depth=0) -> bool:
+        if isinstance(obj, Expression):
+            return expr_has(obj)
+        if depth > 3:
+            return False
+        if isinstance(obj, (tuple, list)):
+            return any(any_exprs(x, depth + 1) for x in obj)
+        if dataclasses.is_dataclass(obj) and not isinstance(
+                obj, (lp.LogicalPlan, type)):
+            return any(any_exprs(getattr(obj, f.name), depth + 1)
+                       for f in dataclasses.fields(obj))
+        return False
+
+    def fields_of(node: lp.LogicalPlan):
+        # a plan node that is not a dataclass holds no expression here
+        return (dataclasses.fields(node) if dataclasses.is_dataclass(node)
+                else ())
+
+    def node_uses_meta(node: lp.LogicalPlan) -> bool:
+        for f in fields_of(node):
+            v = getattr(node, f.name)
+            if isinstance(v, lp.LogicalPlan):
+                continue
+            if any_exprs(v):
+                return True
+        return any(node_uses_meta(c) for c in node.children)
+
+    if not node_uses_meta(plan):
+        return plan
+    meta_cols = tuple(n for n, _d, _v in INPUT_FILE_META_SPEC)
+
+    def with_default_meta(child: lp.LogicalPlan) -> lp.LogicalPlan:
+        exprs = [Alias(UnresolvedAttribute(n), n)
+                 for n in child.schema().names()]
+        exprs.extend(Alias(Literal(default, dtype), name)
+                     for name, dtype, default in INPUT_FILE_META_SPEC)
+        return lp.Project(tuple(exprs), child)
+
+    def flip(node: lp.LogicalPlan) -> lp.LogicalPlan:
+        if isinstance(node, lp.FileScan):
+            return dataclasses.replace(node, with_file_meta=True)
+        kids = [flip(c) for c in node.children]
+        extended = False
+        if isinstance(node, lp.Project):
+            # thread the hidden columns through the projections in between
+            have = set(kids[0].schema().names())
+            mine = {e.name_hint for e in node.exprs}
+            passthrough = tuple(
+                Alias(UnresolvedAttribute(n), n) for n in meta_cols
+                if n in have and n not in mine)
+            if passthrough:
+                node = dataclasses.replace(
+                    node, exprs=tuple(node.exprs) + passthrough)
+                extended = True
+        if isinstance(node, lp.Union):
+            # every branch must agree on the hidden columns
+            if any(meta_cols[0] in k.schema().names() for k in kids):
+                kids = [k if meta_cols[0] in k.schema().names()
+                        else with_default_meta(k) for k in kids]
+        if not extended and all(
+                a is b for a, b in zip(kids, node.children)):
+            return node
+        reps = {}
+        ki = iter(kids)
+        for f in fields_of(node):
+            v = getattr(node, f.name)
+            if isinstance(v, lp.LogicalPlan):
+                reps[f.name] = next(ki)
+            elif isinstance(v, tuple) and v and all(
+                    isinstance(x, lp.LogicalPlan) for x in v):
+                reps[f.name] = tuple(next(ki) for _ in v)
+        return dataclasses.replace(node, **reps)
+
+    out = flip(plan)
+    # the hidden columns never surface in the user-visible output
+    root_names = out.schema().names()
+    visible = [n for n in root_names if not n.startswith("__input_file_")]
+    if len(visible) != len(root_names):
+        out = lp.Project(tuple(Alias(UnresolvedAttribute(n), n)
+                               for n in visible), out)
+    return out
 
 
 def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
@@ -108,9 +214,45 @@ def _check_float_aggs(aggs, conf: TpuConf) -> None:
                 f"{cfg.ENABLE_FLOAT_AGG.key}=true")
 
 
+def _plan_file_scan(plan: lp.FileScan, conf: TpuConf) -> PhysicalExec:
+    """The device parquet scan of a FileScan, its output widened by the
+    hidden input-file columns when the planner asked for them. The port has
+    no CPU engine to fall back to: with parquet reads off the scan does not
+    plan."""
+    if plan.fmt != "parquet":
+        raise NotImplementedError(
+            f"{plan.fmt} scans are not ported (the port reads parquet)")
+    if not (conf.get(cfg.PARQUET_ENABLED)
+            and conf.get(cfg.PARQUET_READ_ENABLED)):
+        raise NotImplementedError(
+            f"parquet scans are off ({cfg.PARQUET_READ_ENABLED.key}) and "
+            f"the port has no CPU engine to read them")
+    from spark_rapids_tpu_torch.io.datasource import PartitionedFile
+    from spark_rapids_tpu_torch.io.parquet import TpuParquetScanExec
+    files = plan.files or tuple(PartitionedFile(p) for p in plan.paths)
+    return TpuParquetScanExec(
+        files, plan.schema(), plan.partition_schema, plan.filters,
+        conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS),
+        conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
+
+
 def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
     if isinstance(plan, lp.LocalRelation):
         return HostToDeviceExec(CpuLocalScanExec(plan.batch))
+    if isinstance(plan, lp.FileScan):
+        return _plan_file_scan(plan, conf)
+    if isinstance(plan, lp.Filter) and isinstance(plan.child, lp.FileScan):
+        # predicate pushdown: the pushable conjuncts clip row groups by
+        # their statistics; the filter stays as the exact row-level net
+        from dataclasses import replace
+
+        from spark_rapids_tpu_torch.io.datasource import (is_pushable,
+                                                          split_conjuncts)
+        pushed = tuple(c for c in split_conjuncts(plan.condition)
+                       if is_pushable(c))
+        if pushed:
+            plan = lp.Filter(plan.condition, replace(
+                plan.child, filters=plan.child.filters + pushed))
     if isinstance(plan, lp.CachedRelation):
         from spark_rapids_tpu_torch.execs.cache_execs import TpuCachedScanExec
         return TpuCachedScanExec(plan.entry, plan.schema())

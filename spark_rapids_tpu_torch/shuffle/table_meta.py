@@ -106,7 +106,8 @@ def uniform_string_batch(batch: DeviceBatch) -> DeviceBatch:
         return batch
     w = max(widths)
     cols = [DeviceColumn(c.dtype, torch.nn.functional.pad(
-                c.data, (0, w - c.data.shape[1])), c.validity, c.lengths)
+                c.data, (0, w - c.data.shape[1])), c.validity, c.lengths,
+                c.encoding)
             if c.lengths is not None and c.data.shape[1] != w else c
             for c in batch.columns]
     return DeviceBatch(batch.schema, tuple(cols), batch.num_rows)

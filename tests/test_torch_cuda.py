@@ -803,3 +803,144 @@ def test_cuda_framed_min_max_first_last_repeat_and_equal_cpu(cuda, frame):
         v = a[1]
         assert torch.equal(bits(a[0][v]), bits(b[0][v]))
         assert torch.equal(bits(a[0][v]), bits(c[0][v]))
+
+
+# ------------------------------------------------------------- slice 12
+def _encoded_table():
+    """Dictionary columns of every flavor (string, int, double with nulls)
+    and a run-end-encoded one, as the parquet scan stages them."""
+    import pyarrow as pa
+    rng = np.random.default_rng(31)
+    n = 50000
+    return pa.table({
+        "s": pa.array(np.array(["aa", "bbb", "c", "dddd"])[
+            rng.integers(0, 4, n)]).dictionary_encode(),
+        "k": pa.array(rng.integers(0, 40, n), pa.int64()).dictionary_encode(),
+        "d": pa.array([None if v % 13 == 0 else float(v) / 4
+                       for v in rng.integers(0, 300, n)],
+                      pa.float64()).dictionary_encode(),
+        "r": pa.RunEndEncodedArray.from_arrays(
+            pa.array([7000, 20000, 20001, n], pa.int32()),
+            pa.array([1.5, -0.0, float("nan"), 3.0], pa.float64())),
+        "p": pa.array(rng.integers(0, 1 << 40, n), pa.int64())})
+
+
+def _same_device_columns(a, b):
+    n = a.num_rows
+    assert n == b.num_rows
+    for x, y in zip(a.columns, b.columns):
+        for s, t in ((x.data, y.data), (x.validity, y.validity),
+                     (x.lengths, y.lengths)):
+            assert (s is None) == (t is None)
+            if s is not None:
+                assert torch.equal(s[:n].cpu().contiguous().view(torch.uint8),
+                                   t[:n].cpu().contiguous().view(torch.uint8))
+        assert (x.encoding is None) == (y.encoding is None)
+        if x.encoding is not None:
+            assert torch.equal(x.encoding.indices[:n].cpu(),
+                               y.encoding.indices[:n].cpu())
+            assert torch.equal(x.encoding.values.cpu(),
+                               y.encoding.values.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [0, 7000])
+def test_cuda_encoded_upload_and_run_expansion_equal_cpu(cuda, chunk_rows):
+    """The encoded upload (dictionary gathers, the searchsorted run
+    expansion) gives the CPU upload's bits, chunked or not, and keeps the
+    same encodings."""
+    from spark_rapids_tpu_torch.columnar.transfer import upload_arrow
+    t = _encoded_table()
+    on_card = upload_arrow(t, cuda, 16, chunk_rows=chunk_rows)
+    torch.cuda.synchronize()
+    _same_device_columns(on_card, upload_arrow(t, torch.device("cpu"), 16,
+                                               chunk_rows=chunk_rows))
+    assert on_card.columns[0].encoding is not None
+
+
+def _encoded_scan_batch(dev, tmp_path):
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.io.datasource import PartitionedFile
+    from spark_rapids_tpu_torch.io.parquet import (TpuParquetScanExec,
+                                                   schema_of_arrow)
+    t = _encoded_table().drop(["r"])
+    path = str(tmp_path / "t.parquet")
+    pq.write_table(t, path)
+    scan = TpuParquetScanExec((PartitionedFile(path),),
+                              schema_of_arrow(pq.read_schema(path)))
+    (batch,) = list(scan.execute(ExecContext(TpuConf({}), dev)))
+    return batch
+
+
+@pytest.mark.cuda
+def test_cuda_encoded_split_equals_kernel_split(cuda, tmp_path):
+    """One scan batch with token-carrying encodings split 8 ways: the
+    encoded split's pieces equal the sort path's bit for bit, in the same
+    order, and keep the dictionary; the kernel split's pieces hold the same
+    rows (its consolidation takes each group's full 8-row blocks before
+    the remainders, the JAX package's order, so rows compare by a unique
+    key)."""
+    db = _encoded_scan_batch(cuda, tmp_path)
+    enc = {ci: c.encoding for ci, c in enumerate(db.columns)
+           if c.encoding is not None and c.encoding.token is not None}
+    assert enc
+    key = db.schema.index_of("p")
+    ectx = tx.eval_ctx(db, ExecContext(TpuConf({}), cuda))
+    hashes = tx.key_hashes([ectx.columns[key]], db.capacity)
+    pids = tx._compute_pids(tx.HashPartitioning(8, ()), db.capacity, 0,
+                            hashes, cuda)
+    launches = tpk.REORDER_KERNEL.launches
+    kernel = tx.TpuShuffleExchangeExec._kernel_split(
+        ExecContext(TpuConf({}), cuda), db, pids, 8)
+    assert kernel is not None and tpk.REORDER_KERNEL.launches == launches + 1
+    encoded = tx._split_encoded(db, pids, 8, enc)
+    sorted_cols, counts = tx.split_by_pid(ectx.columns, pids, db.num_rows, 8)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    assert [j for j, _ in kernel] == [j for j, _ in encoded]
+    for (j, a), (_, b) in zip(kernel, encoded):
+        n = b.num_rows
+        plain = tx._slice_padded(sorted_cols, db.schema, int(starts[j]), n)
+        assert a.num_rows == n
+        order = torch.argsort(a.columns[key].data[:n])
+        for ci, (x, y, z) in enumerate(zip(a.columns, b.columns,
+                                           plain.columns)):
+            for u, v in ((y.validity[:n], z.validity[:n]),
+                         (y.data[:n], z.data[:n]),
+                         (x.data[:n][order], y.data[:n][torch.argsort(
+                             b.columns[key].data[:n])])):
+                assert torch.equal(u.contiguous().view(torch.uint8),
+                                   v.contiguous().view(torch.uint8)), ci
+            if ci in enc:
+                e = y.encoding
+                valid = y.validity[:n]
+                assert e.token == enc[ci].token
+                assert torch.equal(
+                    y.data[:n][valid],
+                    e.values.index_select(0, e.indices[:n])[valid])
+
+
+@pytest.mark.cuda
+def test_cuda_encoded_domain_aggregate_repeats_bit_for_bit(cuda, tmp_path):
+    """Q1 from parquet on the card (grouping on the string keys' indices,
+    the folded filter over the dictionaries) gives the same bits twice and
+    the keys-off run's keys and counts."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, q1
+    path = str(tmp_path / "lineitem.parquet")
+    t = gen_lineitem(0.1, seed=7).to_arrow()
+    pq.write_table(t, path, row_group_size=t.num_rows // 16)
+    conf = {**BENCH_CONF, "spark.rapids.tpu.sql.scanCache.enabled": "false",
+            "spark.rapids.tpu.sql.string.maxBytes": "16"}
+    sess = TpuSession(conf, device="cuda")
+    runs = [q1(sess.read.parquet(path)).collect() for _ in range(2)]
+    assert [n for n in sess.last_plan.walk()
+            if getattr(n, "encoded_batches", 0)]
+    _same_host_batch(*runs)
+    off = TpuSession({**conf, "spark.rapids.tpu.sql.encodedDomain.enabled":
+                      "false"}, device="cuda")
+    dec = q1(off.read.parquet(path)).collect()
+    for ci in (0, 1, 9):        # the flags, the statuses, count_order
+        a, b = runs[0].columns[ci], dec.columns[ci]
+        assert np.array_equal(a.data[:runs[0].num_rows],
+                              b.data[:dec.num_rows])

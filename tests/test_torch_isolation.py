@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package,
-its main path needs no pyarrow, its entry points refuse to fall back to the
-CPU on their own, and its kernel wrapper never answers a non-CPU tensor with
-the plain version."""
+its main path needs no pyarrow (its file scans do), its entry points refuse
+to fall back to the CPU on their own, and its kernel wrapper never answers a
+non-CPU tensor with the plain version."""
 import ast
 import os
 import subprocess
@@ -21,8 +21,12 @@ FORBIDDEN = ("jax", "jaxlib", "spark_rapids_tpu")
 _CHILD = """
 import importlib, pkgutil, sys
 import spark_rapids_tpu_torch as port
-for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
-    importlib.import_module(m.name)
+mods = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                              port.__name__ + ".")]
+# the file-scan package reads through pyarrow: imported last, below
+for m in mods:
+    if not m.startswith("spark_rapids_tpu_torch.io."):
+        importlib.import_module(m)
 from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, gen_lineitem, q1
 sess = TpuSession(BENCH_CONF, device="cpu")
@@ -102,7 +106,23 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
 print("LOADED", bad)
-sys.exit(1 if bad else 0)
+# the file scan's modules load pyarrow, and nothing else the port refuses:
+# Q1 from a parquet file, on the encoded domain
+for m in mods:
+    importlib.import_module(m)
+import tempfile
+import pyarrow.parquet as pq
+from spark_rapids_tpu_torch.plan.encoded import count_encoded_domain
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "lineitem.parquet")
+    pq.write_table(gen_lineitem(0.0005, 6).to_arrow(), path,
+                   row_group_size=700)
+    assert q1(sess.read.parquet(path)).collect().num_rows == 6
+    assert count_encoded_domain(sess.last_plan) > 0
+scan_bad = sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))
+print("SCAN LOADED", scan_bad)
+sys.exit(1 if bad or scan_bad else 0)
 """
 
 
@@ -121,12 +141,15 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     out of core (memory/grace.py), Q1 over a cached DataFrame
     (memory/df_cache.py) and the expression and SQL surface's queries
     (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
-    no jax, nothing of the JAX package and no pyarrow loaded."""
+    no jax, nothing of the JAX package and no pyarrow loaded; the file-scan
+    modules (io/), imported after, load pyarrow but neither jax nor the
+    JAX package."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "LOADED []" in res.stdout
+    assert "\nLOADED []" in "\n" + res.stdout
+    assert "SCAN LOADED []" in res.stdout
 
 
 def _imports(path: Path):
@@ -150,8 +173,18 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 def test_no_jax_or_reference_imports(path):
     mods = list(_imports(path))
     assert not [m for m, _ in mods if m in FORBIDDEN], path
-    # pyarrow only inside the functions that convert at the edge
-    assert not [m for m, top in mods if m == "pyarrow" and top], path
+    # pyarrow only inside the functions that convert at the edge, and in
+    # the file-scan package, which reads through it
+    if PORT / "io" not in path.parents:
+        assert not [m for m, top in mods if m == "pyarrow" and top], path
+
+
+@pytest.mark.parametrize("name", ["parquet_pages.py", "rebase.py"])
+def test_io_copies_byte_equal_to_the_reference(name):
+    """The page reader and the calendar rebase are numpy/pyarrow only, so
+    the port keeps byte-equal copies of the JAX package's."""
+    assert (PORT / "io" / name).read_bytes() == \
+        (ROOT / "spark_rapids_tpu" / "io" / name).read_bytes()
 
 
 def test_session_without_gpu_raises(monkeypatch):
