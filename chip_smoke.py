@@ -142,13 +142,16 @@ Phases:
      join) checked for repeats;
  14. slice 10's out-of-core layer (memory/grace.py, plan/footprint.py):
      every query of the three suites at the check scales with
-     memory.outOfCore.forcePartitions=4, each equal to its default run of
-     phases 9-11 (unordered; floats within REL_TOL), every grouped
+     memory.outOfCore.forcePartitions=4 (FORCE_CHECK; four card worker
+     processes run them side by side, each query's time being the host's
+     work per partition), each equal to its default run of phases 9-11
+     (unordered; floats within REL_TOL), every grouped
      aggregate, keyed join and sort that ran having gone out of core;
      then at the run's scale Q1 hash 8, Q3 and TPC-DS q67 with
-     forcePartitions=8, and Q3 with memory.faults.plan
-     budget_clamp:fraction=0.05 and alloc_fail:op=join,after=1 (the
-     reactive path), cold and warm, each equal to its default run, with
+     forcePartitions=8, and Q3 with memory.faults.plan budget_clamp (its
+     fraction sized from Q3's predicted footprint at the run's scale, at
+     most 0.05) and alloc_fail:op=join,after=1 (the reactive path), cold
+     and warm, each equal to its default run, with
      walls, peak device memory, the operators out of core (trigger,
      sizing, partitions, depth) and the bytes spilled per tier;
  15. the expression and SQL surface (benchmarks/sql_surface.py):
@@ -190,7 +193,28 @@ Phases:
      Q1 and q3 from files sorted on the pushed-down column, through a
      filter that must clip row groups and an input_file_name() filter,
      against the port's CPU run of the same files. It prints its seconds
-     against a bound of 180 s.
+     against a bound of 180 s;
+ 17. slice 13's main path, the plan layer's CPU fallback: the mortgage
+     ETL (clean_acquisition_prime, benchmarks/mortgage.py) at scale 50,
+     seed 42 (500,000 loans, ~10.5M performance rows, ~126M rows out of
+     the 12-month explode) to ``ml.device_arrays`` on cuda, plain and
+     with the performance table hash 8 on loan_id (the reorder kernel),
+     cold and warm: input rows/s over the warm wall, feature rows and
+     columns, peak device memory, the operators out of core, reorder
+     launches, launches kept and the launches whose quota overflowed; the
+     tensors downloaded equal ``collect()``; at scale 0.5 both ETL
+     functions on the card equal the port's CPU engine
+     (sql.enabled=false). TPC-H Q1 with the row UDF ``charge(price, tax)
+     = price * (1.0 + tax)`` (bench.py::_bench_udf_q1) compiled
+     (sql.udfCompiler.enabled) at the run's scale, lineitem hash 8, cold
+     and warm: no PythonUDF in the plan, equal bit for bit to the query
+     with the built-in expression; at SF 0.1 the row fallback (its
+     aggregate "cannot run on TPU") against the compiled UDF within
+     REL_TOL. TPC-H Q1 and Q3 at --check-sf on the CPU engine of the
+     card's host (sql.enabled=false) equal to phase 9's card results, and
+     Q1 without variableFloatAgg (its aggregate on the CPU engine) within
+     REL_TOL. Every card run of phases 6-17 fails if its plan leaves an
+     operator but the in-memory scans to the CPU engine.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -861,6 +885,7 @@ def phase_main_path(lineitem, reference, profile_dir=None):
         times.append(time.perf_counter() - t0)
         if launches is None:
             launches = read_launches()[0]
+        assert_on_device(f"q1 repartition(8) {attempt}", sess)
         hash_exchange(sess)
         check_q1(f"q1 repartition(8) {attempt}", res, reference)
     if launches < 1:
@@ -885,6 +910,7 @@ def phase_main_path(lineitem, reference, profile_dir=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     reorder_n, compact_n = read_launches()
+    assert_on_device("q1 repartition(8) dmaConsolidate", dma)
     hash_exchange(dma)
     if reorder_n < 1 or compact_n < 1:
         raise AssertionError(f"q1 dmaConsolidate: launches reorder="
@@ -896,6 +922,7 @@ def phase_main_path(lineitem, reference, profile_dir=None):
     res = q1(sess.create_dataframe(lineitem)).collect()
     torch.cuda.synchronize()
     print(f"q1 (no repartition): s={time.perf_counter() - t0:.4f}")
+    assert_on_device("q1 plain", sess)
     check_q1("q1 plain", res, reference)
     # phase 16's reference: the in-memory cold Q1 under bench.py's cold
     # conf (no scan cache, 16-byte strings)
@@ -906,6 +933,7 @@ def phase_main_path(lineitem, reference, profile_dir=None):
     res = q1(cold.create_dataframe(lineitem)).collect()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
+    assert_on_device("q1 plain cold", cold)
     check_q1("q1 plain cold", res, reference)
     print(f"q1 (no repartition, no scan cache, 16-byte strings): "
           f"cold_s={cold_s:.4f}")
@@ -1132,6 +1160,7 @@ def phase_q3(tables, overflow, profile_dir=None):
                 launches[label] = (*n_launch,
                                    sum(k for k, _ in want_splits))
             check_q3(f"q3 {label} {attempt}", res, ref)
+            assert_on_device(f"q3 {label} {attempt}", sess)
             plan = sess.last_plan
             joins = join_strategies(plan)
             hashed = [e for e in plan.walk()
@@ -1197,6 +1226,7 @@ def phase_q6_and_sort(li, device):
         res = q6(sess.create_dataframe(li)).collect()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        assert_on_device("q6", sess)
     got = float(res.columns[0].data[0])
     rel = abs(got - want) / abs(want)
     if res.num_rows != 1 or not res.columns[0].validity[0] or rel > REL_TOL:
@@ -1210,6 +1240,7 @@ def phase_q6_and_sort(li, device):
     res = sess.create_dataframe(li).repartition(8, "l_orderkey") \
         .sort("l_shipdate", "l_orderkey").collect()
     sort_s = time.perf_counter() - t0
+    assert_on_device("sort", sess)
     # np.lexsort((l_orderkey, l_shipdate))'s order: a stable sort of the
     # combined key, done on the card by torch.sort (numpy's takes ~30 s)
     key = (_col(li, "l_shipdate").astype(np.int64) << 40) \
@@ -1368,10 +1399,26 @@ def check_same_result(name, got, want, ties, positional=False):
     return worst
 
 
-def run_query(sess, name, build):
+def assert_on_device(name, sess):
+    """Under BENCH_CONF the plan layer leaves nothing of a suite query to
+    the CPU engine: the executed plan holds no ``Cpu*Exec`` but the
+    in-memory scans, and the explain has no "cannot run on TPU" line but
+    theirs (a host table has no device form; its upload follows it)."""
+    host = sorted({type(n).__name__ for n in sess.last_plan.walk()
+                   if type(n).__name__.startswith("Cpu")
+                   and type(n).__name__ != "CpuLocalScanExec"})
+    lines = [ln.strip() for ln in sess.last_explain.splitlines()
+             if "cannot run on TPU" in ln and "CpuLocalScanExec" not in ln]
+    if host or lines:
+        raise AssertionError(f"{name}: the plan left {host} on the CPU "
+                             f"engine: {lines}\n{sess.last_explain}")
+
+
+def run_query(sess, name, build, on_device=True):
     """One run of ``build(sess).collect()`` on the session's device ->
     (result, seconds, reorder launches, compact launches, launches kept,
-    plan)."""
+    plan). With ``on_device`` the plan must hold no CPU engine operator
+    (``assert_on_device``)."""
     import torch
     from spark_rapids_tpu_torch.execs.exchange_execs import (
         HashPartitioning, TpuShuffleExchangeExec)
@@ -1383,6 +1430,8 @@ def run_query(sess, name, build):
     secs = time.perf_counter() - t0
     reorder_n, compact_n = read_launches()
     plan = sess.last_plan
+    if on_device:
+        assert_on_device(name, sess)
     hashed = [e for e in plan.walk() if isinstance(e, TpuShuffleExchangeExec)
               and isinstance(e.partitioning, HashPartitioning)]
     kept = sum(e.kernel_splits for e in hashed)
@@ -2410,6 +2459,7 @@ def row_ids_unique(sess, df):
         raise AssertionError("the plan has no row id")
     col = next(e.name for e in node.exprs if has_id(e))
     out = DataFrame(node, sess).collect()
+    assert_on_device("row ids", sess)
     ids = out.column_by_name(col).data[:out.num_rows]
     return ids.shape[0], ids.shape[0] - np.unique(ids).shape[0]
 
@@ -2518,16 +2568,42 @@ def phase_sql_at_scale(tpch_tables_sf, tpch_results, ds_tables_sf,
 # ------------------------------------------------------------------ phase 14
 #: the grace conf keys phase 14 drives
 FORCE_KEY = "spark.rapids.tpu.memory.outOfCore.forcePartitions"
+#: the forced partitions of phase 14's check-scale runs of every suite query
+FORCE_CHECK = 4
 FAULTS_KEY = "spark.rapids.tpu.memory.faults.plan"
-#: the SF-10 runs of phase 14: (label, query, conf keys); Q3's two fault
-#: plans take the reactive path (a clamped budget, a failed admission)
+#: the budget_clamp run's fraction at SF 10, and its most at any scale
+CLAMP_FRACTION = 0.05
+#: the runs of phase 14 at the run's scale: (label, query, conf keys);
+#: Q3's two fault plans take the reactive path (a clamped budget, a failed
+#: admission); the clamp's keys come from ``clamp_keys`` (None here)
 OOC_AT_SCALE = (("q1 hash8 force8", ("tpch", 1), {FORCE_KEY: "8"}),
                 ("q3 force8", ("tpch", 3), {FORCE_KEY: "8"}),
                 ("q67 force8", ("tpcds", "q67"), {FORCE_KEY: "8"}),
-                ("q3 budget_clamp", ("tpch", 3),
-                 {FAULTS_KEY: "budget_clamp:fraction=0.05"}),
+                ("q3 budget_clamp", ("tpch", 3), None),
                 ("q3 alloc_fail", ("tpch", 3),
                  {FAULTS_KEY: "alloc_fail:op=join,after=1"}))
+
+
+def clamp_keys(build):
+    """The budget_clamp fault plan sized from the query's predicted
+    footprint at this run's scale (plan/footprint.py): the clamped budget
+    holds a quarter of the largest working set the plan declares, so an
+    operator goes out of core at any ``--sf``; never more than
+    CLAMP_FRACTION, the SF-10 run's clamp. At SF 1 a fixed 0.05 of the
+    card's budget held Q3's whole working set."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.plan.footprint import (
+        device_budget_estimate, plan_working_set_estimate)
+    sess = TpuSession(BENCH_CONF)
+    ws = plan_working_set_estimate(build(sess).physical_plan())
+    if not ws:
+        raise AssertionError("budget_clamp: the plan declares no working set")
+    budget = device_budget_estimate(sess.conf, sess.device)
+    frac = min(CLAMP_FRACTION, ws / 4 / budget)
+    print(f"budget_clamp: predicted working set {ws} B of a {budget} B "
+          f"budget -> fraction {frac:.6g}")
+    return {FAULTS_KEY: f"budget_clamp:fraction={frac:.6g}"}
 
 
 def _keyed(node):
@@ -2543,63 +2619,108 @@ def _keyed(node):
                 and node.left_keys))
 
 
-def forced_against_default(label, sf, specs, wants):
-    """Every query of ``specs`` on the card with forcePartitions=4 against
-    its default run's result ``wants[name]`` (phases 9-11's check runs):
-    equal, unordered (grace emits a grouped result's partitions in turn),
-    floats within REL_TOL; every operator that can go out of core and ran
-    must have gone. Returns the reorder launches of each run."""
+#: card worker processes for phase 14's forced runs at the check scales: a
+#: forced run's time goes to the host's work per partition, so the queries
+#: run in several processes at once, each on the one card (their walls are
+#: taken side by side; the runs at the run's scale stay alone)
+FORCE_WORKERS, FORCE_THREADS = 4, 2
+
+
+def forced_run(suite, sf, seed, name, want):
+    """In a card worker: query ``name`` of ``suite`` (``SUITES``, its tables
+    made once per worker from the same generators and seed as the card's
+    check runs) with forcePartitions=FORCE_CHECK, held against its default
+    run's result ``want`` (phases 9-11's check runs): equal, unordered
+    (grace emits a grouped result's partitions in turn), floats within
+    REL_TOL; every operator that can go out of core and ran must have
+    gone, forced. Returns (rows, seconds, reorder launches, the operators
+    out of core, how many, partitions made)."""
     from spark_rapids_tpu_torch.api import TpuSession
     from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
     from spark_rapids_tpu_torch.memory import grace
-    sess = TpuSession({**BENCH_CONF, FORCE_KEY: "4"})
-    launches, total, ops, parts = {}, 0.0, 0, 0
-    for name, build, _, _ in specs:
-        before = grace.counters()["spill_partitions"]
-        got, secs, n, _, _, plan = run_query(sess, name, build)
-        check_same_result(f"{label} {name} forcePartitions=4 against the "
-                          f"default run", got, wants[name], True)
-        keyed = [x for x in plan.walk() if _keyed(x)]
-        went = [x for x in keyed if getattr(x, "grace_stats", None)]
-        if bool(went) != bool(keyed) or any(
-                x.grace_stats["trigger"] != "forced" for x in went):
-            raise AssertionError(f"{label} {name}: forced out of core "
-                                 f"{grace_summary(plan)} of {len(keyed)} "
-                                 f"operators that can go")
-        made = grace.counters()["spill_partitions"] - before
-        total, ops, parts = total + secs, ops + len(went), parts + made
-        launches[f"phase14 {label} {name} force4"] = n
-        print(f"{label} {name} sf={sf} force4: rows={got.num_rows} "
-              f"s={secs:.4f} out_of_core={grace_summary(plan)}, equal to "
+    key = (suite, sf, seed)
+    if key not in _WORKER_SPECS:
+        make_tables, make_specs = SUITES[suite]
+        _WORKER_SPECS[key] = {s[0]: s[1] for s in
+                              make_specs(make_tables(sf, seed))}
+    sess = TpuSession({**BENCH_CONF, FORCE_KEY: str(FORCE_CHECK)})
+    before = grace.counters()["spill_partitions"]
+    got, secs, n, _, _, plan = run_query(sess, name,
+                                         _WORKER_SPECS[key][name])
+    check_same_result(f"{suite} {name} forcePartitions={FORCE_CHECK} "
+                      f"against the default run", got, want, True)
+    keyed = [x for x in plan.walk() if _keyed(x)]
+    went = [x for x in keyed if getattr(x, "grace_stats", None)]
+    if bool(went) != bool(keyed) or any(
+            x.grace_stats["trigger"] != "forced" for x in went):
+        raise AssertionError(f"{suite} {name}: forced out of core "
+                             f"{grace_summary(plan)} of {len(keyed)} "
+                             f"operators that can go")
+    return (got.num_rows, secs, n, grace_summary(plan), len(went),
+            grace.counters()["spill_partitions"] - before)
+
+
+def forced_against_default(jobs, wants, seed):
+    """Every query of ``jobs`` [(label, suite, scale, names)] on the card
+    with forcePartitions=FORCE_CHECK against its default run's result
+    ``wants[label][name]`` (``forced_run``), in FORCE_WORKERS processes;
+    the workers are gone when this returns or raises. Returns the reorder
+    launches of each run."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    # the card's memory goes to the workers: this process keeps nothing of
+    # its earlier runs cached there
+    release_device()
+    with concurrent.futures.ProcessPoolExecutor(
+            FORCE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init, initargs=(FORCE_THREADS,)) as pool:
+        futures = {(label, name): pool.submit(
+            forced_run, suite, sf, seed, name, wants[label][name])
+            for label, suite, sf, names in jobs for name in names}
+        try:
+            done = {k: f.result() for k, f in futures.items()}
+        except BaseException:
+            pool.shutdown(cancel_futures=True)
+            raise
+    launches = {}
+    for label, _, sf, names in jobs:
+        total = ops = parts = 0
+        for name in names:
+            rows, secs, n, summary, went, made = done[(label, name)]
+            total, ops, parts = total + secs, ops + went, parts + made
+            launches[f"phase14 {label} {name} force{FORCE_CHECK}"] = n
+            print(f"{label} {name} sf={sf} force{FORCE_CHECK}: rows={rows} "
+                  f"s={secs:.4f} out_of_core={summary}, equal to the "
+                  f"default run")
+        print(f"{label} sf={sf} forcePartitions={FORCE_CHECK}: {len(names)} "
+              f"queries in {total:.2f} s of their walls, {ops} operators "
+              f"out of core in {parts} partitions, every result equal to "
               f"the default run")
-    print(f"{label} sf={sf} forcePartitions=4: {len(specs)} queries in "
-          f"{total:.2f} s, {ops} operators out of core in {parts} "
-          f"partitions, every result equal to the default run")
+    print(f"forced runs: {len(futures)} queries in {FORCE_WORKERS} card "
+          f"workers in {time.perf_counter() - t0:.2f} s")
     return launches
 
 
-def phase_out_of_core(check, check_results, check_pruned, check_sf,
-                      bb_check_sf, tpch_sf_tables, tpch_results,
-                      ds_sf_tables, ds_results):
+def phase_out_of_core(check_results, check_sf, bb_check_sf, seed,
+                      tpch_sf_tables, tpch_results, ds_sf_tables,
+                      ds_results):
     """Phase 14, out-of-core: every query of the three suites at the check
-    scales with forcePartitions=4, each equal to its default run; then at
+    scales with forcePartitions=FORCE_CHECK, each equal to its default
+    run (``forced_against_default``, in FORCE_WORKERS processes); then at
     the run's scale Q1 hash 8, Q3 and TPC-DS q67 with forcePartitions=8,
     and Q3 with a budget_clamp and an alloc_fail fault plan, cold and warm
     (walls, peak memory, the operators out of core with their trigger,
     partitions and depth, bytes spilled per tier), each equal to its
     default run of phase 9 or 10. Returns the reorder launches per
     path."""
-    launches = forced_against_default(
-        "tpch", check_sf, tpch_specs(check["tpch"], check_pruned["tpch"]),
-        check_results["tpch"])
-    launches.update(forced_against_default(
-        "tpcds+q5", check_sf, suite_specs(check["suite"],
-                                          pruned=check_pruned["suite"]),
-        check_results["suite"]))
-    launches.update(forced_against_default(
-        "tpcxbb", bb_check_sf, bb_specs(check["bb"]), check_results["bb"]))
-    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    launches = forced_against_default(
+        (("tpcds+q5", "suite", check_sf, list(suite_names())),
+         ("tpch", "tpch", check_sf, [f"q{q}" for q in QUERIES]),
+         ("tpcxbb", "bb", bb_check_sf, list(bb_queries()))),
+        {"tpch": check_results["tpch"], "tpcds+q5": check_results["suite"],
+         "tpcxbb": check_results["bb"]}, seed)
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
     for label, (suite, q), keys in OOC_AT_SCALE:
         if suite == "tpch":
             pruned = query_tables(tpch_sf_tables, q)
@@ -2611,6 +2732,8 @@ def phase_out_of_core(check, check_results, check_pruned, check_sf,
             want, ties = ds_results[q], True
             spec = (label, lambda sess, q=q, p=pruned: suite_query(q)[0](
                 suite_frames(sess, p)), ties, True)
+        if keys is None:
+            keys = clamp_keys(spec[1])
         nums, results = run_cold_warm([spec], all_kept=False,
                                          conf={**BENCH_CONF, **keys})
         check_same_result(f"{label} against the default run",
@@ -2728,6 +2851,362 @@ def phase_surface(check_sf, seed, refs, q51_refs, ds_sf_tables):
     for name, n in nums.items():
         launches[f"phase15 {name}"] = n["launches"]
     return nums, launches
+
+
+# ------------------------------------------------------------------ phase 17
+#: phase 17's mortgage scale (500,000 loans) and its check scale
+MORTGAGE_SCALE = 50.0
+MORTGAGE_CHECK_SCALE = 0.5
+#: the UDF fallback's scale (row at a time on the host)
+UDF_FALLBACK_SF = 0.1
+
+
+def charge(price, tax):
+    """bench.py::_bench_udf_q1's row UDF."""
+    return price * (1.0 + tax)
+
+
+def udf_q1(df, compiled_udf=True):
+    """bench.py::_bench_udf_q1's query: Q1's filter and grouping with the
+    UDF's sum (or the same arithmetic as built-in expressions)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.columnar.dtypes import DType
+    price, tax = F.col("l_extendedprice"), F.col("l_tax")
+    charged = (F.udf(charge, DType.DOUBLE)(price, tax) if compiled_udf
+               else price * (F.lit(1.0) + tax))
+    return (df.filter(F.col("l_shipdate") <= F.lit(datetime.date(1998, 9, 2)))
+              .groupBy("l_returnflag", "l_linestatus")
+              .agg(F.sum(charged).alias("sum_charge"),
+                   F.count(F.lit(1)).alias("cnt")))
+
+
+def plan_expressions(plan):
+    """Every expression node held by an operator of ``plan``."""
+    from spark_rapids_tpu_torch.exprs.core import Expression
+    out, seen = [], set()
+
+    def visit(v, depth):
+        if isinstance(v, Expression):
+            stack = [v]
+            while stack:
+                e = stack.pop()
+                out.append(e)
+                stack.extend(e.children)
+        elif depth < 4 and isinstance(v, (tuple, list)):
+            for x in v:
+                visit(x, depth + 1)
+        elif depth < 4 and hasattr(v, "__dataclass_fields__"):
+            for name in v.__dataclass_fields__:
+                visit(getattr(v, name), depth + 1)
+
+    for node in plan.walk():
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        for v in vars(node).values():
+            visit(v, 0)
+    return out
+
+
+def arrays_batch(arrays, schema):
+    """``ml.device_arrays``'s tensors downloaded into a HostBatch."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    cols, n = [], 0
+    for f in schema:
+        ts = [t.cpu().numpy() for t in arrays[f.name]]
+        n = ts[0].shape[0]
+        cols.append(HostColumn(f.dtype, *ts))
+    return HostBatch(schema, tuple(cols), n)
+
+
+def _row_hashes(hb):
+    """One 64-bit hash per row over every column's bytes (strings cut at
+    their lengths, null values as a constant), sorted: two results hold
+    the same rows exactly when these agree (vectorized, for results of
+    millions of rows that ``check_same_result`` would walk in Python)."""
+    n = hb.num_rows
+    h = np.zeros(n, np.uint64)
+    with np.errstate(over="ignore"):
+        for c in hb.columns:
+            data = np.ascontiguousarray(c.data[:n])
+            if c.lengths is not None:
+                data = np.where(np.arange(data.shape[1])[None, :]
+                                < c.lengths[:n, None], data, 0)
+            raw = data.reshape(n, -1).view(np.uint8).reshape(n, -1)
+            pad = -raw.shape[1] % 8
+            if pad:
+                raw = np.pad(raw, ((0, 0), (0, pad)))
+            words = np.ascontiguousarray(raw).view(np.uint64)
+            part = np.full(n, 1469598103934665603, np.uint64)
+            for j in range(words.shape[1]):
+                part = (part ^ words[:, j]) * np.uint64(1099511628211)
+            part = np.where(c.validity[:n].astype(bool), part,
+                            np.uint64(0x9E3779B97F4A7C15))
+            h = (h ^ part) * np.uint64(0xBF58476D1CE4E5B9) \
+                + np.uint64(0x94D049BB133111EB)
+    return np.sort(h)
+
+
+def _same_positions(got, want):
+    """Every column equal row by row: validity, and the values of the
+    valid rows (strings up to their lengths)."""
+    n = got.num_rows
+    for a, b in zip(got.columns, want.columns):
+        valid = a.validity[:n].astype(bool)
+        if not np.array_equal(valid, b.validity[:n].astype(bool)):
+            return False
+        if a.lengths is not None:
+            if not np.array_equal(a.lengths[:n][valid], b.lengths[:n][valid]):
+                return False
+            w = min(a.data.shape[1], b.data.shape[1])
+            live = np.arange(w)[None, :] < a.lengths[:n, None]
+            if not (np.array_equal(np.where(live, a.data[:n, :w], 0),
+                                   np.where(live, b.data[:n, :w], 0))
+                    and not (a.data[:n, w:] * valid[:, None]).any()
+                    and not (b.data[:n, w:] * valid[:, None]).any()):
+                return False
+        elif not np.array_equal(a.data[:n][valid].view(np.uint8),
+                                b.data[:n][valid].view(np.uint8)):
+            return False
+    return True
+
+
+def check_same_rows(name, got, want):
+    """Same schema, row count and rows, exactly: row by row (the same plan
+    run twice), else as sorted row hashes."""
+    if got.schema.names() != want.schema.names() or \
+            got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows of "
+                             f"{got.schema.names()} against {want.num_rows} "
+                             f"of {want.schema.names()}")
+    if _same_positions(got, want):
+        return
+    if not np.array_equal(_row_hashes(got), _row_hashes(want)):
+        raise AssertionError(f"{name}: the rows differ")
+
+
+def exchange_counts(plan):
+    """(hash exchanges, kernel splits kept, sort-path splits)."""
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    hashed = [e for e in plan.walk() if isinstance(e, TpuShuffleExchangeExec)
+              and isinstance(e.partitioning, HashPartitioning)]
+    return (len(hashed), sum(e.kernel_splits for e in hashed),
+            sum(e.sort_path_splits for e in hashed))
+
+
+def phase_mortgage(seed):
+    """Part 1: the mortgage ETL to ``ml.device_arrays`` at MORTGAGE_SCALE,
+    plain and hash 8, cold and warm; the arrays against ``collect()``;
+    both ETL functions at MORTGAGE_CHECK_SCALE against the CPU engine.
+    Returns the reorder launches per path."""
+    import torch
+    from spark_rapids_tpu_torch import ml
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import mortgage as mg
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    t0 = time.perf_counter()
+    perf = mg.gen_performance(MORTGAGE_SCALE, seed)
+    acq = mg.gen_acquisition(MORTGAGE_SCALE, seed)
+    n_in = perf.num_rows + acq.num_rows
+    print(f"mortgage scale={MORTGAGE_SCALE}: {acq.num_rows} loans, "
+          f"{perf.num_rows} performance rows, generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for way in ("plain", "hash8"):
+        sess = TpuSession(BENCH_CONF)
+
+        def etl():
+            p = sess.create_dataframe(perf)
+            if way == "hash8":
+                p = p.repartition(8, "loan_id")
+            return mg.clean_acquisition_prime(p, sess.create_dataframe(acq))
+
+        if peek_cache() is not None:
+            peek_cache().clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        walls, arrays = [], None
+        for _ in ("cold", "warm"):
+            del arrays
+            reset_launches()
+            t1 = time.perf_counter()
+            arrays = ml.device_arrays(etl())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            n, _ = read_launches()
+            assert_on_device(f"mortgage {way}", sess)
+            hashed, kept, sorted_ = exchange_counts(sess.last_plan)
+            grace = grace_summary(sess.last_plan)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        cols = list(arrays)
+        rows = arrays[cols[0]][0].shape[0]
+        where = {str(t.device) for a in arrays.values() for t in a}
+        if where != {str(sess.device)} or rows == 0:
+            raise AssertionError(f"mortgage {way}: {rows} feature rows on "
+                                 f"{where}, not {sess.device}")
+        if way == "hash8" and n < 1:
+            raise AssertionError("mortgage hash8 did not launch the "
+                                 "reorder kernel")
+        got = arrays_batch(arrays, etl().schema())
+        del arrays
+        want = etl().collect()
+        check_same_rows(f"mortgage {way} device_arrays against collect()",
+                        got, want)
+        del got, want
+        launches[f"phase17 mortgage {way}"] = n
+        rec = {"way": way, "input_rows": n_in, "feature_rows": rows,
+               "feature_columns": len(cols), "cold_s": walls[0],
+               "warm_s": walls[1],
+               "mortgage_etl_to_ml_rows_per_sec": n_in / walls[1],
+               "peak_gb": peak, "out_of_core": grace,
+               "reorder_launches": n, "launches_kept": kept,
+               "launches_overflowed": n - kept,
+               "sort_path_splits": sorted_}
+        print(f"mortgage {way}: feature rows={rows} columns={len(cols)} "
+              f"cold_s={walls[0]:.4f} warm_s={walls[1]:.4f} "
+              f"rows_per_s={n_in / walls[1]:.0f} peak_device_gb={peak:.2f} "
+              f"out_of_core={grace} reorder_launches={n} "
+              f"launches_kept={kept} overflowed={n - kept}, device_arrays "
+              f"equal to collect()")
+        print(json.dumps({"phase17_mortgage": rec}))
+    del perf, acq
+    # both ETL functions at the check scale against the CPU engine
+    perf = mg.gen_performance(MORTGAGE_CHECK_SCALE, seed)
+    acq = mg.gen_acquisition(MORTGAGE_CHECK_SCALE, seed)
+    cpu = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.enabled": "false"})
+    gpu = TpuSession(BENCH_CONF)
+    for fn in ("clean_acquisition_prime", "simple_aggregates"):
+        t1 = time.perf_counter()
+        want = getattr(mg, fn)(cpu.create_dataframe(perf),
+                               cpu.create_dataframe(acq)).collect()
+        cpu_s = time.perf_counter() - t1
+        if any(not type(n).__name__.startswith("Cpu")
+               for n in cpu.last_plan.walk()):
+            raise AssertionError(f"{fn}: sql.enabled=false planned a "
+                                 f"device operator")
+        t1 = time.perf_counter()
+        got = getattr(mg, fn)(gpu.create_dataframe(perf),
+                              gpu.create_dataframe(acq)).collect()
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t1
+        assert_on_device(f"mortgage {fn}", gpu)
+        worst = check_same_result(
+            f"mortgage {fn} scale={MORTGAGE_CHECK_SCALE} card against the "
+            f"CPU engine", got, want, fn != "simple_aggregates")
+        print(f"mortgage {fn} scale={MORTGAGE_CHECK_SCALE}: rows="
+              f"{got.num_rows} cpu_engine_s={cpu_s:.4f} card_s={gpu_s:.4f} "
+              f"worst_rel_err={worst:.3g}, equal to the CPU engine")
+    return launches
+
+
+def phase_udf(lineitem, seed):
+    """Part 2: the compiled UDF Q1 at the run's scale (lineitem hash 8)
+    cold and warm, bit for bit against the built-in expression; the row
+    fallback at UDF_FALLBACK_SF against the compiled UDF. Returns the
+    reorder launches per path."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import (BENCH_CONF,
+                                                        gen_lineitem)
+    from spark_rapids_tpu_torch.udf import PythonUDF
+    compiled = TpuSession({**BENCH_CONF,
+                           "spark.rapids.tpu.sql.udfCompiler.enabled": "true"})
+    fallback = TpuSession({**BENCH_CONF,
+                           "spark.rapids.tpu.sql.udfCompiler.enabled":
+                               "false"})
+    launches = {}
+
+    def frame(sess, hb):
+        return sess.create_dataframe(hb).repartition(8, "l_orderkey")
+
+    walls = []
+    for _ in ("cold", "warm"):
+        got, secs, n, _, kept, plan = run_query(
+            compiled, "udf q1 compiled", lambda s: udf_q1(frame(s, lineitem)))
+        walls.append(secs)
+        if any(isinstance(e, PythonUDF) for e in plan_expressions(plan)):
+            raise AssertionError("udf q1: a PythonUDF is left in the plan")
+    launches["phase17 udf q1 compiled"] = n
+    builtin = run_query(compiled, "udf q1 built-in",
+                        lambda s: udf_q1(frame(s, lineitem), False))[0]
+    check_same_bits("udf q1 compiled against the built-in expression",
+                    got, builtin)
+    print(f"udf q1 compiled rows={lineitem.num_rows}: cold_s={walls[0]:.4f} "
+          f"warm_s={walls[1]:.4f} rows_per_s={lineitem.num_rows / walls[1]:.0f}"
+          f" reorder_launches={n} launches_kept={kept}, no PythonUDF in the "
+          f"plan, bit-identical to the built-in expression")
+    small = gen_lineitem(UDF_FALLBACK_SF, seed)
+    want, comp_s = run_query(compiled, "udf q1 compiled small",
+                             lambda s: udf_q1(frame(s, small)))[:2]
+    got, fb_s, n_fb = run_query(fallback, "udf q1 row fallback",
+                                lambda s: udf_q1(frame(s, small)),
+                                on_device=False)[:3]
+    torch.cuda.synchronize()
+    launches["phase17 udf q1 row fallback"] = n_fb
+    lines = [ln.strip() for ln in fallback.last_explain.splitlines()
+             if "cannot run on TPU" in ln or "PythonUDF" in ln]
+    if "!CpuHashAggregateExec cannot run on TPU" not in lines or not any(
+            "PythonUDF" in ln for ln in lines):
+        raise AssertionError(f"udf q1 row fallback: explain does not name "
+                             f"the UDF's operator:\n{fallback.last_explain}")
+    worst = check_same_result("udf q1 row fallback against the compiled UDF",
+                              got, want, True)
+    print(f"udf q1 sf={UDF_FALLBACK_SF} rows={small.num_rows}: compiled_s="
+          f"{comp_s:.4f} row_fallback_s={fb_s:.4f} worst_rel_err={worst:.3g}"
+          f", explain: {lines[:2]}")
+    print(json.dumps({"phase17_udf": {
+        "rows": lineitem.num_rows, "compiled_cold_s": walls[0],
+        "compiled_warm_s": walls[1],
+        "udf_compiled_q1_rows_per_sec": lineitem.num_rows / walls[1],
+        "fallback_rows": small.num_rows, "fallback_compiled_s": comp_s,
+        "row_fallback_s": fb_s}}))
+    return launches
+
+
+def phase_cpu_engine(check_sf, tpch_tables, pruned, tpch_wants):
+    """Part 3: TPC-H Q1 and Q3 at ``check_sf`` on the CPU engine
+    (sql.enabled=false) against phase 9's card results, and Q1 without
+    variableFloatAgg (its aggregate on the CPU engine)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    off = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.enabled": "false"})
+    no_float = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql."
+                           "variableFloatAgg.enabled": "false"})
+    for sess, label, q in ((off, "sql.enabled=false", 1),
+                           (off, "sql.enabled=false", 3),
+                           (no_float, "variableFloatAgg=false", 1)):
+        got, secs = run_query(sess, f"q{q} {label}", lambda s, q=q: QUERIES[q](
+            query_frames(s, pruned(q))), on_device=False)[:2]
+        host = sorted({type(n).__name__ for n in sess.last_plan.walk()
+                       if type(n).__name__.startswith("Cpu")})
+        if sess is no_float and "CpuHashAggregateExec" not in host:
+            raise AssertionError(f"q{q} {label}: the aggregate stayed on "
+                                 f"the device: {host}")
+        worst = check_same_result(f"q{q} {label} sf={check_sf} against the "
+                                  f"card", got, tpch_wants[f"q{q}"],
+                                  q in TPCH_TIES)
+        print(f"q{q} {label} sf={check_sf}: rows={got.num_rows} s={secs:.4f}"
+              f" cpu_engine_ops={host} worst_rel_err={worst:.3g}, equal to "
+              f"phase 9's card result")
+
+
+def phase_fallback(lineitem, seed, check_sf, tpch_tables, pruned,
+                   tpch_wants):
+    """Phase 17. Returns the reorder launches per path."""
+    t0 = time.perf_counter()
+    launches = phase_mortgage(seed)
+    t1 = time.perf_counter()
+    launches.update(phase_udf(lineitem, seed))
+    t2 = time.perf_counter()
+    phase_cpu_engine(check_sf, tpch_tables, pruned, tpch_wants)
+    t3 = time.perf_counter()
+    print(f"phase 17 parts: mortgage {t1 - t0:.2f} s, udf {t2 - t1:.2f} s, "
+          f"cpu engine {t3 - t2:.2f} s")
+    return launches
 
 
 # ------------------------------------------------------------------ phase 16
@@ -3016,6 +3495,7 @@ def phase_parquet(paths, q1_cold, ds_wants, check_sf, seed, directory):
         res = q1(sess.read.parquet(paths["lineitem"])).collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        assert_on_device("q1 parquet", sess)
         walls.setdefault((dict_on, depth), []).append(wall)
         c = ce.counters()
         plan = sess.last_plan
@@ -3069,6 +3549,7 @@ def phase_parquet(paths, q1_cold, ds_wants, check_sf, seed, directory):
         res = suite_query(q)[0](parquet_ds_frames(sess, paths, q)).collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        assert_on_device(f"{q} parquet", sess)
         reorder_n, compact_n = read_launches()
         kernel, sort_path, encoded = exchange_splits(sess.last_plan)
         name = f"{q} parquet keepEncodings={keep}" + (
@@ -3118,6 +3599,7 @@ def phase_parquet(paths, q1_cold, ds_wants, check_sf, seed, directory):
         got = build(sess).collect()
         torch.cuda.synchronize()
         cuda_s = time.perf_counter() - t0
+        assert_on_device(f"{name} parquet pushdown", sess)
         scans = [n for n in sess.last_plan.walk()
                  if isinstance(n, TpuParquetScanExec)
                  and n.paths == (check[table],)]
@@ -3623,6 +4105,7 @@ def main() -> int:
     q1_launches, q1_cold = phase_main_path(lineitem, reference,
                                            args.profile)
     by_path["q1"] = {"reorder": q1_launches}
+    udf_lineitem = lineitem             # phase 17's UDF Q1 reads it
     del lineitem, reference
     phase_done("6 q1")
     tables = made.pop("q3")
@@ -3706,10 +4189,13 @@ def main() -> int:
         by_path[q] = {"reorder": n["launches"]}
     phase_done(f"13 sql sf={args.sf}")
     for path, n in phase_out_of_core(
-            check, check_results, check_pruned, args.check_sf,
-            args.bb_check_sf, tpch_sf_tables, tpch_results,
-            suite_sf_tables, suite_results).items():
+            check_results, args.check_sf, args.bb_check_sf, args.seed,
+            tpch_sf_tables, tpch_results, suite_sf_tables,
+            suite_results).items():
         by_path[path] = {"reorder": n}
+    # phase 17 holds the CPU engine against phase 9's card results
+    tpch_check = (check["tpch"], check_pruned["tpch"],
+                  check_results["tpch"])
     del check, check_results, check_pruned, tpch_sf_tables
     phase_done("14 out of core")
     surface, surface_launches = phase_surface(
@@ -3724,6 +4210,11 @@ def main() -> int:
     for path, n in parquet.items():
         by_path[path] = {"reorder": n[0], "compact": n[1]}
     phase_done("16 parquet")
+    for path, n in phase_fallback(udf_lineitem, args.seed, args.check_sf,
+                                  *tpch_check).items():
+        by_path[path] = {"reorder": n}
+    del udf_lineitem, tpch_check
+    phase_done("17 cpu fallback, udf and mortgage")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in

@@ -1,8 +1,10 @@
 """DataFrame and session frontend.
 
-A DataFrame builds a logical plan; ``collect`` plans the device operators
-and runs them on the session's device, returning a ``HostBatch`` (numpy
+A DataFrame builds a logical plan; ``collect`` plans the CPU physical plan,
+lets the plan layer (``TpuOverrides``) move what it can onto the device and
+runs the result on the session's device, returning a ``HostBatch`` (numpy
 buffers; ``.to_arrow()`` converts it where pyarrow is installed).
+``explain`` returns the plan layer's reasons and the final plan.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from spark_rapids_tpu_torch.exprs.generators import Explode
 from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.plan import logical as lp
-from spark_rapids_tpu_torch.plan.planner import plan_physical
+from spark_rapids_tpu_torch.plan.planner import plan_with_explain
 
 
 def _to_expr(c: Union[str, Column]):
@@ -503,11 +505,27 @@ class DataFrame:
         return self._plan.schema().names()
 
     def physical_plan(self) -> PhysicalExec:
-        """The device plan of this DataFrame, its cached subtrees replaced
+        """The executed plan of this DataFrame, its cached subtrees replaced
         by scans of their buffers (materializing any cache entry it reads
-        for the first time)."""
-        return plan_physical(self.session.cache_manager.prepare(self._plan),
-                             self.session.conf, self.session.device)
+        for the first time); the plan layer's explain text goes to
+        ``session.last_explain``."""
+        final, text = plan_with_explain(
+            self.session.cache_manager.prepare(self._plan),
+            self.session.conf, self.session.device)
+        self.session.last_explain = text
+        return final
+
+    def explain(self, print_out: bool = True) -> str:
+        """The plan layer's explain lines (which operators run on the
+        device, and why the others cannot), then the final plan. Cached
+        subtrees show as the scans of their entries, unmaterialized."""
+        logical = self.session.cache_manager.substitute(self._plan)
+        final, text = plan_with_explain(logical, self.session.conf,
+                                        self.session.device)
+        text = text + "\n\nPhysical plan:\n" + final.tree_string()
+        if print_out:
+            print(text)
+        return text
 
     def cache(self) -> "DataFrame":
         """Mark this DataFrame cached: the first action that reads it
@@ -842,6 +860,8 @@ class TpuSession:
         self.device = device_mod.resolve(device)
         #: the physical plan of the last action
         self.last_plan: Optional[PhysicalExec] = None
+        #: the plan layer's explain text of the last action
+        self.last_explain: str = ""
         self._views: Dict[str, DataFrame] = {}
         #: guards the view table: views may be registered while another
         #: thread plans SQL that reads them
@@ -878,6 +898,14 @@ class TpuSession:
     @property
     def read(self) -> DataFrameReader:
         return DataFrameReader(self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1
+              ) -> DataFrame:
+        """The LONG column ``id`` from ``start`` to ``end`` by ``step``
+        (``range(n)`` counts from 0)."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(lp.Range(start, end, step), self)
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a HostBatch, or over an arrow table (converted

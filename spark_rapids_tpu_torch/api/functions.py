@@ -1,11 +1,11 @@
 """Column functions (pyspark.sql.functions-style): the JAX package's
-``api/functions.py`` but ``udf`` and the input-file functions, which wait
-for the UDF compiler and the file scan."""
+``api/functions.py``."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union
 
 from spark_rapids_tpu_torch.api.column import Column, _expr
+from spark_rapids_tpu_torch.columnar.dtypes import DType
 from spark_rapids_tpu_torch.exprs import (
     Abs, Acos, Acosh, Asin, Asinh, Atan, Atan2, Atanh, Average, CaseWhen,
     Cbrt, Ceil, Coalesce, Concat, Corr, Cos, Cosh, Cot, Count, CovarPop,
@@ -65,6 +65,25 @@ def input_file_block_length() -> Column:
 
 def _c(c: Union[str, Column]):
     return col(c).expr if isinstance(c, str) else c.expr
+
+
+def udf(f=None, returnType: Union[str, DType] = DType.DOUBLE):
+    """Row UDF wrapper (pyspark.sql.functions.udf). The returned callable
+    makes a PythonUDF expression: row at a time on the CPU engine by
+    default; with spark.rapids.tpu.sql.udfCompiler.enabled the planner
+    compiles the function's bytecode into an expression tree that runs on
+    the device. ``@udf("int")`` names the return type positionally."""
+    from spark_rapids_tpu_torch.udf import PythonUDF
+    if isinstance(f, (str, DType)):
+        f, returnType = None, f
+    ret = DType(returnType) if isinstance(returnType, str) else returnType
+
+    def make(fn):
+        def wrapper(*cols: Union[str, Column]) -> Column:
+            return Column(PythonUDF(fn, ret, tuple(_c(c) for c in cols)))
+        wrapper.__name__ = getattr(fn, "__name__", "udf")
+        return wrapper
+    return make if f is None else make(f)
 
 
 def count(c: Union[str, Column] = "*") -> Column:

@@ -69,17 +69,59 @@ STRING_MAX_BYTES = _conf(
     "uint8 matrix plus a length vector).",
     checker=lambda v: None if v > 0 else f"string.maxBytes must be > 0, got {v}")
 
-ENABLE_FLOAT_AGG = _conf(
-    "sql.variableFloatAgg.enabled", bool, False,
-    "Allow float/double aggregations whose result can vary with evaluation "
-    "order. The port has no CPU engine to fall back to, so a plan that needs "
-    "one while this is off is refused.")
+SQL_ENABLED = _conf(
+    "sql.enabled", bool, True,
+    "Enable (true) or disable (false) device acceleration of SQL plans. When "
+    "disabled every operator runs on the CPU engine (the JAX package's key "
+    "and default; spark.rapids.sql.enabled).")
+
+EXPLAIN = _conf(
+    "sql.explain", str, "NONE",
+    "Explain why parts of a query were or were not placed on the device. "
+    "Values: NONE, NOT_ON_TPU (print only the fallback reasons), ALL "
+    "(spark.rapids.sql.explain).")
 
 INCOMPATIBLE_OPS = _conf(
     "sql.incompatibleOps.enabled", bool, False,
-    "Enable operators whose results differ slightly from Spark's CPU "
-    "semantics. No operator of the port is gated by it yet; it is declared so "
-    "that the JAX package's conf dicts validate unchanged.")
+    "Run on the device the operators whose results differ slightly from "
+    "Spark's CPU semantics (rand's stream, byte-level regular expressions "
+    "and general LIKE patterns, ASCII-only case mapping); off, they run on "
+    "the CPU engine.")
+
+HAS_NANS = _conf(
+    "sql.hasNans", bool, True,
+    "Assume floating point columns may contain NaN: aggregates grouping on "
+    "and joins keyed on float columns then run on the CPU engine "
+    "(spark.rapids.sql.hasNans).")
+
+ENABLE_FLOAT_AGG = _conf(
+    "sql.variableFloatAgg.enabled", bool, False,
+    "Allow float/double aggregations whose result can vary with evaluation "
+    "order on the device; off, they run on the CPU engine "
+    "(spark.rapids.sql.variableFloatAgg.enabled).")
+
+CACHED_SCAN_ENABLED = _conf(
+    "sql.cachedScan.enabled", bool, True,
+    "Scan df.cache() data on the device; off, the CPU engine reads the "
+    "cached batches.")
+
+UDF_COMPILER_ENABLED = _conf(
+    "sql.udfCompiler.enabled", bool, False,
+    "Compile Python row UDFs into columnar expression trees so they run on "
+    "the device; off, a UDF runs row at a time on the CPU engine "
+    "(spark.rapids.sql.udfCompiler.enabled).")
+
+ADAPTIVE_COST_MODEL_ENABLED = _conf(
+    "sql.adaptive.costModel.enabled", bool, False,
+    "Cost-based CPU-vs-device placement at plan time: operators whose "
+    "estimated row count is under costModel.minDeviceRows stay on the CPU "
+    "engine.")
+
+ADAPTIVE_COST_MODEL_MIN_DEVICE_ROWS = _conf(
+    "sql.adaptive.costModel.minDeviceRows", int, 4096,
+    "Row-count threshold of the cost model: operators with fewer estimated "
+    "rows run on the CPU engine when sql.adaptive.costModel.enabled is on.",
+    checker=_positive("costModel.minDeviceRows"))
 
 SHUFFLE_KERNEL_MODE = _conf(
     "shuffle.kernel.mode", str, "auto",
@@ -260,9 +302,9 @@ CONCURRENT_TPU_TASKS = _conf(
 # ------------------------------------------------------------- file scans
 PARQUET_ENABLED = _conf(
     "sql.format.parquet.enabled", bool, True,
-    "Parquet on the device as a whole. The port has no CPU engine to fall "
-    "back to, so with this (or sql.format.parquet.read.enabled) off a "
-    "parquet scan does not plan.")
+    "Parquet on the device as a whole. With this (or "
+    "sql.format.parquet.read.enabled) off, parquet scans run on the CPU "
+    "engine.")
 
 PARQUET_READ_ENABLED = _conf(
     "sql.format.parquet.read.enabled", bool, True,
@@ -341,6 +383,22 @@ class TpuConf:
 
     def get(self, entry: ConfEntry) -> Any:
         return self._values.get(entry.key, entry.default)
+
+    def is_rule_enabled(self, conf_key: str) -> bool:
+        """A per-rule switch (``spark.rapids.tpu.sql.exec.<Name>`` or
+        ``...sql.expression.<Name>``): undeclared keys, kept raw."""
+        raw = self._values.get(conf_key)
+        if raw is None:
+            return True
+        return str(raw).strip().lower() in ("true", "1", "yes", "on")
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
 
     @property
     def string_max_bytes(self) -> int:

@@ -20,9 +20,18 @@ class ExecContext:
     def __init__(self, conf: TpuConf, device: torch.device,
                  partition_id: int = 0, num_partitions: int = 1,
                  device_manager=None, cleanups: Optional[List] = None,
-                 task_id: Optional[int] = None):
+                 task_id: Optional[int] = None, host_engine: bool = False,
+                 session_device: Optional[torch.device] = None):
         self.conf = conf
         self.device = device
+        #: set while a CPU engine operator runs its device form on the
+        #: host (execs/cpu_execs.py): ``device`` is then the CPU, host
+        #: operators yield CPU DeviceBatches instead of HostBatches, and
+        #: expressions take the JAX package's host-engine branches
+        self.host_engine = host_engine
+        #: the device the session's device operators run on
+        self.session_device = session_device if session_device is not None \
+            else device
         self.partition_id = partition_id
         self.num_partitions = num_partitions
         #: the process's memory manager (memory/device_manager.py), whose
@@ -47,7 +56,23 @@ class ExecContext:
                       num_partitions: int) -> "ExecContext":
         return ExecContext(self.conf, self.device, partition_id,
                            num_partitions, self.device_manager, self.cleanups,
-                           self.task_id)
+                           self.task_id, self.host_engine,
+                           self.session_device)
+
+    def on_host(self) -> "ExecContext":
+        """This context for the CPU engine: the CPU device, host batches as
+        CPU DeviceBatches."""
+        return ExecContext(self.conf, torch.device("cpu"), self.partition_id,
+                           self.num_partitions, self.device_manager,
+                           self.cleanups, self.task_id, True,
+                           self.session_device)
+
+    def on_session(self) -> "ExecContext":
+        """This context for the session's device operators."""
+        return ExecContext(self.conf, self.session_device, self.partition_id,
+                           self.num_partitions, self.device_manager,
+                           self.cleanups, self.task_id, False,
+                           self.session_device)
 
 
 class PhysicalExec:

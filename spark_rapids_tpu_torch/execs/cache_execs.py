@@ -4,9 +4,9 @@ holds them or uploaded again from the host or disk tier.
 
 It reads through the DeviceManager's catalog with the acquire/close
 reference count, so a concurrent spill cannot delete a disk file under a
-reader. The JAX package also has a CPU form (``CpuCachedScanExec``) that
-its CPU engine scans; the port has no CPU engine. A batch it yields may be the device tier's own tensors: no operator
-writes into an input."""
+reader. ``CpuCachedScanExec`` is the CPU engine's form: the same buffers,
+brought to the host. A batch the device form yields may be the device
+tier's own tensors: no operator writes into an input."""
 from __future__ import annotations
 
 from typing import Iterator, Optional
@@ -14,6 +14,7 @@ from typing import Iterator, Optional
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
+from spark_rapids_tpu_torch.execs.cpu_execs import CpuEngineExec
 
 
 class TpuCachedScanExec(LeafExec):
@@ -73,3 +74,23 @@ class TpuCachedScanExec(LeafExec):
         finally:
             buf.close()
         yield batch
+
+
+class CpuCachedScanExec(CpuEngineExec):
+    """The cached buffers for the CPU engine: read in the session's
+    context, downloaded to the host."""
+
+    def __init__(self, entry, output: Schema):
+        self.entry = entry
+        self._output = output
+        super().__init__(())
+
+    def device_twin(self, children):
+        return TpuCachedScanExec(self.entry, self._output)
+
+    def execute(self, ctx: ExecContext) -> Iterator:
+        from spark_rapids_tpu_torch.columnar.transfer import download
+        from spark_rapids_tpu_torch.execs.cpu_execs import engine_batch
+        for db in self.device_form().execute(ctx.on_session()):
+            hb = download(db)
+            yield engine_batch(hb) if ctx.host_engine else hb

@@ -22,6 +22,11 @@ rows and quantile picks.
 
 ``TpuBroadcastExchangeExec`` materializes its child once into one batch that
 every consumer partition reads, and releases it when the action ends.
+
+The CPU engine's exchanges (``CpuShuffleExchangeExec``,
+``CpuBroadcastExchangeExec``; execs/cpu_execs.py) run the same map side
+on the host, keep the pieces in memory instead of the catalog (the stock
+Spark shuffle's role in the JAX package) and always take the sort path.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema, bucket_capacity
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
-from spark_rapids_tpu_torch.execs.cpu_execs import _row_width
+from spark_rapids_tpu_torch.execs.cpu_execs import CpuEngineExec, _row_width
 from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of,
                                                     concat_device_batches,
                                                     eval_ctx)
@@ -60,6 +65,11 @@ from spark_rapids_tpu_torch.shuffle.table_meta import (DevicePackLayout,
 class Partitioning:
     num_partitions: int
 
+    @property
+    def expressions(self) -> Tuple[Expression, ...]:
+        """The expressions the plan layer tags (keys or sort orders)."""
+        return ()
+
 
 @dataclass(frozen=True)
 class SinglePartitioning(Partitioning):
@@ -78,12 +88,20 @@ class HashPartitioning(Partitioning):
     """Key-hash distribution."""
     keys: Tuple[Expression, ...] = ()
 
+    @property
+    def expressions(self) -> Tuple[Expression, ...]:
+        return self.keys
+
 
 @dataclass(frozen=True)
 class RangePartitioning(Partitioning):
     """Contiguous key ranges; the n - 1 bounds come from a deterministic
     sample of the input, taken when the map side runs."""
     orders: Tuple[SortOrder, ...] = ()
+
+    @property
+    def expressions(self) -> Tuple[Expression, ...]:
+        return self.orders
 
 
 # ------------------------------------------------------------------ hash kernel
@@ -768,3 +786,55 @@ class TpuBroadcastExchangeExec(PhysicalExec):
                     self.output, ctx.device)
             batch = self._cached
         yield batch
+
+
+# ------------------------------------------------------------------ CPU engine
+class _HostShuffleExchangeExec(TpuShuffleExchangeExec):
+    """The map side on the host: the sort-path split (rows of a partition
+    in input order, as the JAX package's CPU exchange keeps them), the
+    pieces held in memory until the action's cleanups release them."""
+
+    def _run_map(self, ctx: ExecContext) -> None:
+        #: reduce partition -> [(map partition, piece)]
+        self._parts: Dict[int, List[Tuple[int, DeviceBatch]]] = {}
+        if ctx.cleanups is not None:
+            ctx.cleanups.append(self._parts.clear)
+        for map_p, j, sub in self.iter_map_pieces(ctx):
+            self._parts.setdefault(j, []).append((map_p, sub))
+            self._part_rows[j] = self._part_rows.get(j, 0) + sub.num_rows
+            self._map_part_rows[(map_p, j)] = \
+                self._map_part_rows.get((map_p, j), 0) + sub.num_rows
+        self._fold_sketches()
+
+    def _read_partition(self, ctx: ExecContext,
+                        map_filter) -> Iterator[DeviceBatch]:
+        self._ensure_map(ctx)
+        for map_p, piece in self._parts.get(ctx.partition_id, []):
+            if map_filter is None or map_p in map_filter:
+                yield piece
+
+    @staticmethod
+    def _kernel_split(ctx, db, pids, n):
+        return None
+
+
+class CpuShuffleExchangeExec(CpuEngineExec):
+    """The CPU engine's exchange."""
+
+    def __init__(self, partitioning: Partitioning, child: PhysicalExec):
+        self.partitioning = partitioning
+        super().__init__((child,))
+
+    def device_twin(self, children):
+        return _HostShuffleExchangeExec(self.partitioning, children[0])
+
+
+class CpuBroadcastExchangeExec(CpuEngineExec):
+    """The CPU engine's broadcast: the child's batches concatenated once on
+    the host."""
+
+    def __init__(self, child: PhysicalExec):
+        super().__init__((child,))
+
+    def device_twin(self, children):
+        return TpuBroadcastExchangeExec(children[0])

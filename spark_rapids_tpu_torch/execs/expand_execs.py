@@ -9,6 +9,7 @@ from typing import Iterator, Optional, Tuple
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.cpu_execs import CpuEngineExec
 from spark_rapids_tpu_torch.execs.tpu_execs import batch_of, eval_ctx
 from spark_rapids_tpu_torch.exprs.core import Expression
 from spark_rapids_tpu_torch.exprs.literals import Literal
@@ -51,3 +52,16 @@ class TpuExpandExec(PhysicalExec):
                 yield batch_of(self.output,
                                [bk.as_column(e.eval(ectx), batch.capacity)
                                 for e in plist], batch.num_rows)
+
+
+class CpuExpandExec(CpuEngineExec):
+    """The CPU engine's expand (execs/cpu_execs.py)."""
+
+    def __init__(self, projections: Tuple[Tuple[Expression, ...], ...],
+                 child: PhysicalExec, output: Schema):
+        self.projections = projections
+        self._output = output
+        super().__init__((child,))
+
+    def device_twin(self, children):
+        return TpuExpandExec(self.projections, children[0], self._output)

@@ -9,7 +9,8 @@ from __future__ import annotations
 from typing import Tuple
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
-from spark_rapids_tpu_torch.execs.expand_execs import TpuExpandExec
+from spark_rapids_tpu_torch.execs.expand_execs import (CpuExpandExec,
+                                                       TpuExpandExec)
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.core import BoundReference, Expression
 from spark_rapids_tpu_torch.exprs.literals import Literal
@@ -38,3 +39,10 @@ def generate_projections(child_schema: Schema,
 
 class TpuGenerateExec(TpuExpandExec):
     """The Expand exec over ``generate_projections``."""
+
+
+class CpuGenerateExec(CpuExpandExec):
+    """The CPU engine's generate (execs/cpu_execs.py)."""
+
+    def device_twin(self, children):
+        return TpuGenerateExec(self.projections, children[0], self._output)

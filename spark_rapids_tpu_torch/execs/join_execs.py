@@ -11,7 +11,8 @@ Under memory pressure a keyed join goes out of core (memory/grace.py):
 both sides are hash-partitioned on their keys with the same salt and each
 pair of partitions runs the single pass. The keyless joins run the same
 exec with the ``cross`` kernel and their condition as the filter, always
-in one pass (they have no key to split by). An equi-key pair whose two
+in one pass (they have no key to split by). The ``Cpu*`` forms at the end
+are the CPU engine's (execs/cpu_execs.py). An equi-key pair whose two
 columns kept their dictionary encodings matches on the int32 indices
 (``_encoded_key_pairs``): directly when the sides share a dictionary
 stream, through a k_l x k_r remap of the right dictionary otherwise.
@@ -23,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema, bucket_capacity
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.execs.cpu_execs import CpuEngineExec
 from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of, colvs_of,
                                                     concat_device_batches)
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
@@ -208,12 +210,13 @@ class TpuShuffledHashJoinExec(PhysicalExec):
         l_cols, r_cols = colvs_of(lb), colvs_of(rb)
         smax = ctx.string_max_bytes
 
-        def keys(cols, cap, exprs):
-            ectx = EvalCtx(cols, cap, ctx.device, smax)
+        def keys(cols, cap, n, exprs):
+            ectx = EvalCtx(cols, cap, ctx.device, smax,
+                           host_engine=ctx.host_engine, num_rows=n)
             return [bk.as_column(e.eval(ectx), cap) for e in exprs]
 
-        lkeys = keys(l_cols, S, self.left_keys)
-        rkeys = keys(r_cols, B, self.right_keys)
+        lkeys = keys(l_cols, S, lb.num_rows, self.left_keys)
+        rkeys = keys(r_cols, B, rb.num_rows, self.right_keys)
         pairs = self._encoded_key_pairs(ctx, lb, rb)
         if pairs:
             from spark_rapids_tpu_torch.execs.tpu_execs import \
@@ -235,7 +238,9 @@ class TpuShuffledHashJoinExec(PhysicalExec):
         n = total
         if self.condition is not None:
             pred = self.condition.eval(EvalCtx(out_cols, out_cap, ctx.device,
-                                               smax))
+                                               smax,
+                                               host_engine=ctx.host_engine,
+                                               num_rows=total))
             keep = (pred.data & pred.validity
                     & bk.alive_mask(out_cap, total, ctx.device))
             out_cols, n = bk.compact(keep, out_cols)
@@ -270,3 +275,68 @@ class TpuBroadcastNestedLoopJoinExec(_NestedLoopMixin,
 
 class TpuCartesianProductExec(_NestedLoopMixin, TpuShuffledHashJoinExec):
     """Both sides in one partition each."""
+
+
+# ------------------------------------------------------------------ CPU engine
+class CpuHashJoinExec(CpuEngineExec):
+    """The CPU engine's equi-join (the JAX package's ``CpuHashJoinExec``):
+    the shuffled hash join run on the host."""
+
+    def __init__(self, left: PhysicalExec, right: PhysicalExec, how: str,
+                 left_keys: Tuple[Expression, ...],
+                 right_keys: Tuple[Expression, ...], output: Schema,
+                 condition: Optional[Expression] = None,
+                 build_side: str = "right"):
+        self.how = how
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.condition = condition
+        self.build_side = build_side
+        self._output = output
+        super().__init__((left, right))
+
+    #: the device operator the CPU form runs on the host
+    _twin_cls = TpuShuffledHashJoinExec
+
+    def device_twin(self, children):
+        return self._twin_cls(children[0], children[1], self.how,
+                              self.left_keys, self.right_keys, self._output,
+                              self.condition, self.build_side)
+
+
+class CpuBroadcastHashJoinExec(CpuHashJoinExec):
+    """The equi-join whose build child is a broadcast exchange."""
+
+    _twin_cls = TpuBroadcastHashJoinExec
+
+
+class _CpuNestedLoopMixin:
+    """A keyless inner or cross join; ``join_type`` is the join kind asked
+    for (the device form runs the ``cross`` kernel and the condition)."""
+
+    def __init__(self, left: PhysicalExec, right: PhysicalExec, how: str,
+                 output: Schema, condition: Optional[Expression] = None,
+                 build_side: str = "right"):
+        if how not in ("inner", "cross"):
+            raise ValueError(f"nested-loop and cartesian joins support "
+                             f"inner and cross, not {how}")
+        self.join_type = how
+        super().__init__(left, right, "cross", (), (), output, condition,
+                         build_side)
+
+    def device_twin(self, children):
+        return self._twin_cls(children[0], children[1], self.join_type,
+                              self._output, self.condition, self.build_side)
+
+
+class CpuNestedLoopJoinExec(_CpuNestedLoopMixin, CpuHashJoinExec):
+    """The broadcast nested-loop join: the build child is a broadcast
+    exchange, the stream side keeps its partitioning."""
+
+    _twin_cls = TpuBroadcastNestedLoopJoinExec
+
+
+class CpuCartesianProductExec(_CpuNestedLoopMixin, CpuHashJoinExec):
+    """The cartesian product: both sides in one partition each."""
+
+    _twin_cls = TpuCartesianProductExec

@@ -1,4 +1,4 @@
-"""Device physical operators: upload/download transitions, project,
+"""Device physical operators: upload/download transitions, range, project,
 filter, hash aggregate, sort, limit and union. Each evaluates its
 expressions eagerly on the batch's tensors; the live row count of a result
 reaches the host once per batch to pick the output's capacity bucket, as in
@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch.columnar.transfer import (download,
                                                       upload_table_conf)
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.execs.cpu_execs import (CpuLocalScanExec,
+                                                    engine_batch,
                                                     limit_size_estimate,
                                                     width_scaled_estimate)
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx, Expression
@@ -42,7 +43,8 @@ def eval_ctx(batch: DeviceBatch, ctx: ExecContext,
              row_offset: int = 0) -> EvalCtx:
     return EvalCtx(colvs_of(batch), batch.capacity, batch.device,
                    ctx.string_max_bytes, getattr(ctx, "partition_id", 0),
-                   row_offset)
+                   row_offset, getattr(ctx, "host_engine", False),
+                   batch.num_rows)
 
 
 def batch_of(schema: Schema, colvs, num_rows: int) -> DeviceBatch:
@@ -140,7 +142,10 @@ class HostToDeviceExec(PhysicalExec):
 
 
 class DeviceToHostExec(PhysicalExec):
-    """Download transition: live rows back to host numpy buffers."""
+    """Download transition: live rows back to host numpy buffers. Under a
+    CPU engine operator (``ctx.host_engine``) the device subtree runs in
+    the session's context and each batch reaches the engine as CPU
+    tensors."""
 
     is_device = False
 
@@ -151,14 +156,56 @@ class DeviceToHostExec(PhysicalExec):
         return self.children[0].size_estimate()
 
     def execute(self, ctx: ExecContext) -> Iterator[HostBatch]:
+        if ctx.host_engine:
+            for db in self.children[0].execute(ctx.on_session()):
+                yield engine_batch(download(db))
+            return
         for db in self.children[0].execute(ctx):
             yield download(db)
+
+
+def device_root(final: PhysicalExec) -> PhysicalExec:
+    """The executed plan with its trailing download cut, so it yields
+    device batches; a plan whose root is on the CPU engine gets an upload
+    instead (the JAX package's ``ml._device_plan``)."""
+    if isinstance(final, DeviceToHostExec):
+        return final.children[0]
+    if not final.is_device:
+        return HostToDeviceExec(final)
+    return final
 
 
 # ---------------------------------------------------------------- operators
 def output_schema(exprs: Tuple[Expression, ...]) -> Schema:
     return Schema([Field(e.name_hint, e.dtype(), e.nullable())
                    for e in exprs])
+
+
+class TpuRangeExec(PhysicalExec):
+    """``session.range``: one batch of the LONG ids start, start + step,
+    ... below end (GpuRangeExec)."""
+
+    def __init__(self, start: int, end: int, step: int):
+        super().__init__((), Schema([Field("id", DType.LONG,
+                                           nullable=False)]))
+        self.start, self.end, self.step = start, end, step
+
+    def _rows(self) -> int:
+        return max(0, -(-(self.end - self.start) // self.step))
+
+    def size_estimate(self) -> Optional[int]:
+        return self._rows() * 9      # 8 bytes of id + a validity byte
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        if ctx.partition_id != 0:
+            return
+        n = self._rows()
+        cap = bucket_capacity(n)
+        data = self.start + torch.arange(cap, dtype=torch.int64,
+                                         device=ctx.device) * self.step
+        validity = torch.arange(cap, device=ctx.device) < n
+        yield DeviceBatch(self.output,
+                          (DeviceColumn(DType.LONG, data, validity),), n)
 
 
 class TpuProjectExec(PhysicalExec):

@@ -18,7 +18,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import Field, Schema
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
-from spark_rapids_tpu_torch.execs.cpu_execs import width_scaled_estimate
+from spark_rapids_tpu_torch.execs.cpu_execs import (CpuEngineExec,
+                                                    width_scaled_estimate)
 from spark_rapids_tpu_torch.execs.tpu_execs import (batch_of,
                                                     concat_device_batches,
                                                     eval_ctx)
@@ -55,7 +56,8 @@ def evaluate_window(ctx: EvalCtx, wexprs: Tuple[Expression, ...],
     order = (bk.sort_indices(sort_keys, alive) if sort_keys
              else torch.arange(cap, device=ctx.device))
     sorted_cols = [bk.take_colv(v, order) for v in ctx.columns]
-    sctx = EvalCtx(sorted_cols, cap, ctx.device, ctx.string_max_bytes)
+    sctx = EvalCtx(sorted_cols, cap, ctx.device, ctx.string_max_bytes,
+                   host_engine=ctx.host_engine, num_rows=num_rows)
     fr = wk.build_frame_ctx(part_keys, order_keys, order, alive, cap)
     out = list(sorted_cols)
     for e in wexprs:
@@ -98,3 +100,14 @@ class TpuWindowExec(PhysicalExec):
         out = evaluate_window(eval_ctx(batch, ctx), self.wexprs,
                               batch.num_rows)
         yield batch_of(self.output, out, batch.num_rows)
+
+
+class CpuWindowExec(CpuEngineExec):
+    """The CPU engine's window exec (execs/cpu_execs.py)."""
+
+    def __init__(self, wexprs: Tuple[Expression, ...], child: PhysicalExec):
+        self.wexprs = wexprs
+        super().__init__((child,))
+
+    def device_twin(self, children):
+        return TpuWindowExec(self.wexprs, children[0])

@@ -39,6 +39,28 @@ _INT_BOUNDS = {
 }
 
 
+def can_cast_on_device(src: DType, to: DType) -> bool:
+    """The cast pairs the JAX package's plan layer lets onto the device
+    (its ``can_cast_on_device``); the others run on the CPU engine."""
+    if src == to:
+        return True
+    numericish = src.is_numeric or src is DType.BOOLEAN
+    if numericish and (to.is_numeric or to is DType.BOOLEAN):
+        return True
+    if src in (DType.DATE, DType.TIMESTAMP) and \
+            to in (DType.DATE, DType.TIMESTAMP):
+        return True
+    if src is DType.TIMESTAMP and to in (DType.LONG,):
+        return True
+    if src.is_integral and to is DType.TIMESTAMP:
+        return True
+    if src is DType.DATE and to.is_integral:
+        return True
+    if (src.is_integral or src is DType.BOOLEAN) and to is DType.STRING:
+        return True
+    return False
+
+
 @dataclass(frozen=True)
 class Cast(Expression):
     c: Expression

@@ -32,18 +32,27 @@ class ColV:
 class EvalCtx:
     """Evaluation context: the child batch's columns as ColVs, their row
     capacity, the device new tensors go to, the string width cap, the
-    partition being evaluated and the count of that partition's rows in
-    the batches before this one (``row_offset``, read by the row id)."""
+    partition being evaluated, the count of that partition's rows in
+    the batches before this one (``row_offset``, read by the row id), and
+    which engine evaluates: ``host_engine`` is set on the CPU engine, where
+    the expressions whose device form is byte-level (the regular
+    expressions, a general LIKE) or absent (a Python UDF) take the JAX
+    package's host branches."""
 
     def __init__(self, columns: Sequence[ColV], capacity: int,
                  device: torch.device, string_max_bytes: int = 256,
-                 partition_id: int = 0, row_offset: int = 0):
+                 partition_id: int = 0, row_offset: int = 0,
+                 host_engine: bool = False, num_rows: Optional[int] = None):
         self.columns = list(columns)
         self.capacity = capacity
         self.device = device
         self.string_max_bytes = string_max_bytes
         self.partition_id = partition_id
         self.row_offset = row_offset
+        self.host_engine = host_engine
+        #: the live rows (a prefix of the capacity) where the caller knows
+        #: them: a row-at-a-time UDF calls its function on these only
+        self.num_rows = capacity if num_rows is None else num_rows
         #: EncViews by column ordinal, set where an operator runs on the
         #: encoded domain (exprs/encoded.py)
         self.encodings = {}

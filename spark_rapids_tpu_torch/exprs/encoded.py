@@ -51,7 +51,8 @@ class DictDomainGather(Expression):
         from spark_rapids_tpu_torch.ops.batch_kernels import as_column
         enc: EncView = ctx.encodings[self.ordinal]
         sub = EvalCtx([enc.values], self.k, ctx.device,
-                      ctx.string_max_bytes, ctx.partition_id)
+                      ctx.string_max_bytes, ctx.partition_id,
+                      host_engine=ctx.host_engine)
         pv = as_column(self.pred.eval(sub), self.k)
         idx = enc.indices
         return ColV(DType.BOOLEAN, pv.data.index_select(0, idx),

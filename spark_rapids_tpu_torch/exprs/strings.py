@@ -6,12 +6,17 @@ as the JAX package's device path), ``length`` (characters), the trims,
 package's ``exprs/strings.py``), over the byte-matrix layout through
 ``ops/strings.py``. A literal operand
 broadcasts to a column with ``bk.as_column`` (the JAX package's
-``_as_column``)."""
+``_as_column``). On the CPU engine (``EvalCtx.host_engine``) a general
+LIKE, ``rlike``, ``regexp_replace`` and ``split`` run Python's ``re`` row
+at a time over the decoded strings, as the JAX package's numpy engine
+does; everything else runs the same kernels on both engines."""
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DType, string_width_bucket
@@ -39,10 +44,45 @@ class _ConstPatternPredicate(Expression):
 
     def eval(self, ctx: EvalCtx) -> ColV:
         col = bk.as_column(self.children[0].eval(ctx), ctx.capacity)
-        return ColV(DType.BOOLEAN, self.do_match(col), col.validity)
+        match = self.host_match(col) if ctx.host_engine else None
+        if match is None:
+            match = self.do_match(col)
+        return ColV(DType.BOOLEAN, match, col.validity)
 
     def do_match(self, col: ColV) -> torch.Tensor:
         raise NotImplementedError
+
+    def host_match(self, col: ColV) -> Optional[torch.Tensor]:
+        """The CPU engine's match where it differs from ``do_match``."""
+        return None
+
+
+def _host_strings(col: ColV) -> Iterator[str]:
+    """Each row of a CPU string column, decoded (the JAX numpy engine's
+    ``errors="replace"`` decode)."""
+    data, lengths = col.data.numpy(), col.lengths.numpy()
+    for i in range(data.shape[0]):
+        yield bytes(data[i, :lengths[i]]).decode("utf-8", errors="replace")
+
+
+def _host_bools(col: ColV, fn) -> torch.Tensor:
+    return torch.from_numpy(np.fromiter((fn(s) for s in _host_strings(col)),
+                                        dtype=np.bool_,
+                                        count=col.data.shape[0]))
+
+
+def _host_string_column(values, width: int, validity) -> ColV:
+    """Python strings (cut at ``width`` bytes) -> a CPU string ColV of
+    that width."""
+    n = len(values)
+    out = np.zeros((n, width), dtype=np.uint8)
+    lens = np.zeros(n, dtype=np.int32)
+    for i, v in enumerate(values):
+        b = v.encode()[:width]
+        out[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return ColV(DType.STRING, torch.from_numpy(out), validity,
+                torch.from_numpy(lens))
 
 
 @dataclass(frozen=True)
@@ -83,6 +123,29 @@ class Like(_ConstPatternPredicate):
     escape: str = "\\"
 
     @staticmethod
+    def to_regex(pattern: str) -> str:
+        """The Python regex of a LIKE pattern (the JAX package's CPU
+        engine's): '%' -> '.*', '_' -> '.', a backslash escapes the next
+        character, anchored at both ends (``\\Z``: '$' would also match
+        before a trailing newline)."""
+        out = []
+        i = 0
+        while i < len(pattern):
+            ch = pattern[i]
+            if ch == "\\" and i + 1 < len(pattern):
+                out.append(re.escape(pattern[i + 1]))
+                i += 2
+                continue
+            if ch == "%":
+                out.append(".*")
+            elif ch == "_":
+                out.append(".")
+            else:
+                out.append(re.escape(ch))
+            i += 1
+        return "^" + "".join(out) + r"\Z"
+
+    @staticmethod
     def classify(pattern: str) -> Optional[Tuple[str, str]]:
         """(kind, needle), kind one of exact, prefix, suffix, contains; or
         None when the pattern needs the DFA."""
@@ -99,6 +162,13 @@ class Like(_ConstPatternPredicate):
         if starts:
             return ("suffix", body)
         return ("exact", body)
+
+    def host_match(self, col):
+        pat = self.pattern.decode("utf-8")
+        if Like.classify(pat) is not None:
+            return None
+        rx = re.compile(Like.to_regex(pat), re.DOTALL)
+        return _host_bools(col, lambda s: rx.match(s) is not None)
 
     def do_match(self, col):
         pat = self.pattern.decode("utf-8")
@@ -253,6 +323,17 @@ class GetArrayItem(Expression):
         pat = _literal_utf8(split.pattern_e, "split pattern")
         if pat is None or self.ordinal < 0:
             return all_null(DType.STRING, ctx, v.data.shape[-1])
+        if ctx.host_engine:
+            # Java's Pattern.split ignores capture groups; Python's
+            # interleaves them: (x) becomes (?:x)
+            rx = re.compile(re.sub(r"(?<!\\)\((?!\?)", "(?:", pat.decode()))
+            parts = [rx.split(s) for s in _host_strings(v)]
+            exists = torch.tensor([self.ordinal < len(p) for p in parts],
+                                  dtype=torch.bool)
+            field = _host_string_column(
+                [p[self.ordinal] if self.ordinal < len(p) else ""
+                 for p in parts], v.data.shape[-1], v.validity & exists)
+            return field
         sel, span_len = regex_spans(pat.decode(), v.data, v.lengths)
         data, lengths, exists = sk.split_field(v.data, v.lengths, sel,
                                                span_len, self.ordinal)
@@ -500,6 +581,10 @@ class RLike(_ConstPatternPredicate):
     c: Expression
     p: Expression
 
+    def host_match(self, col):
+        rx = re.compile(self.pattern.decode("utf-8"))
+        return _host_bools(col, lambda s: rx.search(s) is not None)
+
     def do_match(self, col):
         dfa = rk.compile_dfa(self.pattern.decode("utf-8"), search=True)
         return rk.dfa_match(dfa, col.data, col.lengths, search=True)
@@ -526,6 +611,11 @@ class RegExpReplace(Expression):
         repl = _literal_utf8(self.replacement, "regexp replacement")
         if pat is None or repl is None:
             return all_null(DType.STRING, ctx, v.data.shape[-1])
+        if ctx.host_engine:
+            rx = re.compile(pat.decode())
+            return _host_string_column(
+                [rx.sub(repl.decode(), s) for s in _host_strings(v)],
+                ctx.string_max_bytes, v.validity)
         sel, span_len = regex_spans(pat.decode(), v.data, v.lengths)
         inside = sk.spans_inside(sel, span_len)
         pos = torch.arange(v.data.shape[-1], device=v.data.device)

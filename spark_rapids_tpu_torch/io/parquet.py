@@ -26,9 +26,12 @@ uploads that many batches ahead of the consumer (the page decode is numpy;
 the upload stages through the numpy staging pool), with the abortable put
 and the drain and join on early exit of ``execs/pipeline.py``.
 
-The port has no CPU engine: the planner plans this scan directly, on the
-session's device (the CPU in the tests). Only an in-memory scan goes
-through the scan cache; a file scan reads its files every time.
+The planner plans ``CpuParquetScanExec``, the CPU engine's form (the
+same read, run on the host); the plan layer converts it to the device scan
+unless ``sql.format.parquet.read.enabled`` is off. The scan registers its
+rule with plan/overrides.py when this module is imported, since the main
+path imports no pyarrow. Only an in-memory scan goes through the scan
+cache; a file scan reads its files every time.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import pyarrow.parquet as pq
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Field, Schema
 from spark_rapids_tpu_torch.execs.base import ExecContext, LeafExec
+from spark_rapids_tpu_torch.execs.cpu_execs import CpuEngineExec
 from spark_rapids_tpu_torch.exprs.core import Expression
 from spark_rapids_tpu_torch.io.datasource import (ColumnStats,
                                                   PartitionedFile,
@@ -452,3 +456,48 @@ class TpuParquetScanExec(LeafExec):
                 except queue.Empty:
                     worker.join(_POLL_S)
 
+
+class CpuParquetScanExec(CpuEngineExec):
+    """The CPU engine's parquet scan: the device scan run on the host."""
+
+    def __init__(self, files: Tuple[PartitionedFile, ...], schema: Schema,
+                 partition_schema: Schema = Schema([]),
+                 filters: Tuple[Expression, ...] = (),
+                 max_batch_rows: int = 1 << 20,
+                 max_batch_bytes: int = 1 << 31):
+        self.files = files
+        self.partition_schema = partition_schema
+        self.filters = filters
+        self.max_batch_rows = max_batch_rows
+        self.max_batch_bytes = max_batch_bytes
+        self._schema = schema
+        super().__init__(())
+
+    def device_twin(self, children):
+        return TpuParquetScanExec(self.files, self._schema,
+                                  self.partition_schema, self.filters,
+                                  self.max_batch_rows, self.max_batch_bytes)
+
+
+def _convert_parquet(meta, children) -> TpuParquetScanExec:
+    e = meta.exec
+    return TpuParquetScanExec(e.files, e.output, e.partition_schema,
+                              e.filters, e.max_batch_rows, e.max_batch_bytes)
+
+
+def _tag_parquet(meta) -> None:
+    from spark_rapids_tpu_torch import config as cfg
+    if not (meta.conf.get(cfg.PARQUET_ENABLED)
+            and meta.conf.get(cfg.PARQUET_READ_ENABLED)):
+        meta.will_not_work("parquet scanning disabled "
+                           "(spark.rapids.tpu.sql.format.parquet.read.enabled)")
+
+
+def _register_rule() -> None:
+    from spark_rapids_tpu_torch.plan.overrides import (ExecRule,
+                                                       register_exec_rule)
+    register_exec_rule(ExecRule(CpuParquetScanExec, "parquet scan",
+                                _convert_parquet, tag=_tag_parquet))
+
+
+_register_rule()

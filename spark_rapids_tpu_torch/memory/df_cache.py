@@ -224,9 +224,11 @@ class CacheManager:
         logical = self.substitute(e.logical, skip=e, used=inner)
         for dep in inner:
             self._ensure_materialized(dep)
+        from spark_rapids_tpu_torch.execs.tpu_execs import device_root
         final = plan_physical(logical, sess.conf, sess.device)
         # the device batches under the download transition go to the store
-        root = final.children[0]
+        # (a plan on the CPU engine uploads its result)
+        root = device_root(final)
         dm = DeviceManager.initialize(sess.conf, sess.device)
         batches, cleanups = [], []
         try:

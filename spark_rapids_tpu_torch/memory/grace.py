@@ -500,14 +500,16 @@ def controller_for(exec_node, ctx, kind: str, key_exprs,
     """A GraceController when this operator can go out of core here, else
     None (the caller keeps its single pass):
 
-    - ``memory.outOfCore.enabled`` is on;
+    - ``memory.outOfCore.enabled`` is on and the operator runs on the
+      device (the CPU engine keeps its working set in host memory);
     - a hash kind has at least one key (a keyless operator cannot split by
       key) and every key is deterministic (partitioning evaluates the keys
       once for routing and the operator again);
     - there is a spillable store to partition into, unless a plan hint or
       the force conf asked for partitioning outright.
     """
-    if not ctx.conf.get(cfg.OOC_ENABLED):
+    if not ctx.conf.get(cfg.OOC_ENABLED) or ctx.host_engine:
+        # the CPU engine keeps its working set in host memory
         return None
     exprs = tuple(key_exprs or ())
     if orders is not None:

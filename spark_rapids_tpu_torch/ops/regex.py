@@ -17,6 +17,7 @@ consumes one byte, so a multibyte UTF-8 character under ``.`` or LIKE's
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
 import numpy as np
@@ -204,11 +205,14 @@ class Dfa:
         return self.trans.shape[0]
 
 
+@functools.lru_cache(maxsize=256)
 def compile_dfa(pattern: str, search: bool = False,
                 max_states: int = 512) -> Dfa:
     """Regex subset -> DFA. ``search=True`` allows a match to start anywhere
     (prepends an any-byte loop — RLike semantics); otherwise the match is
-    anchored at the start (LIKE lowering adds its own .* where needed)."""
+    anchored at the start (LIKE lowering adds its own .* where needed).
+    Kept per pattern: the plan layer's tagging and every batch's match
+    read the same DFA, which no caller changes."""
     nfa, start, accept = _parse(pattern)
     if search:
         ns = nfa.state()

@@ -1,5 +1,5 @@
 """Logical plan nodes produced by the DataFrame API (the subset this port
-plans: an in-memory or a file scan, project, filter, aggregate, sort,
+plans: an in-memory or a file scan, a range, project, filter, aggregate, sort,
 limit, join, repartition, union, expand, generate and window, and a cached
 subtree)."""
 from __future__ import annotations
@@ -28,6 +28,18 @@ class LocalRelation(LogicalPlan):
 
     def schema(self) -> Schema:
         return self.batch.schema
+
+
+@dataclass
+class Range(LogicalPlan):
+    """``session.range``: the LONG column ``id`` from start to end by
+    step."""
+    start: int
+    end: int
+    step: int = 1
+
+    def schema(self) -> Schema:
+        return Schema([Field("id", DType.LONG, nullable=False)])
 
 
 @dataclass

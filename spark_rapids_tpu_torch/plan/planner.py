@@ -1,12 +1,13 @@
-"""Logical -> physical planning, straight onto the device operators.
+"""Logical -> CPU physical planning, with expression binding, then the
+plan layer (the JAX package's ``plan/planner.py``).
 
-The JAX package plans a CPU physical plan and rewrites the supported parts
-onto the TPU; the port has no CPU engine, so it plans the device operators
-directly, binds expressions to child ordinals, picks each join's strategy
+The planner produces the CPU engine's physical plan (Spark's SparkPlanner
+role): it binds expressions to child ordinals, picks each join's strategy
 (``_select_join``) and satisfies the operators' distribution requirements
-(``ensure_requirements``). An operator it cannot plan raises
-``NotImplementedError`` naming it. A union, expand, generate or window
-plans as the JAX package's ``TpuOverrides`` converts its CPU exec.
+(``ensure_requirements``). ``TpuOverrides`` (plan/overrides.py) then tags
+it, converts the supported subtrees to device operators and runs the
+device rewrites. An operator it cannot plan raises ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
@@ -15,51 +16,46 @@ from typing import Tuple
 from spark_rapids_tpu_torch import config as cfg
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.execs import cpu_execs as ce
 from spark_rapids_tpu_torch.execs.base import PhysicalExec
-from spark_rapids_tpu_torch.execs.cpu_execs import CpuLocalScanExec
 from spark_rapids_tpu_torch.execs.exchange_execs import (
-    HashPartitioning, RangePartitioning, RoundRobinPartitioning,
-    SinglePartitioning, TpuBroadcastExchangeExec, TpuShuffleExchangeExec)
-from spark_rapids_tpu_torch.execs.join_execs import (
-    TpuBroadcastHashJoinExec, TpuBroadcastNestedLoopJoinExec,
-    TpuCartesianProductExec, TpuShuffledHashJoinExec, legal_broadcast_sides)
-from spark_rapids_tpu_torch.execs.expand_execs import TpuExpandExec
-from spark_rapids_tpu_torch.execs.generate_execs import (TpuGenerateExec,
+    CpuBroadcastExchangeExec, CpuShuffleExchangeExec, HashPartitioning,
+    RangePartitioning, RoundRobinPartitioning, SinglePartitioning)
+from spark_rapids_tpu_torch.execs.expand_execs import CpuExpandExec
+from spark_rapids_tpu_torch.execs.generate_execs import (CpuGenerateExec,
                                                          generate_projections)
-from spark_rapids_tpu_torch.execs.tpu_execs import (
-    DeviceToHostExec, HostToDeviceExec, TpuFilterExec, TpuHashAggregateExec,
-    TpuLimitExec, TpuProjectExec, TpuSortExec, TpuUnionExec)
-from spark_rapids_tpu_torch.execs.window_execs import TpuWindowExec
-from spark_rapids_tpu_torch.exprs.aggregates import (AggregateFunction,
-                                                     Average, Sum,
-                                                     _BivariateBase,
-                                                     _MomentBase)
+from spark_rapids_tpu_torch.execs.join_execs import (
+    CpuBroadcastHashJoinExec, CpuCartesianProductExec, CpuHashJoinExec,
+    CpuNestedLoopJoinExec, legal_broadcast_sides)
+from spark_rapids_tpu_torch.execs.window_execs import CpuWindowExec
+from spark_rapids_tpu_torch.exprs.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.core import Expression, bind_expression
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.plan import logical as lp
 
 
+def plan_with_explain(plan: lp.LogicalPlan, conf: TpuConf, device=None
+                      ) -> Tuple[PhysicalExec, str]:
+    """The executed plan of ``plan`` and the plan layer's explain text:
+    the Python UDFs compiled where ``sql.udfCompiler.enabled`` asks, the
+    input-file columns resolved, the CPU plan with its distribution
+    requirements, then ``TpuOverrides`` (``device`` sizes the footprint
+    contract's budget when no memory manager exists yet)."""
+    from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
+    if conf.get(cfg.UDF_COMPILER_ENABLED):
+        from spark_rapids_tpu_torch.udf import compile_plan_udfs
+        plan = compile_plan_udfs(plan)
+    plan = _resolve_input_file_meta(plan)
+    overrides = TpuOverrides(conf, device)
+    final = overrides.apply(ensure_requirements(_plan_node(plan, conf)))
+    return final, overrides.last_explain
+
+
 def plan_physical(plan: lp.LogicalPlan, conf: TpuConf,
                   device=None) -> PhysicalExec:
-    """Device plan for ``plan``, ending in the download transition, through
-    the JAX package's rewrites in its order: whole-stage fusion
-    (``sql.fusion.enabled``), the filter-into-aggregate fold (always), the
-    pipeline boundaries over the uploads (``transfer.pipeline.enabled``),
-    and last the footprint contract over the final tree
-    (``memory.outOfCore.enabled``; ``device`` sizes its budget when no
-    memory manager exists yet)."""
-    from spark_rapids_tpu_torch.plan.encoded import mark_encoded_domain
-    from spark_rapids_tpu_torch.plan.footprint import annotate_out_of_core
-    from spark_rapids_tpu_torch.plan.fusion import fuse_stages
-    from spark_rapids_tpu_torch.plan.overrides import (fuse_device_ops,
-                                                       insert_pipeline)
-    plan = _resolve_input_file_meta(plan)
-    device_plan = fuse_device_ops(fuse_stages(
-        ensure_requirements(_plan_node(plan, conf)), conf))
-    device_plan = mark_encoded_domain(insert_pipeline(device_plan, conf),
-                                      conf)
-    return annotate_out_of_core(DeviceToHostExec(device_plan), conf, device)
+    """The executed plan of ``plan`` (``plan_with_explain``'s)."""
+    return plan_with_explain(plan, conf, device)[0]
 
 
 def _resolve_input_file_meta(plan: lp.LogicalPlan) -> lp.LogicalPlan:
@@ -166,30 +162,32 @@ def _resolve_input_file_meta(plan: lp.LogicalPlan) -> lp.LogicalPlan:
 
 
 def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
-    """Distribution requirements, as the JAX package's planner sets them:
-    a broadcast join's build side gets a broadcast exchange (the stream side
+    """Distribution requirements (Spark's EnsureRequirements role): a
+    broadcast join's build side gets a broadcast exchange (the stream side
     keeps its partitioning); a sort over a partitioned child gets a range
     exchange and sorts each range; aggregates, limits, shuffled joins and
     windows see all their input in one partition, through a
     single-partition exchange over a partitioned child."""
+    single_required = (ce.CpuHashAggregateExec, ce.CpuLimitExec,
+                       CpuHashJoinExec, CpuWindowExec)
+
     def fix(node: PhysicalExec) -> PhysicalExec:
-        if isinstance(node, TpuBroadcastHashJoinExec):
+        if isinstance(node, (CpuBroadcastHashJoinExec, CpuNestedLoopJoinExec)):
             bi = 0 if node.build_side == "left" else 1
-            if isinstance(node.children[bi], TpuBroadcastExchangeExec):
+            if isinstance(node.children[bi], CpuBroadcastExchangeExec):
                 return node
             kids = list(node.children)
-            kids[bi] = TpuBroadcastExchangeExec(kids[bi])
+            kids[bi] = CpuBroadcastExchangeExec(kids[bi])
             return node.with_children(kids)
-        if isinstance(node, TpuSortExec):
+        if isinstance(node, ce.CpuSortExec):
             child = node.children[0]
             if child.num_partitions <= 1:
                 return node
-            return node.with_children([TpuShuffleExchangeExec(
+            return node.with_children([CpuShuffleExchangeExec(
                 RangePartitioning(child.num_partitions, node.orders), child)])
-        if not isinstance(node, (TpuHashAggregateExec, TpuLimitExec,
-                                 TpuShuffledHashJoinExec, TpuWindowExec)):
+        if not isinstance(node, single_required):
             return node
-        kids = [TpuShuffleExchangeExec(SinglePartitioning(), c)
+        kids = [CpuShuffleExchangeExec(SinglePartitioning(), c)
                 if c.num_partitions > 1 else c for c in node.children]
         if all(a is b for a, b in zip(kids, node.children)):
             return node
@@ -197,40 +195,17 @@ def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
     return plan.transform_up(fix)
 
 
-def _check_float_aggs(aggs, conf: TpuConf) -> None:
-    """Float sums vary with evaluation order; without
-    sql.variableFloatAgg.enabled the JAX package runs them on its CPU
-    engine, which the port does not have, so the plan is refused. The
-    moments sum double buffers whatever their input type, so they are
-    refused whatever it is."""
-    if conf.get(cfg.ENABLE_FLOAT_AGG):
-        return
-    for a in aggs:
-        fn = a.c if isinstance(a, Alias) else a
-        if isinstance(fn, (Average, _MomentBase, _BivariateBase)) or (
-                isinstance(fn, Sum) and fn.c.dtype().is_floating):
-            raise NotImplementedError(
-                f"{type(fn).__name__} over floating input needs "
-                f"{cfg.ENABLE_FLOAT_AGG.key}=true")
-
-
 def _plan_file_scan(plan: lp.FileScan, conf: TpuConf) -> PhysicalExec:
-    """The device parquet scan of a FileScan, its output widened by the
-    hidden input-file columns when the planner asked for them. The port has
-    no CPU engine to fall back to: with parquet reads off the scan does not
-    plan."""
+    """The CPU parquet scan of a FileScan (the plan layer converts it),
+    its output widened by the hidden input-file columns when the planner
+    asked for them."""
     if plan.fmt != "parquet":
         raise NotImplementedError(
             f"{plan.fmt} scans are not ported (the port reads parquet)")
-    if not (conf.get(cfg.PARQUET_ENABLED)
-            and conf.get(cfg.PARQUET_READ_ENABLED)):
-        raise NotImplementedError(
-            f"parquet scans are off ({cfg.PARQUET_READ_ENABLED.key}) and "
-            f"the port has no CPU engine to read them")
     from spark_rapids_tpu_torch.io.datasource import PartitionedFile
-    from spark_rapids_tpu_torch.io.parquet import TpuParquetScanExec
+    from spark_rapids_tpu_torch.io.parquet import CpuParquetScanExec
     files = plan.files or tuple(PartitionedFile(p) for p in plan.paths)
-    return TpuParquetScanExec(
+    return CpuParquetScanExec(
         files, plan.schema(), plan.partition_schema, plan.filters,
         conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS),
         conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
@@ -238,7 +213,9 @@ def _plan_file_scan(plan: lp.FileScan, conf: TpuConf) -> PhysicalExec:
 
 def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
     if isinstance(plan, lp.LocalRelation):
-        return HostToDeviceExec(CpuLocalScanExec(plan.batch))
+        return ce.CpuLocalScanExec(plan.batch)
+    if isinstance(plan, lp.Range):
+        return ce.CpuRangeExec(plan.start, plan.end, plan.step)
     if isinstance(plan, lp.FileScan):
         return _plan_file_scan(plan, conf)
     if isinstance(plan, lp.Filter) and isinstance(plan.child, lp.FileScan):
@@ -254,20 +231,21 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
             plan = lp.Filter(plan.condition, replace(
                 plan.child, filters=plan.child.filters + pushed))
     if isinstance(plan, lp.CachedRelation):
-        from spark_rapids_tpu_torch.execs.cache_execs import TpuCachedScanExec
-        return TpuCachedScanExec(plan.entry, plan.schema())
+        from spark_rapids_tpu_torch.execs.cache_execs import CpuCachedScanExec
+        return CpuCachedScanExec(plan.entry, plan.schema())
     if isinstance(plan, lp.Join):
         return _plan_join(plan, conf)
     if isinstance(plan, lp.Union):
-        return TpuUnionExec(_plan_node(plan.left, conf),
-                            _plan_node(plan.right, conf))
+        return ce.CpuUnionExec(_plan_node(plan.left, conf),
+                               _plan_node(plan.right, conf))
     child = _plan_node(plan.child, conf) if plan.children else None
     if isinstance(plan, lp.Project):
-        return TpuProjectExec(tuple(_named(bind_expression(e, child.output),
-                                           e) for e in plan.exprs), child)
+        return ce.CpuProjectExec(tuple(
+            _named(bind_expression(e, child.output), e) for e in plan.exprs),
+            child)
     if isinstance(plan, lp.Filter):
-        return TpuFilterExec(bind_expression(plan.condition, child.output),
-                             child)
+        return ce.CpuFilterExec(bind_expression(plan.condition, child.output),
+                                child)
     if isinstance(plan, lp.Aggregate):
         cs = child.output
         grouping = tuple(bind_expression(e, cs) for e in plan.grouping)
@@ -276,36 +254,35 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
             if not isinstance(a.c, AggregateFunction):
                 raise NotImplementedError(
                     f"aggregate expression {a} is not an aggregate function")
-        _check_float_aggs(aggs, conf)
-        return TpuHashAggregateExec(grouping, aggs, child, plan.schema())
+        return ce.CpuHashAggregateExec(grouping, aggs, child, plan.schema())
     if isinstance(plan, lp.Sort):
         orders = tuple(SortOrder(bind_expression(o.child, child.output),
                                  o.ascending, o.nulls_first)
                        for o in plan.orders)
-        return TpuSortExec(orders, child)
+        return ce.CpuSortExec(orders, child)
     if isinstance(plan, lp.Limit):
-        return TpuLimitExec(plan.n, child)
+        return ce.CpuLimitExec(plan.n, child)
     if isinstance(plan, lp.Expand):
         projs = tuple(tuple(bind_expression(e, child.output) for e in p)
                       for p in plan.projections)
-        return TpuExpandExec(projs, child, plan.schema())
+        return CpuExpandExec(projs, child, plan.schema())
     if isinstance(plan, lp.Generate):
         elements = tuple(bind_expression(e, child.output)
                          for e in plan.elements)
         out = plan.schema()
-        return TpuGenerateExec(generate_projections(
+        return CpuGenerateExec(generate_projections(
             child.output, elements, plan.pos, out), child, out)
     if isinstance(plan, lp.Window):
-        return TpuWindowExec(tuple(_named(bind_expression(e, child.output), e)
+        return CpuWindowExec(tuple(_named(bind_expression(e, child.output), e)
                                    for e in plan.wexprs), child)
     if isinstance(plan, lp.Repartition):
         if not plan.keys:
-            return TpuShuffleExchangeExec(
+            return CpuShuffleExchangeExec(
                 RoundRobinPartitioning(plan.num_partitions), child)
         part = HashPartitioning(
             plan.num_partitions,
             tuple(bind_expression(e, child.output) for e in plan.keys))
-        return TpuShuffleExchangeExec(part, child)
+        return CpuShuffleExchangeExec(part, child)
     raise NotImplementedError(
         f"no physical plan for {type(plan).__name__} in the PyTorch port")
 
@@ -343,9 +320,7 @@ def _select_join(left: PhysicalExec, right: PhysicalExec, how: str,
     side's estimated size is at most sql.broadcastJoinThreshold.bytes (the
     right side first), else the shuffled hash join. A join without keys
     becomes the broadcast nested-loop join on the same rule, else the
-    cartesian product. The JAX package keeps those two off the device
-    unless sql.exec.NestedLoopJoin / sql.exec.CartesianProduct are set; the
-    port has no CPU engine and always plans them."""
+    cartesian product."""
     threshold = conf.get(cfg.BROADCAST_JOIN_THRESHOLD)
 
     def broadcastable(side: PhysicalExec) -> bool:
@@ -358,18 +333,17 @@ def _select_join(left: PhysicalExec, right: PhysicalExec, how: str,
                 f"{how} join requires join keys (no nested-loop form)")
         for bi, side in ((1, right), (0, left)):
             if bi in legal_broadcast_sides(how) and broadcastable(side):
-                return TpuBroadcastNestedLoopJoinExec(
+                return CpuNestedLoopJoinExec(
                     left, right, how, out_schema, cond,
                     build_side="right" if bi == 1 else "left")
-        return TpuCartesianProductExec(left, right, how, out_schema, cond)
+        return CpuCartesianProductExec(left, right, how, out_schema, cond)
 
     for bi, side in ((1, right), (0, left)):
         if bi in legal_broadcast_sides(how) and broadcastable(side):
-            return TpuBroadcastHashJoinExec(
+            return CpuBroadcastHashJoinExec(
                 left, right, how, lkeys, rkeys, out_schema, cond,
                 build_side="right" if bi == 1 else "left")
-    return TpuShuffledHashJoinExec(left, right, how, lkeys, rkeys, out_schema,
-                                   cond)
+    return CpuHashJoinExec(left, right, how, lkeys, rkeys, out_schema, cond)
 
 
 def _named(bound: Expression, original: Expression) -> Alias:

@@ -944,3 +944,77 @@ def test_cuda_encoded_domain_aggregate_repeats_bit_for_bit(cuda, tmp_path):
         a, b = runs[0].columns[ci], dec.columns[ci]
         assert np.array_equal(a.data[:runs[0].num_rows],
                               b.data[:dec.num_rows])
+
+
+@pytest.mark.cuda
+def test_cuda_device_arrays_equal_collect(cuda):
+    """``ml.device_arrays`` hands over tensors on cuda, equal to the
+    collected result of the same DataFrame, for the mortgage ETL with the
+    performance table hash 8 (the reorder kernel launches)."""
+    from spark_rapids_tpu_torch import ml
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import mortgage as mg
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    sess = TpuSession(BENCH_CONF, device="cuda")
+
+    def etl():
+        perf = sess.create_dataframe(mg.gen_performance(0.5, 42))
+        return mg.clean_acquisition_prime(
+            perf.repartition(8, "loan_id"),
+            sess.create_dataframe(mg.gen_acquisition(0.5, 42)))
+
+    launches = tpk.REORDER_KERNEL.launches
+    arrays = ml.device_arrays(etl())
+    assert tpk.REORDER_KERNEL.launches > launches
+    assert all(t.is_cuda for ts in arrays.values() for t in ts)
+    schema = etl().schema()
+    n = arrays[schema[0].name][0].shape[0]
+    got = HostBatch(schema, tuple(
+        HostColumn(f.dtype, *[t.cpu().numpy() for t in arrays[f.name]])
+        for f in schema), n)
+    want = etl().collect()
+    assert got.num_rows == want.num_rows > 0
+
+    def rows(hb):
+        # a null's slot may hold any value (a min's identity among them):
+        # zero it before converting
+        cols = []
+        for c in hb.columns:
+            valid = c.validity.astype(bool)
+            mask = valid if c.data.ndim == 1 else valid[:, None]
+            cols.append(HostColumn(c.dtype, np.where(mask, c.data, 0),
+                                   valid, c.lengths).to_pylist(hb.num_rows))
+        return sorted(zip(*cols), key=repr)
+    assert rows(got) == rows(want)
+
+
+@pytest.mark.cuda
+def test_cuda_cpu_engine_between_device_operators(cuda):
+    """A CPU engine operator between two device operators (a float sum
+    without variableFloatAgg, between the card's filter and sort) returns
+    the device plan's result."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, q1
+    from spark_rapids_tpu_torch.execs.cpu_execs import CpuHashAggregateExec
+    li = gen_lineitem(0.05, seed=3)
+    mixed = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql."
+                        "variableFloatAgg.enabled": "false"}, device="cuda")
+    got = q1(mixed.create_dataframe(li).repartition(8, "l_orderkey")) \
+        .collect()
+    names = [type(n).__name__ for n in mixed.last_plan.walk()]
+    i = names.index("CpuHashAggregateExec")
+    assert "TpuSortExec" in names[:i] and any(
+        n.startswith("Tpu") for n in names[i + 1:]), names
+    dev = TpuSession(BENCH_CONF, device="cuda")
+    want = q1(dev.create_dataframe(li).repartition(8, "l_orderkey")) \
+        .collect()
+    assert not any(isinstance(n, CpuHashAggregateExec)
+                   for n in dev.last_plan.walk())
+    assert got.num_rows == want.num_rows == 6
+    for ci in range(len(want.columns)):
+        a, b = got.columns[ci], want.columns[ci]
+        if a.dtype.is_floating:
+            np.testing.assert_allclose(a.data[:6], b.data[:6], rtol=1e-9)
+        else:
+            assert a.to_pylist(6) == b.to_pylist(6)

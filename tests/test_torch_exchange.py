@@ -340,10 +340,12 @@ def test_failed_action_still_empties_the_catalog(monkeypatch):
         df.collect()
     monkeypatch.undo()
     sess2 = TpuSession(MODES["gather"], device="cpu")
+    # the uploaded table (a bare scan's own plan stays on the host)
+    from spark_rapids_tpu_torch.execs.cpu_execs import CpuLocalScanExec
+    from spark_rapids_tpu_torch.execs.tpu_execs import HostToDeviceExec
     ex = tx.TpuShuffleExchangeExec(
-        tx.RoundRobinPartitioning(2),
-        sess2.create_dataframe(_table(600, seed=7)).physical_plan()
-        .children[0])
+        tx.RoundRobinPartitioning(2), HostToDeviceExec(CpuLocalScanExec(
+            sess2.create_dataframe(_table(600, seed=7))._plan.batch)))
     dm = DeviceManager.initialize(sess2.conf, CPU)
     cleanups = []
     list(ex.execute(tbase.ExecContext(sess2.conf, CPU, 0, 2, dm, cleanups)))

@@ -451,9 +451,21 @@ def test_moments_match_reference(mode, keys, groups, rows):
 
 
 def test_moments_need_variable_float_agg():
-    """Like the JAX tagger, the port refuses the moments without
-    sql.variableFloatAgg.enabled, even over integers."""
+    """Like the JAX tagger, the port leaves the moments to the CPU engine
+    without sql.variableFloatAgg.enabled, even over integers, and the
+    result equals the JAX package's fallback."""
+    from spark_rapids_tpu_torch.execs.cpu_execs import CpuHashAggregateExec
+    table = _table(50, 5, seed=1)
     sess = TpuSession({}, device="cpu")
-    df = sess.create_dataframe(_table(50, 5, seed=1))
-    with pytest.raises(NotImplementedError, match="variableFloatAgg"):
-        df.groupBy("k").agg(F.stddev("w").alias("sd")).collect()
+    got = sess.create_dataframe(table).groupBy("k").agg(
+        F.stddev("w").alias("sd")).collect()
+    assert [type(e) for e in sess.last_plan.walk()
+            if "HashAggregate" in type(e).__name__] == [CpuHashAggregateExec]
+    assert "because expression StddevSamp: StddevSamp accumulates double " \
+           "buffers whose reduction order varies" in sess.last_explain
+    jsess = JaxSession({})
+    want = jsess.create_dataframe(table).groupBy("k").agg(
+        JF.stddev("w").alias("sd")).collect()
+    assert "!CpuHashAggregateExec cannot run on TPU" in jsess.last_explain
+    assert_tables_equal(want, got.to_arrow(), ignore_order=True,
+                        approx_float=1e-9)

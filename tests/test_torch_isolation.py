@@ -102,6 +102,28 @@ for name in ("remainder", "cast_string", "regexp_replace",
     surf.sql(ss.SQL[name]).collect()
 assert surf.sql(ss.Q87_SPEC).collect().num_rows == 1
 surf.table("item").select("i_item_sk", "i_brand").describe().show()
+# the plan layer's CPU fallback, the UDF compiler and its row fallback,
+# the mortgage ETL to the ML handoff, and the CPU engine's comparison
+from spark_rapids_tpu_torch import ml
+from spark_rapids_tpu_torch.api import functions as F
+from spark_rapids_tpu_torch.benchmarks import mortgage as mg
+from spark_rapids_tpu_torch.testing import assert_tpu_and_cpu_equal
+nofloat = TpuSession({}, device="cpu")
+assert q1(nofloat.create_dataframe(gen_lineitem(0.0005, 5))).collect() \
+    .num_rows == 6
+assert "!CpuHashAggregateExec cannot run on TPU" in nofloat.last_explain
+charge = F.udf(lambda p, t: p * (1.0 + t), "double")
+for on in ("true", "false"):
+    u = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.udfCompiler."
+                    "enabled": on}, device="cpu")
+    u.create_dataframe(gen_lineitem(0.0005, 5)).groupBy("l_returnflag").agg(
+        F.sum(charge("l_extendedprice", "l_tax")).alias("c")).collect()
+arrays = ml.device_arrays(mg.clean_acquisition_prime(
+    sess.create_dataframe(mg.gen_performance(0.02, 0)),
+    sess.create_dataframe(mg.gen_acquisition(0.02, 0))))
+assert len(arrays) == 25
+assert_tpu_and_cpu_equal(lambda s: q1(s.create_dataframe(
+    gen_lineitem(0.0005, 5))), BENCH_CONF, approx_float=1e-9, device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))

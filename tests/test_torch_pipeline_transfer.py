@@ -201,9 +201,11 @@ def test_second_action_does_not_reupload(fresh_cache, monkeypatch):
     assert _rows(first) == _rows(second)
     off = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.scanCache.enabled":
                       "false"}, device="cpu")
+    # a bare scan has no device operator and stays on the host (the JAX
+    # package's plan layer uploads nothing for it): filter to upload
     dfo = off.create_dataframe(_table(500, [500]))
-    dfo.collect()
-    dfo.collect()
+    dfo.filter(F.col("k") > F.lit(3)).collect()
+    dfo.filter(F.col("k") > F.lit(3)).collect()
     assert len(calls) == 3
 
 

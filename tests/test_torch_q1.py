@@ -102,10 +102,24 @@ def test_q1_overflowing_exchange_falls_back_to_sort_path():
 
 
 def test_float_aggregates_need_variable_float_agg():
+    """Without sql.variableFloatAgg.enabled Q1's float sums and averages
+    run on the CPU engine, as the JAX package's tagger sends them, with
+    its reason in the explain, and equal its fallback."""
+    from spark_rapids_tpu_torch.execs.cpu_execs import CpuHashAggregateExec
     sess = TpuSession({}, device="cpu")
-    df = ttpch.q1(sess.create_dataframe(ttpch.gen_lineitem(SCALE, 0)))
-    with pytest.raises(NotImplementedError, match="variableFloatAgg"):
-        df.collect()
+    got = ttpch.q1(sess.create_dataframe(ttpch.gen_lineitem(SCALE, 0))) \
+        .collect()
+    aggs = [type(e) for e in sess.last_plan.walk()
+            if "HashAggregate" in type(e).__name__]
+    assert aggs == [CpuHashAggregateExec]
+    assert ("because expression Sum: Sum over floating point can produce "
+            "order-dependent results; enable with spark.rapids.tpu.sql."
+            "variableFloatAgg.enabled") in sess.last_explain
+    jsess = JaxSession({})
+    want = jtpch.q1(jsess.create_dataframe(jtpch.gen_lineitem(SCALE, 0))) \
+        .collect()
+    assert "!CpuHashAggregateExec cannot run on TPU" in jsess.last_explain
+    assert_tables_equal(want, got.to_arrow(), approx_float=1e-9)
 
 
 def test_unported_operator_raises_naming_it():
