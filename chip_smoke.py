@@ -213,8 +213,26 @@ Phases:
      REL_TOL. TPC-H Q1 and Q3 at --check-sf on the CPU engine of the
      card's host (sql.enabled=false) equal to phase 9's card results, and
      Q1 without variableFloatAgg (its aggregate on the CPU engine) within
-     REL_TOL. Every card run of phases 6-17 fails if its plan leaves an
-     operator but the in-memory scans to the CPU engine.
+     REL_TOL;
+ 18. slice 14's main path, adaptive execution and the coalesce
+     (sql.adaptive.enabled, plan/adaptive.py) and the Catalyst import:
+     phase 10's bench subset and q5 over its tables at the run's scale
+     with adaptive execution on, cold and warm, each equal to phase 10's
+     result (exact but the float sums, within REL_TOL) with no more
+     reorder launches than phase 10's run of the query, printing the
+     coalesced partitions, broadcast switches, skew splits and re-fused
+     stages, the warm wall beside phase 10's and the peak; the skew cell,
+     bench.py::_bench_adaptive's Zipf(1.3) join and group-by at 100x its
+     rows (6,000,000 at SF 10, scaled with --sf), its device pool and
+     host spill budget scaled alike, adaptive off then on, warm: a skew
+     split in the plan, the results equal bit for bit, the walls, spill
+     partitions, recursion depth, reorder launches and those kept each
+     way; the re-fusion and broadcast-switch probes (bench.py) and a
+     cost-model probe whose join runs on the CPU engine, equal to the
+     device join; the eight tests/catalyst_fixtures plans planned for the
+     card as for the CPU. Every card run of phases 6-18 fails if its plan
+     leaves an operator but the in-memory scans to the CPU engine, but
+     the cost-model probe's join.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -241,8 +259,9 @@ sales fact (summed over the inputs, each under "inputs"), phase 11's
 TPCx-BB and phase 9's TPC-H readings (launches and their checks,
 likewise), phase 13's SQL launches at the run's scale, phase 15's
 surface launches, phase 16's parquet launches (with the exchanges' encoded
-splits), phase 7's reading on Q3's inputs, phase 3's at Q1's lineitem
-shape, and every path's launches under launches_by_path; then as its last
+splits), phase 18's adaptive suite and skew cell launches, phase 7's
+reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
+launches under launches_by_path; then as its last
 line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
@@ -3626,6 +3645,344 @@ def phase_parquet(paths, q1_cold, ds_wants, check_sf, seed, directory):
     return launches
 
 
+# ------------------------------------------------------------------ phase 18
+#: adaptive execution on, the benchmark conf otherwise
+ADAPTIVE_KEY = "spark.rapids.tpu.sql.adaptive.enabled"
+#: the skew cell: bench.py::_bench_adaptive's query at 100x its rows
+SKEW_ROWS = 6_000_000
+SKEW_SCALE = 100
+#: the JAX bench's device pool and host spill budget, before the scale
+SKEW_POOL_BYTES = 256 << 10
+SKEW_HOST_BYTES = 8 << 20
+#: the Catalyst fixtures phase 18 plans for the card
+CATALYST_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "catalyst_fixtures")
+
+
+def adaptive_counts():
+    from spark_rapids_tpu_torch.plan import adaptive
+    return adaptive.counters()
+
+
+def reset_adaptive():
+    from spark_rapids_tpu_torch.plan import adaptive
+    adaptive.reset_counters()
+
+
+def exchange_kept(plan):
+    """Map batches the reorder kernel's output served, over every device
+    exchange of ``plan`` (hash and round-robin)."""
+    from spark_rapids_tpu_torch.execs.exchange_execs import \
+        TpuShuffleExchangeExec
+    return sum(e.kernel_splits for e in plan.walk()
+               if isinstance(e, TpuShuffleExchangeExec))
+
+
+def same_or_close(name, got, want, ties):
+    """``got`` equal to ``want`` bit for bit (one numpy compare), else
+    within ``check_same_result``'s rules (row by row in Python: seconds
+    for q5's million rows), which raises when they differ. Returns the
+    worst relative float error."""
+    try:
+        check_same_bits(name, got, want)
+        return 0.0
+    except AssertionError:
+        return check_same_result(name, got, want, ties)
+
+
+def adaptive_suite(tables, suite_nums, suite_results):
+    """Phase 10's bench subset and q5 over its tables with adaptive
+    execution on, cold and warm: each warm result equal to phase 10's
+    (exact but the float sums, within REL_TOL), the plan on the device,
+    reorder launches no more than phase 10's cold run of the query (a
+    stage runs once). Returns {query: numbers}."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory.scan_cache import peek_cache
+    sess = TpuSession({**BENCH_CONF, ADAPTIVE_KEY: "true"})
+    nums = {}
+    for name, build, ties, _ in suite_specs(tables, SUITE_BENCH):
+        if peek_cache() is not None:
+            peek_cache().clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_adaptive()
+        cold, cold_s, launches, _, kept, plan = run_query(sess, name, build)
+        counts = adaptive_counts()
+        warm, warm_s = run_query(sess, name, build)[:2]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        same_or_close(f"{name} adaptive warm against cold", warm, cold,
+                      ties)
+        worst = same_or_close(f"{name} adaptive against phase 10", warm,
+                              suite_results[name], ties)
+        want = suite_nums[name]["launches"]
+        if launches > want:
+            raise AssertionError(f"{name} adaptive: {launches} reorder "
+                                 f"launches against phase 10's {want}")
+        tags = sorted({n.adaptive_tag.split(" ")[0] for n in plan.walk()
+                       if n.adaptive_tag})
+        nums[name] = {"launches": launches, "launches_kept": kept,
+                      "warm_s": warm_s, "cold_s": cold_s, **counts}
+        print(f"{name} adaptive: rows={warm.num_rows} cold_s={cold_s:.4f} "
+              f"warm_s={warm_s:.4f} phase10_warm_s="
+              f"{suite_nums[name]['warm_s']:.4f} peak_device_gb={peak:.2f} "
+              f"reorder_launches={launches} (phase 10: {want}) "
+              f"launches_kept={kept} "
+              f"coalesced_partitions={counts['coalesced_partitions']} "
+              f"broadcast_switches={counts['broadcast_switches']} "
+              f"skew_splits={counts['skew_splits']} "
+              f"refused_stages={counts['refused_stages']} tags={tags} "
+              f"equal to phase 10 (worst relative float error "
+              f"{worst:.3e})")
+        del cold, warm, plan
+    return nums
+
+
+def skew_tables(rows, seed=20):
+    """bench.py::_bench_adaptive's tables at ``rows`` fact rows: k drawn
+    Zipf(1.3) capped at 1000, a 1000-row dimension; and the hot key's
+    bytes at 16 bytes a row."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    z = np.minimum(rng.zipf(1.3, rows), 1000).astype(np.int64)
+    fact = pa.table({"k": z, "v": np.arange(rows, dtype=np.int64)})
+    dims = pa.table({"k": np.arange(1, 1001, dtype=np.int64),
+                     "w": rng.integers(0, 100, 1000).astype(np.int64)})
+    hot_bytes = int(float((z == 1).mean()) * rows * 16)
+    return (HostBatch.from_arrow(fact, 256), HostBatch.from_arrow(dims, 256),
+            hot_bytes)
+
+
+def skew_confs(hot_bytes, scale):
+    """(off, on): the JAX bench's confs, the device pool and the host spill
+    budget scaled with the rows."""
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    base = {**BENCH_CONF,
+            "spark.rapids.tpu.sql.scanCache.enabled": "false",
+            "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1",
+            "spark.rapids.tpu.memory.tpu.poolSizeBytes":
+                str(SKEW_POOL_BYTES * scale),
+            "spark.rapids.tpu.memory.host.spillStorageSize":
+                str(SKEW_HOST_BYTES * scale)}
+    on = {**base, ADAPTIVE_KEY: "true",
+          "spark.rapids.tpu.sql.adaptive.skewedPartitionThreshold.bytes":
+              str(hot_bytes // 4),
+          "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor": "2.0",
+          "spark.rapids.tpu.sql.adaptive.advisoryPartitionSizeInBytes":
+              str(max(hot_bytes // 8, 4096))}
+    return base, on
+
+
+def skew_query(sess, fact, dims):
+    from spark_rapids_tpu_torch.api import functions as F
+    lt = sess.create_dataframe(fact).repartition(8).repartition(6, "k")
+    rt = sess.create_dataframe(dims).repartition(3).repartition(6, "k")
+    return (lt.join(rt, "k").groupBy("k")
+            .agg(F.count().alias("n"), F.sum("v").alias("sv")))
+
+
+def skew_cell(rows, scale):
+    """The skewed join and group-by with adaptive execution off, then on,
+    each run once to warm and once timed: "skew-split" in the on plan, the
+    two results equal bit for bit; the walls, the spill partitions and
+    recursion depth, the reorder launches and those kept, each way.
+    Returns {way: numbers}."""
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.memory import grace
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    fact, dims, hot_bytes = skew_tables(rows)
+    off_conf, on_conf = skew_confs(hot_bytes, scale)
+    out, results = {}, {}
+    for way, conf in (("off", off_conf), ("on", on_conf)):
+        DeviceManager.shutdown()
+        sess = TpuSession(conf)
+        skew_query(sess, fact, dims).collect()
+        grace.reset_counters()
+        reset_adaptive()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = skew_query(sess, fact, dims).collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()[0]
+        plan = sess.last_plan
+        assert_on_device(f"skew cell {way}", sess)
+        g = grace.counters()
+        text = plan.tree_string()
+        if way == "on" and "skew-split" not in text:
+            raise AssertionError(f"skew cell: no skew split in\n{text}")
+        results[way] = res
+        out[way] = {"wall_s": secs, "launches": launches,
+                    "launches_kept": exchange_kept(plan),
+                    "spill_partitions": g["spill_partitions"],
+                    "recursion_depth": g["recursion_depth_peak"],
+                    **adaptive_counts()}
+        tags = [n.adaptive_tag for n in plan.walk() if n.adaptive_tag]
+        print(f"skew cell rows={rows} adaptive {way}: wall_s={secs:.4f} "
+              f"groups={res.num_rows} spill_partitions="
+              f"{g['spill_partitions']} recursion_depth="
+              f"{g['recursion_depth_peak']} reorder_launches={launches} "
+              f"launches_kept={out[way]['launches_kept']} tags={tags}")
+        del sess, plan
+    DeviceManager.shutdown()
+    check_same_bits("skew cell adaptive on against off",
+                    sort_by_all(results["on"]), sort_by_all(results["off"]))
+    print(f"skew cell: hot key bytes={hot_bytes}, on equal to off bit for "
+          f"bit, speedup_x={out['off']['wall_s'] / out['on']['wall_s']:.3f}")
+    return out
+
+
+def sort_by_all(hb):
+    """A host batch's rows sorted on every column (k is unique here)."""
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    t = hb.to_arrow()
+    return HostBatch.from_arrow(t.sort_by([(c, "ascending")
+                                           for c in t.column_names]), 256)
+
+
+def adaptive_probes():
+    """bench.py::_bench_adaptive's re-fusion and broadcast-switch probes
+    (at least one re-fused stage, at least one switch), then the cost
+    model: with costModel.enabled a join whose observed inputs are under
+    minDeviceRows runs on the CPU engine (the one operator phase 18 may
+    leave there), equal to its run with the cost model off."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.api import TpuSession, functions as F
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    t7 = pa.table({"k": pa.array(np.arange(3000) % 7, type=pa.int64()),
+                   "v": pa.array(np.arange(3000), type=pa.int64())})
+    on = {**BENCH_CONF, ADAPTIVE_KEY: "true"}
+    DeviceManager.shutdown()
+    reset_adaptive()
+    s_rf = TpuSession(on)
+    rf = (s_rf.create_dataframe(t7).repartition(6, "k")
+          .filter(F.col("v") > 10).collect())
+    refused = adaptive_counts()["refused_stages"]
+    assert_on_device("re-fusion probe", s_rf)
+    if refused < 1 or rf.num_rows != 3000 - 11:
+        raise AssertionError(f"re-fusion probe: {refused} re-fused stages, "
+                             f"{rf.num_rows} rows\n"
+                             f"{s_rf.last_plan.tree_string()}")
+    reset_adaptive()
+    s_bc = TpuSession({**on, "spark.rapids.tpu.sql.broadcastJoinThreshold."
+                             "bytes": "1000"})
+    lt = s_bc.create_dataframe(t7).repartition(4, "k")
+    rt = (s_bc.create_dataframe(t7).filter(F.col("v") < 30)
+          .repartition(3, "k"))
+    bc = lt.join(rt, "k").collect()
+    switches = adaptive_counts()["broadcast_switches"]
+    assert_on_device("broadcast-switch probe", s_bc)
+    if switches < 1:
+        raise AssertionError(f"broadcast-switch probe: no switch\n"
+                             f"{s_bc.last_plan.tree_string()}")
+
+    t13 = pa.table({"k": pa.array(np.arange(20000) % 13, type=pa.int64()),
+                    "v": pa.array(np.arange(20000), type=pa.int64())})
+
+    def cost_join(sess):
+        lt = (sess.create_dataframe(t13).filter(F.col("v") < 20)
+              .repartition(4, "k"))
+        rt = (sess.create_dataframe(t13).filter(F.col("v") < 10)
+              .repartition(3, "k"))
+        return lt.join(rt, "k")
+
+    no_bc = {**on, "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1"}
+    reset_adaptive()
+    s_cost = TpuSession({**no_bc,
+                         "spark.rapids.tpu.sql.adaptive.costModel.enabled":
+                             "true",
+                         "spark.rapids.tpu.sql.adaptive.costModel."
+                         "minDeviceRows": "1000"})
+    cost = cost_join(s_cost).collect()
+    text = s_cost.last_plan.tree_string()
+    host = sorted({type(n).__name__ for n in s_cost.last_plan.walk()
+                   if type(n).__name__.startswith("Cpu")
+                   and type(n).__name__ != "CpuLocalScanExec"})
+    if host != ["CpuHashJoinExec"] or "[adaptive: placement=cpu" not in text:
+        raise AssertionError(f"cost-model probe: the CPU engine ran {host}"
+                             f"\n{text}")
+    s_ref = TpuSession(no_bc)
+    ref = cost_join(s_ref).collect()
+    assert_on_device("cost-model probe reference", s_ref)
+    check_same_bits("cost-model probe against the device join",
+                    sort_by_all(cost), sort_by_all(ref))
+    DeviceManager.shutdown()
+    print(f"adaptive probes: re-fusion refused_stages={refused}; broadcast "
+          f"switches={switches} rows={bc.num_rows}; cost model: the join "
+          f"on the CPU engine ({cost.num_rows} rows, equal to the device "
+          f"join)")
+    return {"refused_stages": refused, "broadcast_switches": switches}
+
+
+def catalyst_plans():
+    """Load the Catalyst fixtures and plan each for the card: its tree
+    (class names) equal to the same plan for the CPU device, and the
+    conversions the CPU test holds against the JAX package (plan only: the
+    fixtures' scans carry no files)."""
+    import torch
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.plan.catalyst_import import load_plan
+    from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
+    conf = TpuConf({"spark.rapids.tpu.sql.enabled": "true",
+                    "spark.rapids.tpu.sql.variableFloatAgg.enabled": "true"})
+    expect = {"smj_with_sorts": ("TpuShuffledHashJoinExec",),
+              "smj_left_semi": ("TpuShuffledHashJoinExec",),
+              "reused_exchange": ("TpuReusedExchangeExec",
+                                  "TpuShuffleExchangeExec"),
+              "aqe_stage_wrappers": ("TpuShuffleExchangeExec",),
+              "broadcast_join": ("TpuBroadcastHashJoinExec",
+                                 "TpuBroadcastExchangeExec"),
+              "union_limit": ("TpuLimitExec", "TpuUnionExec"),
+              "project_mult": ("TpuProjectExec", "TpuParquetScanExec"),
+              "scan_filter_project_agg": ("TpuShuffleExchangeExec",
+                                          "TpuParquetScanExec")}
+    names = sorted(f[:-5] for f in os.listdir(CATALYST_FIXTURES)
+                   if f.endswith(".json"))
+    if sorted(expect) != names:
+        raise AssertionError(f"catalyst fixtures: {names}")
+    for name in names:
+        with open(os.path.join(CATALYST_FIXTURES, name + ".json")) as f:
+            doc = json.load(f)
+        trees = []
+        for dev in (torch.device("cuda", 0), torch.device("cpu")):
+            plan = TpuOverrides(conf, dev).apply(load_plan(doc))
+            trees.append([type(n).__name__ for n in plan.walk()])
+        cuda_tree = trees[0]
+        if cuda_tree != trees[1]:
+            raise AssertionError(f"catalyst {name}: {cuda_tree} on the card "
+                                 f"against {trees[1]}")
+        missing = [c for c in expect[name] if c not in cuda_tree]
+        host = [c for c in cuda_tree if c.startswith("Cpu")]
+        if missing or host or (name.startswith("smj")
+                               and any("Sort" in c for c in cuda_tree)):
+            raise AssertionError(f"catalyst {name}: {cuda_tree}")
+    print(f"catalyst fixtures: {len(names)} plans converted for the card as "
+          f"for the CPU")
+
+
+def phase_adaptive(suite_tables_sf, suite_nums, suite_results, sf):
+    """Phase 18: adaptive execution and the coalesce (the adaptive suite
+    over phase 10's tables, the skew cell, the probes) and the Catalyst
+    import. Returns (the suite's numbers, the skew cell's)."""
+    t0 = time.perf_counter()
+    nums = adaptive_suite(suite_tables_sf, suite_nums, suite_results)
+    t1 = time.perf_counter()
+    rows = max(int(SKEW_ROWS * min(sf, 10.0) / 10.0), 60_000)
+    cell = skew_cell(rows, max(1, round(SKEW_SCALE * rows / SKEW_ROWS)))
+    t2 = time.perf_counter()
+    probes = adaptive_probes()
+    catalyst_plans()
+    t3 = time.perf_counter()
+    print(f"phase 18 adaptive: suite {t1 - t0:.2f} s, skew cell "
+          f"{t2 - t1:.2f} s, probes and catalyst {t3 - t2:.2f} s")
+    return nums, cell, probes
+
+
 #: the suites a CPU worker runs: name -> (make tables, make specs)
 SUITES = {"tpch": (tpch_tables, tpch_specs),
           "suite": (suite_tables, suite_specs),
@@ -4202,7 +4559,6 @@ def main() -> int:
         args.check_sf, args.seed, refs["surface"], refs["q51"],
         suite_sf_tables["ds"])
     by_path.update({p: {"reorder": n} for p, n in surface_launches.items()})
-    del suite_sf_tables
     phase_done("15 sql surface")
     parquet = phase_parquet(made.pop("parquet"), q1_cold, suite_results,
                             args.check_sf, args.seed, parquet_dir.name)
@@ -4215,6 +4571,14 @@ def main() -> int:
         by_path[path] = {"reorder": n}
     del udf_lineitem, tpch_check
     phase_done("17 cpu fallback, udf and mortgage")
+    adaptive_nums, skew, _ = phase_adaptive(suite_sf_tables, suite,
+                                            suite_results, args.sf)
+    del suite_sf_tables
+    for q, n in adaptive_nums.items():
+        by_path[f"adaptive {q}"] = {"reorder": n["launches"]}
+    for way, n in skew.items():
+        by_path[f"adaptive skew cell {way}"] = {"reorder": n["launches"]}
+    phase_done("18 adaptive, coalesce and catalyst")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -4237,7 +4601,8 @@ def main() -> int:
         "reorder": {"suite": launch_sums(suite), "bb": launch_sums(bb),
                     "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums),
                     "surface": launch_sums(surface),
-                    "parquet": (pq_r, pq_kept)},
+                    "parquet": (pq_r, pq_kept),
+                    "adaptive": launch_sums(adaptive_nums)},
         "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
                     "tpch": dma18[1:], "parquet": (pq_c, pq_c_kept)}}
     records = []
@@ -4269,6 +4634,11 @@ def main() -> int:
                 row_ids=row_ids)
             record["phase15_surface"] = dict(zip(
                 ("launches", "launches_kept"), readings[name]["surface"]))
+            record["phase18_adaptive"] = dict(zip(
+                ("launches", "launches_kept"), readings[name]["adaptive"]),
+                skew_cell={way: {k: n[k] for k in ("launches",
+                                                   "launches_kept")}
+                           for way, n in skew.items()})
         records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")

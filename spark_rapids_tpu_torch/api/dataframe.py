@@ -554,7 +554,10 @@ class DataFrame:
         starts as soon as the batch exists and the downloads resolve in
         order, at most ``transfer.maxInflight`` outstanding. The action's
         cleanups (the exchanges' shuffle removal) run however it ends, so it
-        leaves the shuffle catalog empty."""
+        leaves the shuffle catalog empty. With ``sql.adaptive.enabled`` the
+        shuffle map stages run first, under the semaphore, and the plan is
+        rewritten from their statistics (plan/adaptive.py);
+        ``session.last_plan`` is then the rewritten plan."""
         conf = self.session.conf
         final = self.physical_plan()
         self.session.last_plan = final
@@ -563,6 +566,14 @@ class DataFrame:
         out: List[HostBatch] = []
         try:
             with dm.semaphore.held():
+                if conf.get(cfg.ADAPTIVE_ENABLED):
+                    from spark_rapids_tpu_torch.plan.adaptive import \
+                        adaptive_rewrite
+                    stage_ctx = ExecContext(conf, self.session.device, 0, 1,
+                                            dm, cleanups)
+                    final = adaptive_rewrite(final, stage_ctx)
+                    self.session.last_plan = final
+                # decided from the (possibly rewritten) root
                 stream = (isinstance(final, DeviceToHostExec)
                           and conf.get(cfg.TRANSFER_STREAMING_COLLECT))
                 root = final.children[0] if stream else final

@@ -111,11 +111,55 @@ UDF_COMPILER_ENABLED = _conf(
     "the device; off, a UDF runs row at a time on the CPU engine "
     "(spark.rapids.sql.udfCompiler.enabled).")
 
+ADAPTIVE_ENABLED = _conf(
+    "sql.adaptive.enabled", bool, False,
+    "Adaptive query execution (plan/adaptive.py): run the shuffle map "
+    "stages first, then re-plan with the observed statistics: coalesce "
+    "small reduce partitions into custom shuffle readers, switch shuffled "
+    "hash joins to broadcast when the built side turned out small, split "
+    "skewed join partitions (spark.sql.adaptive.enabled).")
+
+ADAPTIVE_ADVISORY_PARTITION_BYTES = _conf(
+    "sql.adaptive.advisoryPartitionSizeInBytes", int, 64 * 1024 * 1024,
+    "Target post-shuffle partition size for adaptive coalescing "
+    "(spark.sql.adaptive.advisoryPartitionSizeInBytes).",
+    checker=_positive("advisoryPartitionSizeInBytes"))
+
+ADAPTIVE_SKEW_SPLIT_ENABLED = _conf(
+    "sql.adaptive.skewSplit.enabled", bool, True,
+    "Skew-split readers under adaptive execution "
+    "(spark.sql.adaptive.skewJoin.enabled): a reduce partition observed "
+    "larger than skewedPartitionFactor x the median splits into map-id "
+    "slices; the shuffled hash join above reads the other side's whole "
+    "partition once per slice. A hash aggregate over a skewed exchange "
+    "re-partitions by group key instead (the out-of-core grace path).")
+
+ADAPTIVE_SKEW_FACTOR = _conf(
+    "sql.adaptive.skewedPartitionFactor", float, 5.0,
+    "A reduce partition is skewed when its observed size exceeds this "
+    "factor times the median partition size of its shuffle "
+    "(spark.sql.adaptive.skewJoin.skewedPartitionFactor).",
+    checker=_positive("skewedPartitionFactor"))
+
+ADAPTIVE_SKEW_THRESHOLD_BYTES = _conf(
+    "sql.adaptive.skewedPartitionThreshold.bytes", int, 64 * 1024 * 1024,
+    "Minimum observed partition size for skew handling: smaller partitions "
+    "are never split however lopsided the shuffle "
+    "(spark.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes).",
+    checker=_positive("skewedPartitionThreshold.bytes"))
+
+ADAPTIVE_REFUSION_ENABLED = _conf(
+    "sql.adaptive.refusion.enabled", bool, True,
+    "Re-run the whole-stage fusion pass over the adaptively rewritten plan, "
+    "so chains the rewrite created (the coalesce above a coalesced shuffle "
+    "reader under a lone project or filter) fuse too.")
+
 ADAPTIVE_COST_MODEL_ENABLED = _conf(
     "sql.adaptive.costModel.enabled", bool, False,
-    "Cost-based CPU-vs-device placement at plan time: operators whose "
+    "Cost-based CPU-vs-device placement: at plan time, operators whose "
     "estimated row count is under costModel.minDeviceRows stay on the CPU "
-    "engine.")
+    "engine; under adaptive execution, a shuffled hash join whose observed "
+    "input rows are under it moves to the CPU engine.")
 
 ADAPTIVE_COST_MODEL_MIN_DEVICE_ROWS = _conf(
     "sql.adaptive.costModel.minDeviceRows", int, 4096,
@@ -148,6 +192,12 @@ BROADCAST_JOIN_THRESHOLD = _conf(
     "Largest estimated build side, in bytes, for which a join takes the "
     "broadcast hash join (the spark.sql.autoBroadcastJoinThreshold role). A "
     "side of unknown size is never broadcast; -1 turns broadcasts off.")
+
+REPLACE_SORT_MERGE_JOIN = _conf(
+    "sql.replaceSortMergeJoin.enabled", bool, True,
+    "Replace a sort-merge join (from an imported Catalyst plan) with the "
+    "device shuffled hash join, dropping its join-key sorts "
+    "(spark.rapids.sql.replaceSortMergeJoin.enabled).")
 
 DEVICE_POOL_FRACTION = _conf(
     "memory.tpu.allocFraction", float, 0.9,

@@ -93,6 +93,12 @@ class PhysicalExec:
     #: partitions up front (memory/grace.py)
     grace_partitions: int = 0
 
+    #: what adaptive execution (plan/adaptive.py) decided for this node
+    #: ("coalesced 6→2", "skew-split p3×4", "broadcast-switch",
+    #: "placement=cpu", "re-fused"), shown as ``[adaptive: …]`` by
+    #: ``tree_string``
+    adaptive_tag: str = ""
+
     def __init__(self, children: Sequence["PhysicalExec"], output: Schema):
         self.children: Tuple[PhysicalExec, ...] = tuple(children)
         self.output = output
@@ -126,7 +132,8 @@ class PhysicalExec:
         return None
 
     def tree_string(self, indent: int = 0) -> str:
-        lines = ["  " * indent + f"{self.name} [{self.output}]"]
+        tag = f" [adaptive: {self.adaptive_tag}]" if self.adaptive_tag else ""
+        lines = ["  " * indent + f"{self.name} [{self.output}]{tag}"]
         lines += [c.tree_string(indent + 1) for c in self.children]
         return "\n".join(lines)
 

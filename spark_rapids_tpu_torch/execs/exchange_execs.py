@@ -23,6 +23,10 @@ rows and quantile picks.
 ``TpuBroadcastExchangeExec`` materializes its child once into one batch that
 every consumer partition reads, and releases it when the action ends.
 
+The reused exchange and the adaptive stage wrapper
+(``CpuReusedExchangeExec``, ``CpuQueryStageExec``, ``TpuReusedExchangeExec``)
+come from imported Catalyst plans (plan/catalyst_import.py).
+
 The CPU engine's exchanges (``CpuShuffleExchangeExec``,
 ``CpuBroadcastExchangeExec``; execs/cpu_execs.py) run the same map side
 on the host, keep the pieces in memory instead of the catalog (the stock
@@ -450,6 +454,9 @@ class ShuffleExchangeExecBase(PhysicalExec):
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         super().__init__((child,), child.output)
         self.partitioning = partitioning
+        self._init_map_state()
+
+    def _init_map_state(self) -> None:
         self._lock = threading.Lock()
         self._map_done = False
         #: rows written per reduce partition
@@ -460,6 +467,18 @@ class ShuffleExchangeExecBase(PhysicalExec):
         self._key_sketches: Optional[List[np.ndarray]] = None
         #: per map batch, [keys, _KMV_K] candidates still on the device
         self._pending_sketches: List[torch.Tensor] = []
+
+    def with_children(self, children: Sequence[PhysicalExec]
+                      ) -> "ShuffleExchangeExecBase":
+        """A copy over ``children``. A copy made after the map side ran
+        shares its output and statistics (adaptive execution rewrites the
+        tree above executed stages, and a stage must run once); one made
+        before starts a map state of its own, so the original and the copy
+        never count into the same statistics."""
+        node = super().with_children(children)
+        if not self._map_done:
+            node._init_map_state()
+        return node
 
     @property
     def num_partitions(self) -> int:
@@ -819,7 +838,9 @@ class _HostShuffleExchangeExec(TpuShuffleExchangeExec):
 
 
 class CpuShuffleExchangeExec(CpuEngineExec):
-    """The CPU engine's exchange."""
+    """The CPU engine's exchange. Its host form keeps the map side, so the
+    statistics and the partial reads adaptive execution asks an exchange
+    for come from there."""
 
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         self.partitioning = partitioning
@@ -827,6 +848,42 @@ class CpuShuffleExchangeExec(CpuEngineExec):
 
     def device_twin(self, children):
         return _HostShuffleExchangeExec(self.partitioning, children[0])
+
+    def with_children(self, children: Sequence[PhysicalExec]
+                      ) -> "CpuShuffleExchangeExec":
+        node = super().with_children(children)
+        if self._form._map_done:
+            # keep the executed map side (a rebuilt form would run it again)
+            node._form = self._form.with_children(children)
+        return node
+
+    def map_output_stats(self, ctx: ExecContext) -> List[int]:
+        return self.device_form().map_output_stats(ctx.on_host())
+
+    def stage_stats(self, ctx: Optional[ExecContext] = None
+                    ) -> Optional[StageStats]:
+        return self.device_form().stage_stats(
+            None if ctx is None else ctx.on_host())
+
+    @property
+    def _map_done(self) -> bool:
+        return self.device_form()._map_done
+
+    @property
+    def _map_part_rows(self) -> Dict[Tuple[int, int], int]:
+        return self.device_form()._map_part_rows
+
+    def map_slices(self, pid: int, num_slices: int) -> List[Tuple[int, ...]]:
+        return self.device_form().map_slices(pid, num_slices)
+
+    def execute_partial(self, ctx: ExecContext,
+                        map_ids: Tuple[int, ...]) -> Iterator:
+        from spark_rapids_tpu_torch.columnar.transfer import download
+        if ctx.host_engine:
+            yield from self.device_form().execute_partial(ctx, map_ids)
+            return
+        for db in self.device_form().execute_partial(ctx.on_host(), map_ids):
+            yield download(db)
 
 
 class CpuBroadcastExchangeExec(CpuEngineExec):
@@ -838,3 +895,61 @@ class CpuBroadcastExchangeExec(CpuEngineExec):
 
     def device_twin(self, children):
         return TpuBroadcastExchangeExec(children[0])
+
+
+# ------------------------------------------------------------------ reuse, stages
+class _ReusedExchangeBase(PhysicalExec):
+    """Spark's ReusedExchangeExec: a pointer at an exchange elsewhere in
+    the plan whose output this node reads instead of recomputing it. It
+    enters through imported Catalyst plans (plan/catalyst_import.py), and
+    the plan layer gives it the same on/off-device decision as its referent
+    (plan/overrides.py ``_enforce_exchange_reuse``).
+
+    The referent is a regular child (the same exec object the main branch
+    holds), so every plan pass rewrites the reused subtree too and the
+    transitions reach it like any other; execution runs it again, as every
+    exchange consumer outside adaptive execution does."""
+
+    def __init__(self, referent: PhysicalExec):
+        super().__init__((referent,), referent.output)
+
+    @property
+    def referent(self) -> PhysicalExec:
+        return self.children[0]
+
+    def size_estimate(self) -> Optional[int]:
+        return self.referent.size_estimate()    # the same rows
+
+    @property
+    def num_partitions(self) -> int:
+        return self.referent.num_partitions
+
+    def execute(self, ctx: ExecContext) -> Iterator:
+        yield from self.referent.execute(ctx)
+
+
+class CpuReusedExchangeExec(_ReusedExchangeBase):
+    is_device = False
+
+
+class TpuReusedExchangeExec(_ReusedExchangeBase):
+    pass
+
+
+class CpuQueryStageExec(PhysicalExec):
+    """An adaptive stage wrapper (ShuffleQueryStageExec,
+    BroadcastQueryStageExec, AdaptiveSparkPlanExec) from an imported
+    Catalyst plan: the plan layer tags through it and conversion drops it
+    (the optimizeAdaptiveTransitions role)."""
+
+    is_device = False
+
+    def __init__(self, child: PhysicalExec, stage_id: int = 0):
+        super().__init__((child,), child.output)
+        self.stage_id = stage_id
+
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()   # a wrapper: same rows
+
+    def execute(self, ctx: ExecContext) -> Iterator:
+        yield from self.children[0].execute(ctx)

@@ -1,7 +1,7 @@
 """Whole-stage-fused physical operators (the JAX package's
 ``execs/fused_execs.py``; plan/fusion.py builds them).
 
-A maximal chain of Project / Filter / Expand between
+A maximal chain of Project / Filter / Expand / CoalesceBatches between
 pipeline breakers collapses into one operator. The JAX package traces the
 chain into one jitted XLA program; here each variant is eager torch over
 the stage's input batch. A filter in the chain becomes a mask carried
@@ -14,7 +14,9 @@ XLA's common-subexpression pass does for the JAX package.
 - ``FusedStageExec``: the chain, normalized at plan time into variants,
   each (output expressions, predicate) over the stage's input schema by
   reference substitution (an Expand multiplies the variants, one per
-  projection list).
+  projection list). A CoalesceBatches in the chain moves to the stage's
+  input (``coalesce``): the row-wise operators commute with a
+  concatenation.
 - ``FusedAggregateStageExec``: a chain ending in a hash aggregate (the
   partial-aggregate fold): the filters ride ``pre_filter`` and the
   projections are substituted into the grouping and aggregate
@@ -61,11 +63,15 @@ class FusedStageExec(PhysicalExec):
 
     def __init__(self, fused_ops: Tuple[Tuple[str, Schema], ...],
                  variants: Tuple[Variant, ...],
+                 coalesce: Optional[Tuple[int, bool]],
                  child: PhysicalExec, output: Schema,
                  saved_per_batch: int = 0):
         super().__init__((child,), output)
         self.fused_ops = tuple(fused_ops)      # (name, schema), top-down
         self.variants = tuple(variants)
+        #: a fused CoalesceBatches' (target_bytes, require_single), applied
+        #: to the stage's input batches; None without one
+        self.coalesce = coalesce
         self.saved_per_batch = saved_per_batch
         #: intermediate batches the unfused chain would have built
         self.batches_not_materialized = 0
@@ -92,18 +98,35 @@ class FusedStageExec(PhysicalExec):
         return self.children[0].size_estimate()
 
     def tree_string(self, indent: int = 0) -> str:
+        # the adaptive tag attaches to the stage's head
         lines = ["  " * (indent + i) + f"*({self.stage_id}) {name} [{schema}]"
+                 + (f" [adaptive: {self.adaptive_tag}]"
+                    if self.adaptive_tag and i == 0 else "")
                  for i, (name, schema) in enumerate(self.fused_ops)]
         lines.append(self.children[0].tree_string(indent
                                                   + len(self.fused_ops)))
         return "\n".join(lines)
+
+    def _coalesced(self, source, ctx: ExecContext):
+        """The batch-boundary half of a fused CoalesceBatches: the
+        concatenation runs on the raw stage input (every fused operator is
+        row-wise, so op(concat(b)) == concat(op(b)) on the live rows;
+        plan/fusion.py ``_compose`` refuses the shapes where that is not
+        enough: require_single above a real operator, and any coalesce
+        with an Expand)."""
+        target_bytes, require_single = self.coalesce
+        return te.coalesce_batches(source, self.children[0].output,
+                                   target_bytes, require_single, ctx.device)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from spark_rapids_tpu_torch import config as cfg
         use_enc = (self.encoded_domain_ok
                    and ctx.conf.get(cfg.ENCODED_DOMAIN))
         self.encoded_batches = 0
-        for batch in self.children[0].execute(ctx):
+        source = self.children[0].execute(ctx)
+        if self.coalesce is not None:
+            source = self._coalesced(source, ctx)
+        for batch in source:
             cap = batch.capacity
             ectx = te.eval_ctx(batch, ctx)
             add_shared_columns(ectx, self._shared)
@@ -151,9 +174,10 @@ class FusedAggregateStageExec(te.TpuHashAggregateExec):
     def tree_string(self, indent: int = 0) -> str:
         # the folded ops are not rendered: their expressions live inside the
         # aggregate now
+        tag = f" [adaptive: {self.adaptive_tag}]" if self.adaptive_tag else ""
         return "\n".join([
             "  " * indent + f"*({self.stage_id}) TpuHashAggregateExec "
-                            f"[{self.output}]",
+                            f"[{self.output}]{tag}",
             self.children[0].tree_string(indent + 1)])
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:

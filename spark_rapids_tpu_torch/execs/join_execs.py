@@ -12,7 +12,8 @@ both sides are hash-partitioned on their keys with the same salt and each
 pair of partitions runs the single pass. The keyless joins run the same
 exec with the ``cross`` kernel and their condition as the filter, always
 in one pass (they have no key to split by). The ``Cpu*`` forms at the end
-are the CPU engine's (execs/cpu_execs.py). An equi-key pair whose two
+are the CPU engine's (execs/cpu_execs.py); ``CpuSortMergeJoinExec`` comes
+only from imported Catalyst plans. An equi-key pair whose two
 columns kept their dictionary encodings matches on the int32 indices
 (``_encoded_key_pairs``): directly when the sides share a dictionary
 stream, through a k_l x k_r remap of the right dictionary otherwise.
@@ -302,6 +303,15 @@ class CpuHashJoinExec(CpuEngineExec):
         return self._twin_cls(children[0], children[1], self.how,
                               self.left_keys, self.right_keys, self._output,
                               self.condition, self.build_side)
+
+
+class CpuSortMergeJoinExec(CpuHashJoinExec):
+    """Spark's SortMergeJoinExec, whose children EnsureRequirements sorted
+    on the join keys. The port's planner never makes one: it enters through
+    imported Catalyst plans (plan/catalyst_import.py). It runs as a hash
+    join (the same equi-join result); the plan layer replaces it with the
+    device shuffled hash join and drops the join-key sorts
+    (GpuSortMergeJoinExec; ``sql.replaceSortMergeJoin.enabled``)."""
 
 
 class CpuBroadcastHashJoinExec(CpuHashJoinExec):

@@ -1,10 +1,10 @@
 """Device physical operators: upload/download transitions, range, project,
-filter, hash aggregate, sort, limit and union. Each evaluates its
-expressions eagerly on the batch's tensors; the live row count of a result
-reaches the host once per batch to pick the output's capacity bucket, as in
-the JAX package. The aggregate may carry a folded filter (``pre_filter``)
-that masks its input rows instead of compacting them; the upload keeps its
-batch in the scan cache across actions."""
+filter, hash aggregate, sort, limit, union and the batch coalesce. Each
+evaluates its expressions eagerly on the batch's tensors; the live row
+count of a result reaches the host once per batch to pick the output's
+capacity bucket, as in the JAX package. The aggregate may carry a folded
+filter (``pre_filter``) that masks its input rows instead of compacting
+them; the upload keeps its batch in the scan cache across actions."""
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Tuple
@@ -539,3 +539,44 @@ class TpuUnionExec(PhysicalExec):
         for child in self.children:
             for batch in child.execute(ctx):
                 yield DeviceBatch(self.output, batch.columns, batch.num_rows)
+
+
+class TpuCoalesceBatchesExec(PhysicalExec):
+    """Concatenate small batches toward a target size (GpuCoalesceBatches'
+    TargetSize goal). Adaptive execution puts one above each coalesced
+    device shuffle reader (plan/adaptive.py); ``require_single`` makes it
+    emit exactly one batch."""
+
+    def __init__(self, child: PhysicalExec, target_bytes: int,
+                 require_single: bool = False):
+        super().__init__((child,), child.output)
+        self.target_bytes = target_bytes
+        self.require_single = require_single
+
+    def size_estimate(self) -> Optional[int]:
+        return self.children[0].size_estimate()     # a concat: same rows
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        yield from coalesce_batches(self.children[0].execute(ctx),
+                                    self.output, self.target_bytes,
+                                    self.require_single, ctx.device)
+
+
+def coalesce_batches(source: Iterator[DeviceBatch], schema: Schema,
+                     target_bytes: int, require_single: bool,
+                     device: torch.device) -> Iterator[DeviceBatch]:
+    """The accumulate-until-target concat loop, shared by
+    TpuCoalesceBatchesExec and the fused stage's coalesce
+    (execs/fused_execs.py), so their flush rule is one: a group flushes
+    once its device bytes reach the target; the rest flushes at the end,
+    and ``require_single`` flushes only there, even when empty."""
+    pending: List[DeviceBatch] = []
+    pending_bytes = 0
+    for batch in source:
+        pending.append(batch)
+        pending_bytes += batch.device_size_bytes
+        if not require_single and pending_bytes >= target_bytes:
+            yield concat_device_batches(pending, schema, device)
+            pending, pending_bytes = [], 0
+    if pending or require_single:
+        yield concat_device_batches(pending, schema, device)

@@ -24,7 +24,10 @@ def device_batches(df) -> Iterator[DeviceBatch]:
     """The result as device batches (RDD[Table]). Rows past
     ``batch.num_rows`` are padding the consumer must mask (or use
     ``device_arrays``). The admission semaphore is held for the whole
-    iteration, and the action's cleanups run however it ends."""
+    iteration, and the action's cleanups run however it ends. Adaptive
+    execution does not rewrite this plan: the JAX package's
+    ``device_batches`` runs the planned plan as it is, and so does the
+    port's."""
     from spark_rapids_tpu_torch.execs.tpu_execs import device_root
     from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
     sess = df.session

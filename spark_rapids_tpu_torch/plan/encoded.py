@@ -24,16 +24,18 @@ def _preserves_encoding(node: PhysicalExec) -> bool:
     """Whether this subtree can yield batches with surviving dictionary
     encodings. Sources: the device file scan, the upload (an arrow table
     may hold dictionary columns) and the cached scan. Pass-throughs: the
-    pipeline and a union of sources. Every other operator rebuilds its
-    columns, which drops the encoded form. The port has no coalesce
-    operator."""
+    pipeline, the coalesce (its concatenation keeps an encoding its
+    contributors share, ``concat_device_batches``) and a union of
+    sources. Every other operator rebuilds its columns, which drops the
+    encoded form."""
     from spark_rapids_tpu_torch.execs.cache_execs import TpuCachedScanExec
     from spark_rapids_tpu_torch.execs.pipeline import PipelinedExec
     if getattr(node, "is_file_scan", False) and node.is_device:
         return True
     if isinstance(node, (te.HostToDeviceExec, TpuCachedScanExec)):
         return True
-    if isinstance(node, (PipelinedExec, te.TpuUnionExec)):
+    if isinstance(node, (PipelinedExec, te.TpuCoalesceBatchesExec,
+                         te.TpuUnionExec)):
         return any(_preserves_encoding(c) for c in node.children)
     return False
 

@@ -71,18 +71,21 @@ def observed_input_bytes(node: PhysicalExec,
     With ``partition_id`` the charge is the one consumer partition the
     caller executes: the matching reduce partition of each input. Passing
     through a single-partition exchange widens it to everything, since its
-    consumer reads the concatenation. The JAX package also looks through
-    its coalesce exec and the adaptive custom shuffle reader; the port has
-    neither yet."""
+    consumer reads the concatenation. The coalesce is looked through, and
+    an adaptive custom shuffle reader charges what its specs cover
+    (plan/adaptive.py)."""
     from spark_rapids_tpu_torch.execs import tpu_execs as te
     from spark_rapids_tpu_torch.execs.exchange_execs import (
         ShuffleExchangeExecBase, SinglePartitioning)
+    from spark_rapids_tpu_torch.plan.adaptive import \
+        CustomShuffleReaderExecBase
     total = 0
     for child in node.children:
         c = child
         pid = partition_id
         while True:
-            if isinstance(c, (te.HostToDeviceExec, te.DeviceToHostExec)):
+            if isinstance(c, (te.HostToDeviceExec, te.DeviceToHostExec,
+                              te.TpuCoalesceBatchesExec)):
                 c = c.children[0]
                 continue
             if (isinstance(c, ShuffleExchangeExecBase)
@@ -91,6 +94,17 @@ def observed_input_bytes(node: PhysicalExec,
                 pid = None              # the concat reads every partition
                 continue
             break
+        if isinstance(c, CustomShuffleReaderExecBase):
+            if c.children[0].stage_stats() is None:
+                return None
+            if pid is not None and 0 <= pid < len(c.specs):
+                est = c.observed_spec_bytes(pid)
+            else:
+                est = c.size_estimate()     # observed: the stage has run
+            if est is None:
+                return None
+            total += est
+            continue
         if isinstance(c, ShuffleExchangeExecBase):
             st = c.stage_stats()
             if st is None:

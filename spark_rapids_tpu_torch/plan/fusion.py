@@ -5,8 +5,8 @@ Collapses maximal chains of fusable operators between pipeline breakers into
 ``FusedStageExec`` / ``FusedAggregateStageExec`` (execs/fused_execs.py), so
 the chain's interior batches are never built and its filters compact once.
 
-Fusable: TpuProjectExec, TpuFilterExec, TpuExpandExec and a terminating
-TpuHashAggregateExec (the
+Fusable: TpuProjectExec, TpuFilterExec, TpuExpandExec,
+TpuCoalesceBatchesExec and a terminating TpuHashAggregateExec (the
 pre-filter/substitution fold, shared with plan/overrides.py
 ``fuse_device_ops`` so fused and unfused plans build identical aggregate
 expression trees); a Generate is an Expand and fuses as one. Everything
@@ -16,13 +16,15 @@ transitions.
 Chains are normalized by reference substitution into per-variant (output
 expressions, predicate) pairs over the stage's input schema: projections
 substitute into the expressions above them, filters AND into the stage's
-predicate, and Expand projection lists multiply the variants. Operators
+predicate, Expand projection lists multiply the variants, and a
+CoalesceBatches moves to the stage's input (the row-wise operators commute
+with a concatenation). Operators
 with a non-deterministic expression (rand) break the chain: substitution
 would duplicate or reorder its draws.
 
-The JAX package also fuses TpuCoalesceBatchesExec; its coalesces come only
-from the Catalyst import and adaptive execution, which the port does not
-have yet, so the port has no coalesce to fuse.
+The coalesces come from adaptive execution (plan/adaptive.py puts one
+above each coalesced device shuffle reader), whose re-fusion pass runs
+this pass again over the rewritten plan.
 
 Gated by ``sql.fusion.enabled`` and bounded by ``sql.fusion.maxOps``.
 """
@@ -45,7 +47,8 @@ from spark_rapids_tpu_torch.plan.overrides import (_has_nondeterministic,
                                                    _substitute_refs,
                                                    fold_aggregate_chain)
 
-_CHAIN_TYPES = (te.TpuProjectExec, te.TpuFilterExec, TpuExpandExec)
+_CHAIN_TYPES = (te.TpuProjectExec, te.TpuFilterExec, TpuExpandExec,
+                te.TpuCoalesceBatchesExec)
 
 
 def _node_exprs(node: PhysicalExec) -> Tuple[Expression, ...]:
@@ -73,11 +76,29 @@ def _strip_alias(exprs) -> List[Expression]:
 
 
 def _compose(ops: List[PhysicalExec], child: PhysicalExec, max_variants: int
-             ) -> Optional[Tuple[Variant, ...]]:
-    """Normalize a top-down op chain into variants over ``child.output``.
-    None when an Expand's fan-out passes ``max_variants``."""
+             ) -> Optional[Tuple[Tuple[Variant, ...],
+                                 Optional[Tuple[int, bool]]]]:
+    """Normalize a top-down op chain into variants over ``child.output``
+    and the fused coalesce's (target_bytes, require_single). None when the
+    chain does not compose soundly, or an Expand's fan-out passes
+    ``max_variants``."""
     variants: List[Variant] = [(_identity_exprs(child.output), None)]
+    coalesce: Optional[Tuple[int, bool]] = None
+    seen_real_op = False
     for node in reversed(ops):                      # bottom-up
+        if isinstance(node, te.TpuCoalesceBatchesExec):
+            if node.require_single and seen_real_op:
+                # a require_single coalesce concatenates what reaches it;
+                # moved below a filter or project it would concatenate the
+                # raw input, the whole unfiltered table in one batch
+                return None
+            if coalesce is None:
+                coalesce = (node.target_bytes, node.require_single)
+            else:
+                coalesce = (min(coalesce[0], node.target_bytes),
+                            coalesce[1] or node.require_single)
+            continue
+        seen_real_op = True
         new_variants: List[Variant] = []
         for exprs, pred in variants:
             repl = _strip_alias(exprs)
@@ -97,18 +118,25 @@ def _compose(ops: List[PhysicalExec], child: PhysicalExec, max_variants: int
         variants = new_variants
         if len(variants) > max_variants:
             return None
-    return tuple(variants)
+    if coalesce is not None and len(variants) > 1:
+        # a coalesce and an Expand do not compose: unfused, the variants
+        # interleave per arriving batch (b1v1, b1v2, b2v1, ...), fused per
+        # concatenated input (b12v1, b12v2): the same rows in another order
+        return None
+    return tuple(variants), coalesce
 
 
 def _saved_per_input_batch(ops: List[PhysicalExec]) -> int:
     """Intermediate batches the unfused chain would build per stage input
-    batch: one per interior operator output (an Expand multiplies the
-    batches every operator above it sees)."""
+    batch: one per interior operator output other than a coalesce's (an
+    Expand multiplies the batches every operator above it sees; a fused
+    coalesce's concatenation is still built, as the stage's input)."""
+    real = [n for n in ops if not isinstance(n, te.TpuCoalesceBatchesExec)]
     batches, saved = 1, 0
-    for i, node in enumerate(reversed(ops)):        # bottom-up
+    for i, node in enumerate(reversed(real)):       # bottom-up
         if isinstance(node, TpuExpandExec):
             batches *= max(len(node.projections), 1)
-        if i < len(ops) - 1:                       # interior op output
+        if i < len(real) - 1:                      # interior op output
             saved += batches
     return saved
 
@@ -120,9 +148,11 @@ def _op_display(ops) -> Tuple[Tuple[str, object], ...]:
 def _fold_aggregate(node: te.TpuHashAggregateExec, max_ops: int
                     ) -> Optional[FusedAggregateStageExec]:
     """The partial-aggregate fold as a fused stage (the substitution
-    ``fuse_device_ops`` applies when fusion is off)."""
+    ``fuse_device_ops`` applies when fusion is off, and a coalesce is
+    absorbed: the aggregate concatenates its input anyway)."""
     grouping, aggs, pre, child, folded = fold_aggregate_chain(
-        node, te.TpuFilterExec, te.TpuProjectExec, max_ops=max_ops)
+        node, te.TpuFilterExec, te.TpuProjectExec,
+        coalesce_cls=te.TpuCoalesceBatchesExec, max_ops=max_ops)
     if not folded:
         return None
     return FusedAggregateStageExec(grouping, aggs, child, node.output,
@@ -151,10 +181,11 @@ def fuse_stages(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
                 ops.append(cur)
                 cur = cur.children[0]
             if len(ops) >= 2:
-                variants = _compose(ops, cur, max_ops)
-                if variants is not None:
+                composed = _compose(ops, cur, max_ops)
+                if composed is not None:
+                    variants, coalesce = composed
                     node = FusedStageExec(
-                        _op_display(ops), variants, cur,
+                        _op_display(ops), variants, coalesce, cur,
                         ops[0].output,
                         saved_per_batch=_saved_per_input_batch(ops))
         return node.with_children([rec(c) for c in node.children])

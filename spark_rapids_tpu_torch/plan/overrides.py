@@ -11,7 +11,8 @@ the device), and the nested-loop and cartesian joins are not disabled by
 default (the port always ran them on the device).
 
 ``TpuOverrides.apply`` wraps the CPU physical plan in a meta tree
-(plan/meta.py), tags it, applies the cost model, keeps the explain text,
+(plan/meta.py), tags it, applies the cost model, holds a reused exchange
+and its referent to one decision, keeps the explain text,
 converts the supported subtrees to device operators, and then runs the
 rewrites in the JAX package's order: whole-stage fusion (plan/fusion.py),
 the filter-into-aggregate fold (``fuse_device_ops``), the host<->device
@@ -484,16 +485,51 @@ def _join_exprs(e) -> tuple:
             + ((e.condition,) if e.condition is not None else ()))
 
 
+def _tag_smj(meta: ExecMeta) -> None:
+    """GpuSortMergeJoinExec tagging: the device replacement is a shuffled
+    hash join, so the sort-merge join moves only when the replacement conf
+    allows it (spark.rapids.sql.replaceSortMergeJoin.enabled)."""
+    _tag_join(meta)
+    if not meta.conf.get(cfg.REPLACE_SORT_MERGE_JOIN):
+        meta.will_not_work(
+            "sort-merge join replacement is disabled "
+            "(spark.rapids.tpu.sql.replaceSortMergeJoin.enabled)")
+
+
+def _convert_smj(meta: ExecMeta, children) -> PhysicalExec:
+    """Sort-merge join -> shuffled hash join, dropping each side's join-key
+    sort (the hash join needs no sorted input; the reference strips the
+    sorts the same way)."""
+    from spark_rapids_tpu_torch.execs.join_execs import \
+        TpuShuffledHashJoinExec
+    e = meta.exec
+
+    def strip(child: PhysicalExec, keys) -> PhysicalExec:
+        if isinstance(child, (te.TpuSortExec, ce.CpuSortExec)):
+            key_set = {repr(k) for k in keys}
+            if all(repr(o.child) in key_set for o in child.orders):
+                return child.children[0]
+        return child
+
+    return TpuShuffledHashJoinExec(strip(children[0], e.left_keys),
+                                   strip(children[1], e.right_keys),
+                                   e.how, e.left_keys, e.right_keys,
+                                   e.output, e.condition)
+
+
 def _make_join_rules() -> List[ExecRule]:
     from spark_rapids_tpu_torch.execs.join_execs import (
         CpuBroadcastHashJoinExec, CpuCartesianProductExec, CpuHashJoinExec,
-        CpuNestedLoopJoinExec)
+        CpuNestedLoopJoinExec, CpuSortMergeJoinExec)
     # the port only: the nested-loop join and the cartesian product are not
     # disabled by default (the JAX package's rules are); the port has run
     # them on the device since its TPC-H slice
     return [
         ExecRule(CpuHashJoinExec, "shuffled hash join", _convert_join,
                  exprs_of=_join_exprs, tag=_tag_join),
+        ExecRule(CpuSortMergeJoinExec, "sort-merge join (replaced by "
+                 "shuffled hash join, sorts removed)", _convert_smj,
+                 exprs_of=_join_exprs, tag=_tag_smj),
         ExecRule(CpuBroadcastHashJoinExec, "broadcast hash join",
                  _convert_broadcast_join, exprs_of=_join_exprs, tag=_tag_join),
         ExecRule(CpuNestedLoopJoinExec, "broadcast nested-loop join",
@@ -549,14 +585,34 @@ def _convert_broadcast_exchange(meta: ExecMeta, children) -> PhysicalExec:
     return TpuBroadcastExchangeExec(children[0])
 
 
+def _convert_reused_exchange(meta: ExecMeta, children) -> PhysicalExec:
+    # the consistency pass makes the referent convert too; the converted
+    # referent arrives as the child (the reuse holds its referent as a
+    # regular child, so every plan pass rewrites it)
+    from spark_rapids_tpu_torch.execs.exchange_execs import \
+        TpuReusedExchangeExec
+    return TpuReusedExchangeExec(children[0])
+
+
+def _convert_query_stage(meta: ExecMeta, children) -> PhysicalExec:
+    # adaptive stage wrappers dissolve into the converted plan (the
+    # optimizeAdaptiveTransitions role, GpuTransitionOverrides.scala:47)
+    return children[0]
+
+
 def _make_exchange_rules() -> List[ExecRule]:
     from spark_rapids_tpu_torch.execs.exchange_execs import (
-        CpuBroadcastExchangeExec, CpuShuffleExchangeExec)
+        CpuBroadcastExchangeExec, CpuQueryStageExec, CpuReusedExchangeExec,
+        CpuShuffleExchangeExec)
     return [ExecRule(CpuShuffleExchangeExec, "shuffle exchange",
                      _convert_exchange,
                      exprs_of=lambda e: e.partitioning.expressions),
             ExecRule(CpuBroadcastExchangeExec, "broadcast exchange",
-                     _convert_broadcast_exchange)]
+                     _convert_broadcast_exchange),
+            ExecRule(CpuReusedExchangeExec, "reused exchange",
+                     _convert_reused_exchange),
+            ExecRule(CpuQueryStageExec, "adaptive query stage",
+                     _convert_query_stage)]
 
 
 def _convert_cached_scan(meta: ExecMeta, children) -> PhysicalExec:
@@ -663,6 +719,7 @@ class TpuOverrides:
         meta = wrap_exec(plan, self.conf)
         meta.tag_for_tpu()
         apply_cost_model(meta, self.conf)
+        _enforce_exchange_reuse(meta)
         lines: List[str] = []
         meta.explain(lines)
         self.last_explain = "\n".join(lines)
@@ -687,6 +744,41 @@ class TpuOverrides:
         return annotate_out_of_core(plan, self.conf, self.device)
 
 
+def _enforce_exchange_reuse(root: ExecMeta) -> None:
+    """Exchange-reuse consistency (RapidsMeta.scala:443): a reused exchange
+    and its referent make the same on/off-device decision, or a device
+    original under a host reuse (or the reverse) would change where the
+    exchanged data lives. The convertible side of a disagreeing pair stays
+    on the CPU."""
+    from spark_rapids_tpu_torch.execs.exchange_execs import \
+        CpuReusedExchangeExec
+    metas: dict = {}
+    reused: List[ExecMeta] = []
+
+    def walk(m: ExecMeta) -> None:
+        # the same exchange object sits under the main branch and under
+        # every reuse, each with a meta of its own: reconcile them all
+        metas.setdefault(id(m.exec), []).append(m)
+        if isinstance(m.exec, CpuReusedExchangeExec):
+            reused.append(m)
+        for c in m.child_metas:
+            walk(c)
+
+    walk(root)
+    for m in reused:
+        group = metas.get(id(m.exec.referent), []) + [m]
+        if len(group) < 2:
+            m.will_not_work("reused exchange's referent is not part of "
+                            "this plan")
+            continue
+        if len({mm.can_replace for mm in group}) > 1:
+            for mm in group:
+                if mm.can_replace:
+                    mm.will_not_work(
+                        "exchange reuse consistency: the reused copy and "
+                        "its original must make the same TPU decision")
+
+
 def _substitute_refs(e: Expression, repl) -> Expression:
     if isinstance(e, BoundReference):
         return repl[e.ordinal]
@@ -701,13 +793,16 @@ def _has_nondeterministic(e: Expression) -> bool:
     return any(_has_nondeterministic(c) for c in e.children)
 
 
-def fold_aggregate_chain(node, filter_cls, project_cls, max_ops=None):
+def fold_aggregate_chain(node, filter_cls, project_cls, coalesce_cls=None,
+                         max_ops=None):
     """The partial-aggregate fold, shared by ``fuse_device_ops`` and the
     whole-stage pass (plan/fusion.py) so both build identical aggregate
     expression trees. Walks the chain below ``node``: filter conditions AND
-    into the pre-filter mask and projection expressions substitute into the
-    grouping, aggregate and pre-filter expressions. A projection with a
-    non-deterministic expression stops the walk. Returns (grouping, aggregates, pre_filter,
+    into the pre-filter mask, projection expressions substitute into the
+    grouping, aggregate and pre-filter expressions, and (when
+    ``coalesce_cls`` is given) coalesces are absorbed: the aggregate
+    concatenates its input anyway. A projection with a non-deterministic
+    expression stops the walk. Returns (grouping, aggregates, pre_filter,
     chain child, folded nodes top-down)."""
     from spark_rapids_tpu_torch.exprs.misc import Alias
     from spark_rapids_tpu_torch.exprs.predicates import And
@@ -727,6 +822,8 @@ def fold_aggregate_chain(node, filter_cls, project_cls, max_ops=None):
             aggs = tuple(_substitute_refs(a, repl) for a in aggs)
             if pre is not None:
                 pre = _substitute_refs(pre, repl)
+        elif coalesce_cls is not None and isinstance(child, coalesce_cls):
+            pass
         else:
             break
         folded.append(child)

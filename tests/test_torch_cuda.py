@@ -1018,3 +1018,102 @@ def test_cuda_cpu_engine_between_device_operators(cuda):
             np.testing.assert_allclose(a.data[:6], b.data[:6], rtol=1e-9)
         else:
             assert a.to_pylist(6) == b.to_pylist(6)
+
+
+# ------------------------------------------------- adaptive execution, coalesce
+@pytest.mark.cuda
+@pytest.mark.parametrize("require_single", [False, True])
+def test_cuda_coalesce_batches_equal_cpu(cuda, require_single):
+    """``coalesce_batches`` over the same lineitem pieces on the card and
+    on the CPU: the same batch boundaries, every live byte equal."""
+    from spark_rapids_tpu_torch.execs.tpu_execs import coalesce_batches
+    pieces = [gen_lineitem(0.001 * (i + 1), seed=i) for i in range(5)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        batches = [upload(hb, dev) for hb in pieces]
+        target = sum(b.device_size_bytes for b in batches[:2])
+        outs.append(list(coalesce_batches(iter(batches), batches[0].schema,
+                                          target, require_single, dev)))
+    got, want = outs
+    assert [b.num_rows for b in got] == [b.num_rows for b in want]
+    assert len(got) == 1 if require_single else len(got) > 1
+    for a, b in zip(got, want):
+        _same_device_columns(a, b)
+
+
+def _skew_frames(sess):
+    import pyarrow as pa
+    rng = np.random.default_rng(20)
+    z = np.minimum(rng.zipf(1.3, 60_000), 1000).astype(np.int64)
+    fact = pa.table({"k": z, "v": np.arange(60_000, dtype=np.int64)})
+    dims = pa.table({"k": np.arange(1, 1001, dtype=np.int64),
+                     "w": rng.integers(0, 100, 1000).astype(np.int64)})
+    lt = sess.create_dataframe(fact).repartition(8).repartition(6, "k")
+    rt = sess.create_dataframe(dims).repartition(3).repartition(6, "k")
+    return lt.join(rt, "k")
+
+
+@pytest.mark.cuda
+def test_cuda_skew_split_join_repeats_and_equals_cpu(cuda):
+    """The skew-split join (bench.py's skewed join at its own size) on the
+    card twice, bit for bit the same both times, and equal to the CPU's
+    run of the same plan."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    conf = {**BENCH_CONF,
+            "spark.rapids.tpu.sql.adaptive.enabled": "true",
+            "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1",
+            "spark.rapids.tpu.sql.adaptive."
+            "skewedPartitionThreshold.bytes": "64",
+            "spark.rapids.tpu.sql.adaptive.skewedPartitionFactor": "2.0",
+            "spark.rapids.tpu.sql.adaptive."
+            "advisoryPartitionSizeInBytes": "65536"}
+
+    def rows(hb):
+        cols = [c.to_pylist(hb.num_rows) for c in hb.columns]
+        return sorted(zip(*cols))
+
+    card = TpuSession(conf, device="cuda")
+    first = _skew_frames(card).collect()
+    assert "skew-split" in card.last_plan.tree_string()
+    second = _skew_frames(card).collect()
+    assert rows(first) == rows(second)
+    DeviceManager.shutdown()
+    host = TpuSession(conf, device="cpu")
+    cpu = _skew_frames(host).collect()
+    assert "skew-split" in host.last_plan.tree_string()
+    assert rows(first) == rows(cpu)
+    assert first.num_rows == 60_000     # every capped key has its dim row
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_tpch_q3_equals_adaptive_off(cuda):
+    """TPC-H Q3 (orders and lineitem hash 8) with adaptive execution on
+    equals its run with it off: keys, dates and counts exactly, the revenue
+    sums within relative 1e-9 (coalesced partitions regroup the partial
+    sums)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
+    tables = {k: g(0.05, 3) for k, g in (
+        ("customer", td.gen_customer), ("orders", td.gen_orders),
+        ("lineitem", td.gen_lineitem_full))}
+
+    def run(conf):
+        sess = TpuSession(conf, device="cuda")
+        dfs = {k: sess.create_dataframe(v) for k, v in tables.items()}
+        dfs["orders"] = dfs["orders"].repartition(8, "o_orderkey")
+        dfs["lineitem"] = dfs["lineitem"].repartition(8, "l_orderkey")
+        return q3(dfs).collect(), sess
+
+    on, s_on = run({**BENCH_CONF,
+                    "spark.rapids.tpu.sql.adaptive.enabled": "true"})
+    assert "[adaptive: " in s_on.last_plan.tree_string()
+    off, _ = run(BENCH_CONF)
+    assert on.num_rows == off.num_rows == 10
+    for a, b in zip(on.columns, off.columns):
+        if a.dtype.is_floating:
+            np.testing.assert_allclose(a.data[:10], b.data[:10], rtol=1e-9)
+        else:
+            assert a.to_pylist(10) == b.to_pylist(10)

@@ -23,9 +23,11 @@ import importlib, pkgutil, sys
 import spark_rapids_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__,
                                               port.__name__ + ".")]
-# the file-scan package reads through pyarrow: imported last, below
+# the file-scan package and the test-data generator read through pyarrow:
+# imported last, below
+PA = ("spark_rapids_tpu_torch.io.", "spark_rapids_tpu_torch.datagen")
 for m in mods:
-    if not m.startswith("spark_rapids_tpu_torch.io."):
+    if not m.startswith(PA):
         importlib.import_module(m)
 from spark_rapids_tpu_torch.api import TpuSession
 from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF, gen_lineitem, q1
@@ -128,8 +130,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
 print("LOADED", bad)
-# the file scan's modules load pyarrow, and nothing else the port refuses:
-# Q1 from a parquet file, on the encoded domain
+# the file scan's modules and datagen load pyarrow, and nothing else the
+# port refuses: Q1 from a parquet file, on the encoded domain
 for m in mods:
     importlib.import_module(m)
 import tempfile
@@ -164,8 +166,8 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     (memory/df_cache.py) and the expression and SQL surface's queries
     (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
     no jax, nothing of the JAX package and no pyarrow loaded; the file-scan
-    modules (io/), imported after, load pyarrow but neither jax nor the
-    JAX package."""
+    modules (io/) and the test-data generator (datagen.py), imported after,
+    load pyarrow but neither jax nor the JAX package."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
@@ -196,8 +198,8 @@ def test_no_jax_or_reference_imports(path):
     mods = list(_imports(path))
     assert not [m for m, _ in mods if m in FORBIDDEN], path
     # pyarrow only inside the functions that convert at the edge, and in
-    # the file-scan package, which reads through it
-    if PORT / "io" not in path.parents:
+    # the file-scan package and the test-data generator, which build on it
+    if PORT / "io" not in path.parents and path != PORT / "datagen.py":
         assert not [m for m, top in mods if m == "pyarrow" and top], path
 
 

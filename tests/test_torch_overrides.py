@@ -193,8 +193,10 @@ def test_rule_tables_match_reference():
     key, description and incompat note, and the exec rules of the ported
     operators likewise; the port adds split() (its device explode of a
     split), no exec rule is disabled by default (the nested-loop and
-    cartesian joins always ran on the device in the port), and the
-    sort-merge join waits with the Catalyst import that alone makes one."""
+    cartesian joins always ran on the device in the port), and the CSV
+    and ORC scans and the writers wait with their modules; the sort-merge
+    join, reused exchange and query stage rules came with the Catalyst
+    import that alone makes those operators."""
     import spark_rapids_tpu_torch.io.parquet  # noqa: F401 - its rule
     from spark_rapids_tpu.plan import overrides as jo
     from spark_rapids_tpu_torch.plan import overrides as to
@@ -209,8 +211,7 @@ def test_rule_tables_match_reference():
     texec = {r.cls.__name__: (r.conf_key, r.desc)
              for r in to.EXEC_RULES.values()}
     assert set(jexec) - set(texec) == {
-        "CpuCsvScanExec", "CpuOrcScanExec", "CpuWriteFilesExec",
-        "CpuReusedExchangeExec", "CpuQueryStageExec", "CpuSortMergeJoinExec"}
+        "CpuCsvScanExec", "CpuOrcScanExec", "CpuWriteFilesExec"}
     assert {k: v for k, v in jexec.items() if k in texec} == texec
     assert {r.cls.__name__ for r in jo.EXEC_RULES.values()
             if r.disabled_by_default} == {"CpuNestedLoopJoinExec",
