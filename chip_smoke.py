@@ -62,7 +62,7 @@ Phases:
      bounds, the per-partition counts and the collected rows against
      numpy (np.lexsort's order);
   9. slice 5's main path, all 22 TPC-H queries through TpuSession:
-     first at --check-sf (default 0.5) on the card against the port's own
+     first at --check-sf (default 0.25) on the card against the port's own
      run on the CPU (keys, counts, dates and strings exact, floats to
      relative 1e-9, the queries whose sort can tie unordered); then the
      eight tables at the run's scale with the union of the columns the
@@ -96,7 +96,7 @@ Phases:
      earlier runs) and of all 99, with the cold and warm sums, on lines of
      their own;
  11. slice 7's main path, all 30 TPCx-BB queries through TpuSession:
-     first at --bb-check-sf (default 1) on the card against the port's
+     first at --bb-check-sf (default 0.5) on the card against the port's
      own CPU run (as in phase 9); then the nineteen tables at the run's
      scale with the union of the columns the queries read, each query
      scanning only its own, store_sales and web_sales hash-repartitioned
@@ -230,9 +230,28 @@ Phases:
      way; the re-fusion and broadcast-switch probes (bench.py) and a
      cost-model probe whose join runs on the CPU engine, equal to the
      device join; the eight tests/catalyst_fixtures plans planned for the
-     card as for the CPU. Every card run of phases 6-18 fails if its plan
-     leaves an operator but the in-memory scans to the CPU engine, but
-     the cost-model probe's join.
+     card as for the CPU;
+ 19. slice 15's main path, the file writers and the ORC and CSV scans:
+     phase 9's lineitem (all 16 columns, the run's scale) from the scan
+     cache written with ``df.write.mode("overwrite")`` to 12 ORC files
+     (maxRecordsPerFile) and to parquet partitioned by l_returnflag and
+     l_linestatus (4 directories), and TPC-H Q1's output over phase 6's
+     lineitem hash 8 (the reorder kernel, held against its plain version
+     on that input first) to parquet; each write's WriteStats checked
+     against the files on disk (rows, files, partitions, bytes, the
+     commit's _SUCCESS and no _temporary), its wall and decoded GB/s;
+     then Q1 and Q6 read back from the ORC files (the stripes read
+     against the stripes present) and Q1 from the partitioned parquet
+     through hive discovery, each equal to phase 9's result; at
+     PUSHDOWN_SF lineitem sorted by l_shipdate to zlib ORC, Q6 reading
+     fewer stripes than the files hold and equal to the run that reads
+     them all; at CSV_SF lineitem to CSV on the CPU engine (the
+     reference's reason in the explain) and read back with its schema,
+     Q1 equal to the in-memory Q1. It checks free disk first, fails at
+     the start where pyarrow lacks ORC or CSV, and prints its seconds
+     against a bound of 120 s. Every card run of phases 6-19 fails if its
+     plan leaves an operator but the in-memory scans to the CPU engine,
+     but the cost-model probe's join and the CSV write.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -259,16 +278,16 @@ sales fact (summed over the inputs, each under "inputs"), phase 11's
 TPCx-BB and phase 9's TPC-H readings (launches and their checks,
 likewise), phase 13's SQL launches at the run's scale, phase 15's
 surface launches, phase 16's parquet launches (with the exchanges' encoded
-splits), phase 18's adaptive suite and skew cell launches, phase 7's
-reading on Q3's inputs, phase 3's at Q1's lineitem shape, and every path's
-launches under launches_by_path; then as its last
+splits), phase 18's adaptive suite and skew cell launches, phase 19's
+Q1 output write's, phase 7's reading on Q3's inputs, phase 3's at Q1's
+lineitem shape, and every path's launches under launches_by_path; then as its last
 line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
-       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.5]
-       [--bb-check-sf 1.0] [--memory-profile QUERY ...
+       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.25]
+       [--bb-check-sf 0.5] [--memory-profile QUERY ...
        [--memory-profile-sf SF ...]]
 """
 from __future__ import annotations
@@ -1304,10 +1323,12 @@ PARTITION_KEYS = {"orders": "o_orderkey", "lineitem": "l_orderkey"}
 
 
 def tpch_tables(sf, seed):
-    """The eight tables with the union of the columns the 22 queries read."""
+    """The eight tables with the union of the columns the 22 queries read,
+    lineitem with all 16 (phase 19 writes it whole)."""
     from spark_rapids_tpu_torch.benchmarks import tpch_data as td
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import all_columns
-    return td.gen_all(sf, seed, all_columns())
+    return td.gen_all(sf, seed, {**all_columns(),
+                                 "lineitem": list(td.LINEITEM_COLUMNS)})
 
 
 def query_tables(tables, q):
@@ -3993,6 +4014,275 @@ SUITES = {"tpch": (tpch_tables, tpch_specs),
                   lambda tables: suite_specs(tables, ["q51"]))}
 
 
+# ------------------------------------------------------------------ phase 19
+PHASE19_BOUND_S = 120.0
+#: the ORC write's maxRecordsPerFile splits lineitem into this many files
+ORC_FILES = 12
+#: the scale of the stripe-pushdown check and of the CSV round trip
+PUSHDOWN_SF = 0.5
+CSV_SF = 1.0
+#: free disk the phase's files need at SF 10 (~4.5 GB written), with room
+FILES_FREE_BYTES = 16 << 30
+#: the explain lines of a CSV write (the JAX package's reason)
+CSV_WRITE_REASON = [
+    "!CpuWriteFilesExec cannot run on TPU",
+    "    because CSV writing does not run on TPU (no accelerated CSV "
+    "writer in the reference either)"]
+
+
+def check_formats():
+    """Phase 19 reads and writes ORC and CSV through pyarrow: a machine
+    whose pyarrow lacks either fails here, at the start, on a line of its
+    own."""
+    try:
+        import pyarrow.csv  # noqa: F401
+        import pyarrow.orc  # noqa: F401
+    except ImportError as e:
+        print(f"phase 19: pyarrow lacks ORC or CSV support: {e}")
+        raise SystemExit(1)
+
+
+def files_conf():
+    """The benchmark conf with a scan cache that holds lineitem's 16
+    columns at SF 10."""
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    return {**BENCH_CONF, "spark.rapids.tpu.sql.scanCache.maxBytes":
+            str(48 << 30)}
+
+
+def orc_stripes(plan):
+    """(stripes read, stripes present) over the plan's ORC scans."""
+    from spark_rapids_tpu_torch.io.orc import TpuOrcScanExec
+    scans = [n for n in plan.walk() if isinstance(n, TpuOrcScanExec)]
+    if not scans:
+        raise AssertionError(f"no ORC scan on the card: {plan.tree_string()}")
+    return (sum(s.stripes_read for s in scans),
+            sum(s.stripes_total for s in scans))
+
+
+def run_write(sess, name, write, decoded_bytes, on_device=True):
+    """One write as ``write(sess)`` -> its WriteStats, checked against the
+    files on disk; prints the wall and the rate (the table's decoded arrow
+    bytes over the wall). ``on_device``: the plan holds no CPU engine
+    operator but the in-memory scans (the write command too)."""
+    import torch
+    from spark_rapids_tpu_torch.io.write_exec import (TpuWriteFilesExec,
+                                                      total_output_bytes)
+    t0 = time.perf_counter()
+    stats = write(sess)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    plan = sess.last_plan
+    if on_device:
+        assert_on_device(name, sess)
+        if not any(isinstance(n, TpuWriteFilesExec) for n in plan.walk()):
+            raise AssertionError(f"{name}: no TpuWriteFilesExec in "
+                                 f"{plan.tree_string()}")
+    path = next(n for n in plan.walk() if hasattr(n, "spec")).spec.path
+    files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs
+             if not f.startswith("_")]
+    if stats.num_files != len(files) or \
+            stats.num_bytes != total_output_bytes(path) or \
+            stats.num_bytes <= 0 or "_temporary" in os.listdir(path) or \
+            not os.path.exists(os.path.join(path, "_SUCCESS")):
+        raise AssertionError(f"{name}: {stats} against {len(files)} files "
+                             f"on disk: {sorted(os.listdir(path))}")
+    print(f"{name}: rows={stats.num_rows} files={stats.num_files} "
+          f"partitions={stats.num_partitions} bytes={stats.num_bytes} "
+          f"wall_s={secs:.4f} decoded_gb={decoded_bytes / 1e9:.3f} "
+          f"gb_per_s={decoded_bytes / secs / 1e9:.3f}")
+    return stats, secs
+
+
+def run_read(sess, name, build, want, ties=False):
+    """``build(sess).collect()`` on the card, every operator on the device,
+    equal to ``want`` (exact but the float sums, within REL_TOL) -> (the
+    result, seconds, the plan)."""
+    import torch
+    t0 = time.perf_counter()
+    got = build(sess).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert_on_device(name, sess)
+    worst = check_same_result(name, got, want, ties)
+    return got, secs, sess.last_plan, worst
+
+
+def phase_files(lineitem, q1_lineitem, tpch_results, seed, sf, directory):
+    """Phase 19: the file writers and the ORC and CSV scans over
+    ``lineitem`` (its 16 columns); Q1's output is written from
+    ``q1_lineitem`` (Q1's table of phase 6, hash 8 on its unclustered
+    order keys, so the exchange keeps the reorder kernel's output).
+    Returns the reorder launches of the Q1 output write {path: (launches,
+    kept)}."""
+    import shutil
+
+    import torch
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import (COLUMNS,
+                                                                QUERIES)
+    from spark_rapids_tpu_torch.execs.exchange_execs import (
+        HashPartitioning, TpuShuffleExchangeExec)
+    from spark_rapids_tpu_torch.io import page_pool
+    from spark_rapids_tpu_torch.io.write_exec import CpuWriteFilesExec
+    t_phase = time.perf_counter()
+    free = shutil.disk_usage(directory).free
+    if free < FILES_FREE_BYTES:
+        raise SystemExit(f"phase 19: {free / 1e9:.1f} GB free under "
+                         f"{directory}, it needs {FILES_FREE_BYTES / 1e9:.1f}")
+    release_device()
+    device = torch.device("cuda", 0)
+    sess = TpuSession(files_conf())
+    df = sess.create_dataframe(lineitem)
+    decoded = lineitem.nbytes
+    rows = lineitem.num_rows
+    t0 = time.perf_counter()
+    df.limit(1).collect()
+    torch.cuda.synchronize()
+    print(f"lineitem sf={sf}: {rows} rows, {len(lineitem.schema)} columns, "
+          f"{decoded / 1e9:.3f} GB decoded, into the scan cache in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {k: os.path.join(directory, k) for k in (
+        "orc", "parquet", "q1", "sorted_orc", "csv")}
+    launches = {}
+
+    # (a) writes at the run's scale, from the scan cache
+    per_file = -(-rows // ORC_FILES)
+    stats, _ = run_write(
+        sess, f"write lineitem sf={sf} orc maxRecordsPerFile={per_file}",
+        lambda s: df.write.mode("overwrite")
+        .option("maxRecordsPerFile", per_file).orc(out["orc"]), decoded)
+    if (stats.num_rows, stats.num_files, stats.num_partitions) != \
+            (rows, ORC_FILES, 0):
+        raise AssertionError(f"orc write: {stats}")
+    stats, _ = run_write(
+        sess, f"write lineitem sf={sf} parquet partitionBy(l_returnflag, "
+        f"l_linestatus) maxRecordsPerFile={per_file}",
+        lambda s: df.write.mode("overwrite")
+        .partitionBy("l_returnflag", "l_linestatus")
+        .option("maxRecordsPerFile", per_file).parquet(out["parquet"]),
+        decoded)
+    dirs = sorted(os.path.relpath(d, out["parquet"])
+                  for d, _, fs in os.walk(out["parquet"])
+                  if any(f.endswith(".parquet") for f in fs))
+    if (stats.num_rows, stats.num_partitions, len(dirs)) != (rows, 4, 4):
+        raise AssertionError(f"partitioned parquet write: {stats} {dirs}")
+    print(f"partition directories: {dirs}")
+    flags = check_kernels_on({"q1 output lineitem hash(8, l_orderkey)":
+                              (q1_lineitem, "l_orderkey")}, device)[0]
+    q1_df = sess.create_dataframe(q1_lineitem)
+    q1_in_memory = QUERIES[1]({"lineitem": q1_df}).collect()
+    reset_launches()
+    stats, _ = run_write(
+        sess, f"write q1 sf={sf} over lineitem hash 8 parquet",
+        lambda s: QUERIES[1]({"lineitem": q1_df.repartition(8, "l_orderkey")})
+        .write.mode("overwrite").parquet(out["q1"]), q1_lineitem.nbytes)
+    reorder_n, _ = read_launches()
+    hashed = [e for e in sess.last_plan.walk()
+              if isinstance(e, TpuShuffleExchangeExec)
+              and isinstance(e.partitioning, HashPartitioning)]
+    kept = sum(e.kernel_splits for e in hashed)
+    if reorder_n < 1 or reorder_n != len(hashed) \
+            or stats.num_rows != q1_in_memory.num_rows \
+            or kept != sum(not f for f in flags):
+        raise AssertionError(f"q1 write: {reorder_n} reorder launches for "
+                             f"{len(hashed)} hash exchanges, {kept} kept, "
+                             f"{stats}")
+    launches["phase19 q1 output write hash 8"] = (reorder_n, kept)
+    print(f"q1 output write: reorder_launches={reorder_n} "
+          f"launches_kept={kept}")
+    run_read(sess, f"q1 sf={sf} read back from its parquet output",
+             lambda s: s.read.parquet(out["q1"]).sort(
+                 "l_returnflag", "l_linestatus"), q1_in_memory)
+    del q1_df
+
+    # (b) read-backs at the run's scale, equal to phase 9's results
+    for q in (1, 6):
+        _, secs, plan, worst = run_read(
+            sess, f"q{q} sf={sf} from orc",
+            lambda s, q=q: QUERIES[q]({"lineitem": s.read.orc(out["orc"])}),
+            tpch_results[f"q{q}"])
+        read, total = orc_stripes(plan)
+        print(f"q{q} sf={sf} from orc: wall_s={secs:.4f} stripes read "
+              f"{read} of {total}, equal to phase 9's result (worst "
+              f"relative float error {worst:.3e})")
+    _, secs, _, worst = run_read(
+        sess, f"q1 sf={sf} from partitioned parquet",
+        lambda s: QUERIES[1]({"lineitem": s.read.parquet(out["parquet"])}),
+        tpch_results["q1"])
+    print(f"q1 sf={sf} from the partitioned parquet through hive "
+          f"discovery: wall_s={secs:.4f}, equal to phase 9's result (worst "
+          f"relative float error {worst:.3e})")
+    del df
+    release_device()
+
+    # the stripe pushdown at a smaller scale: lineitem sorted by ship date,
+    # zlib-compressed (the footer reader, the reference's, reads no snappy
+    # footer: a snappy file's stripes are all read, as above)
+    small = td.gen_lineitem_full(PUSHDOWN_SF, seed)
+    sdf = sess.create_dataframe(small)
+    stats, _ = run_write(
+        sess, f"write lineitem sf={PUSHDOWN_SF} orderBy(l_shipdate) orc zlib",
+        lambda s: sdf.orderBy("l_shipdate").write.mode("overwrite")
+        .option("maxRecordsPerFile", -(-small.num_rows // ORC_FILES))
+        .option("compression", "zlib").orc(out["sorted_orc"]), small.nbytes)
+    q6_cols = COLUMNS[6]["lineitem"]
+    in_memory = QUERIES[6]({"lineitem": sdf}).collect()
+    clipped, secs, plan, _ = run_read(
+        sess, f"q6 sf={PUSHDOWN_SF} from the sorted orc",
+        lambda s: QUERIES[6]({"lineitem": s.read.orc(out["sorted_orc"])}),
+        in_memory)
+    read, total = orc_stripes(plan)
+    unclipped, u_secs, u_plan, _ = run_read(
+        sess, f"q6 sf={PUSHDOWN_SF} from the sorted orc, not pushed down",
+        lambda s: QUERIES[6]({"lineitem": s.read.orc(out["sorted_orc"])
+                              .select(*q6_cols)}), in_memory)
+    u_read, u_total = orc_stripes(u_plan)
+    if not read < total or u_read != u_total or u_total != total:
+        raise AssertionError(f"q6 pushdown: {read} of {total} stripes read, "
+                             f"{u_read} of {u_total} without pushdown")
+    check_same_result("q6 clipped against unclipped", clipped, unclipped,
+                      False)
+    print(f"q6 sf={PUSHDOWN_SF} from the orc sorted by l_shipdate: stripes "
+          f"read {read} of {total} (unclipped {u_read} of {u_total}), "
+          f"wall_s={secs:.4f} (unclipped {u_secs:.4f}), equal to the "
+          f"unclipped run and to the in-memory q6")
+    del small, sdf
+
+    # (c) CSV: the write on the CPU engine (the reference's rule), the
+    # read on the card
+    small = td.gen_lineitem_full(CSV_SF, seed)
+    cdf = sess.create_dataframe(small)
+    stats, _ = run_write(
+        sess, f"write lineitem sf={CSV_SF} csv (cpu engine)",
+        lambda s: cdf.write.mode("overwrite").option("header", "true")
+        .option("maxRecordsPerFile", -(-small.num_rows // ORC_FILES))
+        .csv(out["csv"]), small.nbytes, on_device=False)
+    lines = sess.last_explain.splitlines()
+    if lines[:2] != CSV_WRITE_REASON or not any(
+            isinstance(n, CpuWriteFilesExec) for n in sess.last_plan.walk()):
+        raise AssertionError(f"csv write: {sess.last_explain}")
+    print(f"csv write explain: {lines[0]} / {lines[1].strip()}")
+    in_memory = QUERIES[1]({"lineitem": cdf}).collect()
+    _, secs, _, worst = run_read(
+        sess, f"q1 sf={CSV_SF} from csv",
+        lambda s: QUERIES[1]({"lineitem": s.read.option("header", "true")
+                              .csv(out["csv"], schema=small.schema)}),
+        in_memory)
+    print(f"q1 sf={CSV_SF} from csv read with lineitem's schema: "
+          f"wall_s={secs:.4f}, equal to q1 in memory (worst relative float "
+          f"error {worst:.3e})")
+    del small, cdf, sess
+    release_device()
+    gc.collect()
+    page_pool.shutdown()
+    secs = time.perf_counter() - t_phase
+    print(f"phase 19 files: {secs:.2f} s against the bound of "
+          f"{PHASE19_BOUND_S:.0f} s")
+    return launches
+
+
 # ------------------------------------------------- where a query's memory goes
 class _ExecMemory:
     """Per-operator device memory of one query run: each exec's execute()
@@ -4332,23 +4622,45 @@ def run_tables(sf, seed, kernels_only, directory):
     (phase 2 makes them while the CPU workers run), and phase 16's parquet
     files written from them under ``directory`` -> ({"lineitem",
     "q1_reference", "q3", "tpch", "suite", "parquet", "bb"}, seconds per
-    set)."""
+    set). Two threads make them: lineitem, its Q1, the TPC-H tables and
+    the parquet files in one, the Q3, TPC-DS and TPCx-BB tables in the
+    other (numpy generators only: pyarrow runs in the first alone); the
+    files wait for the TPC-DS tables."""
     from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
     made, secs = {}, {}
-    sets = (("lineitem", lambda: gen_lineitem(sf, seed=seed)),
-            ("q1_reference", lambda: q1_numpy(made["lineitem"])),
-            ("q3", lambda: q3_tables(sf, seed)),
-            ("tpch", lambda: tpch_tables(sf, seed)),
-            ("suite", lambda: suite_tables(sf, seed)),
-            ("parquet", lambda: parquet_files(
-                directory, made["lineitem"], made["suite"]["ds"], "run",
-                tpch_lineitem=made["tpch"]["lineitem"])),
-            ("bb", lambda: bb_tables(sf, seed)))
-    for key, make in sets[:1] if kernels_only else sets:
-        t0 = time.perf_counter()
-        made[key] = make()
-        secs[key] = time.perf_counter() - t0
-    return made, secs
+    chains = ((("lineitem", lambda: gen_lineitem(sf, seed=seed)),
+               ("q1_reference", lambda: q1_numpy(made["lineitem"])),
+               ("tpch", lambda: tpch_tables(sf, seed)),
+               ("parquet", lambda: parquet_files(
+                   directory, made["lineitem"], made["suite"]["ds"], "run",
+                   tpch_lineitem=made["tpch"]["lineitem"]))),
+              (("q3", lambda: q3_tables(sf, seed)),
+               ("suite", lambda: suite_tables(sf, seed)),
+               ("bb", lambda: bb_tables(sf, seed))))
+    if kernels_only:
+        chains = (chains[0][:1],)
+    suite_made = concurrent.futures.Future()
+
+    def run(chain):
+        for key, make in chain:
+            if key == "parquet":
+                suite_made.result()
+            t0 = time.perf_counter()
+            try:
+                made[key] = make()
+            except BaseException as e:
+                if not suite_made.done():
+                    suite_made.set_exception(e)
+                raise
+            secs[key] = time.perf_counter() - t0
+            if key == "suite":
+                suite_made.set_result(None)
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        for f in [pool.submit(run, c) for c in chains]:
+            f.result()
+    return made, {k: secs[k] for k in ("lineitem", "q1_reference", "q3",
+                                       "tpch", "suite", "parquet", "bb")
+                  if k in secs}
 
 
 def _depths(plan, d=0):
@@ -4368,12 +4680,12 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
-    ap.add_argument("--check-sf", type=float, default=0.5,
+    ap.add_argument("--check-sf", type=float, default=0.25,
                     help="scale of phase 9's, 10's, 13's and 15's checks "
                          "of every query on the card against the CPU, of "
                          "the SQL texts against the DataFrame queries and "
                          "of phase 14's forced runs")
-    ap.add_argument("--bb-check-sf", type=float, default=1.0,
+    ap.add_argument("--bb-check-sf", type=float, default=0.5,
                     help="scale of phase 11's check of the 30 TPCx-BB "
                          "queries on the card against the CPU and of "
                          "their forced runs in phase 14")
@@ -4403,6 +4715,7 @@ def main() -> int:
     print(f"gpu: {gpu_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    check_formats()
 
     if args.memory_profile:
         memory_profile(args.memory_profile, args.memory_profile_sf,
@@ -4462,7 +4775,7 @@ def main() -> int:
     q1_launches, q1_cold = phase_main_path(lineitem, reference,
                                            args.profile)
     by_path["q1"] = {"reorder": q1_launches}
-    udf_lineitem = lineitem             # phase 17's UDF Q1 reads it
+    udf_lineitem = lineitem             # phases 17 and 19 read it
     del lineitem, reference
     phase_done("6 q1")
     tables = made.pop("q3")
@@ -4490,6 +4803,7 @@ def main() -> int:
     dfa_device_ms(tables, device)
     tpch, dma18, tpch_results = phase_tpch(tables)
     tpch_sf_tables = tables        # phases 12 and 13 run queries over them
+    files_lineitem = tables["lineitem"]     # phase 19 writes it
     del tables
     phase_done(f"9 tpch sf={args.sf}")
     by_path["q18 dmaConsolidate"] = {"reorder": dma18[0],
@@ -4569,7 +4883,7 @@ def main() -> int:
     for path, n in phase_fallback(udf_lineitem, args.seed, args.check_sf,
                                   *tpch_check).items():
         by_path[path] = {"reorder": n}
-    del udf_lineitem, tpch_check
+    del tpch_check
     phase_done("17 cpu fallback, udf and mortgage")
     adaptive_nums, skew, _ = phase_adaptive(suite_sf_tables, suite,
                                             suite_results, args.sf)
@@ -4579,6 +4893,12 @@ def main() -> int:
     for way, n in skew.items():
         by_path[f"adaptive skew cell {way}"] = {"reorder": n["launches"]}
     phase_done("18 adaptive, coalesce and catalyst")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as d:
+        files = phase_files(files_lineitem, udf_lineitem, tpch_results,
+                            args.seed, args.sf, d)
+    del files_lineitem, udf_lineitem
+    by_path.update({p: {"reorder": n[0]} for p, n in files.items()})
+    phase_done("19 files")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -4602,7 +4922,8 @@ def main() -> int:
                     "tpch": launch_sums(tpch), "sql": launch_sums(sql_nums),
                     "surface": launch_sums(surface),
                     "parquet": (pq_r, pq_kept),
-                    "adaptive": launch_sums(adaptive_nums)},
+                    "adaptive": launch_sums(adaptive_nums),
+                    "files": tuple(map(sum, zip(*files.values())))},
         "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
                     "tpch": dma18[1:], "parquet": (pq_c, pq_c_kept)}}
     records = []
@@ -4639,6 +4960,8 @@ def main() -> int:
                 skew_cell={way: {k: n[k] for k in ("launches",
                                                    "launches_kept")}
                            for way, n in skew.items()})
+            record["phase19_files"] = dict(zip(
+                ("launches", "launches_kept"), readings[name]["files"]))
         records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")

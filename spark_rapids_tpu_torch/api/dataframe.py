@@ -19,8 +19,8 @@ from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
 from spark_rapids_tpu_torch.columnar.host import (HostBatch,
                                                   concat_host_batches,
                                                   string_batch)
-from spark_rapids_tpu_torch.columnar.transfer import (PendingDownload,
-                                                      start_download)
+from spark_rapids_tpu_torch.columnar.transfer import (start_download,
+                                                      start_download_arrow)
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 from spark_rapids_tpu_torch.execs.tpu_execs import DeviceToHostExec
@@ -558,6 +558,13 @@ class DataFrame:
         shuffle map stages run first, under the semaphore, and the plan is
         rewritten from their statistics (plan/adaptive.py);
         ``session.last_plan`` is then the rewritten plan."""
+        final, out = self._run_action()
+        return concat_host_batches(out, final.output)
+
+    def _run_action(self, start=start_download):
+        """``collect``'s action: (the executed plan, its results). A
+        streamed result batch is ``start(device batch).result()``, any
+        other the plan's host batch."""
         conf = self.session.conf
         final = self.physical_plan()
         self.session.last_plan = final
@@ -578,7 +585,7 @@ class DataFrame:
                           and conf.get(cfg.TRANSFER_STREAMING_COLLECT))
                 root = final.children[0] if stream else final
                 max_inflight = conf.get(cfg.TRANSFER_MAX_INFLIGHT)
-                pending: List[PendingDownload] = []
+                pending: List = []
                 for p in range(final.num_partitions):
                     ctx = ExecContext(conf, self.session.device, p,
                                       final.num_partitions, dm, cleanups)
@@ -586,14 +593,106 @@ class DataFrame:
                         if not stream:
                             out.append(b)
                             continue
-                        pending.append(start_download(b))
+                        pending.append(start(b))
                         while len(pending) > max_inflight:
                             out.append(pending.pop(0).result())
                 out.extend(pd.result() for pd in pending)
         finally:
             for fn in cleanups:
                 fn()
-        return concat_host_batches(out, final.output)
+        return final, out
+
+    def _collect_arrow(self):
+        """The result rows as one arrow table: each streamed batch's
+        arrow layout is made on the device (``download_arrow``'s download,
+        the one the writers take), any other batch is converted on the
+        host."""
+        import pyarrow as pa
+        final, out = self._run_action(start_download_arrow)
+        tables = [b.to_arrow() if isinstance(b, HostBatch) else b
+                  for b in out]
+        if not tables:
+            return concat_host_batches([], final.output).to_arrow()
+        return pa.concat_tables(tables, promote_options="permissive")
+
+    def to_pandas(self):
+        """The result rows as a pandas DataFrame (pandas and pyarrow are
+        needed only here)."""
+        return self._collect_arrow().to_pandas()
+
+    toPandas = to_pandas
+
+    def write_parquet(self, path: str, compression: str = "snappy") -> None:
+        """The collected result as one parquet file."""
+        from spark_rapids_tpu_torch.io.parquet import write_parquet
+        write_parquet(self._collect_arrow(), path, compression)
+
+    @property
+    def write(self) -> "DataFrameWriter":
+        return DataFrameWriter(self)
+
+
+class DataFrameWriter:
+    """``df.write`` (DataFrameWriter analog): the save mode, the partition
+    columns and the options, then ``parquet``/``orc``/``csv(path)`` runs
+    the write command (io/write_exec.py) as an action and returns its
+    ``WriteStats``."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._mode = "error"
+        self._partition_by: List[str] = []
+        self._options: Dict[str, str] = {}
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        m = {"errorifexists": "error", "default": "error"}.get(m.lower(),
+                                                               m.lower())
+        if m not in ("error", "overwrite", "append", "ignore"):
+            raise ValueError(f"unknown save mode {m!r}")
+        self._mode = m
+        return self
+
+    def partitionBy(self, *cols: str) -> "DataFrameWriter":
+        self._partition_by = list(cols)
+        return self
+
+    partition_by = partitionBy
+
+    def option(self, k: str, v) -> "DataFrameWriter":
+        """A writer option: ``compression``, ``header``, ``sep``, or
+        ``maxRecordsPerFile`` (a part file rolls over after that many
+        rows)."""
+        self._options[k] = str(v)
+        return self
+
+    def _save(self, fmt: str, path: str):
+        """The write as an action, like ``collect``: under the device
+        semaphore, through the adaptive rewrite when it is on, the shuffle
+        catalog emptied however it ends. The ``WriteStats`` of whichever
+        engine ran the command."""
+        from spark_rapids_tpu_torch.io.write_exec import (CpuWriteFilesExec,
+                                                          TpuWriteFilesExec,
+                                                          WriteSpec)
+        max_records = int(self._options.get("maxRecordsPerFile", "0"))
+        opts = tuple((k, v) for k, v in self._options.items()
+                     if k != "maxRecordsPerFile")
+        spec = WriteSpec(fmt, path, self._mode, tuple(self._partition_by),
+                         opts, max_records)
+        df = DataFrame(lp.WriteFiles(spec, self._df._plan), self._df.session)
+        final, _ = df._run_action()
+        for node in final.walk():
+            if isinstance(node, (CpuWriteFilesExec, TpuWriteFilesExec)):
+                return node.stats
+        return None
+
+    def parquet(self, path: str):
+        return self._save("parquet", path)
+
+    def orc(self, path: str):
+        return self._save("orc", path)
+
+    def csv(self, path: str):
+        return self._save("csv", path)
 
 
 def _null_safe_zero(dt: DType):
@@ -829,8 +928,8 @@ class GroupedData:
 
 
 class DataFrameReader:
-    """``session.read``: options, then ``parquet(paths...)`` (the JAX
-    package's reader; the port reads parquet only)."""
+    """``session.read``: options, then ``parquet``, ``orc`` or ``csv``
+    over files or directories (the JAX package's reader)."""
 
     def __init__(self, session: "TpuSession"):
         self.session = session
@@ -840,24 +939,43 @@ class DataFrameReader:
         self._options[k] = str(v)
         return self
 
-    def parquet(self, *paths: str) -> DataFrame:
-        """A DataFrame over parquet files or directories: hive-style
-        ``key=value`` directories become partition columns appended to the
-        data schema of the first file."""
-        import pyarrow.parquet as pq
-
+    def _scan(self, fmt: str, paths, infer_schema) -> DataFrame:
+        """Hive-style ``key=value`` directories become partition columns
+        appended to the data schema of the first file."""
         from spark_rapids_tpu_torch.io.datasource import \
             discover_partitioned_files
-        from spark_rapids_tpu_torch.io.parquet import schema_of_arrow
-        files, pschema = discover_partitioned_files(paths, "parquet")
+        files, pschema = discover_partitioned_files(paths, fmt)
         if not files:
-            raise FileNotFoundError(f"no parquet files under {paths}")
-        data_schema = schema_of_arrow(pq.read_schema(files[0].path))
+            raise FileNotFoundError(f"no {fmt} files under {paths}")
+        data_schema = infer_schema(files[0].path)
         full = Schema(list(data_schema.fields) + list(pschema.fields))
-        return DataFrame(lp.FileScan("parquet", tuple(paths), full,
+        return DataFrame(lp.FileScan(fmt, tuple(paths), full,
                                      tuple(self._options.items()),
                                      files=files, partition_schema=pschema),
                          self.session)
+
+    def parquet(self, *paths: str) -> DataFrame:
+        import pyarrow.parquet as pq
+
+        from spark_rapids_tpu_torch.io.parquet import schema_of_arrow
+        return self._scan("parquet", paths,
+                          lambda p: schema_of_arrow(pq.read_schema(p)))
+
+    def csv(self, *paths: str, schema: Optional[Schema] = None
+            ) -> DataFrame:
+        """CSV files; without ``schema`` the types are inferred from the
+        first file's first block."""
+        from spark_rapids_tpu_torch.io.csv import infer_csv_schema
+        return self._scan(
+            "csv", paths,
+            lambda p: schema or infer_csv_schema(p, self._options))
+
+    def orc(self, *paths: str) -> DataFrame:
+        import pyarrow.orc as po
+
+        from spark_rapids_tpu_torch.io.parquet import schema_of_arrow
+        return self._scan("orc", paths,
+                          lambda p: schema_of_arrow(po.ORCFile(p).schema))
 
 
 class TpuSession:

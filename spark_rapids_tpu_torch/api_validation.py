@@ -7,11 +7,10 @@ their GPU replacements, which catches silent API drift. Here the pairing
 is CpuXExec against TpuXExec: every conversion rule in plan/overrides.py
 builds the Tpu exec from the Cpu exec's fields, so a signature divergence
 is exactly the bug this catches. Run as
-``python -m spark_rapids_tpu_torch.api_validation``.
-
-The JAX package also pairs the execs of its CSV and ORC scans and its
-writers (``io/csv.py``, ``io/orc.py``, ``io/write_exec.py``); the port
-has not ported those modules yet, so they are left out here until it does.
+``python -m spark_rapids_tpu_torch.api_validation``. The pairs span the
+same modules as the JAX package's, the file scans and the write command
+(``io/csv.py``, ``io/orc.py``, ``io/parquet.py``, ``io/write_exec.py``)
+among them.
 """
 from __future__ import annotations
 
@@ -27,10 +26,11 @@ def exec_pairs() -> List[Tuple[Type, Type]]:
     from spark_rapids_tpu_torch.execs import (cpu_execs, exchange_execs,
                                               expand_execs, generate_execs,
                                               join_execs, window_execs)
-    from spark_rapids_tpu_torch.io import parquet
+    from spark_rapids_tpu_torch.io import csv, orc, parquet, write_exec
     from spark_rapids_tpu_torch.plan import adaptive
     modules = [cpu_execs, exchange_execs, expand_execs, generate_execs,
-               join_execs, window_execs, parquet, adaptive]
+               join_execs, window_execs, csv, orc, parquet, write_exec,
+               adaptive]
     # execs may live in different modules (tpu_execs holds most Tpu ones)
     from spark_rapids_tpu_torch.execs import tpu_execs
     modules.append(tpu_execs)

@@ -153,6 +153,15 @@ class Schema:
     def names(self) -> List[str]:
         return [f.name for f in self.fields]
 
+    def to_pa(self):
+        """The arrow schema of these fields (the file writers' schema;
+        pyarrow is imported here, at the edge)."""
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.columnar.host import _arrow_type
+        return pa.schema([pa.field(f.name, _arrow_type(f.dtype), f.nullable)
+                          for f in self.fields])
+
     def __repr__(self) -> str:
         return "Schema(" + ", ".join(repr(f) for f in self.fields) + ")"
 

@@ -23,6 +23,9 @@ there than the single shot.
 Downloads move only the live rows. ``start_download`` begins one batch's
 device-to-host copy (non_blocking, into pinned host buffers) and records a
 CUDA event; ``PendingDownload.result()`` waits for that event only.
+``download_arrow`` lays a batch out for arrow on the device first (validity
+and booleans bit-packed, strings compacted to offsets and bytes), so the
+host only wraps the copied buffers: the file writers' download.
 """
 from __future__ import annotations
 
@@ -486,3 +489,117 @@ class PendingDownload:
 
 def start_download(batch: DeviceBatch) -> PendingDownload:
     return PendingDownload(batch)
+
+
+_BIT_WEIGHTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _packbits(bits: torch.Tensor) -> torch.Tensor:
+    """bool[n] -> uint8[ceil(n / 8)], least significant bit first (arrow's
+    bitmap, ``np.packbits(..., bitorder="little")``)."""
+    pad = (-bits.shape[0]) % 8
+    b = bits.to(torch.int32)
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    w = _BIT_WEIGHTS.get(bits.device)
+    if w is None:
+        w = _BIT_WEIGHTS[bits.device] = torch.tensor(
+            [1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
+            device=bits.device)
+    return (b.view(-1, 8) * w).sum(dim=1).to(torch.uint8)
+
+
+def _arrow_buffers(c: DeviceColumn, n: int, nulls: int) -> List:
+    """One column's arrow buffers on its device: [validity bitmap or None,
+    values] for fixed widths, [validity or None, offsets, bytes] for
+    strings (the bytes of each row's first ``length`` columns, row after
+    row)."""
+    valid = _packbits(c.validity[:n]) if nulls else None
+    if c.dtype is DType.STRING:
+        lengths = c.lengths[:n].to(torch.int64)
+        data = c.data[:n]
+        keep = (torch.arange(data.shape[1], device=data.device)[None, :]
+                < lengths[:, None])
+        offsets = torch.zeros(n + 1, dtype=torch.int64, device=data.device)
+        torch.cumsum(lengths, 0, out=offsets[1:])
+        return [valid, offsets, data[keep]]
+    if c.dtype is DType.BOOLEAN:
+        return [valid, _packbits(c.data[:n])]
+    return [valid, c.data[:n].contiguous()]
+
+
+class PendingArrowDownload:
+    """One batch's download in arrow's layout in flight: the layout is
+    made on the device (``_arrow_buffers``) and the buffers copied into
+    pinned host memory behind one CUDA event (plain copies on the CPU);
+    ``result()`` waits for that event and arrow wraps the buffers without
+    a copy. A column that arrived encoded downloads its decoded values.
+    Strings whose bytes pass 2 GiB come back as ``large_string``."""
+
+    def __init__(self, batch: DeviceBatch):
+        self._schema = batch.schema
+        self._num_rows = n = batch.num_rows
+        cols = batch.columns
+        self._nulls = (torch.stack([(~c.validity[:n]).sum()
+                                    for c in cols]).tolist()
+                       if cols and n else [0] * len(cols))
+        device_bufs = [_arrow_buffers(c, n, k)
+                       for c, k in zip(cols, self._nulls)]
+        self._event = None
+        if batch.device.type == "cuda":
+            self._host = [[None if t is None else
+                           torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True).copy_(
+                               t, non_blocking=True)
+                           for t in bufs] for bufs in device_bufs]
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = device_bufs
+
+    def result(self):
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.columnar.host import _arrow_type
+        if self._event is not None:
+            self._event.synchronize()
+        n = self._num_rows
+
+        def wrap(t):
+            return None if t is None else pa.py_buffer(
+                t.contiguous().numpy())
+        arrays = []
+        for f, k, bufs in zip(self._schema, self._nulls, self._host):
+            vbuf = wrap(bufs[0])
+            if f.dtype is DType.NULL:
+                arrays.append(pa.nulls(n))
+            elif f.dtype is DType.STRING:
+                offsets, data = bufs[1], bufs[2]
+                if offsets[-1] < 2 ** 31:
+                    arrays.append(pa.StringArray.from_buffers(
+                        n, wrap(offsets.to(torch.int32)), wrap(data), vbuf,
+                        k))
+                else:
+                    arrays.append(pa.LargeStringArray.from_buffers(
+                        n, wrap(offsets), wrap(data), vbuf, k))
+            else:
+                storage = {DType.TIMESTAMP: pa.int64(),
+                           DType.DATE: pa.int32()}.get(
+                    f.dtype, _arrow_type(f.dtype))
+                arr = pa.Array.from_buffers(storage, n,
+                                            [vbuf, wrap(bufs[1])], k)
+                arrays.append(arr if storage.equals(_arrow_type(f.dtype))
+                              else arr.cast(_arrow_type(f.dtype)))
+        return pa.Table.from_arrays(arrays, schema=pa.schema(
+            [pa.field(f.name, a.type, f.nullable)
+             for f, a in zip(self._schema, arrays)]))
+
+
+def start_download_arrow(batch: DeviceBatch) -> PendingArrowDownload:
+    return PendingArrowDownload(batch)
+
+
+def download_arrow(batch: DeviceBatch):
+    """DeviceBatch -> arrow table of its live rows, equal to
+    ``download(batch).to_arrow()`` (``PendingArrowDownload``)."""
+    return start_download_arrow(batch).result()

@@ -362,7 +362,25 @@ PARQUET_READ_ENABLED = _conf(
 
 PARQUET_WRITE_ENABLED = _conf(
     "sql.format.parquet.write.enabled", bool, True,
-    "Parquet writes on the device; the port has no writer yet.")
+    "Parquet writes from the device (see sql.format.parquet.enabled); off, "
+    "the write command runs on the CPU engine.")
+
+ORC_ENABLED = _conf(
+    "sql.format.orc.enabled", bool, True,
+    "Enable TPU ORC scan/write as a whole.")
+
+ORC_READ_ENABLED = _conf(
+    "sql.format.orc.read.enabled", bool, True, "Enable TPU ORC scans.")
+
+ORC_WRITE_ENABLED = _conf(
+    "sql.format.orc.write.enabled", bool, True, "Enable TPU ORC writes.")
+
+CSV_ENABLED = _conf(
+    "sql.format.csv.enabled", bool, True,
+    "Enable TPU CSV scanning as a whole.")
+
+CSV_READ_ENABLED = _conf(
+    "sql.format.csv.read.enabled", bool, True, "Enable TPU CSV scans.")
 
 MAX_READER_BATCH_SIZE_ROWS = _conf(
     "sql.reader.batchSizeRows", int, 2147483647,

@@ -35,6 +35,27 @@ import torch
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 
 _POLL_S = 0.05
+#: how often a consumer waiting for its producer checks that it still runs
+_LIVENESS_S = 1.0
+
+
+def _get_live(q: "queue.Queue", worker: threading.Thread):
+    """The producer's next item. The producer puts an item, an error or
+    its end before it returns, so a producer thread that is gone with the
+    queue empty is a fault: it raises here instead of blocking the
+    consumer forever."""
+    while True:
+        try:
+            return q.get(timeout=_LIVENESS_S)
+        except queue.Empty:
+            if worker.is_alive():
+                continue
+            try:
+                return q.get_nowait()
+            except queue.Empty:
+                raise RuntimeError(
+                    f"producer thread {worker.name} ended without its "
+                    "result") from None
 
 
 def _put_abortable(q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -98,7 +119,7 @@ class PipelinedExec(PhysicalExec):
         worker.start()
         try:
             while True:
-                kind, val = q.get()
+                kind, val = _get_live(q, worker)
                 if kind == "end":
                     return
                 if kind == "e":

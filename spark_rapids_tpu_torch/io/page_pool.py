@@ -32,6 +32,9 @@ from typing import Iterator, List, Sequence, Tuple
 _LOCK = threading.Lock()
 _IDLE: List["_Worker"] = []
 _MADE = 0
+#: the longest one chunk's decode may take before its worker is killed
+#: and the scan fails (a chunk decodes in seconds at SF 10)
+_RESULT_TIMEOUT_S = 600.0
 
 
 class _Worker:
@@ -54,7 +57,20 @@ class _Worker:
         self.proc.stdin.flush()
 
     def recv(self):
-        kind, value = pickle.load(self.proc.stdout)
+        """The next result; a worker that dies, or gives no result within
+        ``_RESULT_TIMEOUT_S`` (then it is killed), fails the scan."""
+        watchdog = threading.Timer(_RESULT_TIMEOUT_S, self.proc.kill)
+        watchdog.daemon = True
+        watchdog.start()
+        try:
+            kind, value = pickle.load(self.proc.stdout)
+        except EOFError:
+            raise RuntimeError(
+                f"page-decode worker {self.proc.pid} ended without a result "
+                f"(exit code {self.proc.wait()}; killed after "
+                f"{_RESULT_TIMEOUT_S:.0f} s if negative)") from None
+        finally:
+            watchdog.cancel()
         if kind == "err":
             raise value
         return value

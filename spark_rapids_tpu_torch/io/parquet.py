@@ -413,6 +413,7 @@ class TpuParquetScanExec(LeafExec):
         import torch
 
         from spark_rapids_tpu_torch.execs.pipeline import (_POLL_S,
+                                                           _get_live,
                                                            _put_abortable)
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
@@ -440,7 +441,7 @@ class TpuParquetScanExec(LeafExec):
         worker.start()
         try:
             while True:
-                kind, val = q.get()
+                kind, val = _get_live(q, worker)
                 if kind == "end":
                     return
                 if kind == "e":
@@ -477,6 +478,13 @@ class CpuParquetScanExec(CpuEngineExec):
         return TpuParquetScanExec(self.files, self._schema,
                                   self.partition_schema, self.filters,
                                   self.max_batch_rows, self.max_batch_bytes)
+
+
+def write_parquet(table: pa.Table, path: str,
+                  compression: str = "snappy") -> None:
+    """One parquet file of an arrow table (``DataFrame.write_parquet``;
+    the GpuParquetWriter analog)."""
+    pq.write_table(table, path, compression=compression)
 
 
 def _convert_parquet(meta, children) -> TpuParquetScanExec:

@@ -42,7 +42,11 @@ def _manager_key(conf: TpuConf, device: torch.device) -> tuple:
 
 class DeviceManager:
     _instance: Optional["DeviceManager"] = None
-    _lock = threading.Lock()
+    #: re-entrant: a dropped session's finalizer (memory/df_cache.py) peeks
+    #: the manager, and the garbage collector may run it on a thread that
+    #: holds this lock while it builds a manager; a plain lock waited on
+    #: itself there forever (the JAX package's still does)
+    _lock = threading.RLock()
 
     def __init__(self, conf: TpuConf, device: torch.device):
         self.conf = conf

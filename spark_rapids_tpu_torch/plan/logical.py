@@ -44,7 +44,7 @@ class Range(LogicalPlan):
 
 @dataclass
 class FileScan(LogicalPlan):
-    """A scan of files (the port reads parquet)."""
+    """A scan of parquet, ORC or CSV files."""
     fmt: str
     paths: Tuple[str, ...]
     read_schema: Schema           # the full schema, partition columns too
@@ -64,6 +64,21 @@ class FileScan(LogicalPlan):
         return Schema(list(self.read_schema.fields) + [
             Field(name, dtype, False)
             for name, dtype, _default in INPUT_FILE_META_SPEC])
+
+
+@dataclass
+class WriteFiles(LogicalPlan):
+    """The write command (GpuDataWritingCommandExec /
+    InsertIntoHadoopFsRelation analog). Produces no rows."""
+    spec: object                  # io.write_exec.WriteSpec
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def schema(self) -> Schema:
+        return Schema([])
 
 
 @dataclass

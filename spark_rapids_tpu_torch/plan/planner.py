@@ -46,7 +46,7 @@ def plan_with_explain(plan: lp.LogicalPlan, conf: TpuConf, device=None
     if conf.get(cfg.UDF_COMPILER_ENABLED):
         from spark_rapids_tpu_torch.udf import compile_plan_udfs
         plan = compile_plan_udfs(plan)
-    plan = _resolve_input_file_meta(plan)
+    plan = _prune_file_scans(_resolve_input_file_meta(plan))
     overrides = TpuOverrides(conf, device)
     final = overrides.apply(ensure_requirements(_plan_node(plan, conf)))
     return final, overrides.last_explain
@@ -56,6 +56,90 @@ def plan_physical(plan: lp.LogicalPlan, conf: TpuConf,
                   device=None) -> PhysicalExec:
     """The executed plan of ``plan`` (``plan_with_explain``'s)."""
     return plan_with_explain(plan, conf, device)[0]
+
+
+def _column_names(obj, out: set) -> set:
+    """The (lower-cased) names of the columns an expression, or a nest of
+    tuples of them, reads."""
+    import dataclasses
+
+    from spark_rapids_tpu_torch.exprs.core import UnresolvedAttribute
+    if isinstance(obj, UnresolvedAttribute):
+        out.add(obj.name.lower())
+    elif isinstance(obj, Expression):
+        for f in dataclasses.fields(obj):
+            _column_names(getattr(obj, f.name), out)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _column_names(x, out)
+    return out
+
+
+def _prune_file_scans(plan: lp.LogicalPlan) -> lp.LogicalPlan:
+    """Column pruning (Spark's ColumnPruning into the file scan's required
+    schema; the JAX package reads every column): a file scan under a chain
+    of projections, filters, aggregates, sorts, limits and repartitions
+    reads only the columns that chain reads, and at least one data column,
+    which gives the rows (a count, or only partition columns). Any other
+    operator above a scan, and a scan asked for the input-file columns,
+    keeps every column."""
+    import dataclasses
+
+    def scan(node: lp.FileScan, need) -> lp.FileScan:
+        header = dict(node.options).get("header", "false").lower()
+        if need is None or node.with_file_meta or (
+                node.fmt == "csv" and header not in ("true", "1")):
+            return node     # a header-less CSV names its columns by place
+        part = set(node.partition_schema.names())
+        data = [f for f in node.read_schema if f.name not in part]
+        first = data[:1]
+        keep = [f for f in node.read_schema if f.name.lower() in need
+                or (f in first and not any(
+                    g.name.lower() in need for g in data))]
+        if len(keep) == len(node.read_schema):
+            return node
+        names = {f.name for f in keep}
+        # each file's partition values are a tuple over the partition
+        # schema's columns: keep the values of the kept columns
+        kept = [i for i, f in enumerate(node.partition_schema)
+                if f.name in names]
+        files = tuple(dataclasses.replace(
+            pf, partition_values=tuple(pf.partition_values[i] for i in kept))
+            for pf in node.files)
+        return dataclasses.replace(
+            node, read_schema=Schema(keep), files=files,
+            partition_schema=Schema(
+                [node.partition_schema.fields[i] for i in kept]))
+
+    def prune(node: lp.LogicalPlan, need) -> lp.LogicalPlan:
+        """``need``: the child columns the operators above read (None:
+        every one)."""
+        if isinstance(node, lp.FileScan):
+            return scan(node, need)
+        if isinstance(node, lp.Project):
+            kid = _column_names(node.exprs, set())
+        elif isinstance(node, lp.Aggregate):
+            kid = _column_names((node.grouping, node.aggregates), set())
+        elif isinstance(node, (lp.Filter, lp.Sort, lp.Repartition)):
+            own = (node.condition if isinstance(node, lp.Filter) else
+                   node.orders if isinstance(node, lp.Sort) else node.keys)
+            kid = None if need is None else need | _column_names(own, set())
+        elif isinstance(node, lp.Limit):
+            kid = need
+        else:
+            kid = None
+        if not dataclasses.is_dataclass(node):
+            return node
+        reps = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if isinstance(v, lp.LogicalPlan):
+                new = prune(v, kid)
+                if new is not v:
+                    reps[f.name] = new
+        return dataclasses.replace(node, **reps) if reps else node
+
+    return prune(plan, None)
 
 
 def _resolve_input_file_meta(plan: lp.LogicalPlan) -> lp.LogicalPlan:
@@ -196,19 +280,28 @@ def ensure_requirements(plan: PhysicalExec) -> PhysicalExec:
 
 
 def _plan_file_scan(plan: lp.FileScan, conf: TpuConf) -> PhysicalExec:
-    """The CPU parquet scan of a FileScan (the plan layer converts it),
-    its output widened by the hidden input-file columns when the planner
-    asked for them."""
-    if plan.fmt != "parquet":
-        raise NotImplementedError(
-            f"{plan.fmt} scans are not ported (the port reads parquet)")
+    """The CPU scan of a FileScan in its format (the plan layer converts
+    it), its output widened by the hidden input-file columns when the
+    planner asked for them."""
     from spark_rapids_tpu_torch.io.datasource import PartitionedFile
-    from spark_rapids_tpu_torch.io.parquet import CpuParquetScanExec
     files = plan.files or tuple(PartitionedFile(p) for p in plan.paths)
-    return CpuParquetScanExec(
-        files, plan.schema(), plan.partition_schema, plan.filters,
-        conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS),
-        conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
+    if plan.fmt == "parquet":
+        from spark_rapids_tpu_torch.io.parquet import CpuParquetScanExec
+        return CpuParquetScanExec(
+            files, plan.schema(), plan.partition_schema, plan.filters,
+            conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS),
+            conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
+    if plan.fmt == "csv":
+        from spark_rapids_tpu_torch.io.csv import CpuCsvScanExec
+        return CpuCsvScanExec(files, plan.schema(), dict(plan.options),
+                              plan.partition_schema)
+    if plan.fmt == "orc":
+        from spark_rapids_tpu_torch.io.orc import CpuOrcScanExec
+        return CpuOrcScanExec(
+            files, plan.schema(), plan.partition_schema, plan.filters,
+            conf.get(cfg.MAX_READER_BATCH_SIZE_ROWS),
+            conf.get(cfg.MAX_READER_BATCH_SIZE_BYTES))
+    raise ValueError(f"unsupported format {plan.fmt}")
 
 
 def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
@@ -218,9 +311,14 @@ def _plan_node(plan: lp.LogicalPlan, conf: TpuConf) -> PhysicalExec:
         return ce.CpuRangeExec(plan.start, plan.end, plan.step)
     if isinstance(plan, lp.FileScan):
         return _plan_file_scan(plan, conf)
-    if isinstance(plan, lp.Filter) and isinstance(plan.child, lp.FileScan):
-        # predicate pushdown: the pushable conjuncts clip row groups by
-        # their statistics; the filter stays as the exact row-level net
+    if isinstance(plan, lp.WriteFiles):
+        from spark_rapids_tpu_torch.io.write_exec import CpuWriteFilesExec
+        return CpuWriteFilesExec(plan.spec, _plan_node(plan.child, conf))
+    if isinstance(plan, lp.Filter) and isinstance(plan.child, lp.FileScan) \
+            and plan.child.fmt in ("parquet", "orc"):
+        # predicate pushdown: the pushable conjuncts clip parquet row groups
+        # and ORC stripes by their statistics; the filter stays as the
+        # exact row-level net
         from dataclasses import replace
 
         from spark_rapids_tpu_torch.io.datasource import (is_pushable,

@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.exprs import (Average, Count, Literal, Multiply,
                                           Subtract, Sum, UnresolvedAttribute,
                                           bind_expression)
 from spark_rapids_tpu_torch.ops.aggregate import GROUP_CAP, group_aggregate
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 CPU = torch.device("cpu")
 REL = 1e-9

@@ -1,8 +1,7 @@
 """The port's Cpu-vs-Tpu exec constructor parity check
 (``spark_rapids_tpu_torch/api_validation.py``) against the JAX package's:
-the port's pairs line up, and every pair the JAX package finds among the
-modules the port has (all but its CSV and ORC scans and its writers),
-the port finds too."""
+the port's pairs line up, and every pair the JAX package finds (its CSV
+and ORC scans and its write command among them), the port finds too."""
 import subprocess
 import sys
 from pathlib import Path
@@ -11,10 +10,6 @@ from spark_rapids_tpu import api_validation as jav
 from spark_rapids_tpu_torch import api_validation as av
 
 ROOT = Path(__file__).resolve().parents[1]
-
-#: the JAX package's exec pairs in modules the port has not ported yet
-NOT_PORTED = {"CpuCsvScanExec", "CpuOrcScanExec", "CpuWriteFilesExec"}
-
 
 def _names(pairs):
     return [(c.__name__, t.__name__) for c, t in pairs]
@@ -26,9 +21,11 @@ def test_port_pairs_line_up():
 
 
 def test_port_finds_every_jax_pair_it_has_modules_for():
-    want = [p for p in _names(jav.exec_pairs()) if p[0] not in NOT_PORTED]
+    want = _names(jav.exec_pairs())
     assert _names(av.exec_pairs()) == want
-    assert len(want) >= 17
+    assert {"CpuCsvScanExec", "CpuOrcScanExec",
+            "CpuWriteFilesExec"} <= {c for c, _ in want}
+    assert len(want) >= 20
 
 
 def test_pairs_have_the_same_parameters_as_jax():

@@ -24,6 +24,7 @@ from spark_rapids_tpu_torch.execs.exchange_execs import (
 from spark_rapids_tpu_torch.execs.join_execs import (
     TpuBroadcastNestedLoopJoinExec, TpuCartesianProductExec)
 from spark_rapids_tpu_torch.ops import join as tjoin
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 KEYS_ON = {"spark.rapids.tpu.sql.exec.NestedLoopJoin": "true",
            "spark.rapids.tpu.sql.exec.CartesianProduct": "true",

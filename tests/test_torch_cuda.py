@@ -627,7 +627,7 @@ def test_cuda_pipeline_under_one_permit_finishes(cuda):
                       device="cuda")
     out = []
     t = threading.Thread(target=lambda: out.append(
-        q3(_q3_frames(sess, 0.05, True)).collect()))
+        q3(_q3_frames(sess, 0.05, True)).collect()), daemon=True)
     t.start()
     t.join(120)
     assert not t.is_alive() and out[0].num_rows == 10
@@ -1117,3 +1117,78 @@ def test_cuda_adaptive_tpch_q3_equals_adaptive_off(cuda):
             np.testing.assert_allclose(a.data[:10], b.data[:10], rtol=1e-9)
         else:
             assert a.to_pylist(10) == b.to_pylist(10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["parquet", "orc"])
+def test_cuda_partitioned_write_equals_cpu(cuda, tmp_path, fmt):
+    """lineitem hash-repartitioned on the card (the reorder kernel) and
+    written partitioned by its flags from device batches: the same files,
+    rows per file and rows as the CPU run's write, read back on the card
+    equal to the CPU run's read-back, sorted."""
+    import os
+    import re
+
+    import pyarrow.orc as po
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.io.write_exec import TpuWriteFilesExec
+    li = td.gen_lineitem_full(0.05, 11)
+    stats, backs = {}, {}
+    for dev in ("cpu", "cuda"):
+        sess = TpuSession(BENCH_CONF, device=dev)
+        out = str(tmp_path / dev)
+        launches = tpk.REORDER_KERNEL.launches
+        w = (sess.create_dataframe(li).repartition(4, "l_orderkey").write
+             .partitionBy("l_returnflag", "l_linestatus")
+             .option("maxRecordsPerFile", 20000))
+        stats[dev] = getattr(w, fmt)(out)
+        assert any(isinstance(n, TpuWriteFilesExec)
+                   for n in sess.last_plan.walk())
+        if dev == "cuda":
+            assert tpk.REORDER_KERNEL.launches > launches
+        back = getattr(sess.read, fmt)(out).sort(
+            "l_orderkey", "l_linenumber").collect()
+        files = {}
+        for d, _, fs in os.walk(out):
+            for f in fs:
+                if f.endswith("." + fmt):
+                    p = os.path.join(d, f)
+                    files[re.sub(r"-[0-9a-f]{12}-", "-JOB-",
+                                 os.path.relpath(p, out))] = (
+                        pq.read_metadata(p).num_rows if fmt == "parquet"
+                        else po.ORCFile(p).nrows)
+        backs[dev] = (back, files)
+    a, b = stats["cpu"], stats["cuda"]
+    # each of the 4 tasks counts the directories it wrote (the reference's
+    # sum over tasks)
+    assert (a.num_rows, a.num_files, a.num_partitions) == \
+        (b.num_rows, b.num_files, b.num_partitions) == \
+        (li.num_rows, a.num_files, 16)
+    assert backs["cpu"][1] == backs["cuda"][1]
+    _same_host_batch(backs["cpu"][0], backs["cuda"][0])
+
+
+@pytest.mark.cuda
+def test_cuda_write_parquet_equals_cpu(cuda, tmp_path):
+    """``write_parquet`` collects through the writers' download (arrow's
+    layout made on the card): the file from the card equals the CPU
+    run's, strings and nulls included."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    li = td.gen_lineitem_full(0.01, 5)
+    tables = {}
+    for dev in ("cpu", "cuda"):
+        df = TpuSession(BENCH_CONF, device=dev).create_dataframe(li)
+        path = str(tmp_path / f"{dev}.parquet")
+        df.filter(F.col("l_quantity") > 10).withColumn(
+            "c", F.when(F.col("l_discount") > 0.05, F.col("l_comment"))
+        ).write_parquet(path)
+        tables[dev] = pq.read_table(path)
+    assert tables["cpu"].num_rows > 0
+    assert tables["cpu"].equals(tables["cuda"])

@@ -254,3 +254,24 @@ def test_cached_scan_under_grace():
         F.sum("v").alias("sv")).collect()
     assert_tables_equal(plain.to_arrow(), got.to_arrow(), ignore_order=True,
                         approx_float=1e-9)
+
+
+def test_session_finalizer_inside_the_manager_lock_does_not_wait():
+    """The garbage collector may run a dropped session's finalizer on a
+    thread that holds the device manager's lock (while ``initialize``
+    builds a manager): the finalizer's peek must not wait on that lock,
+    or the thread waits on itself forever."""
+    import threading
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch.memory.df_cache import _finalize_entries
+    done = []
+
+    def run():
+        with DeviceManager._lock:
+            _finalize_entries([SimpleNamespace(buffer_ids=None)])
+            done.append(True)
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(30)
+    assert done and not t.is_alive()

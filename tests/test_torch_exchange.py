@@ -39,6 +39,7 @@ from spark_rapids_tpu_torch.exprs.core import (UnresolvedAttribute as TAttr,
 from spark_rapids_tpu_torch.memory.buffer import StorageTier
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.shuffle import partition_kernel as tpk
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 CPU = torch.device("cpu")
 #: map partition -> batch row counts: a two-batch map task and a one-batch one

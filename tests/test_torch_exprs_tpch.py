@@ -27,6 +27,7 @@ from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.exprs.core import ColV, EvalCtx
 from spark_rapids_tpu_torch.ops import aggregate as tagg
 from spark_rapids_tpu_torch.ops import regex as trk
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 #: the JAX package's expression classes under the port's names
 J = types.SimpleNamespace(**vars(jexprs), InSet=JInSet)

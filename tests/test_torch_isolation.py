@@ -143,6 +143,14 @@ with tempfile.TemporaryDirectory() as d:
                    row_group_size=700)
     assert q1(sess.read.parquet(path)).collect().num_rows == 6
     assert count_encoded_domain(sess.last_plan) > 0
+    # the writers and the other two formats: lineitem written as ORC
+    # (partitioned) and CSV, Q1 read back from each
+    li = sess.create_dataframe(gen_lineitem(0.0005, 6))
+    li.write.partitionBy("l_returnflag").orc(os.path.join(d, "orc"))
+    li.write.csv(os.path.join(d, "csv"))
+    assert q1(sess.read.orc(os.path.join(d, "orc"))).collect().num_rows == 6
+    assert q1(sess.read.csv(os.path.join(d, "csv"), schema=li.schema())
+              ).collect().num_rows == 6
 scan_bad = sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu"))
 print("SCAN LOADED", scan_bad)
@@ -165,9 +173,11 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     out of core (memory/grace.py), Q1 over a cached DataFrame
     (memory/df_cache.py) and the expression and SQL surface's queries
     (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
-    no jax, nothing of the JAX package and no pyarrow loaded; the file-scan
-    modules (io/) and the test-data generator (datagen.py), imported after,
-    load pyarrow but neither jax nor the JAX package."""
+    no jax, nothing of the JAX package and no pyarrow loaded; the file
+    modules (io/: the scans and the writers) and the test-data generator
+    (datagen.py), imported after, load pyarrow but neither jax nor the JAX
+    package, while Q1 runs from parquet, from partitioned ORC and from CSV
+    files the port wrote."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)

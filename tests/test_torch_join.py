@@ -23,6 +23,7 @@ from spark_rapids_tpu_torch.execs.join_execs import (TpuBroadcastHashJoinExec,
                                                      TpuShuffledHashJoinExec)
 from spark_rapids_tpu_torch.exprs.core import ColV
 from spark_rapids_tpu_torch.ops import join as tjoin
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 HOWS = ["inner", "left", "right", "full", "left_semi", "left_anti"]
 _VOCAB = ["", "a", "b", "ab", "ba", "abc", "longer key", "x" * 12]

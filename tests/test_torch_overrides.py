@@ -193,11 +193,15 @@ def test_rule_tables_match_reference():
     key, description and incompat note, and the exec rules of the ported
     operators likewise; the port adds split() (its device explode of a
     split), no exec rule is disabled by default (the nested-loop and
-    cartesian joins always ran on the device in the port), and the CSV
-    and ORC scans and the writers wait with their modules; the sort-merge
-    join, reused exchange and query stage rules came with the Catalyst
-    import that alone makes those operators."""
+    cartesian joins always ran on the device in the port); the file
+    scans and the write command register their rules with their modules,
+    which the planner imports; the sort-merge join, reused exchange and
+    query stage rules came with the Catalyst import that alone makes those
+    operators."""
+    import spark_rapids_tpu_torch.io.csv  # noqa: F401 - its rule
+    import spark_rapids_tpu_torch.io.orc  # noqa: F401 - its rule
     import spark_rapids_tpu_torch.io.parquet  # noqa: F401 - its rule
+    import spark_rapids_tpu_torch.io.write_exec  # noqa: F401 - its rule
     from spark_rapids_tpu.plan import overrides as jo
     from spark_rapids_tpu_torch.plan import overrides as to
     jexpr = {r.cls.__name__: (r.conf_key, r.desc, r.incompat)
@@ -210,8 +214,7 @@ def test_rule_tables_match_reference():
              for r in jo.EXEC_RULES.values()}
     texec = {r.cls.__name__: (r.conf_key, r.desc)
              for r in to.EXEC_RULES.values()}
-    assert set(jexec) - set(texec) == {
-        "CpuCsvScanExec", "CpuOrcScanExec", "CpuWriteFilesExec"}
+    assert set(jexec) - set(texec) == set()
     assert {k: v for k, v in jexec.items() if k in texec} == texec
     assert {r.cls.__name__ for r in jo.EXEC_RULES.values()
             if r.disabled_by_default} == {"CpuNestedLoopJoinExec",

@@ -20,6 +20,7 @@ from spark_rapids_tpu_torch.columnar import dtypes as tdt
 from spark_rapids_tpu_torch.columnar.interop import batch_from_numpy
 from spark_rapids_tpu_torch.columnar.transfer import download
 from spark_rapids_tpu_torch.shuffle import partition_kernel as tpk
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 CPU = torch.device("cpu")
 

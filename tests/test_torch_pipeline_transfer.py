@@ -365,7 +365,7 @@ def test_nested_pipeline_under_one_permit_finishes():
             plan = PipelinedExec(PipelinedExec(_Source(25), 2), 2)
             done.append(len(list(plan.execute(ctx))))
 
-    t = threading.Thread(target=run)
+    t = threading.Thread(target=run, daemon=True)
     t.start()
     t.join(30)
     assert not t.is_alive() and done == [25]
@@ -409,7 +409,8 @@ def _schedule(sem_cls):
         for i, (name, tenant) in enumerate([("a1", "A"), ("a2", "A"),
                                             ("b1", "B"), ("c1", "C"),
                                             ("b2", "B")]):
-            t = threading.Thread(target=waiter, args=(name, tenant))
+            t = threading.Thread(target=waiter, args=(name, tenant),
+                                 daemon=True)
             t.start()
             threads.append(t)
             deadline = time.monotonic() + 10
@@ -417,6 +418,7 @@ def _schedule(sem_cls):
                 time.sleep(0.001)
     for t in threads:
         t.join(30)
+    assert not any(t.is_alive() for t in threads), "a waiter never ran"
     nesting = []
     entered = threading.Event()
     leave = threading.Event()
@@ -428,13 +430,14 @@ def _schedule(sem_cls):
 
     with sem.held(task_id=7):
         nesting.append(sem.active_holders)
-        t = threading.Thread(target=sibling)
+        t = threading.Thread(target=sibling, daemon=True)
         t.start()
-        entered.wait(10)
+        assert entered.wait(10), "the sibling never entered"
         nesting.append(sem.active_holders)
     nesting.append(sem.active_holders)      # the sibling still holds
     leave.set()
     t.join(10)
+    assert not t.is_alive(), "the sibling never left"
     nesting.append(sem.active_holders)
     return order, nesting
 
@@ -489,3 +492,38 @@ def test_scan_batch_ends_follow_the_record_batches():
     assert hb.batch_ends == (30, 60)
     assert hb.select(["v"]).batch_ends == (30, 60)
     assert CpuLocalScanExec(hb).batch is hb
+
+
+def test_consumer_fails_when_its_producer_dies():
+    """A producer thread gone without its item, error or end fails the
+    consumer's wait (execs/pipeline.py ``_get_live``) instead of hanging
+    it."""
+    import queue
+
+    from spark_rapids_tpu_torch.execs import pipeline
+    q = queue.Queue()
+    t = threading.Thread(target=lambda: None, daemon=True, name="gone")
+    t.start()
+    t.join(10)
+    with pytest.raises(RuntimeError, match="gone ended without its result"):
+        pipeline._get_live(q, t)
+    q.put(("end", None))
+    assert pipeline._get_live(q, t) == ("end", None)
+
+
+def test_page_decode_worker_that_dies_or_stalls_fails_the_scan(monkeypatch):
+    """A decode process that dies, or gives no result within its bound
+    (it is then killed), fails the read loudly (io/page_pool.py)."""
+    from spark_rapids_tpu_torch.io import page_pool
+    monkeypatch.setattr(page_pool, "_RESULT_TIMEOUT_S", 0.5)
+    stalled = page_pool._Worker()       # sent nothing: it waits on stdin
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="ended without a result"):
+        stalled.recv()
+    assert time.monotonic() - t0 < 30
+    stalled.stop()
+    dead = page_pool._Worker()
+    dead.proc.kill()
+    with pytest.raises(RuntimeError, match="ended without a result"):
+        dead.recv()
+    dead.stop()

@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.execs.exchange_execs import (
     HashPartitioning, TpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.plan import logical as lp
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 SCALE = 0.001
 SEED = 42

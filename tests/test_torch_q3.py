@@ -22,6 +22,7 @@ from spark_rapids_tpu_torch.benchmarks import tpch_queries as tq
 from spark_rapids_tpu_torch.columnar.host import HostBatch
 from spark_rapids_tpu_torch.execs.exchange_execs import (
     HashPartitioning, TpuShuffleExchangeExec)
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 SCALE = 0.002
 SEED = 42

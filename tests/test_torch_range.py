@@ -23,6 +23,7 @@ from spark_rapids_tpu_torch.execs import exchange_execs as tx
 from spark_rapids_tpu_torch.execs.tpu_execs import TpuSortExec
 from spark_rapids_tpu_torch.exprs.core import ColV
 from spark_rapids_tpu_torch.exprs.misc import SortOrder
+from torch_parquet_common import one_torch_thread  # noqa: F401 - fixture
 
 _VOCAB = [b"", b"a", b"ab", b"b", b"ba", b"zz", b"key-0", b"key-10"]
 

@@ -1,6 +1,6 @@
 """The TPC-DS queries q50-q99 outside the bench subset (which
-tests/test_torch_tpcds.py holds) and q72 (which has files of its own)
-through the PyTorch port on the CPU, against the JAX package's numpy engine
+tests/test_torch_tpcds.py holds), and q72 hash-repartitioned (its plain
+run is in tests/test_torch_tpcds_queries_a.py), through the PyTorch port on the CPU, against the JAX package's numpy engine
 (``sql.enabled=false``, the benchmark conf with both nested-loop keys on),
 at scale 0.01, seed 3, as tests/test_tpcds.py runs them: over the plain
 tables and with the three sales facts hash-repartitioned 8 ways on their
@@ -9,7 +9,9 @@ tests/test_tpcds.py's sort can tie, float sums within relative 1e-9 (the
 variableFloatAgg carve-out), each query returns at least that test's row
 floor, and the port's join strategies equal the JAX TPU planner's (planned
 only, never run). Each query over only its ``COLUMNS`` gives the same
-answer, and the same bits with whole-stage fusion on and off."""
+answer, and the same bits with whole-stage fusion on and off. q72 sits in
+this file of many tests so that ``--dist loadfile`` schedules it first
+(tests/test_torch_tpcds_queries_a.py says why)."""
 import pytest
 
 from spark_rapids_tpu_torch.benchmarks import tpcds_data as tds
@@ -48,3 +50,12 @@ def test_columns_give_the_same_answer(reference, port_tables, q):
 @pytest.mark.parametrize("q", QUERIES)
 def test_fusion_on_equals_off(port_tables, q):
     check_fusion_on_equals_off(port_tables, q)
+
+
+@pytest.fixture(scope="module")
+def q72_reference():
+    return df_reference([HEAVY], reps=(True,))
+
+
+def test_q72_hash8_matches_reference(q72_reference, port_tables):
+    check_df_query(q72_reference, port_tables, HEAVY, True)

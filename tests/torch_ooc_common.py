@@ -2,6 +2,8 @@
 tests/test_torch_out_of_core_tpcds.py: a suite query through the PyTorch
 port on the CPU with ``memory.outOfCore.forcePartitions=4`` against its
 default run, the fact tables hash-repartitioned 8 ways as on the card."""
+import gc
+
 import pytest
 import torch
 
@@ -21,10 +23,15 @@ FACTS = {"orders": "o_orderkey", "lineitem": "l_orderkey",
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
+    """One torch thread while a module runs; after it the garbage
+    collector runs here, so the sessions the module made (reference
+    cycles) are finalized where no lock is held, not later inside a
+    device manager's lock (where the JAX package's waits on itself)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+    gc.collect()
 
 
 @pytest.fixture(autouse=True)

@@ -1,6 +1,8 @@
 """Shared by ``tests/test_torch_parquet*.py`` and
 ``tests/test_torch_encoded.py``: the sessions of both packages on the CPU
 and the comparison of a port result with a JAX one, floats bit for bit."""
+import gc
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -17,11 +19,17 @@ from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """One torch thread while a module runs: the test run's workers share
-    the CPUs."""
+    the CPUs.
+
+    After the module, the garbage collector runs here: the sessions it
+    made sit in reference cycles, and their finalizers, run at a point
+    where no lock is held, do not fire later inside a device manager's
+    lock (where the JAX package's waits on itself)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+    gc.collect()
 
 
 @pytest.fixture(scope="module", autouse=True)

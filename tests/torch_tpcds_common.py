@@ -4,6 +4,8 @@ file stays short on one test worker: the reference tests' tie sets and
 row floors, the benchmark conf, the DataFrames over a table set (the
 three sales facts hash-repartitioned 8 ways on their item keys, as on the
 card) and the join strategies of a plan of either engine."""
+import gc
+
 import pytest
 import torch
 
@@ -64,11 +66,17 @@ def strategies(plan):
 def one_torch_thread():
     """One torch thread while a module runs: the test run's workers share
     the CPUs, and torch's pool of a thread per CPU in every worker would
-    oversubscribe them."""
+    oversubscribe them.
+
+    After the module, the garbage collector runs here: the sessions it
+    made sit in reference cycles, and their finalizers, run at a point
+    where no lock is held, do not fire later inside a device manager's
+    lock (where the JAX package's waits on itself)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+    gc.collect()
 
 
 def df_reference(queries, reps=(False, True)):
