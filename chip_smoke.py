@@ -142,7 +142,7 @@ Phases:
      join) checked for repeats;
  14. slice 10's out-of-core layer (memory/grace.py, plan/footprint.py):
      every query of the three suites at the check scales with
-     memory.outOfCore.forcePartitions=4 (FORCE_CHECK; four card worker
+     memory.outOfCore.forcePartitions=4 (FORCE_CHECK; six card worker
      processes run them side by side, each query's time being the host's
      work per partition), each equal to its default run of phases 9-11
      (unordered; floats within REL_TOL), every grouped
@@ -252,6 +252,19 @@ Phases:
      against a bound of 120 s. Every card run of phases 6-19 fails if its
      plan leaves an operator but the in-memory scans to the CPU engine,
      but the cost-model probe's join and the CSV write.
+ 20. slice 16's main path, the mesh: sql.mesh.enabled with MESH_SHARDS (4)
+     shards on the one card and adaptive execution on (MESH_CONF), all 22
+     TPC-H queries over phase 9's tables and the TPC-DS bench subset and
+     q5 over phase 10's, each once (Q1 and Q3 cold and warm), every result
+     equal to the phase's single-device card result (exact columns bit for
+     bit, floats within REL_TOL, ties unordered); per query the wall, the
+     peak device memory, the plan's Mesh* operators and its gathers, each
+     mesh repartition's rows, recv_max and recv_min (EXCHANGE_STATS),
+     host_hop_bytes and the reorder launches. Each plan must hold mesh
+     operators, every shard tensor must lie on the card, host_hop_bytes
+     must be 0 and Q1 and Q3 must launch no reorder kernel (every exchange
+     on the mesh is a mesh repartition). It prints its seconds against a
+     bound of 120 s.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -2660,10 +2673,12 @@ def _keyed(node):
 
 
 #: card worker processes for phase 14's forced runs at the check scales: a
-#: forced run's time goes to the host's work per partition, so the queries
-#: run in several processes at once, each on the one card (their walls are
-#: taken side by side; the runs at the run's scale stay alone)
-FORCE_WORKERS, FORCE_THREADS = 4, 2
+#: forced run's time goes to the host's work per partition (not to the
+#: scale: halving the check scales left it at 85-89 s), so the queries run
+#: in several processes at once, each on the one card, one per CPU but two
+#: (their walls are taken side by side; the runs at the run's scale stay
+#: alone)
+FORCE_WORKERS, FORCE_THREADS = 6, 1
 
 
 def forced_run(suite, sf, seed, name, want):
@@ -4383,6 +4398,114 @@ class _ExecMemory:
         return undo
 
 
+# ------------------------------------------------------------------ phase 20
+#: phase 20's shards on the card: BASELINE.json config 2's four v5p chips
+MESH_SHARDS = 4
+MESH_BOUND_S = 120.0
+
+
+def mesh_conf():
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    return {**BENCH_CONF, "spark.rapids.tpu.sql.mesh.enabled": "true",
+            "spark.rapids.tpu.sql.mesh.numDevices": str(MESH_SHARDS),
+            "spark.rapids.tpu.sql.exec.NestedLoopJoin": "true",
+            "spark.rapids.tpu.sql.exec.CartesianProduct": "true",
+            ADAPTIVE_KEY: "true"}
+
+
+def run_mesh_query(sess, name, build):
+    """One run of ``build(sess).collect()`` on the mesh, with its checks:
+    mesh operators in the plan, every shard tensor on the card, no host
+    hop. -> (result, seconds, reorder launches, the printed numbers)."""
+    import torch
+    from spark_rapids_tpu_torch.execs import mesh_execs as me
+    from spark_rapids_tpu_torch.parallel import mesh_batch as mbm
+    mbm.reset_counters()
+    del me.EXCHANGE_STATS[:]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = build(sess).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    reorder_n, _ = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plan = sess.last_plan
+    ops = [type(n).__name__ for n in plan.walk()
+           if type(n).__name__.startswith("Mesh")]
+    gathers = [type(n.children[0]).__name__ for n in plan.walk()
+               if isinstance(n, me.MeshGatherExec)]
+    seen = mbm.counters()
+    exchanges = [(st["op"], st["rows"], st["recv_max"], st["recv_min"])
+                 for st in me.EXCHANGE_STATS]
+    print(f"mesh {name}: rows={res.num_rows} s={secs:.4f} "
+          f"peak_device_gb={peak:.2f} mesh_ops={ops} gathers={gathers} "
+          f"exchanges(op,rows,recv_max,recv_min)={exchanges} "
+          f"host_hop_bytes={seen['host_hop_bytes']} "
+          f"shard_devices={seen['shard_device_kinds']} "
+          f"reorder_launches={reorder_n}")
+    if not ops:
+        raise AssertionError(f"mesh {name}: no mesh operator in the plan\n"
+                             f"{plan.tree_string()}")
+    if seen["shard_device_kinds"] != ["cuda"]:
+        raise AssertionError(f"mesh {name}: shard tensors on "
+                             f"{seen['shard_device_kinds']}")
+    if seen["host_hop_bytes"]:
+        raise AssertionError(f"mesh {name}: {seen['host_hop_bytes']} bytes "
+                             f"hopped through the host")
+    return res, secs, reorder_n, {"s": secs, "peak_gb": peak,
+                                  "mesh_ops": ops, "gathers": gathers,
+                                  "exchanges": exchanges,
+                                  "host_hop_bytes": seen["host_hop_bytes"],
+                                  "reorder_launches": reorder_n}
+
+
+def phase_mesh(tpch_tables_sf, tpch_results, suite_tables_sf,
+               suite_results):
+    """Phase 20: the 22 TPC-H queries and the TPC-DS bench subset with q5
+    on MESH_SHARDS shards of the card, each equal to its single-device
+    card result. Returns {query: numbers}."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    t0 = time.perf_counter()
+    sess = TpuSession(mesh_conf())
+    nums = {}
+    runs = [("tpch", s, tpch_results) for s in tpch_specs(tpch_tables_sf)]
+    runs += [("tpcds", s, suite_results)
+             for s in suite_specs(suite_tables_sf, SUITE_BENCH)]
+    for suite, (name, build, ties, _), wants in runs:
+        label = f"{suite} {name}"
+        twice = suite == "tpch" and name in ("q1", "q3")
+        try:
+            res, secs, launches, n = run_mesh_query(sess, label + (
+                " cold" if twice else ""), build)
+            if twice:
+                warm, warm_s, warm_l, _ = run_mesh_query(
+                    sess, label + " warm", build)
+                check_same_result(f"mesh {label} warm against cold", warm,
+                                  res, ties)
+                n["warm_s"] = warm_s
+                if launches or warm_l:
+                    raise AssertionError(f"mesh {label}: {launches} and "
+                                         f"{warm_l} reorder launches")
+            check_same_result(f"mesh {label} against the single-device "
+                              f"card run", res, wants[name], ties)
+        except BaseException:
+            release_device()
+            raise
+        nums[label] = n
+    del sess
+    release_device()
+    total = time.perf_counter() - t0
+    print(json.dumps({"mesh_shards": MESH_SHARDS, "queries": len(nums),
+                      "sum_s": sum(n["s"] for n in nums.values()),
+                      "peak_gb": max(n["peak_gb"] for n in nums.values()),
+                      "host_hop_bytes": sum(n["host_hop_bytes"]
+                                            for n in nums.values())}))
+    print(f"phase 20 mesh: {total:.2f} s against a bound of "
+          f"{MESH_BOUND_S:.0f} s")
+    return nums
+
+
 def _oom_sites(snapshot, top=12):
     """Live device bytes of a memory snapshot grouped by the innermost
     port frame that allocated them."""
@@ -4867,7 +4990,7 @@ def main() -> int:
     # phase 17 holds the CPU engine against phase 9's card results
     tpch_check = (check["tpch"], check_pruned["tpch"],
                   check_results["tpch"])
-    del check, check_results, check_pruned, tpch_sf_tables
+    del check, check_results, check_pruned
     phase_done("14 out of core")
     surface, surface_launches = phase_surface(
         args.check_sf, args.seed, refs["surface"], refs["q51"],
@@ -4887,7 +5010,6 @@ def main() -> int:
     phase_done("17 cpu fallback, udf and mortgage")
     adaptive_nums, skew, _ = phase_adaptive(suite_sf_tables, suite,
                                             suite_results, args.sf)
-    del suite_sf_tables
     for q, n in adaptive_nums.items():
         by_path[f"adaptive {q}"] = {"reorder": n["launches"]}
     for way, n in skew.items():
@@ -4899,6 +5021,12 @@ def main() -> int:
     del files_lineitem, udf_lineitem
     by_path.update({p: {"reorder": n[0]} for p, n in files.items()})
     phase_done("19 files")
+    mesh = phase_mesh(tpch_sf_tables, tpch_results, suite_sf_tables,
+                      suite_results)
+    del tpch_sf_tables, suite_sf_tables
+    by_path.update({f"mesh {q}": {"reorder": n["reorder_launches"]}
+                    for q, n in mesh.items()})
+    phase_done("20 mesh")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in

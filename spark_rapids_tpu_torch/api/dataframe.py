@@ -573,7 +573,12 @@ class DataFrame:
         out: List[HostBatch] = []
         try:
             with dm.semaphore.held():
-                if conf.get(cfg.ADAPTIVE_ENABLED):
+                # a mesh plan adapts inside its operators (each exchange
+                # counts its sizes before it moves a row), and its gathered
+                # root is one batch: no stage rewrite, no streamed collect
+                on_mesh = any(getattr(nd, "is_mesh", False)
+                              for nd in final.walk())
+                if conf.get(cfg.ADAPTIVE_ENABLED) and not on_mesh:
                     from spark_rapids_tpu_torch.plan.adaptive import \
                         adaptive_rewrite
                     stage_ctx = ExecContext(conf, self.session.device, 0, 1,
@@ -582,7 +587,8 @@ class DataFrame:
                     self.session.last_plan = final
                 # decided from the (possibly rewritten) root
                 stream = (isinstance(final, DeviceToHostExec)
-                          and conf.get(cfg.TRANSFER_STREAMING_COLLECT))
+                          and conf.get(cfg.TRANSFER_STREAMING_COLLECT)
+                          and not on_mesh)
                 root = final.children[0] if stream else final
                 max_inflight = conf.get(cfg.TRANSFER_MAX_INFLIGHT)
                 pending: List = []
@@ -670,6 +676,7 @@ class DataFrameWriter:
         semaphore, through the adaptive rewrite when it is on, the shuffle
         catalog emptied however it ends. The ``WriteStats`` of whichever
         engine ran the command."""
+        from spark_rapids_tpu_torch.execs.mesh_execs import MeshWriteFilesExec
         from spark_rapids_tpu_torch.io.write_exec import (CpuWriteFilesExec,
                                                           TpuWriteFilesExec,
                                                           WriteSpec)
@@ -681,7 +688,8 @@ class DataFrameWriter:
         df = DataFrame(lp.WriteFiles(spec, self._df._plan), self._df.session)
         final, _ = df._run_action()
         for node in final.walk():
-            if isinstance(node, (CpuWriteFilesExec, TpuWriteFilesExec)):
+            if isinstance(node, (CpuWriteFilesExec, TpuWriteFilesExec,
+                                 MeshWriteFilesExec)):
                 return node.stats
         return None
 

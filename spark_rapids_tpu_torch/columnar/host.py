@@ -123,6 +123,11 @@ class HostBatch:
                 arr = arr.cast(pa.int64())
             elif dt is DType.DATE:
                 arr = arr.cast(pa.int32())
+            if pa.types.is_null(arr.type):
+                # a null-typed column: all null (arrow has no value to fill)
+                cols.append(HostColumn(dt, np.zeros(len(arr), dt.np_dtype()),
+                                       validity))
+                continue
             fill = False if dt is DType.BOOLEAN else 0
             data = np.asarray(arr.fill_null(fill)).astype(dt.np_dtype(),
                                                           copy=False)
@@ -219,6 +224,8 @@ def _strings_to_matrix(arr, max_bytes: int):
 
 def _column_to_arrow(dtype: DType, col: HostColumn, num_rows: int):
     import pyarrow as pa
+    if dtype is DType.NULL:
+        return pa.nulls(num_rows)
     data = col.data[:num_rows]
     validity = np.asarray(col.validity[:num_rows], dtype=np.bool_)
     null_count = int((~validity).sum())

@@ -111,6 +111,47 @@ UDF_COMPILER_ENABLED = _conf(
     "the device; off, a UDF runs row at a time on the CPU engine "
     "(spark.rapids.sql.udfCompiler.enabled).")
 
+MESH_ENABLED = _conf(
+    "sql.mesh.enabled", bool, False,
+    "Run device subtrees over a mesh of shards (plan/mesh_rewrite.py): one "
+    "logical batch whose shard i lives on shard device i, with every "
+    "exchange between shards done device to device (the JAX package's "
+    "jax.sharding.Mesh execution). With sql.adaptive.enabled a mesh "
+    "shuffled join switches to broadcast when a side materializes under "
+    "broadcastJoinThreshold; a mesh aggregation picks its merge from the "
+    "observed partial-group counts (sql.mesh.aggRepartitionThreshold).")
+
+MESH_NUM_DEVICES = _conf(
+    "sql.mesh.numDevices", int, 0,
+    "Shards of the mesh; 0 uses every visible device. More shards than "
+    "devices place shard i on device i mod k (several shards share a "
+    "device, as XLA's forced host device count lets the JAX package's "
+    "CPU mesh do).")
+
+MESH_SCAN_ASSIGNMENT = _conf(
+    "sql.mesh.scan.shardAssignment", str, "rowgroup",
+    "How mesh file scans split work across shards: 'rowgroup' balances "
+    "statistics-clipped parquet row groups over the shards at plan time "
+    "(exact footer row counts, greedy LPT) and each shard reads its own; "
+    "'file' assigns whole files at run time (formats without row-group "
+    "metadata always do).",
+    checker=lambda v: (None if v in ("rowgroup", "file")
+                       else f"sql.mesh.scan.shardAssignment must be "
+                            f"rowgroup | file, got {v!r}"))
+
+MESH_REQUIRE_ICI = _conf(
+    "sql.mesh.requireIci", bool, True,
+    "Clip the mesh to the largest group of devices that all reach each "
+    "other as peers (torch.cuda.can_device_access_peer), so no exchange "
+    "between shards goes through host memory; a repeated device and the "
+    "CPU count as one group.")
+
+MESH_AGG_REPARTITION_THRESHOLD = _conf(
+    "sql.mesh.aggRepartitionThreshold", int, 8192,
+    "Mesh aggregations whose total partial-group count exceeds this "
+    "hash-repartition the partial buffers by key (each shard merges its "
+    "own keys) instead of gathering every partial and merging once.")
+
 ADAPTIVE_ENABLED = _conf(
     "sql.adaptive.enabled", bool, False,
     "Adaptive query execution (plan/adaptive.py): run the shuffle map "

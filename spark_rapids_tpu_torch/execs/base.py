@@ -93,6 +93,12 @@ class PhysicalExec:
     #: partitions up front (memory/grace.py)
     grace_partitions: int = 0
 
+    #: where this operator's batches live (parallel/placement.py): None for
+    #: the session's device; the mesh rewrite sets the mesh operators'.
+    #: Operators do not read it to run: it is the plan's declared contract,
+    #: shown by ``tree_string``
+    placement = None
+
     #: what adaptive execution (plan/adaptive.py) decided for this node
     #: ("coalesced 6→2", "skew-split p3×4", "broadcast-switch",
     #: "placement=cpu", "re-fused"), shown as ``[adaptive: …]`` by
@@ -132,7 +138,13 @@ class PhysicalExec:
         return None
 
     def tree_string(self, indent: int = 0) -> str:
-        tag = f" [adaptive: {self.adaptive_tag}]" if self.adaptive_tag else ""
+        tag = ""
+        if self.placement is not None:
+            from spark_rapids_tpu_torch.parallel.placement import \
+                placement_label
+            tag = f" @{placement_label(self.placement)}"
+        if self.adaptive_tag:
+            tag += f" [adaptive: {self.adaptive_tag}]"
         lines = ["  " * indent + f"{self.name} [{self.output}]{tag}"]
         lines += [c.tree_string(indent + 1) for c in self.children]
         return "\n".join(lines)

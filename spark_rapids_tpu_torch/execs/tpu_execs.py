@@ -30,6 +30,7 @@ from spark_rapids_tpu_torch.exprs.cse import (add_shared_columns,
 from spark_rapids_tpu_torch.exprs import encoded as ed
 from spark_rapids_tpu_torch.exprs.misc import Alias, SortOrder
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
+from spark_rapids_tpu_torch.parallel.placement import assert_unsharded
 from spark_rapids_tpu_torch.ops.aggregate import (group_aggregate,
                                                   grouping_modes)
 
@@ -66,6 +67,7 @@ def concat_device_batches(batches: List[DeviceBatch], schema: Schema,
         return DeviceBatch.empty(schema, device)
     if len(batches) == 1:
         return batches[0]
+    assert_unsharded(batches, "concat_device_batches")
     total = sum(b.num_rows for b in batches)
     cap = bucket_capacity(total)
     cols = []

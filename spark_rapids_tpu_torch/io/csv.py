@@ -33,19 +33,27 @@ def _read_options(options: Dict[str, str]):
     sep = options.get("sep", options.get("delimiter", ","))
     read = pacsv.ReadOptions(autogenerate_column_names=not header)
     parse = pacsv.ParseOptions(delimiter=sep)
-    null_values = [options.get("nullValue", "")] + ["", "null"]
-    convert = pacsv.ConvertOptions(null_values=null_values,
-                                   strings_can_be_null=True)
+    # Spark's: ``nullValue`` (the empty field by default) is the only null
+    # token, and a quoted empty string is an empty string (the JAX package
+    # also takes "" and "null" as null, and a quoted "" too)
+    convert = pacsv.ConvertOptions(
+        null_values=[options.get("nullValue", "")], strings_can_be_null=True,
+        quoted_strings_can_be_null=False)
     return read, parse, convert
 
 
 def infer_csv_schema(path: str, options: Dict[str, str]) -> Schema:
-    """Schema from the first parsed block only, not the whole file."""
+    """Schema from the first parsed block only, not the whole file. A
+    column with no value there is a STRING, as Spark infers it (pyarrow
+    types it null, which no batch can hold)."""
     from spark_rapids_tpu_torch.io.parquet import schema_of_arrow
     read, parse, convert = _read_options(options)
     with pacsv.open_csv(path, read_options=read, parse_options=parse,
                         convert_options=convert) as reader:
-        return schema_of_arrow(reader.schema)
+        schema = reader.schema
+    return schema_of_arrow(pa.schema(
+        [pa.field(f.name, pa.string()) if pa.types.is_null(f.type) else f
+         for f in schema]))
 
 
 def _read_table(path: str, schema: Schema, options: Dict[str, str]
@@ -58,7 +66,7 @@ def _read_table(path: str, schema: Schema, options: Dict[str, str]
         read = pacsv.ReadOptions(column_names=schema.names())
     convert = pacsv.ConvertOptions(
         null_values=convert.null_values, strings_can_be_null=True,
-        column_types={f.name: _arrow_type(f.dtype) for f in schema},
+        quoted_strings_can_be_null=False, column_types={f.name: _arrow_type(f.dtype) for f in schema},
         include_columns=schema.names())
     t = pacsv.read_csv(path, read_options=read, parse_options=parse,
                        convert_options=convert)

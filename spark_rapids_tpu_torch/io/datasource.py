@@ -41,9 +41,41 @@ class PartitionedFile:
     partition_values: Tuple = ()
 
 
+#: the characters Spark's ``ExternalCatalogUtils.escapePathName`` writes
+#: as ``%XX`` in a partition directory's name
+_PATH_ESCAPED = frozenset([chr(c) for c in range(1, 0x20)] + [
+    '"', "#", "%", "'", "*", "/", ":", "=", "?", "\\", "\x7f", "{", "[",
+    "]", "^"])
+
+
+def escape_path_name(v: str) -> str:
+    """A partition value as its directory name: Spark's
+    ``escapePathName``, the empty string as the default partition."""
+    if v == "":
+        return HIVE_DEFAULT_PARTITION
+    return "".join(f"%{ord(c):02X}" if c in _PATH_ESCAPED else c for c in v)
+
+
+def unescape_path_name(raw: str) -> str:
+    """Spark's ``unescapePathName``: each ``%XX`` of two hex digits back
+    to its character."""
+    out, i = [], 0
+    while i < len(raw):
+        h = raw[i + 1:i + 3]
+        if raw[i] == "%" and len(h) == 2 and all(
+                c in "0123456789abcdefABCDEF" for c in h):
+            out.append(chr(int(h, 16)))
+            i += 3
+        else:
+            out.append(raw[i])
+            i += 1
+    return "".join(out)
+
+
 def _parse_partition_value(raw: str):
     if raw == HIVE_DEFAULT_PARTITION:
         return None
+    raw = unescape_path_name(raw)
     for conv in (int, float):
         try:
             return conv(raw)

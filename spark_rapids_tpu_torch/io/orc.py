@@ -59,8 +59,75 @@ def _orc_meta(path: str):
 
 @lru_cache(maxsize=512)
 def _orc_meta_cached(path: str, mtime_ns: int, size: int):
-    from spark_rapids_tpu_torch.io.orc_meta import read_orc_meta
-    return read_orc_meta(path)
+    return read_orc_meta_any_codec(path)
+
+
+#: ORC's CompressionKind of a SNAPPY file
+_SNAPPY = 2
+
+
+def read_orc_meta_any_codec(path: str):
+    """``orc_meta.read_orc_meta`` (a byte-equal copy of the reference's,
+    which reads NONE and ZLIB footers only) for SNAPPY files too, the
+    writer's default: the footer and metadata sections are decompressed
+    here, and the copy parses them from an uncompressed tail (metadata,
+    footer, a postscript that says NONE) in an unnamed temporary file."""
+    import tempfile
+    from spark_rapids_tpu_torch.io.orc_meta import pb_fields, read_orc_meta
+    with open(path, "rb") as f:
+        f.seek(0, 2)
+        size = f.tell()
+        f.seek(max(size - 256, 0))
+        tail = f.read()
+        ps_len = tail[-1]
+        fields = {fno: v for fno, _, v in pb_fields(tail[-1 - ps_len:-1])}
+        if fields.get(2, 0) != _SNAPPY:
+            return read_orc_meta(path)
+        footer_len, meta_len = fields.get(1, 0), fields.get(5, 0)
+        f.seek(size - 1 - ps_len - footer_len - meta_len)
+        raw = f.read(meta_len + footer_len)
+    meta = _snappy_sections(raw[:meta_len])
+    footer = _snappy_sections(raw[meta_len:])
+    # postscript fields 1 (footer length), 2 (compression: NONE) and 5
+    # (metadata length)
+    ps = (bytes([0x08]) + _varint_bytes(len(footer)) + bytes([0x10, 0])
+          + bytes([0x28]) + _varint_bytes(len(meta)))
+    with tempfile.TemporaryFile() as tf:
+        tf.write(meta + footer + ps + bytes([len(ps)]))
+        tf.flush()
+        return read_orc_meta(os.dup(tf.fileno()))
+
+
+def _snappy_sections(section: bytes) -> bytes:
+    """An ORC stream's chunks (3-byte headers, ``(len << 1) | original``)
+    with the SNAPPY ones decompressed by pyarrow's codec."""
+    from spark_rapids_tpu_torch.io.orc_meta import _varint
+    codec = pa.Codec("snappy")
+    out = bytearray()
+    i = 0
+    while i + 3 <= len(section):
+        hdr = section[i] | (section[i + 1] << 8) | (section[i + 2] << 16)
+        i += 3
+        chunk = section[i:i + (hdr >> 1)]
+        i += hdr >> 1
+        if hdr & 1:
+            out.extend(chunk)
+        else:
+            # a snappy block starts with its decompressed length
+            n = _varint(chunk, 0)[0]
+            out.extend(codec.decompress(chunk, decompressed_size=n)
+                       .to_pybytes())
+    return bytes(out)
+
+
+def _varint_bytes(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
 
 
 def _next_item(q: "queue.Queue", reader: Future):

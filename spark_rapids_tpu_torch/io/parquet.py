@@ -354,6 +354,40 @@ class TpuParquetScanExec(LeafExec):
     def paths(self) -> Tuple[str, ...]:
         return tuple(f.path for f in self.files)
 
+    def file_row_counts(self) -> List[int]:
+        """Exact per-file row counts after the row-group pruning, from the
+        footers alone: the mesh's shard-local read sizes its shards by
+        them."""
+        return [clipped_groups(f.path, tuple(self.filters))[1]
+                for f in self.files]
+
+    def row_group_units(self) -> List[Tuple[int, int, int]]:
+        """(file index, row group, exact rows) of every statistics-clipped
+        row group, from the footers alone: the units the mesh rewrite
+        balances over the shards at plan time."""
+        units: List[Tuple[int, int, int]] = []
+        for fi, f in enumerate(self.files):
+            groups, _, group_rows = clipped_groups(f.path,
+                                                   tuple(self.filters))
+            units.extend((fi, rg, rows)
+                         for rg, rows in zip(groups, group_rows))
+        return units
+
+    def iter_tables_for_units(self, units: Sequence[Tuple[int, int]]
+                              ) -> Iterator[pa.Table]:
+        """Only the given (file index, row group) units, one shard's part
+        of the plan-time assignment, in file order and group order."""
+        by_file: dict = {}
+        for fi, rg in units:
+            by_file.setdefault(fi, []).append(rg)
+        for fi in sorted(by_file):
+            f = self.files[fi]
+            for t in _iter_file_tables(
+                    f, self.data_schema, self.partition_schema, self.filters,
+                    self.max_batch_rows, self.max_batch_bytes,
+                    groups=sorted(by_file[fi])):
+                yield fill_file_meta(t, f, self.output)
+
     def iter_tables_for_files(self, files: Sequence[PartitionedFile]
                               ) -> Iterator[pa.Table]:
         # one dictionary unifier per scan pass: every row group's

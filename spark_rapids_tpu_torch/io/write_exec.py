@@ -142,12 +142,36 @@ for _fmt, _cls in list(WRITER_CLASSES.items()):
             "inner": _cls, "SUPPORTED_CODECS": _cls.SUPPORTED_CODECS})
 
 
+class _EscapedPartitionWriter(DynamicPartitionDataWriter):
+    """The partition writer of io/writer.py (a byte-equal copy of the
+    reference's, which names a directory by ``str(value)``) with each
+    string partition value escaped first, as Spark names its directories
+    (``io/datasource.py::escape_path_name``): the data files drop the
+    partition columns, so only the directory names change."""
+
+    def write(self, table) -> None:
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        from spark_rapids_tpu_torch.io.datasource import escape_path_name
+        for name in self.partition_cols:
+            i = table.schema.get_field_index(name)
+            col = table.column(i)
+            if not pa.types.is_string(col.type) or table.num_rows == 0:
+                continue
+            values = pc.unique(col).drop_null()
+            escaped = pa.array([escape_path_name(v)
+                                for v in values.to_pylist()], pa.string())
+            table = table.set_column(i, name, escaped.take(
+                pc.index_in(col, value_set=values)))
+        super().write(table)
+
+
 def make_task_writer(spec: WriteSpec, child_schema: Schema,
                      committer: FileCommitProtocol, task_id: int):
     """One writer per task: single-directory, or split into hive-style
     ``k=v/`` directories by the partition columns."""
     if spec.partition_by:
-        return DynamicPartitionDataWriter(
+        return _EscapedPartitionWriter(
             spec.fmt, child_schema, spec.partition_by, committer, task_id,
             spec.options_dict, spec.max_records_per_file)
     return SingleDirectoryDataWriter(

@@ -32,9 +32,10 @@ aggregate with keys and no functions is a ``distinct``. A string min or
 max ranks the rows by byte order and reduces the ranks
 (``_segment_minmax_string``).
 
-The port has one aggregation stage (its exec sees all its input in one
-partition), so the JAX package's partial buffers and ``merge_aggregate``
-have no counterpart here.
+On one device the port aggregates in one stage (its exec sees all its
+input in one partition). The mesh (execs/mesh_execs.py) splits it: each
+shard's Partial mode (``group_aggregate(evaluate=False)``) yields reduced
+buffers, and ``merge_aggregate`` (the Final mode) combines them.
 """
 from __future__ import annotations
 
@@ -79,15 +80,27 @@ def grouping_modes(keys, agg_fns: Sequence[AggregateFunction]) -> List[str]:
 
 def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction],
                     num_rows: int, capacity: int, grouping: str = "sort",
-                    extra_mask=None) -> AggResult:
+                    extra_mask=None, evaluate: bool = True) -> AggResult:
     """Grouped aggregation over one batch -> (key_cols, result_cols,
     num_groups, flagged). Output columns have the group count's capacity
     bucket (the hash mode's at most ``GROUP_CAP`` rows). ``extra_mask``
     excludes rows (a fused filter predicate). ``flagged`` is only ever True
     for ``grouping="onehot"`` or ``"hash"`` with keys: the result may be
-    wrong and the caller must re-run with the next mode."""
+    wrong and the caller must re-run with the next mode. With
+    ``evaluate=False`` (the Partial mode) ``result_cols`` are the reduced
+    buffers, every function's in turn, for ``merge_aggregate``."""
     if grouping not in ("onehot", "hash", "sort"):
         raise ValueError(f"unknown grouping mode {grouping!r}")
+    return _finish(*_group_reduced(ctx, key_exprs, agg_fns, num_rows,
+                                   capacity, grouping, extra_mask),
+                   agg_fns, evaluate)
+
+
+def _group_reduced(ctx: EvalCtx, key_exprs, agg_fns, num_rows: int,
+                   capacity: int, grouping: str, extra_mask):
+    """The grouping mode's keys and reduced buffers, before ``evaluate``:
+    (key_cols, reduced per function, num_groups, out_cap, flagged,
+    device), as every mode returns them."""
     alive = bk.alive_mask(capacity, num_rows, ctx.device)
     if extra_mask is not None:
         alive = alive & extra_mask
@@ -105,18 +118,22 @@ def group_aggregate(ctx: EvalCtx, key_exprs, agg_fns: Sequence[AggregateFunction
     return _sort_aggregate(keys, projections, agg_fns, alive)
 
 
-def _finish(key_cols, reduced_per_fn, agg_fns, num_groups: int,
-            out_cap: int, flagged: bool, device) -> AggResult:
+def _finish(key_cols, reduced_per_fn, num_groups: int, out_cap: int,
+            flagged: bool, device, agg_fns,
+            evaluate: bool = True) -> AggResult:
+    """Each function's ``evaluate`` over its reduced buffers (or, with
+    ``evaluate=False``, the buffers themselves), dead past the groups."""
     group_alive = torch.arange(out_cap, device=device) < num_groups
     results = []
     for fn, reduced in zip(agg_fns, reduced_per_fn):
-        out = fn.evaluate(reduced)
-        results.append(out.with_validity(out.validity & group_alive))
+        outs = [fn.evaluate(reduced)] if evaluate else reduced
+        results += [out.with_validity(out.validity & group_alive)
+                    for out in outs]
     key_cols = [k.with_validity(k.validity & group_alive) for k in key_cols]
     return key_cols, results, num_groups, flagged
 
 
-def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
+def _onehot_aggregate(keys, projections, agg_fns, alive):
     G = ONEHOT_CAP
     device = alive.device
     h = bk.hash64_cols(keys)
@@ -158,8 +175,8 @@ def _onehot_aggregate(keys, projections, agg_fns, alive) -> AggResult:
                                      out_cap)
                        for spec, b in zip(fn.buffer_specs(), bufs)]
                       for fn, bufs in zip(agg_fns, projections)]
-    return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
-                   flagged, device)
+    return (key_cols, reduced_per_fn, num_groups, out_cap, flagged,
+                    device)
 
 
 #: sub-bins per group of the one-hot sums: rows add into bin
@@ -222,12 +239,12 @@ def _pick(b: ColV, spec, seg_ids: torch.Tensor, num_segments: int,
     return out.with_validity(out.validity & pad_rows(has[:n], out_cap))
 
 
-def _empty_result(keys, projections, agg_fns, out_cap, device) -> AggResult:
+def _empty_result(keys, projections, agg_fns, out_cap, device):
     none = torch.zeros(0, dtype=torch.int64, device=device)
     key_cols = [bk.take_padded(v, none, out_cap) for v in keys]
     reduced = [[bk.take_padded(b, none, out_cap) for b in bufs]
                for bufs in projections]
-    return _finish(key_cols, reduced, agg_fns, 0, out_cap, False, device)
+    return (key_cols, reduced, 0, out_cap, False, device)
 
 
 def _reduce_buffer(b: ColV, kind: str, gids: torch.Tensor,
@@ -301,7 +318,7 @@ def _string_pick(b: ColV, order: torch.Tensor, seg: torch.Tensor,
                 b.lengths[pick])
 
 
-def _global_aggregate(projections, agg_fns, alive) -> AggResult:
+def _global_aggregate(projections, agg_fns, alive):
     """No keys: exactly one group, even over no rows (Spark's global
     aggregate and its empty-input row)."""
     order = torch.arange(alive.shape[0], device=alive.device)
@@ -310,10 +327,10 @@ def _global_aggregate(projections, agg_fns, alive) -> AggResult:
     reduced = _segment_reduce_all(agg_fns, projections, order,
                                   torch.zeros_like(order), out_cap, alive,
                                   dead_last=False)
-    return _finish([], reduced, agg_fns, 1, out_cap, False, alive.device)
+    return ([], reduced, 1, out_cap, False, alive.device)
 
 
-def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
+def _sort_aggregate(keys, projections, agg_fns, alive):
     order = bk.sort_indices([(k, True, True) for k in keys], alive)
     sorted_keys = [bk.take_colv(k, order) for k in keys]
     starts = bk.starts_from_sorted(sorted_keys, alive[order])
@@ -322,13 +339,13 @@ def _sort_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     out_cap = bucket_capacity(num_groups)
     first = torch.nonzero(starts).squeeze(1)
     key_cols = [bk.take_padded(k, first, out_cap) for k in sorted_keys]
-    return _finish(key_cols,
-                   _segment_reduce_all(agg_fns, projections, order, gids,
-                                       out_cap, alive[order]),
-                   agg_fns, num_groups, out_cap, False, alive.device)
+    return (key_cols,
+                    _segment_reduce_all(agg_fns, projections, order, gids,
+                                        out_cap, alive[order]),
+                    num_groups, out_cap, False, alive.device)
 
 
-def _hash_aggregate(keys, projections, agg_fns, alive) -> AggResult:
+def _hash_aggregate(keys, projections, agg_fns, alive):
     """Rows in hash order, group boundaries from the exact key compare,
     the flag from a boundary inside a run of one shifted hash (a collision)
     or from more than ``GROUP_CAP`` groups; reductions at the boundaries."""
@@ -347,8 +364,8 @@ def _hash_aggregate(keys, projections, agg_fns, alive) -> AggResult:
     key_cols, reduced_per_fn = _reduce_phase_scan(
         sorted_keys, agg_fns, sorted_projs, gids, num_groups, out_cap,
         sorted_alive)
-    return _finish(key_cols, reduced_per_fn, agg_fns, num_groups, out_cap,
-                   flagged, alive.device)
+    return (key_cols, reduced_per_fn, num_groups, out_cap, flagged,
+                    alive.device)
 
 
 def _reduce_phase_scan(sorted_keys, agg_fns, sorted_projs, gids,
@@ -417,3 +434,28 @@ def _register_pick(b: ColV, spec, start: torch.Tensor, end: torch.Tensor,
     pos = start if spec.kind == "first" else end
     out = bk.take_colv(b, pos)
     return out.with_validity(out.validity & has)
+
+
+def merge_aggregate(key_cols: Sequence[ColV], buffer_cols: Sequence[ColV],
+                    agg_fns: Sequence[AggregateFunction], num_rows: int,
+                    capacity: int):
+    """The Final mode (the JAX package's ``merge_aggregate``): partial
+    buffers, gathered or exchanged, are grouped by their keys in the exact
+    sort order again, each buffer combined by its own reduction kind
+    (sum of sums, min of mins, the first of the firsts in input order...),
+    then each function's ``evaluate``. -> (key_cols, result_cols,
+    num_groups). The float sums go through ``segment_reduce``'s fixed
+    order (``batch_kernels.segment_sum``)."""
+    device = (list(key_cols) + list(buffer_cols))[0].data.device
+    alive = bk.alive_mask(capacity, num_rows, device)
+    keys = [k.with_validity(k.validity & alive) for k in key_cols]
+    projections, i = [], 0
+    for fn in agg_fns:
+        n = len(fn.buffer_specs())
+        projections.append([b.with_validity(b.validity & alive)
+                            for b in buffer_cols[i:i + n]])
+        i += n
+    reduced = (_sort_aggregate(keys, projections, agg_fns, alive) if keys
+               else _global_aggregate(projections, agg_fns, alive))
+    out_keys, results, num_groups, _ = _finish(*reduced, agg_fns)
+    return out_keys, results, num_groups

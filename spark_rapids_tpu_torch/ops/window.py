@@ -268,12 +268,17 @@ def frame_reduce_buffer(fr: FrameCtx, buf: ColV, kind: str, lo, hi, empty,
     any_valid = (pcount[hi1] - pcount[lo_c]) > 0
     if kind == "sum":
         contrib = torch.where(participating, buf.data, 0).to(buf.data.dtype)
-        p = segmented_prefix_sum(contrib, fr.seg_first)
+        floating = contrib.is_floating_point()
+        # a float frame's NaNs and infinities are counted, not summed, so
+        # one never reaches a frame that does not hold it
+        p = segmented_prefix_sum(
+            torch.where(torch.isfinite(contrib), contrib, 0).to(contrib.dtype)
+            if floating else contrib, fr.seg_first)
         before = torch.where(lo_c > fr.seg_first, p[(lo_c - 1).clamp(min=0)],
                              0).to(p.dtype)
         data = torch.where(empty, 0, p[(hi1 - 1).clamp(min=0)] - before)
-        if contrib.is_floating_point():
-            data = _whole_column_nonfinite(contrib, lo_c, hi1, data)
+        if floating:
+            data = _frame_nonfinite(contrib, lo_c, hi1, data)
         return ColV(buf.dtype, data.to(p.dtype), any_valid)
     if kind in ("min", "max"):
         if buf.dtype is DType.STRING:
@@ -299,28 +304,18 @@ def frame_reduce_buffer(fr: FrameCtx, buf: ColV, kind: str, lo, hi, empty,
     return bk.take_colv(buf, pos).with_validity(valid)
 
 
-def _whole_column_nonfinite(contrib: torch.Tensor, lo_c, hi1,
-                            data: torch.Tensor) -> torch.Tensor:
-    """The JAX device path's framed float sum is ``p[hi + 1] - p[lo]`` of
-    the whole column's prefix sums, so a NaN or an infinity anywhere
-    before a frame's end makes it non-finite, in later partitions too.
-    Each prefix's class (finite, +inf, -inf, NaN) follows from exact
-    counts of the NaNs and infinities before it, and the difference of
-    two classes from IEEE's rules; the constants keep one NaN bit pattern
-    on every device. Where both ends are finite the partition's own sum
-    stands."""
-    def ends(flag):
+def _frame_nonfinite(contrib: torch.Tensor, lo_c, hi1,
+                     data: torch.Tensor) -> torch.Tensor:
+    """Spark's framed float sum, which adds each frame on its own: NaN
+    where the frame holds a NaN or both infinities, else the infinity it
+    holds, else the sum of its finite values (``data``). The constants
+    keep one NaN bit pattern on every device."""
+    def held(flag):
         c = _exclusive_count(flag)
-        return c[hi1] > 0, c[lo_c] > 0
-    (nan_a, nan_b), (pos_a, pos_b), (neg_a, neg_b) = (
-        ends(torch.isnan(contrib)), ends(contrib == math.inf),
-        ends(contrib == -math.inf))
-    nan_a, nan_b = nan_a | (pos_a & neg_a), nan_b | (pos_b & neg_b)
-    pos_a, neg_a = pos_a & ~nan_a, neg_a & ~nan_a
-    pos_b, neg_b = pos_b & ~nan_b, neg_b & ~nan_b
-    # b's prefix lies inside a's, so an infinite b has an infinite a
-    nan = nan_a | nan_b | (pos_a & pos_b) | (neg_a & neg_b)
-    out = torch.where(pos_a, math.inf, torch.where(neg_a, -math.inf, data))
+        return (c[hi1] - c[lo_c]) > 0
+    pos, neg = held(contrib == math.inf), held(contrib == -math.inf)
+    nan = held(torch.isnan(contrib)) | (pos & neg)
+    out = torch.where(pos, math.inf, torch.where(neg, -math.inf, data))
     return torch.where(nan, math.nan, out).to(data.dtype)
 
 

@@ -43,8 +43,9 @@ def _preserves_encoding(node: PhysicalExec) -> bool:
 def mark_encoded_domain(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
     """Set ``encoded_domain_ok`` on every eligible operator and return the
     plan (changed in place: the flag is execution metadata, not plan
-    structure). Nothing is marked with sql.encodedDomain.enabled off."""
-    if not conf.get(cfg.ENCODED_DOMAIN):
+    structure). Nothing is marked with sql.encodedDomain.enabled off, nor
+    under sql.mesh.enabled (the mesh operators decode)."""
+    if not conf.get(cfg.ENCODED_DOMAIN) or conf.get(cfg.MESH_ENABLED):
         return plan
     from spark_rapids_tpu_torch.execs.fused_execs import FusedStageExec
     from spark_rapids_tpu_torch.execs.join_execs import (

@@ -163,8 +163,9 @@ def _fold_aggregate(node: te.TpuHashAggregateExec, max_ops: int
 def fuse_stages(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
     """The pass. Runs on the device plan before the pipeline boundaries are
     inserted and before ``fuse_device_ops`` (which then folds the
-    aggregates this pass leaves, all of them when fusion is off)."""
-    if not conf.get(cfg.FUSION_ENABLED):
+    aggregates this pass leaves, all of them when fusion is off). Off under
+    ``sql.mesh.enabled``: the mesh rewrite matches the single operators."""
+    if not conf.get(cfg.FUSION_ENABLED) or conf.get(cfg.MESH_ENABLED):
         return plan
     max_ops = max(2, conf.get(cfg.FUSION_MAX_OPS))
 

@@ -863,10 +863,12 @@ def insert_pipeline(plan: PhysicalExec, conf: TpuConf) -> PhysicalExec:
     PipelinedExec, so up to ``transfer.pipeline.depth`` batches are in
     flight between the producing source and the consuming stage instead of
     the strict pull-per-batch lockstep. Skipped on a single-core host: the
-    producer thread needs a spare core."""
+    producer thread needs a spare core; and under sql.mesh.enabled, whose
+    rewrite matches the uploads and scans themselves."""
     from spark_rapids_tpu_torch.execs.pipeline import PipelinedExec
     depth = conf.get(cfg.TRANSFER_PIPELINE_DEPTH)
-    if not conf.get(cfg.TRANSFER_PIPELINE_ENABLED) or depth <= 0:
+    if not conf.get(cfg.TRANSFER_PIPELINE_ENABLED) or depth <= 0 or \
+            conf.get(cfg.MESH_ENABLED):
         return plan
     if (os.cpu_count() or 1) < 2:
         return plan

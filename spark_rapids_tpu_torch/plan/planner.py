@@ -41,7 +41,8 @@ def plan_with_explain(plan: lp.LogicalPlan, conf: TpuConf, device=None
     the Python UDFs compiled where ``sql.udfCompiler.enabled`` asks, the
     input-file columns resolved, the CPU plan with its distribution
     requirements, then ``TpuOverrides`` (``device`` sizes the footprint
-    contract's budget when no memory manager exists yet)."""
+    contract's budget when no memory manager exists yet), then, under
+    ``sql.mesh.enabled``, the mesh rewrite onto ``device``'s shards."""
     from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
     if conf.get(cfg.UDF_COMPILER_ENABLED):
         from spark_rapids_tpu_torch.udf import compile_plan_udfs
@@ -49,6 +50,9 @@ def plan_with_explain(plan: lp.LogicalPlan, conf: TpuConf, device=None
     plan = _prune_file_scans(_resolve_input_file_meta(plan))
     overrides = TpuOverrides(conf, device)
     final = overrides.apply(ensure_requirements(_plan_node(plan, conf)))
+    if device is not None and conf.get(cfg.MESH_ENABLED):
+        from spark_rapids_tpu_torch.plan.mesh_rewrite import mesh_rewrite
+        final = mesh_rewrite(final, conf, device)
     return final, overrides.last_explain
 
 

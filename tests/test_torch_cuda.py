@@ -1192,3 +1192,74 @@ def test_cuda_write_parquet_equals_cpu(cuda, tmp_path):
         tables[dev] = pq.read_table(path)
     assert tables["cpu"].num_rows > 0
     assert tables["cpu"].equals(tables["cuda"])
+
+
+def _mesh_tpch(device: str, shards: int, qnum: int, extra=None):
+    """TPC-H ``qnum`` at SF 0.05 on a mesh of ``shards`` on ``device`` ->
+    (result, session, the mesh counters)."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.parallel import mesh_batch as mbm
+    sess = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.mesh.enabled":
+                       "true", "spark.rapids.tpu.sql.mesh.numDevices":
+                       str(shards), **(extra or {})}, device=device)
+    tables = td.gen_all(0.05, 3)
+    mbm.reset_counters()
+    launches = tpk.REORDER_KERNEL.launches
+    out = QUERIES[qnum]({k: sess.create_dataframe(v)
+                         for k, v in tables.items()}).collect()
+    seen = mbm.counters()
+    seen["reorder_launches"] = tpk.REORDER_KERNEL.launches - launches
+    return out, sess, seen
+
+
+def _same_rows(a, b, n_float_rel=1e-9):
+    assert a.num_rows == b.num_rows
+    for x, y in zip(a.columns, b.columns):
+        if x.dtype.is_floating:
+            np.testing.assert_allclose(x.data[:a.num_rows],
+                                       y.data[:a.num_rows], rtol=n_float_rel)
+        else:
+            assert x.to_pylist(a.num_rows) == y.to_pylist(b.num_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qnum,extra", [
+    (1, None),
+    (3, {"spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1"})])
+def test_cuda_mesh_four_shards_equal_cpu_mesh(cuda, qnum, extra):
+    """TPC-H Q1 and Q3 (shuffled joins) on a 4-shard mesh on one card equal
+    the 4-shard CPU mesh (float sums within 1e-9: the same partials meet in
+    the same order, but the card's sums may round differently); every
+    shard tensor on the card, no host hop, no reorder launch."""
+    got, sess, seen = _mesh_tpch("cuda", 4, qnum, extra)
+    want, cpu_sess, _ = _mesh_tpch("cpu", 4, qnum, extra)
+    names = [type(n).__name__ for n in sess.last_plan.walk()]
+    assert "MeshHashAggregateExec" in names, names
+    assert names == [type(n).__name__ for n in cpu_sess.last_plan.walk()]
+    if qnum == 3:
+        assert "MeshShuffledHashJoinExec" in names, names
+    assert seen["shard_device_kinds"] == ["cuda"], seen
+    assert seen["host_hop_bytes"] == 0 and seen["reorder_launches"] == 0
+    _same_rows(want, got)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_two_cards_equal_one_card(cuda):
+    """A mesh over two cards (shard i on card i mod 2; the exchanges copy
+    peer to peer) equals the same mesh on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from spark_rapids_tpu_torch.plan.mesh_rewrite import session_mesh
+    from spark_rapids_tpu_torch.config import TpuConf
+    mesh = session_mesh(TpuConf({"spark.rapids.tpu.sql.mesh.numDevices":
+                                 "4"}), torch.device("cuda"))
+    assert len(set(mesh.devices)) >= 2, mesh
+    got, sess, seen = _mesh_tpch("cuda", 4, 3, {
+        "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1"})
+    assert seen["host_hop_bytes"] == 0
+    want, _, _ = _mesh_tpch("cpu", 4, 3, {
+        "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1"})
+    _same_rows(want, got)

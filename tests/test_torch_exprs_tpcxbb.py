@@ -13,6 +13,7 @@ The moments' and framed sums' inputs are multiples of 1/4, so every sum
 is exact in any order and the results must agree to the bit (the
 comparison allows relative 1e-9, the variableFloatAgg carve-out)."""
 import datetime
+import math
 import types
 
 import jax.numpy as jnp
@@ -333,40 +334,134 @@ def test_string_lag_lead_match_python():
     assert got.to_pylist() == want
 
 
+def _sum_frames_table(n: int = 1200, seed: int = 22) -> pa.Table:
+    """Nullable keys, a unique int order key ``t`` and its double ``d``,
+    quarter-multiple doubles with NaN, +inf, -inf and nulls (every finite
+    sum exact in any order)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-40, 41, n) / 4.0
+    u = rng.random(n)
+    v[u < 0.03] = np.nan
+    v[(u >= 0.03) & (u < 0.05)] = np.inf
+    v[(u >= 0.05) & (u < 0.07)] = -np.inf
+    t = rng.permutation(n).astype(np.int64)
+    return pa.table({
+        "k": pa.array(rng.integers(0, 12, n), mask=rng.random(n) < 0.05),
+        "t": pa.array(t), "d": pa.array(t / 4.0),
+        "v": pa.array(v, mask=rng.random(n) < 0.15)})
+
+
+def _frame_fsum(vals):
+    """Spark's sum of one frame's values: null when none is valid, NaN for
+    a NaN or both infinities, an infinity, else the exact ``math.fsum``."""
+    vals = [x for x in vals if x is not None]
+    if not vals:
+        return None
+    if any(math.isnan(x) for x in vals) or (
+            math.inf in vals and -math.inf in vals):
+        return math.nan
+    if math.inf in vals or -math.inf in vals:
+        return math.inf if math.inf in vals else -math.inf
+    return math.fsum(vals)
+
+
+def _frame_members(frame: str, ts, j: int):
+    """Positions (in ascending ``t``) of row ``j``'s frame."""
+    m = len(ts)
+    rows = {"running": (0, j), "bounded": (j - 3, j + 2),
+            "following": (j + 1, j + 4), "whole": (0, m - 1)}
+    if frame in rows:
+        lo, hi = rows[frame]
+        return range(max(lo, 0), min(hi, m - 1) + 1)
+    lo, hi = {"range_int": (ts[j] - 5, ts[j] + 2),
+              "range_peers": (-math.inf, ts[j]),
+              "range_desc": (ts[j], ts[j] + 3),
+              "range_double": (ts[j] - 6, ts[j] + 3)}[frame]
+    return [i for i in range(m) if lo <= ts[i] <= hi]
+
+
 @pytest.mark.parametrize("frame", ["running", "bounded", "following",
                                    "whole", "range_int", "range_peers",
                                    "range_desc", "range_double"])
 def test_framed_sums_match_reference(frame):
-    """sum/count/avg over ROWS frames (running, bounded both sides,
+    """sum/count over ROWS frames (running, bounded both sides,
     following-only, the whole partition) and RANGE frames (offsets on an
-    int key, the default peer frame, a descending key, a double key with
-    NaN and null rows)."""
-    def build(df, f, win):
+    int key, the default peer frame, a descending key, a double key) with
+    NaN, +inf and -inf among the values: the port equals Spark's
+    per-frame sum (``math.fsum`` of each frame, NaN and the infinities by
+    IEEE's rules). The JAX device path differs on every frame but the
+    whole partition: it takes a frame's sum from the whole column's prefix
+    sums, so a NaN makes every later frame NaN.
+
+    Over the same frames, the integer sum, the count and the average
+    (a bounded frame ordered by two keys, and a RANGE frame over a double
+    order key with NaN and null rows) equal the JAX package's."""
+    def build_exact(df, f, win):
         base = win.partitionBy("k")
-        if frame == "running":
-            ws = base.orderBy("t").rowsBetween(win.unboundedPreceding,
-                                               win.currentRow)
-        elif frame == "bounded":
-            ws = base.orderBy("t", "w").rowsBetween(-3, 2)
-        elif frame == "following":
-            ws = base.orderBy("t").rowsBetween(1, 4)
-        elif frame == "whole":
-            ws = base.orderBy("t").rowsBetween(win.unboundedPreceding,
-                                               win.unboundedFollowing)
-        elif frame == "range_int":
-            ws = base.orderBy("t").rangeBetween(-5, 2)
-        elif frame == "range_peers":
-            ws = base.orderBy("t")
-        elif frame == "range_desc":
-            ws = base.orderBy(f.col("t").desc()).rangeBetween(-3, 0)
-        else:
-            ws = base.orderBy("v").rangeBetween(-1.5, 0.75)
+        ws = {"running": lambda: base.orderBy("t").rowsBetween(
+                  win.unboundedPreceding, win.currentRow),
+              "bounded": lambda: base.orderBy("t", "w").rowsBetween(-3, 2),
+              "following": lambda: base.orderBy("t").rowsBetween(1, 4),
+              "whole": lambda: base.orderBy("t").rowsBetween(
+                  win.unboundedPreceding, win.unboundedFollowing),
+              "range_int": lambda: base.orderBy("t").rangeBetween(-5, 2),
+              "range_peers": lambda: base.orderBy("t"),
+              "range_desc": lambda: base.orderBy(
+                  f.col("t").desc()).rangeBetween(-3, 0),
+              "range_double": lambda: base.orderBy("v").rangeBetween(
+                  -1.5, 0.75)}[frame]()
         return df.select("k", "t", "w", "v",
-                         f.sum("v").over(ws).alias("sv"),
                          f.sum("w").over(ws).alias("sw"),
                          f.count("v").over(ws).alias("n"),
                          f.avg("w").over(ws).alias("aw"))
-    _both(_table(2000, 30, seed=22), build, ignore_order=False)
+    _both(_table(2000, 30, seed=22), build_exact, ignore_order=False)
+
+    def build(df, f, win):
+        base = win.partitionBy("k")
+        ws = {"running": lambda: base.orderBy("t").rowsBetween(
+                  win.unboundedPreceding, win.currentRow),
+              "bounded": lambda: base.orderBy("t").rowsBetween(-3, 2),
+              "following": lambda: base.orderBy("t").rowsBetween(1, 4),
+              "whole": lambda: base.orderBy("t").rowsBetween(
+                  win.unboundedPreceding, win.unboundedFollowing),
+              "range_int": lambda: base.orderBy("t").rangeBetween(-5, 2),
+              "range_peers": lambda: base.orderBy("t"),
+              "range_desc": lambda: base.orderBy(
+                  f.col("t").desc()).rangeBetween(-3, 0),
+              "range_double": lambda: base.orderBy("d").rangeBetween(
+                  -1.5, 0.75)}[frame]()
+        return df.select("k", "t", "v", f.sum("v").over(ws).alias("sv"),
+                         f.count("v").over(ws).alias("n"))
+    table = _sum_frames_table()
+    got = build(TpuSession(CONF, device="cpu").create_dataframe(table), F,
+                Window).collect().to_arrow().to_pydict()
+    parts = {}
+    for k, t, v in zip(*(table[c].to_pylist() for c in ("k", "t", "v"))):
+        parts.setdefault(k, []).append((t, v))
+    want = {}
+    for rows in parts.values():
+        rows.sort()
+        ts = [t for t, _ in rows]
+        for j, (t, _) in enumerate(rows):
+            vals = [rows[i][1] for i in _frame_members(frame, ts, j)]
+            want[t] = (_frame_fsum(vals),
+                       sum(x is not None for x in vals))
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is b
+        return (math.isnan(a) and math.isnan(b)) or a == b
+    assert len(got["t"]) == table.num_rows
+    for t, sv, n in zip(got["t"], got["sv"], got["n"]):
+        assert same(sv, want[t][0]) and n == want[t][1], (t, sv, want[t])
+    if frame == "whole":
+        return      # the JAX package sums a whole partition unframed
+    jax_got = build(JaxSession(CONF).create_dataframe(table), JF,
+                    JWindow).collect().to_pydict()
+    poisoned = sum(sv is not None and math.isnan(sv)
+                   and not math.isnan(want[t][0])
+                   for t, sv in zip(jax_got["t"], jax_got["sv"]))
+    assert poisoned > 0, "the JAX device path no longer differs"
 
 
 def test_sessionize_matches_reference():

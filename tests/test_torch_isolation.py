@@ -56,6 +56,18 @@ dfs = {k: sess.create_dataframe(g(0.002, 1)) for k, g in (
 dfs["lineitem"] = dfs["lineitem"].repartition(8, "l_orderkey")
 res = q3(dfs).collect()
 assert res.num_rows == 10, res.num_rows
+# the mesh: Q1 and Q3 over 8 shards on the CPU
+meshed = TpuSession({**BENCH_CONF, "spark.rapids.tpu.sql.mesh.enabled": "true",
+                     "spark.rapids.tpu.sql.mesh.numDevices": "8"},
+                    device="cpu")
+assert q1(meshed.create_dataframe(gen_lineitem(0.0005, 1))).collect() \
+    .num_rows == 6
+assert q3({k: meshed.create_dataframe(g(0.002, 1)) for k, g in (
+    ("customer", td.gen_customer), ("orders", td.gen_orders),
+    ("lineitem", td.gen_lineitem_full))}).collect().num_rows == 10
+assert any(type(n).__name__ == "MeshShuffledHashJoinExec"
+           or type(n).__name__ == "MeshBroadcastHashJoinExec"
+           for n in meshed.last_plan.walk()), meshed.last_plan.tree_string()
 from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
 tables = td.gen_all(0.002, 1)
 for q in (13, 22):          # the byte DFA's LIKE; the nested-loop join
@@ -171,7 +183,8 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
     q23, q28), TPC-H Q6's SQL text through ``TpuSession.sql``, Q3 forced
     out of core (memory/grace.py), Q1 over a cached DataFrame
-    (memory/df_cache.py) and the expression and SQL surface's queries
+    (memory/df_cache.py), Q1 and Q3 on the mesh (8 CPU shards), and the
+    expression and SQL surface's queries
     (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
     no jax, nothing of the JAX package and no pyarrow loaded; the file
     modules (io/: the scans and the writers) and the test-data generator
