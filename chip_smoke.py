@@ -62,7 +62,7 @@ Phases:
      bounds, the per-partition counts and the collected rows against
      numpy (np.lexsort's order);
   9. slice 5's main path, all 22 TPC-H queries through TpuSession:
-     first at --check-sf (default 0.25) on the card against the port's own
+     first at --check-sf (default 0.1) on the card against the port's own
      run on the CPU (keys, counts, dates and strings exact, floats to
      relative 1e-9, the queries whose sort can tie unordered); then the
      eight tables at the run's scale with the union of the columns the
@@ -96,7 +96,7 @@ Phases:
      earlier runs) and of all 99, with the cold and warm sums, on lines of
      their own;
  11. slice 7's main path, all 30 TPCx-BB queries through TpuSession:
-     first at --bb-check-sf (default 0.5) on the card against the port's
+     first at --bb-check-sf (default 0.25) on the card against the port's
      own CPU run (as in phase 9); then the nineteen tables at the run's
      scale with the union of the columns the queries read, each query
      scanning only its own, store_sales and web_sales hash-repartitioned
@@ -265,6 +265,30 @@ Phases:
      must be 0 and Q1 and Q3 must launch no reorder kernel (every exchange
      on the mesh is a mesh repartition). It prints its seconds against a
      bound of 120 s.
+ 21. slice 17's main path, the cluster and the network shuffle
+     (``sql.cluster.numExecutors`` 2, joins shuffled) at CLUSTER_SF (1;
+     every query of the cluster moves all its rows through the network
+     shuffle, about 0.1 GB/s, so SF 10 took 306.69 s: PERF.md §6),
+     each run held against its single-device card run at that scale: 21a,
+     two in-process executors over the TCP transport, TPC-H Q1 and Q3,
+     every input repartition(2)-ed, then Q3 with dmaConsolidate on (the
+     compact kernel must launch); per query the wall, the stages and
+     their tasks, the map tasks per executor, the bytes fetched remotely
+     and their rate over the wall, the seconds spent pickling and
+     unpickling the stage plans, the reorder launches and those kept, and
+     the peak. Both executors must map, remote bytes must flow and a
+     reorder output must be kept. 21b, two executor daemons on the card
+     (``sql.cluster.processExecutors``; each store at
+     CLUSTER_DAEMON_FRACTION of the card), phase 2's 16 parquet files of
+     lineitem spread over them: Q1 and the wide shuffle (every row moved
+     by ``l_orderkey``, one group per order); each daemon's device and
+     peak, its reorder launches and those kept (read from the daemons:
+     the wide shuffle must launch the reorder) and the bytes moved
+     between them. 21c, Q3 on two in-process executors over
+     FaultInjectingTransport around TCP with exec-1 killed mid-reduce:
+     equal, at least one lineage recompute. The script's run takes this
+     floor of the phase's query lists (CLUSTER_FLOOR): with every query
+     it passes 1140 s of phases on a slow host.
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -275,6 +299,10 @@ scale with the other 98: its largest joins go out of core under pressure
 Usage beside the smoke run: --memory-profile QUERY ... measures where the
 named TPC-DS queries' device memory goes, operator by operator, at
 --memory-profile-sf (default 5 and 2), and prints no result line.
+--cluster-only SF runs phase 21 alone at TPC-H scale SF with every query
+of its lists (21a also Q6 and TPC-DS q3, q27, q42 and q96, and the wide
+shuffle over CLUSTER_LZ4_ROWS rows of lineitem with the lz4 codec; 21b
+also Q6), and prints no result line.
 
 The sessions run the port's defaults, so phases 6-11 take the default
 path too; their warm runs read the scan cache (a query's pruned tables are
@@ -299,9 +327,9 @@ line
 line.
 
 Usage: python3 chip_smoke.py [--sf 10.0] [--seed 42] [--profile DIR]
-       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.25]
-       [--bb-check-sf 0.5] [--memory-profile QUERY ...
-       [--memory-profile-sf SF ...]]
+       [--tile-sweep ROWS ...] [--kernels-only] [--check-sf 0.1]
+       [--bb-check-sf 0.25] [--memory-profile QUERY ...
+       [--memory-profile-sf SF ...]] [--cluster-only SF]
 """
 from __future__ import annotations
 
@@ -623,12 +651,20 @@ def logical_bytes(batch) -> int:
 def reset_launches():
     from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
     pk.REORDER_KERNEL.launches = 0
+    pk.REORDER_KERNEL.kept = 0
     pk.COMPACT_KERNEL.launches = 0
 
 
 def read_launches():
     from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
     return pk.REORDER_KERNEL.launches, pk.COMPACT_KERNEL.launches
+
+
+def read_kept():
+    """The reorder launches since ``reset_launches`` whose output a split
+    used."""
+    from spark_rapids_tpu_torch.shuffle import partition_kernel as pk
+    return pk.REORDER_KERNEL.kept
 
 
 def run_exchange(batch, part, conf, device):
@@ -4506,6 +4542,455 @@ def phase_mesh(tpch_tables_sf, tpch_results, suite_tables_sf,
     return nums
 
 
+# ------------------------------------------------------------------ phase 21
+#: phase 21's scale. Every aggregate, join and sort of the cluster reads one
+#: partition behind a single-partition exchange (the JAX package's plan),
+#: so each query moves all its rows through the network shuffle, about
+#: 0.1 GB/s on the card's host: at SF 10 the phase took 306.69 s (PERF.md
+#: §6) where the script's 1200 s leave it about 60 s. ``--cluster-only
+#: SF`` runs the phase alone, at any scale, with every query
+CLUSTER_SF = 1.0
+#: 21a's queries, each input repartition(2)-ed (round robin), as
+#: tests/test_cluster.py does; the script's run takes the first two
+#: (CLUSTER_FLOOR), ``--cluster-only`` all of them
+CLUSTER_TPCH = ("q1", "q3", "q6")
+CLUSTER_TPCDS = ("q3", "q27", "q42", "q96")
+#: how many of CLUSTER_TPCH and CLUSTER_TPCDS, 21b's file queries, the
+#: script's phase 21 runs: Q1 and Q3 in 21a, Q1 and the wide shuffle in
+#: 21b (with every query the script passes 1140 s of phases on a slow
+#: host)
+CLUSTER_FLOOR = {"tpch": 2, "tpcds": 0, "files": ("q1",)}
+#: 21b's lineitem files (the cluster's file-scan widening spreads them over
+#: the daemons) and their columns: Q1's, Q6's and the wide shuffle's
+CLUSTER_FILES = 16
+#: the lz4 run's rows (``--cluster-only`` only): its codec is pure Python
+#: on the card's host (~1 MB/s: 20.87 s for 17.6 MB at SF 0.05, PERF.md
+#: §6), so it runs the wide shuffle over the first rows of lineitem
+CLUSTER_LZ4_ROWS = 50_000
+CLUSTER_FILE_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice",
+                        "l_discount", "l_tax", "l_returnflag",
+                        "l_linestatus", "l_shipdate")
+#: each daemon's store share of the card (memory.tpu.allocFraction): two
+#: daemons and the driver hold the card together
+CLUSTER_DAEMON_FRACTION = 0.25
+CLUSTER_KILL_PLAN = "kill_peer:owner=exec-1,req_type=data,after=2"
+#: 21c's fetch timeout: how long a reader waits on the killed executor
+CLUSTER_KILL_TIMEOUT_S = 3
+
+
+def cluster_queries(full):
+    """Phase 21's (TPC-H, TPC-DS, 21b file) queries: all of them with
+    ``full``, else CLUSTER_FLOOR's."""
+    if full:
+        return CLUSTER_TPCH, CLUSTER_TPCDS, ("q1", "q6")
+    return (CLUSTER_TPCH[:CLUSTER_FLOOR["tpch"]],
+            CLUSTER_TPCDS[:CLUSTER_FLOOR["tpcds"]], CLUSTER_FLOOR["files"])
+
+
+def cluster_tables(sf, seed, full):
+    """Phase 21's tables at ``sf``: {"tpch": the eight TPC-H tables as
+    ``tpch_tables`` makes them, "ds": the TPC-DS tables its TPC-DS
+    queries (``cluster_queries(full)``) read}."""
+    from spark_rapids_tpu_torch.benchmarks import tpcds_data as dd
+    tpcds = cluster_queries(full)[1]
+    cols = tpcds_columns(tpcds) if tpcds else {}
+    return {"tpch": tpch_tables(sf, seed),
+            "ds": dd.gen_all(sf, seed, cols,
+                             tables=[t for t in dd.TABLES if t in cols])
+            if cols else {}}
+
+
+def cluster_conf(extra=None):
+    """The benchmark conf on two cluster executors, joins shuffled."""
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    return {**BENCH_CONF, "spark.rapids.tpu.sql.cluster.numExecutors": "2",
+            "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1",
+            **(extra or {})}
+
+
+def daemon_probes(sess, reset_peak=False):
+    """Each executor daemon's ``ping`` answer -> {executor id: answer}:
+    its device, peak device memory (reset after reading with
+    ``reset_peak``), fetched shuffle bytes and kernel counts, all counted
+    in its own process."""
+    return {ex.executor_id: ex.probe(reset_peak)
+            for ex in sess._cluster_scheduler.executors}
+
+
+def _daemon_delta(before, after, key):
+    return sum(after[e][key] - before[e][key] for e in after)
+
+
+def run_cluster_query(sess, name, build, daemons=False, spread=True):
+    """One cluster run of ``build(sess).collect()`` with its checks: the
+    stage scheduler ran it (every map stage registered a status per task)
+    and, with ``spread``, both executors did map work -> (result, printed
+    numbers). The bytes fetched remotely, the kernel counts and the peak
+    are this process's (in-process executors) or, with ``daemons``, the
+    sums of the executor processes' own counts across the run (each
+    daemon's peak since the run began; ``daemons`` in the numbers)."""
+    import collections
+
+    import torch
+    from spark_rapids_tpu_torch.parallel import cluster as cl
+    from spark_rapids_tpu_torch.parallel import mesh_batch as mbm
+    reset_launches()
+    mbm.reset_counters()
+    cl.reset_counters()
+    before = daemon_probes(sess, reset_peak=True) if daemons else None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = build(sess).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sched = sess._cluster_scheduler
+    stages = sched.last_stages
+    maps = [st for st in stages if not st.is_result and not st.is_broadcast]
+    per_exec = collections.Counter(s.executor_id for st in maps
+                                   for s in st.statuses)
+    peak = torch.cuda.max_memory_allocated()
+    if daemons:
+        after = daemon_probes(sess)
+        remote = _daemon_delta(before, after, "host_hop_bytes")
+        reorder_n, kept, compact_n = (
+            _daemon_delta(before, after, k) for k in (
+                "reorder_launches", "reorder_kept", "compact_launches"))
+        peak = max([peak] + [p["peak_bytes"] for p in after.values()])
+    else:
+        remote = mbm.counters()["host_hop_bytes"]
+        (reorder_n, compact_n), kept = read_launches(), read_kept()
+    pickling = cl.counters()
+    n = {"s": secs, "stages": [(("result" if st.is_result else "broadcast"
+                                 if st.is_broadcast else "map"),
+                                st.num_tasks) for st in stages],
+         "map_tasks_per_executor": dict(sorted(per_exec.items())),
+         "remote_bytes": remote,
+         "remote_gb_per_s": remote / secs / 1e9,
+         "pickle_s": pickling["plan_pickle_seconds"],
+         "unpickle_s": pickling["plan_unpickle_seconds"],
+         "reorder_launches": reorder_n, "launches_kept": kept,
+         "compact_launches": compact_n, "peak_gb": peak / 1e9,
+         "recompute": dict(sess.last_metrics.get("shuffle", {}))}
+    if daemons:
+        n["daemons"] = {e: {"device": p["device"],
+                            "peak_gb": p["peak_bytes"] / 1e9}
+                        for e, p in after.items()}
+    print(f"cluster {name}: rows={res.num_rows} " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in n.items()))
+    if "shuffle" not in sess.last_metrics or not maps:
+        raise AssertionError(f"cluster {name}: the stage scheduler did not "
+                             f"run the query")
+    for st in maps:
+        if len(st.statuses) != st.num_tasks:
+            raise AssertionError(f"cluster {name}: a map stage registered "
+                                 f"{len(st.statuses)} statuses for "
+                                 f"{st.num_tasks} tasks")
+    if spread and set(per_exec) != {"exec-0", "exec-1"}:
+        raise AssertionError(f"cluster {name}: map work on "
+                             f"{dict(per_exec)}, not on both executors")
+    if daemons and any(not d["device"].startswith("cuda")
+                       for d in n["daemons"].values()):
+        raise AssertionError(f"cluster {name}: a daemon off the card: "
+                             f"{n['daemons']}")
+    return res, n
+
+
+def rr_frames(sess, pruned, parts=2):
+    """A query's DataFrames over its pruned tables, each repartition(2)-ed
+    (round robin)."""
+    return {t: sess.create_dataframe(hb).repartition(parts)
+            for t, hb in pruned.items()}
+
+
+def cluster_files(directory, lineitem):
+    """Phase 21b's lineitem (CLUSTER_FILE_COLUMNS) as CLUSTER_FILES parquet
+    files of consecutive rows under ``directory`` -> their directory."""
+    import pyarrow.parquet as pq
+    t = lineitem.select(list(CLUSTER_FILE_COLUMNS)).to_arrow()
+    path = os.path.join(directory, "cluster_lineitem")
+    os.makedirs(path, exist_ok=True)
+    per = -(-t.num_rows // CLUSTER_FILES)
+    for i in range(CLUSTER_FILES):
+        pq.write_table(t.slice(i * per, per),
+                       os.path.join(path, f"part-{i:05d}.parquet"))
+    return path
+
+
+def wide_shuffle(df):
+    """21b's wide shuffle: every lineitem row moved by its order key, then
+    one group per order."""
+    from spark_rapids_tpu_torch.api import functions as F
+    return (df.repartition(8, "l_orderkey").groupBy("l_orderkey")
+            .agg(F.count("l_quantity").alias("n"),
+                 F.sum("l_quantity").alias("q")))
+
+
+def check_same_groups(name, got, want, key):
+    """Two results of one keyed query in any row order, with numpy: the
+    keys and integer columns exact, floats within REL_TOL."""
+    def by_key(hb):
+        cols = {f.name: c for f, c in zip(hb.schema, hb.columns)}
+        order = np.argsort(cols[key].data[:hb.num_rows], kind="stable")
+        return {k: (c.data[:hb.num_rows][order],
+                    c.validity[:hb.num_rows][order]) for k, c in cols.items()}
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows against "
+                             f"{want.num_rows}")
+    g, w = by_key(got), by_key(want)
+    for k in w:
+        (gd, gv), (wd, wv) = g[k], w[k]
+        if not np.array_equal(gv, wv):
+            raise AssertionError(f"{name}: column {k}'s nulls differ")
+        if wd.dtype.kind == "f":
+            err = np.abs(gd - wd) / np.maximum(np.abs(wd), 1e-300)
+            if (err[wv] > REL_TOL).any():
+                raise AssertionError(f"{name}: column {k} off by "
+                                     f"{err[wv].max()}")
+        elif not np.array_equal(gd[wv], wd[wv]):
+            raise AssertionError(f"{name}: column {k} differs")
+
+
+def phase_cluster(tables, files_dir, seed, sf=CLUSTER_SF, full=False):
+    """Phase 21: the cluster and the network shuffle on the card, at ``sf``
+    over ``cluster_tables``, with ``cluster_queries(full)``'s queries. 21a:
+    two in-process executors over the TCP transport run the TPC-H and
+    TPC-DS queries, every input repartition(2)-ed, each equal to its
+    single-device card run; Q3 again with dmaConsolidate on; with ``full``
+    also the wide shuffle over CLUSTER_LZ4_ROWS rows of lineitem with the
+    lz4 codec. 21b: two executor daemons on the card
+    (sql.cluster.processExecutors) run the file queries and the wide
+    shuffle over lineitem's CLUSTER_FILES parquet files, each equal to its
+    single-device card run over the same files, the wide shuffle with the
+    reorder kernel launched in the daemons. 21c: Q3 on two in-process
+    executors over FaultInjectingTransport wrapping TCP, exec-1 killed
+    mid-reduce: equal to the single-device run, with at least one
+    recompute. Returns {path: numbers}."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from spark_rapids_tpu_torch.parallel.cluster import cluster_scheduler_for
+    t0 = time.perf_counter()
+    tpch_q, tpcds_q, file_q = cluster_queries(full)
+    tpch = {q: query_tables(tables["tpch"], int(q[1:])) for q in tpch_q}
+    suite = {q: suite_query_tables({"ds": tables["ds"]}, q) for q in tpcds_q}
+    runs = [(f"tpch {q}", lambda s, q=q: QUERIES[int(q[1:])](rr_frames(
+        s, tpch[q])), int(q[1:]) in TPCH_TIES) for q in tpch_q]
+    runs += [(f"tpcds {q}", lambda s, q=q: suite_query(q)[0](rr_frames(
+        s, suite[q])), q in SUITE_TIES) for q in tpcds_q]
+    q3 = next(r for r in runs if r[0] == "tpch q3")
+    file_runs = [
+        (q, lambda s, q=q: QUERIES[int(q[1:])]({"lineitem": s.read.parquet(
+            files_dir)}), None) for q in file_q]
+    file_runs.append(("wide shuffle", lambda s: wide_shuffle(
+        s.read.parquet(files_dir)), "l_orderkey"))
+    lz4_input = (tables["tpch"]["lineitem"].select(
+        ["l_orderkey", "l_quantity"]).to_arrow().slice(0, CLUSTER_LZ4_ROWS)
+        if full else None)
+
+    def lz4_build(s):
+        return wide_shuffle(s.create_dataframe(lz4_input).repartition(2))
+
+    # 21b's daemons take seconds to start (an interpreter, torch and a CUDA
+    # context each): they start beside the references and 21a. The files'
+    # l_orderkey and l_quantity are dictionary columns: with
+    # sql.exchange.keepEncodings on, the wide shuffle's split would be the
+    # encoded sort-path split (the indices save 8 of its 18 bytes a row),
+    # so it is off here and the daemons split through the reorder kernel
+    daemons = TpuSession(cluster_conf({
+        "spark.rapids.tpu.sql.cluster.processExecutors": "true",
+        "spark.rapids.tpu.sql.exchange.keepEncodings": "false",
+        "spark.rapids.tpu.memory.tpu.allocFraction":
+            str(CLUSTER_DAEMON_FRACTION)}))
+
+    def start_daemons():
+        t1 = time.perf_counter()
+        cluster_scheduler_for(daemons)
+        return time.perf_counter() - t1
+    starting = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        started = starting.submit(start_daemons)
+        nums = _cluster_runs(runs, q3, file_runs,
+                             lz4_build if full else None, started, daemons,
+                             seed)
+    finally:
+        starting.shutdown(wait=True)
+        if getattr(daemons, "_cluster_scheduler", None) is not None:
+            daemons._cluster_scheduler.close()
+        del daemons
+        release_device()
+    total = time.perf_counter() - t0
+    print(json.dumps({"cluster": {
+        k: {f: v[f] for f in ("s", "remote_bytes", "pickle_s", "unpickle_s",
+                              "reorder_launches", "launches_kept",
+                              "compact_launches", "peak_gb")}
+        for k, v in nums.items()}}))
+    print(f"phase 21 cluster sf={sf}: {total:.2f} s")
+    return nums
+
+
+def _cluster_runs(runs, q3, file_runs, lz4_build, started, daemons, seed):
+    """Phase 21's references, 21a, 21b and 21c (``phase_cluster``), with
+    21b's ``daemons`` session starting (``started``: the future of their
+    start's seconds) -> {path: numbers}."""
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    t0 = time.perf_counter()
+    nums = {}
+    tcp = "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport"
+    # the single-device card runs each cluster run is held against (the
+    # round-robin repartitions launch the reorder kernel too, so not
+    # through run_query's one-launch-per-hash-exchange check)
+    single = TpuSession(BENCH_CONF)
+    wants = {}
+    try:
+        for name, build, _ in runs:
+            wants[name] = build(single).collect()
+            assert_on_device(name, single)
+        for name, build, _ in file_runs:
+            wants[f"files {name}"] = build(single).collect()
+        if lz4_build is not None:
+            wants["wide shuffle lz4"] = lz4_build(single).collect()
+    finally:
+        del single
+        release_device()
+    print(f"cluster: single-device card runs in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as reg:
+        # ---- 21a: in-process executors over TCP
+        sess = TpuSession(cluster_conf({
+            "spark.rapids.tpu.shuffle.transport.class": tcp,
+            "spark.rapids.tpu.shuffle.tcp.registryDir":
+                os.path.join(reg, "a")}))
+        try:
+            for name, build, ties in runs:
+                res, nums[f"21a {name}"] = run_cluster_query(
+                    sess, name, build)
+                check_same_result(f"cluster {name} against the "
+                                  f"single-device card run", res,
+                                  wants[name], ties)
+        finally:
+            sess._cluster_scheduler.close()
+            del sess
+            release_device()
+        dma = TpuSession(cluster_conf({
+            "spark.rapids.tpu.shuffle.transport.class": tcp,
+            "spark.rapids.tpu.shuffle.tcp.registryDir":
+                os.path.join(reg, "dma"), DMA_KEY: "true"}))
+        try:
+            name, build, ties = q3
+            res, n = run_cluster_query(dma, f"{name} dmaConsolidate", build)
+            check_same_result(f"cluster {name} dmaConsolidate against the "
+                              f"single-device card run", res, wants[name],
+                              ties)
+            nums[f"21a {name} dmaConsolidate"] = n
+        finally:
+            dma._cluster_scheduler.close()
+            del dma
+            release_device()
+        if n["compact_launches"] < 1:
+            raise AssertionError("cluster Q3 dmaConsolidate: the compact "
+                                 "kernel did not launch")
+        if lz4_build is not None:
+            lz4 = TpuSession(cluster_conf({
+                "spark.rapids.tpu.shuffle.transport.class": tcp,
+                "spark.rapids.tpu.shuffle.tcp.registryDir":
+                    os.path.join(reg, "lz4"),
+                "spark.rapids.tpu.shuffle.compression.codec": "lz4"}))
+            try:
+                res, n = run_cluster_query(lz4, "wide shuffle lz4",
+                                           lz4_build)
+                check_same_groups("cluster wide shuffle lz4", res,
+                                  wants["wide shuffle lz4"], "l_orderkey")
+                nums["21a wide shuffle lz4"] = n
+            finally:
+                lz4._cluster_scheduler.close()
+                del lz4
+                release_device()
+        a = [v for k, v in nums.items() if k.startswith("21a")]
+        if not sum(v["remote_bytes"] for v in a):
+            raise AssertionError("21a fetched no byte remotely")
+        if not sum(v["launches_kept"] for v in a):
+            raise AssertionError("21a kept no reorder output")
+
+        # ---- 21b: two executor daemons on the card, from files
+        t1 = time.perf_counter()
+        start_s = started.result()
+        print(f"cluster files: two daemons started in {start_s:.2f} s "
+              f"beside the runs above, waited {time.perf_counter() - t1:.2f}"
+              f" s for them")
+        try:
+            for label, build, key in file_runs:
+                name = f"files {label}"
+                res, n = run_cluster_query(daemons, name, build,
+                                           daemons=True)
+                if key is not None:
+                    check_same_groups(f"cluster {name}", res, wants[name],
+                                      key)
+                else:
+                    check_same_result(f"cluster {name} against the "
+                                      f"single-device card run", res,
+                                      wants[name], False)
+                nums[f"21b {name}"] = n
+        finally:
+            daemons._cluster_scheduler.close()
+        if nums["21b files wide shuffle"]["reorder_launches"] < 1:
+            raise AssertionError("cluster files wide shuffle: the daemons "
+                                 "launched no reorder")
+
+        # ---- 21c: recovery from an executor killed mid-reduce
+        killed = TpuSession(cluster_conf({
+            "spark.rapids.tpu.shuffle.transport.class":
+                "spark_rapids_tpu_torch.shuffle.faults."
+                "FaultInjectingTransport",
+            "spark.rapids.tpu.shuffle.faults.transport.class": tcp,
+            "spark.rapids.tpu.shuffle.tcp.registryDir":
+                os.path.join(reg, "killed"),
+            "spark.rapids.tpu.shuffle.faults.plan": CLUSTER_KILL_PLAN,
+            "spark.rapids.tpu.shuffle.faults.seed": str(seed),
+            "spark.rapids.tpu.shuffle.maxRetries": "1",
+            "spark.rapids.tpu.shuffle.retryBackoffMs": "5",
+            # a killed executor's sockets stay open to the reader (ROADMAP
+            # queue 3 item 11): the fetch timeout is what notices the kill
+            "spark.rapids.tpu.shuffle.fetch.timeoutSeconds": str(
+                CLUSTER_KILL_TIMEOUT_S)}))
+        try:
+            name, build, ties = q3
+            # the kill moves the dead executor's map work to the survivor
+            res, n = run_cluster_query(
+                killed, f"{name} {CLUSTER_KILL_PLAN}", build, spread=False)
+            check_same_result(f"cluster {name} after the kill against the "
+                              f"single-device card run", res, wants[name],
+                              ties)
+            sched = killed._cluster_scheduler
+            n["dead"] = [ex.executor_id for ex in sched.executors
+                         if not sched._executor_alive(ex)]
+            print(f"cluster {name} recovery: recompute counters "
+                  f"{n['recompute']} dead={n['dead']}")
+            if n["recompute"].get("shuffle.recomputes", 0) < 1:
+                raise AssertionError("21c: no recompute after the kill")
+            nums[f"21c {name} kill_peer"] = n
+        finally:
+            killed._cluster_scheduler.close()
+            del killed
+            release_device()
+    return nums
+
+
+def cluster_only(sf, seed):
+    """Phase 21 alone at ``sf``, with every query (``cluster_queries(True)``)
+    and the lz4 run: its tables and files made here, then
+    ``phase_cluster``. Prints no result line."""
+    t0 = time.perf_counter()
+    build_kernels()
+    tables = cluster_tables(sf, seed, True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as d:
+        files = cluster_files(d, tables["tpch"]["lineitem"])
+        print(f"cluster sf={sf}: kernels, tables and files in "
+              f"{time.perf_counter() - t0:.2f} s")
+        phase_cluster(tables, files, seed, sf, full=True)
+    print(f"cluster only sf={sf}: {time.perf_counter() - t0:.2f} s")
+
+
 def _oom_sites(snapshot, top=12):
     """Live device bytes of a memory snapshot grouped by the innermost
     port frame that allocated them."""
@@ -4740,15 +5225,20 @@ def segment_sum_cost(sf, seed, reps=20):
         torch.cuda.empty_cache()
 
 
-def run_tables(sf, seed, kernels_only, directory):
+def run_tables(sf, seed, kernels_only, directory, cluster_directory=None):
     """The tables of the run's scale every phase reads, generated at once
-    (phase 2 makes them while the CPU workers run), and phase 16's parquet
-    files written from them under ``directory`` -> ({"lineitem",
-    "q1_reference", "q3", "tpch", "suite", "parquet", "bb"}, seconds per
+    (phase 2 makes them while the CPU workers run), phase 16's parquet
+    files written from them under ``directory``, and phase 21's tables
+    (CLUSTER_SF) and 21b's lineitem files under ``cluster_directory`` ->
+    ({"lineitem", "q1_reference", "q3", "tpch", "suite", "parquet", "bb",
+    "cluster", "cluster_files"}, seconds per
     set). Two threads make them: lineitem, its Q1, the TPC-H tables and
-    the parquet files in one, the Q3, TPC-DS and TPCx-BB tables in the
-    other (numpy generators only: pyarrow runs in the first alone); the
-    files wait for the TPC-DS tables."""
+    phase 16's parquet files in one, the Q3, TPC-DS and TPCx-BB tables and
+    phase 21's tables and files in the other (the first chain is the
+    longer); phase 16's files wait for the TPC-DS tables. pyarrow's memory
+    pool is first touched here, on one thread:
+    pyarrow 25's mimalloc pool has segfaulted when two threads first
+    touched it at once (ROADMAP traps)."""
     from spark_rapids_tpu_torch.benchmarks.tpch import gen_lineitem
     made, secs = {}, {}
     chains = ((("lineitem", lambda: gen_lineitem(sf, seed=seed)),
@@ -4759,10 +5249,16 @@ def run_tables(sf, seed, kernels_only, directory):
                    tpch_lineitem=made["tpch"]["lineitem"]))),
               (("q3", lambda: q3_tables(sf, seed)),
                ("suite", lambda: suite_tables(sf, seed)),
-               ("bb", lambda: bb_tables(sf, seed))))
+               ("bb", lambda: bb_tables(sf, seed)),
+               ("cluster", lambda: cluster_tables(CLUSTER_SF, seed, False)),
+               ("cluster_files", lambda: cluster_files(
+                   cluster_directory, made["cluster"]["tpch"]["lineitem"]))))
     if kernels_only:
         chains = (chains[0][:1],)
     suite_made = concurrent.futures.Future()
+    if not kernels_only:
+        import pyarrow as pa
+        pa.allocate_buffer(1)
 
     def run(chain):
         for key, make in chain:
@@ -4782,7 +5278,8 @@ def run_tables(sf, seed, kernels_only, directory):
         for f in [pool.submit(run, c) for c in chains]:
             f.result()
     return made, {k: secs[k] for k in ("lineitem", "q1_reference", "q3",
-                                       "tpch", "suite", "parquet", "bb")
+                                       "tpch", "suite", "parquet", "bb",
+                                       "cluster", "cluster_files")
                   if k in secs}
 
 
@@ -4803,12 +5300,12 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (a short first run of a new "
                          "kernel); prints no result line")
-    ap.add_argument("--check-sf", type=float, default=0.25,
+    ap.add_argument("--check-sf", type=float, default=0.1,
                     help="scale of phase 9's, 10's, 13's and 15's checks "
                          "of every query on the card against the CPU, of "
                          "the SQL texts against the DataFrame queries and "
                          "of phase 14's forced runs")
-    ap.add_argument("--bb-check-sf", type=float, default=0.5,
+    ap.add_argument("--bb-check-sf", type=float, default=0.25,
                     help="scale of phase 11's check of the 30 TPCx-BB "
                          "queries on the card against the CPU and of "
                          "their forced runs in phase 14")
@@ -4820,6 +5317,10 @@ def main() -> int:
                     help="only measure where these TPC-DS queries' device "
                          "memory goes, operator by operator, at "
                          "--memory-profile-sf; prints no result line")
+    ap.add_argument("--cluster-only", type=float, metavar="SF",
+                    help="only run phase 21 at this TPC-H scale, with "
+                         "every query of its lists and the lz4 run; prints "
+                         "no result line")
     ap.add_argument("--memory-profile-sf", type=float, nargs="+",
                     default=(5.0, 2.0), metavar="SF")
     ap.add_argument("--segment-sum-cost", action="store_true",
@@ -4849,6 +5350,10 @@ def main() -> int:
         segment_sum_cost(args.sf, args.seed)
         print(f"gpu: {gpu_line()}")
         return 0
+    if args.cluster_only:
+        cluster_only(args.cluster_only, args.seed)
+        print(f"gpu: {gpu_line()}")
+        return 0
     clock = [time.perf_counter()]
 
     def phase_done(name):
@@ -4861,9 +5366,12 @@ def main() -> int:
     from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
     # phase 16's parquet files; removed when phase 16 ends (or at exit)
     parquet_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_")
+    # phase 21b's lineitem files; removed when phase 21 ends (or at exit)
+    cluster_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_")
     with concurrent.futures.ThreadPoolExecutor(1) as gen:
         making = gen.submit(run_tables, args.sf, args.seed,
-                            args.kernels_only, parquet_dir.name)
+                            args.kernels_only, parquet_dir.name,
+                            cluster_dir.name)
         if not args.kernels_only:
             refs = cpu_references((
                 ("suite", args.check_sf, args.seed, suite_names()),
@@ -5027,6 +5535,14 @@ def main() -> int:
     by_path.update({f"mesh {q}": {"reorder": n["reorder_launches"]}
                     for q, n in mesh.items()})
     phase_done("20 mesh")
+    cluster = phase_cluster(made.pop("cluster"), made.pop("cluster_files"),
+                            args.seed)
+    cluster_dir.cleanup()
+    for path, n in cluster.items():
+        by_path[f"cluster {path}"] = {"reorder": n["reorder_launches"]}
+        if n["compact_launches"]:
+            by_path[f"cluster {path}"]["compact"] = n["compact_launches"]
+    phase_done("21 cluster")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -5054,6 +5570,16 @@ def main() -> int:
                     "files": tuple(map(sum, zip(*files.values())))},
         "compact": {"suite": dma23[1:], "bb": dma_bb[1:],
                     "tpch": dma18[1:], "parquet": (pq_c, pq_c_kept)}}
+    # phase 21: the reorder's launches and kept outputs over every cluster
+    # run (21b's counted in the daemons), the compact kernel's in 21a's
+    # dma-on Q3
+    readings["reorder"]["cluster"] = (
+        sum(n["reorder_launches"] for n in cluster.values()),
+        sum(n["launches_kept"] for n in cluster.values()))
+    dma_q3 = next(n for k, n in cluster.items()
+                  if k.startswith("21a") and k.endswith("dmaConsolidate"))
+    readings["compact"]["cluster"] = (dma_q3["compact_launches"],
+                                      dma_q3["launches_kept"])
     records = []
     for i, name in enumerate(("reorder", "compact")):
         for label, (launches, kept) in readings[name].items():
@@ -5090,6 +5616,8 @@ def main() -> int:
                            for way, n in skew.items()})
             record["phase19_files"] = dict(zip(
                 ("launches", "launches_kept"), readings[name]["files"]))
+        record["phase21_cluster"] = dict(zip(
+            ("launches", "launches_kept"), readings[name]["cluster"]))
         records.append(record)
     print(json.dumps({"kernels": records}))
     print(f"gpu: {gpu_line()}")

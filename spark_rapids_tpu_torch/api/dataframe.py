@@ -568,6 +568,25 @@ class DataFrame:
         conf = self.session.conf
         final = self.physical_plan()
         self.session.last_plan = final
+        if conf.get(cfg.CLUSTER_EXECUTORS) >= 1 and \
+                not conf.get(cfg.MESH_ENABLED):
+            # the stage scheduler runs the plan across the executors
+            # (parallel/cluster.py) and coalesces reduce tasks by the
+            # observed map-output sizes under sql.adaptive.enabled; it is
+            # the only place lineage recomputes run, so their counters are
+            # taken around it
+            from spark_rapids_tpu_torch.parallel.cluster import \
+                cluster_scheduler_for
+            from spark_rapids_tpu_torch.utils.metrics import (
+                recompute_delta, recompute_snapshot)
+            before = recompute_snapshot()
+            batches = cluster_scheduler_for(self.session).run(final)
+            if batches is not None:
+                if conf.get(cfg.METRICS_ENABLED):
+                    self.session.last_metrics = {
+                        "shuffle": recompute_delta(before)}
+                return final, batches
+            # not stageable (a CPU exchange): the single-process engine
         dm = DeviceManager.initialize(conf, self.session.device)
         cleanups: List = []
         out: List[HostBatch] = []
@@ -999,6 +1018,9 @@ class TpuSession:
         self.last_plan: Optional[PhysicalExec] = None
         #: the plan layer's explain text of the last action
         self.last_explain: str = ""
+        #: the counters of the last action that recorded any (a cluster
+        #: action: ``{"shuffle": its lineage-recompute counters}``)
+        self.last_metrics: Dict[str, Dict[str, float]] = {}
         self._views: Dict[str, DataFrame] = {}
         #: guards the view table: views may be registered while another
         #: thread plans SQL that reads them

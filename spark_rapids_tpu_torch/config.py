@@ -389,6 +389,151 @@ CONCURRENT_TPU_TASKS = _conf(
     "(spark.rapids.sql.concurrentGpuTasks).",
     checker=_positive("concurrentTpuTasks"))
 
+METRICS_ENABLED = _conf(
+    "metrics.enabled", bool, True,
+    "Record an action's counters in ``session.last_metrics`` (on the "
+    "cluster path: its lineage-recompute counters).")
+
+
+# ------------------------------------------------------------- the cluster
+CLUSTER_EXECUTORS = _conf(
+    "sql.cluster.numExecutors", int, 0,
+    "Multi-executor execution: plans split into shuffle stages at their "
+    "exchanges and tasks run across this many executors, each with its "
+    "own shuffle environment (stores, catalogs, transport server). Map "
+    "tasks write through the caching shuffle writer; reducers read local "
+    "blocks from their catalog and fetch remote ones through the "
+    "transport (parallel/cluster.py). 0: the single-process engine. Off "
+    "under sql.mesh.enabled.")
+
+CLUSTER_PROCESS_EXECUTORS = _conf(
+    "sql.cluster.processExecutors", bool, False,
+    "Run each cluster executor as an OS process of its own (a daemon per "
+    "executor, tasks over a control socket, shuffle data over the TCP "
+    "transport) on the session's device. A registry directory is made "
+    "when none is configured.")
+
+CLUSTER_TASK_SLOTS = _conf(
+    "sql.cluster.taskSlots", int, 4,
+    "Concurrent tasks per cluster executor: a stage runs one task per "
+    "partition, each executor up to this many at once; device entry "
+    "inside an executor is still gated by sql.concurrentTpuTasks.",
+    checker=_positive("cluster.taskSlots"))
+
+
+# ------------------------------------------------------------- the network shuffle
+SHUFFLE_FETCH_TIMEOUT = _conf(
+    "shuffle.fetch.timeoutSeconds", int, 300,
+    "How long a reduce-side reader waits for remote shuffle blocks (one "
+    "budget across its whole drain) before it raises "
+    "ShuffleFetchFailedError, the stage-recompute signal.")
+
+SHUFFLE_TRANSPORT_CLASS = _conf(
+    "shuffle.transport.class", str,
+    "spark_rapids_tpu_torch.shuffle.inprocess.InProcessTransport",
+    "Fully qualified class of the shuffle transport for peer-to-peer "
+    "fetches: InProcessTransport serves executors within one process, "
+    "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport executors in "
+    "processes of their own, FaultInjectingTransport wraps either "
+    "(spark.rapids.shuffle.transport.class).")
+
+SHUFFLE_TCP_PORT = _conf(
+    "shuffle.tcp.listenPort", int, 0,
+    "Listen port of the TCP shuffle transport; 0 picks an ephemeral port, "
+    "published through the registry directory.")
+
+SHUFFLE_TCP_REGISTRY = _conf(
+    "shuffle.tcp.registryDir", str, "",
+    "Directory where TCP-transport executors publish their host:port for "
+    "peer discovery.")
+
+SHUFFLE_TCP_WORKER_THREADS = _conf(
+    "shuffle.tcp.workerThreads", int, 2,
+    "Request-handler worker threads per TCP transport.",
+    checker=_positive("shuffle.tcp.workerThreads"))
+
+SHUFFLE_MAX_INFLIGHT_BYTES = _conf(
+    "shuffle.maxReceiveInflightBytes", int, 1 << 30,
+    "Per-client cap on bytes of shuffle data in flight "
+    "(spark.rapids.shuffle.ucx.maxReceiveInflightBytes).")
+
+SHUFFLE_BOUNCE_BUFFER_SIZE = _conf(
+    "shuffle.bounceBuffers.size", int, 4 << 20,
+    "Size of each bounce buffer that stages shuffle sends and receives.")
+
+SHUFFLE_BOUNCE_BUFFER_COUNT = _conf(
+    "shuffle.bounceBuffers.count", int, 32,
+    "Number of bounce buffers per direction.")
+
+SHUFFLE_COMPRESSION_CODEC = _conf(
+    "shuffle.compression.codec", str, "none",
+    "Codec for shuffle batches: none, copy, lz4 (always available), zlib, "
+    "zstd (needs the zstandard package). A peer that lacks the requested "
+    "codec negotiates the transfer down to copy.")
+
+SHUFFLE_ZLIB_LEVEL = _conf(
+    "shuffle.compression.zlib.level", int, 1,
+    "zlib compression level (0-9) under shuffle.compression.codec=zlib.",
+    checker=lambda v: (None if 0 <= v <= 9
+                       else f"zlib.level must be in [0, 9], got {v}"))
+
+SHUFFLE_MAX_RETRIES = _conf(
+    "shuffle.maxRetries", int, 3,
+    "How many times a transient shuffle failure is retried before it "
+    "becomes fatal, at every level: TCP connects, metadata and transfer "
+    "requests, per-block transfers (checksum mismatches too) and the "
+    "reader's per-peer re-fetches. 0: the first failure surfaces as "
+    "ShuffleFetchFailedError.", checker=_non_negative("maxRetries"))
+
+SHUFFLE_RETRY_BACKOFF_MS = _conf(
+    "shuffle.retryBackoffMs", int, 50,
+    "Base delay between shuffle retries: attempt i sleeps about "
+    "base * 2^i with a jitter drawn from the retry key and "
+    "shuffle.faults.seed.", checker=_positive("retryBackoffMs"))
+
+SHUFFLE_CONNECT_TIMEOUT = _conf(
+    "shuffle.connectTimeout", float, 30.0,
+    "Seconds one TCP shuffle connect attempt (registry lookup and socket) "
+    "may take before it counts as a transient failure.",
+    checker=_positive("connectTimeout"))
+
+SHUFFLE_CHECKSUM_ENABLED = _conf(
+    "shuffle.checksum.enabled", bool, True,
+    "Verify the crc32 of every fetched shuffle buffer against the one the "
+    "server computed over the bytes on the wire; a mismatch is a "
+    "retryable corruption.")
+
+SHUFFLE_RECOMPUTE_MAX_STAGE_ATTEMPTS = _conf(
+    "shuffle.recompute.maxStageAttempts", int, 2,
+    "How many lineage recompute rounds one stage may run after its reduce "
+    "side exhausts the per-peer fetch retries; each round re-runs only "
+    "the lost map tasks on surviving executors. 0: every fetch failure "
+    "surfaces.", checker=_non_negative("maxStageAttempts"))
+
+SHUFFLE_FAULTS_PLAN = _conf(
+    "shuffle.faults.plan", str, "",
+    "Deterministic fault-injection plan for the shuffle stack (empty: no "
+    "faults), e.g. 'drop_conn:peer=exec-1,after=3;corrupt_frame:after=1'. "
+    "Kinds: drop_conn, corrupt_frame, delay_frame, dup_frame, "
+    "fail_request, kill_peer. Only FaultInjectingTransport "
+    "(shuffle/faults.py) reads it.")
+
+SHUFFLE_FAULTS_SEED = _conf(
+    "shuffle.faults.seed", int, 0,
+    "Seed of the fault plan's random choices and of the retry jitter: the "
+    "same seed replays the same schedule.")
+
+SHUFFLE_FAULTS_TRANSPORT = _conf(
+    "shuffle.faults.transport.class", str,
+    "spark_rapids_tpu_torch.shuffle.inprocess.InProcessTransport",
+    "Transport that FaultInjectingTransport wraps.")
+
+SERVING_SHAPE_BUCKETS = _conf(
+    "serving.shapeBuckets", bool, True,
+    "Bucket row-count estimates to powers of two in plan keys "
+    "(serving/program_cache.py ``plan_key``), so one plan shape keeps one "
+    "key whatever its exact row counts.")
+
 
 # ------------------------------------------------------------- file scans
 PARQUET_ENABLED = _conf(
@@ -493,6 +638,15 @@ class TpuConf:
     def get(self, entry: ConfEntry) -> Any:
         return self._values.get(entry.key, entry.default)
 
+    def get_raw(self, key: str, default: Any = None) -> Any:
+        """The value set for ``key``, or ``default`` when none was."""
+        return self._values.get(key, default)
+
+    def with_overrides(self, extra: Dict[str, Any]) -> "TpuConf":
+        merged = dict(self._values)
+        merged.update(extra)
+        return TpuConf(merged)
+
     def is_rule_enabled(self, conf_key: str) -> bool:
         """A per-rule switch (``spark.rapids.tpu.sql.exec.<Name>`` or
         ``...sql.expression.<Name>``): undeclared keys, kept raw."""
@@ -512,3 +666,65 @@ class TpuConf:
     @property
     def string_max_bytes(self) -> int:
         return self.get(STRING_MAX_BYTES)
+
+    # the shuffle stack reads these (shuffle/transport.py, tcp.py, faults.py,
+    # client.py, manager.py)
+    @property
+    def shuffle_transport_class(self) -> str:
+        return self.get(SHUFFLE_TRANSPORT_CLASS)
+
+    @property
+    def shuffle_tcp_port(self) -> int:
+        return self.get(SHUFFLE_TCP_PORT)
+
+    @property
+    def shuffle_tcp_registry(self) -> str:
+        return self.get(SHUFFLE_TCP_REGISTRY)
+
+    @property
+    def shuffle_max_inflight_bytes(self) -> int:
+        return self.get(SHUFFLE_MAX_INFLIGHT_BYTES)
+
+    @property
+    def shuffle_bounce_buffer_size(self) -> int:
+        return self.get(SHUFFLE_BOUNCE_BUFFER_SIZE)
+
+    @property
+    def shuffle_bounce_buffer_count(self) -> int:
+        return self.get(SHUFFLE_BOUNCE_BUFFER_COUNT)
+
+    @property
+    def shuffle_codec(self) -> str:
+        return self.get(SHUFFLE_COMPRESSION_CODEC)
+
+    @property
+    def shuffle_max_retries(self) -> int:
+        return self.get(SHUFFLE_MAX_RETRIES)
+
+    @property
+    def shuffle_retry_backoff_ms(self) -> int:
+        return self.get(SHUFFLE_RETRY_BACKOFF_MS)
+
+    @property
+    def shuffle_connect_timeout(self) -> float:
+        return self.get(SHUFFLE_CONNECT_TIMEOUT)
+
+    @property
+    def shuffle_checksum_enabled(self) -> bool:
+        return self.get(SHUFFLE_CHECKSUM_ENABLED)
+
+    @property
+    def shuffle_recompute_max_stage_attempts(self) -> int:
+        return self.get(SHUFFLE_RECOMPUTE_MAX_STAGE_ATTEMPTS)
+
+    @property
+    def shuffle_faults_plan(self) -> str:
+        return self.get(SHUFFLE_FAULTS_PLAN)
+
+    @property
+    def shuffle_faults_seed(self) -> int:
+        return self.get(SHUFFLE_FAULTS_SEED)
+
+    @property
+    def shuffle_faults_transport_class(self) -> str:
+        return self.get(SHUFFLE_FAULTS_TRANSPORT)

@@ -21,7 +21,8 @@ class ExecContext:
                  partition_id: int = 0, num_partitions: int = 1,
                  device_manager=None, cleanups: Optional[List] = None,
                  task_id: Optional[int] = None, host_engine: bool = False,
-                 session_device: Optional[torch.device] = None):
+                 session_device: Optional[torch.device] = None,
+                 cluster_shuffle=None):
         self.conf = conf
         self.device = device
         #: set while a CPU engine operator runs its device form on the
@@ -47,6 +48,10 @@ class ExecContext:
         #: deadlock admission.
         self.task_id = task_id if task_id is not None \
             else threading.get_ident()
+        #: a cluster task's shuffle env and dep map statuses
+        #: (parallel/cluster.py ``ClusterTaskContext``), which its shuffle
+        #: reads fetch through; None outside the cluster
+        self.cluster_shuffle = cluster_shuffle
 
     @property
     def string_max_bytes(self) -> int:
@@ -57,7 +62,7 @@ class ExecContext:
         return ExecContext(self.conf, self.device, partition_id,
                            num_partitions, self.device_manager, self.cleanups,
                            self.task_id, self.host_engine,
-                           self.session_device)
+                           self.session_device, self.cluster_shuffle)
 
     def on_host(self) -> "ExecContext":
         """This context for the CPU engine: the CPU device, host batches as
@@ -65,14 +70,14 @@ class ExecContext:
         return ExecContext(self.conf, torch.device("cpu"), self.partition_id,
                            self.num_partitions, self.device_manager,
                            self.cleanups, self.task_id, True,
-                           self.session_device)
+                           self.session_device, self.cluster_shuffle)
 
     def on_session(self) -> "ExecContext":
         """This context for the session's device operators."""
         return ExecContext(self.conf, self.session_device, self.partition_id,
                            self.num_partitions, self.device_manager,
                            self.cleanups, self.task_id, False,
-                           self.session_device)
+                           self.session_device, self.cluster_shuffle)
 
 
 class PhysicalExec:

@@ -468,6 +468,26 @@ class ShuffleExchangeExecBase(PhysicalExec):
         #: per map batch, [keys, _KMV_K] candidates still on the device
         self._pending_sketches: List[torch.Tensor] = []
 
+    def __getstate__(self):
+        # cluster tasks receive pickled exchanges: the map state (its lock,
+        # its statistics, the sketches still on the device) is per process
+        state = dict(self.__dict__)
+        for k in ("_lock", "_map_done", "_part_rows", "_map_part_rows",
+                  "_key_sketches", "_pending_sketches"):
+            state.pop(k, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init_map_state()
+
+    def __copy__(self):
+        # copy.copy (``with_children``) keeps the map state: only a pickle
+        # drops it (copy.copy would otherwise go through __getstate__)
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        return new
+
     def with_children(self, children: Sequence[PhysicalExec]
                       ) -> "ShuffleExchangeExecBase":
         """A copy over ``children``. A copy made after the map side ran
@@ -611,6 +631,14 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
         #: a range partitioning's bounds (one ColV of n - 1 rows per order
         #: key), set when the map side runs
         self.range_bounds: Optional[List[ColV]] = None
+
+    def __getstate__(self):
+        # the catalog's shuffle id and the bounds' tensors are the map
+        # side's, which a pickled exchange does not carry
+        state = super().__getstate__()
+        state["_shuffle_id"] = None
+        state["range_bounds"] = None
+        return state
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         return self._read_partition(ctx, None)
@@ -781,6 +809,24 @@ class TpuBroadcastExchangeExec(PhysicalExec):
         super().__init__((child,), child.output)
         self._lock = threading.Lock()
         self._cached: Optional[DeviceBatch] = None
+
+    def __getstate__(self):
+        # plans ship to cluster executors by pickle: the lock is
+        # process-local and the built batch never rides the control plane
+        state = dict(self.__dict__)
+        state["_lock"] = None
+        state["_cached"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
+    def __copy__(self):
+        # copy.copy keeps the built batch: only a pickle drops it
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        return new
 
     @property
     def num_partitions(self) -> int:

@@ -27,6 +27,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import DType, Schema
+from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
 from spark_rapids_tpu_torch.utils.arm import Retainable
 
 
@@ -148,6 +149,21 @@ class SpillableBuffer(Retainable):
             arrays = [torch.from_numpy(a).to(self.device)
                       for a in self._disk_arrays()]
         return _rebuild(self.schema, arrays, self.num_rows)
+
+    def get_host_batch(self) -> HostBatch:
+        """The capacity-sized batch on the host, straight from a host- or
+        disk-tier payload (a device-tier one is copied down)."""
+        if self.tier == StorageTier.DISK:
+            arrays = self._disk_arrays()
+        else:
+            arrays = [t.cpu().numpy() for t in self.payload]
+        it = iter(arrays)
+        cols = []
+        for f in self.schema:
+            data, validity = next(it), next(it)
+            lengths = next(it) if f.dtype is DType.STRING else None
+            cols.append(HostColumn(f.dtype, data, validity, lengths))
+        return HostBatch(self.schema, tuple(cols), self.num_rows)
 
     def _disk_arrays(self) -> List[np.ndarray]:
         """The npz's arrays, read once and checked against the crc32 that

@@ -81,10 +81,33 @@ class CachedData:
         #: set (under ``lock``) once the entry is unpersisted: a later
         #: materialization must not register buffers nobody would free
         self.dropped = False
+        #: bumped at every materialization, so cluster executors tell a
+        #: stale shipped copy from the current buffers
+        self.generation = 0
 
     @property
     def is_materialized(self) -> bool:
         return self.buffer_ids is not None
+
+    def __getstate__(self):
+        # cached scans ship to cluster executors by pickle: the lock is
+        # process-local and executors never need the logical plan (which
+        # may not pickle: a lambda UDF)
+        state = dict(self.__dict__)
+        state["lock"] = None
+        state["logical"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.lock = threading.Lock()
+
+    def __copy__(self):
+        # a copy is the same entry's view: only a pickle drops the lock
+        # and the plan
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        return new
 
 
 def _release_entry(e: CachedData, dm) -> None:
@@ -158,6 +181,10 @@ class CacheManager:
             e.dropped = True
             if e.buffer_ids:
                 _release_entry(e, DeviceManager.peek())
+        # executor processes holding a shipped copy drop it too
+        sched = getattr(self.session, "_cluster_scheduler", None)
+        if sched is not None:
+            sched.cleanup_cache(e.table_id)
 
     # ---- planning-time substitution ---------------------------------------
     def substitute(self, logical: lp.LogicalPlan,
@@ -251,3 +278,4 @@ class CacheManager:
                 dm.catalog.remove(bid)
             raise
         e.buffer_ids = ids
+        e.generation += 1

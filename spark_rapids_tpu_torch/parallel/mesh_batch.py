@@ -18,12 +18,16 @@ shards or onto a shard, ``_moved``, ``shuffle/ici.py::_assemble``, and
 the bounds of a sampled range repartition); an exchange between shards of
 one kind copies device to device and never adds to it. The uploads of a
 scan into the mesh (``scatter_host_batch``) are the mesh's input, not a
-hop, and are not counted.
+hop, and are not counted. The network shuffle's payloads cross the host
+too and count as they arrive (``count_host_hop``, from
+``shuffle/client.py``), as the JAX package counts both in its
+``transfer.host_hop_bytes``.
 ``shard_device_kinds`` lists the device kinds ("cuda", "cpu") of every
 shard tensor of every mesh batch made since the last reset.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -38,6 +42,7 @@ from spark_rapids_tpu_torch.columnar.host import (HostBatch, HostColumn,
 from spark_rapids_tpu_torch.parallel.mesh import Mesh
 
 _COUNTERS: Dict[str, int] = {"host_hop_bytes": 0}
+_COUNTERS_LOCK = threading.Lock()
 _DEVICE_KINDS: set = set()
 
 
@@ -124,12 +129,19 @@ def scatter_arrow(table, mesh: Mesh, string_max_bytes: int,
                               mesh, conf)
 
 
+def count_host_hop(nbytes: int) -> None:
+    """Count ``nbytes`` of exchange data that went through the host (from
+    any thread: the shuffle client counts on its transports' threads)."""
+    with _COUNTERS_LOCK:
+        _COUNTERS["host_hop_bytes"] += int(nbytes)
+
+
 def count_crossing(src: torch.device, dst: torch.device,
                    nbytes: int) -> None:
     """Count ``nbytes`` copied from ``src`` to ``dst`` as a host hop when
     the two are of different kinds (a card and the host)."""
     if src.type != dst.type:
-        _COUNTERS["host_hop_bytes"] += int(nbytes)
+        count_host_hop(nbytes)
 
 
 def scatter_device_batch(db: DeviceBatch, mesh: Mesh) -> MeshBatch:

@@ -1,7 +1,8 @@
-"""The shuffle buffer catalog: (shuffle, map, partition) block ids -> buffers
-in the spillable store chain (memory/store.py), so cached map outputs spill
-device -> host -> disk under pressure. The port's counterpart of the JAX
-package's ``shuffle/catalog.py`` (its map-side ``ShuffleBufferCatalog``)."""
+"""The shuffle catalogs: (shuffle, map, partition) block ids -> buffers in
+the spillable store chain (memory/store.py), so cached map outputs spill
+device -> host -> disk under pressure, and the client's catalog of fetched
+packed buffers. The port's counterpart of the JAX package's
+``shuffle/catalog.py``."""
 from __future__ import annotations
 
 import itertools
@@ -112,3 +113,28 @@ class ShuffleBufferCatalog:
         """Unregister a finished shuffle and release its buffers."""
         with self._lock:
             return self._remove_blocks(self._by_shuffle.pop(shuffle_id, []))
+
+
+class ReceivedBufferCatalog:
+    """Client-side catalog of fetched buffers: packed host buffers and
+    their metas, held until the reading task takes them."""
+
+    _ids = itertools.count()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._received: Dict[int, Tuple[bytes, TableMeta]] = {}
+
+    def add(self, buf: bytes, meta: TableMeta) -> int:
+        with self._lock:
+            rid = next(self._ids)
+            self._received[rid] = (buf, meta)
+            return rid
+
+    def take(self, rid: int) -> Tuple[bytes, TableMeta]:
+        with self._lock:
+            return self._received.pop(rid)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._received)

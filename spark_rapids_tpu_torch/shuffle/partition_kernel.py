@@ -264,12 +264,15 @@ def reorder_tile_rows(L: int) -> int:
 class _ReorderKernel:
     """ctypes binding of csrc/partition_reorder.cu. ``launches`` counts the
     calls of its entry point (and nothing else); each call runs two device
-    kernels, the pids pre-pass and the reorder."""
+    kernels, the pids pre-pass and the reorder. ``kept`` counts the
+    launches whose output a split used (no overflow: ``split_batch_kernel``
+    did not hand the batch to the sort path)."""
 
     SOURCE = "partition_reorder.cu"
 
     def __init__(self):
         self.launches = 0
+        self.kept = 0
         self._lib = None
 
     def load(self) -> ctypes.CDLL:
@@ -355,7 +358,10 @@ def split_batch_kernel(batch: DeviceBatch, pids: torch.Tensor,
     geom = KernelGeom.plan(batch.capacity, n, spec.lanes)
     out, stats = partition_reorder(*kernel_inputs(batch, pids, spec, geom),
                                    geom)
-    return finalize_split(out, stats, spec, geom)
+    res = finalize_split(out, stats, spec, geom)
+    if res is not None and out.device.type != "cpu":
+        REORDER_KERNEL.kept += 1
+    return res
 
 
 def finalize_split(out: torch.Tensor, stats: torch.Tensor, spec: PackSpec,

@@ -889,10 +889,11 @@ def test_cuda_encoded_split_equals_kernel_split(cuda, tmp_path):
     hashes = tx.key_hashes([ectx.columns[key]], db.capacity)
     pids = tx._compute_pids(tx.HashPartitioning(8, ()), db.capacity, 0,
                             hashes, cuda)
-    launches = tpk.REORDER_KERNEL.launches
+    launches, kept = tpk.REORDER_KERNEL.launches, tpk.REORDER_KERNEL.kept
     kernel = tx.TpuShuffleExchangeExec._kernel_split(
         ExecContext(TpuConf({}), cuda), db, pids, 8)
     assert kernel is not None and tpk.REORDER_KERNEL.launches == launches + 1
+    assert tpk.REORDER_KERNEL.kept == kept + 1
     encoded = tx._split_encoded(db, pids, 8, enc)
     sorted_cols, counts = tx.split_by_pid(ectx.columns, pids, db.num_rows, 8)
     starts = np.concatenate([[0], np.cumsum(counts)])
@@ -1262,4 +1263,85 @@ def test_cuda_mesh_two_cards_equal_one_card(cuda):
     assert seen["host_hop_bytes"] == 0
     want, _, _ = _mesh_tpch("cpu", 4, 3, {
         "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes": "1"})
+    _same_rows(want, got)
+
+
+@pytest.mark.cuda
+def test_cuda_device_pack_equals_cpu_bytes(cuda):
+    """The device pack on the card gives the bytes the CPU's gives (every
+    column of lineitem, float64 and strings included), and they unpack on
+    the card to the same batch."""
+    from spark_rapids_tpu_torch.shuffle import table_meta as tm
+    hb = gen_lineitem(0.01, 3)
+    packs = {}
+    for dev in (cuda, torch.device("cpu")):
+        db = tm.uniform_string_batch(upload(hb, dev))
+        layout = tm.DevicePackLayout.for_batch_shape(
+            db.schema, db.capacity, tm.batch_string_max(db))
+        packs[dev.type] = (tm.device_pack(db, layout), layout, db)
+    gpu, layout, db = packs["cuda"]
+    assert gpu.device.type == "cuda"
+    assert gpu.cpu().numpy().tobytes() == \
+        packs["cpu"][0].numpy().tobytes()
+    back = tm.device_unpack(gpu, layout, db.num_rows)
+    for a, b in zip(back.columns, db.columns):
+        assert torch.equal(a.validity, b.validity)
+        assert torch.equal(a.data.view(torch.uint8), b.data.view(torch.uint8))
+
+
+def _cluster_q3(device, extra):
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks import tpch_data as td
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.benchmarks.tpch_queries import QUERIES
+    sess = TpuSession({**BENCH_CONF, **extra,
+                       "spark.rapids.tpu.sql.broadcastJoinThreshold.bytes":
+                       "1"}, device=device)
+    tables = td.gen_all(0.05, 3)
+    try:
+        out = QUERIES[3]({k: sess.create_dataframe(v).repartition(2)
+                          for k, v in tables.items()}).collect()
+        sched = getattr(sess, "_cluster_scheduler", None)
+        shape = None if sched is None else (
+            {st.executor_id for stage in sched.last_stages
+             for st in stage.statuses},
+            [getattr(ex, "device", None) for ex in sched.executors],
+            [ex.probe() for ex in sched.executors if hasattr(ex, "probe")])
+        return out, shape
+    finally:
+        if getattr(sess, "_cluster_scheduler", None) is not None:
+            sess._cluster_scheduler.close()
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_over_tcp_equals_single_device(cuda, tmp_path):
+    """TPC-H Q3 on two in-process executors over TCP on the card equals
+    the single-device card run (float sums within 1e-9); both executors
+    did map work."""
+    got, (execs, _, _) = _cluster_q3("cuda", {
+        "spark.rapids.tpu.sql.cluster.numExecutors": "2",
+        "spark.rapids.tpu.shuffle.transport.class":
+        "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport",
+        "spark.rapids.tpu.shuffle.tcp.registryDir": str(tmp_path / "reg")})
+    assert execs == {"exec-0", "exec-1"}
+    want, _ = _cluster_q3("cuda", {})
+    _same_rows(want, got)
+
+
+@pytest.mark.cuda
+def test_cuda_executor_daemons_equal_cpu(cuda):
+    """Two executor daemons on the card (each opens cuda; the store
+    fraction leaves room for both and the driver) equal the CPU run; the
+    daemons' round-robin splits launched the reorder kernel in their own
+    processes (their ping's counts) and used its output."""
+    got, (execs, devices, pongs) = _cluster_q3("cuda", {
+        "spark.rapids.tpu.sql.cluster.numExecutors": "2",
+        "spark.rapids.tpu.sql.cluster.processExecutors": "true",
+        "spark.rapids.tpu.memory.tpu.allocFraction": "0.25"})
+    assert execs == {"exec-0", "exec-1"}
+    assert all(d.startswith("cuda") for d in devices), devices
+    assert sum(p["reorder_launches"] for p in pongs) >= 1, pongs
+    assert sum(p["reorder_kept"] for p in pongs) >= 1, pongs
+    assert all(p["peak_bytes"] > 0 for p in pongs), pongs
+    want, _ = _cluster_q3("cpu", {})
     _same_rows(want, got)

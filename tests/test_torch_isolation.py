@@ -138,6 +138,29 @@ arrays = ml.device_arrays(mg.clean_acquisition_prime(
 assert len(arrays) == 25
 assert_tpu_and_cpu_equal(lambda s: q1(s.create_dataframe(
     gen_lineitem(0.0005, 5))), BENCH_CONF, approx_float=1e-9, device="cpu")
+# the cluster: Q1 over a repartition on two in-process executors over
+# TCP, then on two executor daemons (python -m
+# spark_rapids_tpu_torch.parallel.executor_daemon), which load neither
+import tempfile
+with tempfile.TemporaryDirectory() as reg:
+    for extra in ({"spark.rapids.tpu.shuffle.transport.class":
+                   "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport",
+                   "spark.rapids.tpu.shuffle.tcp.registryDir": reg},
+                  {"spark.rapids.tpu.sql.cluster.processExecutors": "true"}):
+        cs = TpuSession({**BENCH_CONF, **extra,
+                         "spark.rapids.tpu.sql.cluster.numExecutors": "2"},
+                        device="cpu")
+        assert q1(cs.create_dataframe(gen_lineitem(0.0005, 7))
+                  .repartition(2)).collect().num_rows == 6
+        stages = cs._cluster_scheduler.last_stages
+        assert {st.executor_id for stage in stages
+                for st in stage.statuses} == {"exec-0", "exec-1"}
+        for ex in cs._cluster_scheduler.executors:
+            if hasattr(ex, "probe"):
+                pkgs = set(ex.probe()["packages"])
+                assert not pkgs & {"jax", "jaxlib", "spark_rapids_tpu"}, pkgs
+                print("DAEMON", ex.executor_id, "ok")
+        cs._cluster_scheduler.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "spark_rapids_tpu",
                                     "pyarrow"))
@@ -185,7 +208,9 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     out of core (memory/grace.py), Q1 over a cached DataFrame
     (memory/df_cache.py), Q1 and Q3 on the mesh (8 CPU shards), and the
     expression and SQL surface's queries
-    (benchmarks/sql_surface.py) with ``show`` and ``describe`` run, with
+    (benchmarks/sql_surface.py) with ``show`` and ``describe``, and Q1 on
+    two cluster executors in the process over TCP and on two executor
+    daemons (neither daemon loading jax or the JAX package) run, with
     no jax, nothing of the JAX package and no pyarrow loaded; the file
     modules (io/: the scans and the writers) and the test-data generator
     (datagen.py), imported after, load pyarrow but neither jax nor the JAX
@@ -197,6 +222,7 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "\nLOADED []" in "\n" + res.stdout
     assert "SCAN LOADED []" in res.stdout
+    assert res.stdout.count("DAEMON exec-") == 2, res.stdout
 
 
 def _imports(path: Path):

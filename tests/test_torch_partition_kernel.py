@@ -187,8 +187,11 @@ def test_consolidate_gives_reference_row_multisets(n):
     pids = np.random.default_rng(n).integers(0, n, jb.capacity).astype(
         np.int32)
     jres = jpk.split_batch_kernel(jb, jnp.asarray(pids), n, interpret=True)
+    counts = tpk.REORDER_KERNEL.launches, tpk.REORDER_KERNEL.kept
     tres = tpk.split_batch_kernel(pb, torch.from_numpy(pids), n)
     assert jres is not None and tres is not None
+    # the plain version ran (CPU tensors): no launch, no kept output
+    assert (tpk.REORDER_KERNEL.launches, tpk.REORDER_KERNEL.kept) == counts
     for j in range(n):
         want = jpk.consolidate(*jres[:2], j, jres[2], jb.schema, jres[3])
         got = tpk.consolidate(*tres[:2], j, tres[2], pb.schema, tres[3])
