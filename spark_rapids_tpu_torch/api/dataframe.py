@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import datetime
 import threading
+import time
+from contextlib import ExitStack
 from typing import Any, Dict, List, Optional, Union
 
 from spark_rapids_tpu_torch import config as cfg
@@ -35,6 +37,8 @@ from spark_rapids_tpu_torch.exprs.windows import WindowExpression
 from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
 from spark_rapids_tpu_torch.plan import logical as lp
 from spark_rapids_tpu_torch.plan.planner import plan_with_explain
+from spark_rapids_tpu_torch.utils import metrics as um
+from spark_rapids_tpu_torch.utils import tracing as _tracing
 
 
 def _to_expr(c: Union[str, Column]):
@@ -561,12 +565,24 @@ class DataFrame:
         final, out = self._run_action()
         return concat_host_batches(out, final.output)
 
-    def _run_action(self, start=start_download):
+    def _run_action(self, start=start_download, query=None, final=None):
         """``collect``'s action: (the executed plan, its results). A
         streamed result batch is ``start(device batch).result()``, any
-        other the plan's host batch."""
+        other the plan's host batch.
+
+        ``query`` is the serving QueryHandle a scheduler worker drives
+        (None for a direct action): the semaphore admits it under its
+        tenant and polls its cancel flag while it waits, every batch
+        boundary is its cancellation and preemption checkpoint, each
+        result batch reaches its stream as its download resolves
+        (``emit_batch``), and its handle records the action's counters.
+        ``final`` is an already planned physical plan. With
+        ``trace.enabled`` the action's spans are recorded
+        (utils/tracing.py): ``session.last_trace``, EXPLAIN ANALYZE, and
+        the Chrome export at ``trace.export.path``."""
         conf = self.session.conf
-        final = self.physical_plan()
+        if final is None:
+            final = self.physical_plan()
         self.session.last_plan = final
         if conf.get(cfg.CLUSTER_EXECUTORS) >= 1 and \
                 not conf.get(cfg.MESH_ENABLED):
@@ -577,21 +593,57 @@ class DataFrame:
             # taken around it
             from spark_rapids_tpu_torch.parallel.cluster import \
                 cluster_scheduler_for
-            from spark_rapids_tpu_torch.utils.metrics import (
-                recompute_delta, recompute_snapshot)
-            before = recompute_snapshot()
+            before = um.recompute_snapshot()
+            if query is not None:
+                query.check_cancelled()
             batches = cluster_scheduler_for(self.session).run(final)
             if batches is not None:
                 if conf.get(cfg.METRICS_ENABLED):
-                    self.session.last_metrics = {
-                        "shuffle": recompute_delta(before)}
+                    snap = {"shuffle": um.recompute_delta(before)}
+                    if query is not None:
+                        query.record_exec_metrics(snap)
+                    self.session.last_metrics = snap
+                if query is not None:
+                    for b in batches:
+                        query.emit_batch(b)
                 return final, batches
             # not stageable (a CPU exchange): the single-process engine
         dm = DeviceManager.initialize(conf, self.session.device)
+        trace = conf.get(cfg.TRACE_ENABLED)
+        if trace:
+            _tracing.TRACER.configure(conf.get(cfg.TRACE_BUFFER_SPANS))
+        # stable node ordinals, the key of spans and EXPLAIN ANALYZE
+        for i, nd in enumerate(final.walk()):
+            nd.plan_id = i
+        tenant = query.tenant if query is not None else "default"
+        cancel = query.check_cancelled if query is not None else None
+        emit = query.emit_batch if query is not None else None
+        # the action's scopes (its recursion-depth holder, the tracer's
+        # activation), entered before the admission wait so the wait is
+        # traced, and closed however the action ends: a stuck activation
+        # would leave the process's tracer on for every later query
+        scopes = ExitStack()
+        depth_holder = scopes.enter_context(um.action_depth_scope())
+        if trace:
+            scopes.enter_context(_tracing.TRACER.activate())
+        trace_mark = _tracing.TRACER.mark()
+        memory_before = um.memory_snapshot()
+        serving_before = um.serving_snapshot()
+        recompute_before = um.recompute_snapshot()
+        from spark_rapids_tpu_torch.plan import adaptive
+        adaptive_before = adaptive.counters()
+        t_wall = time.perf_counter()
+        t_admit_ns = time.perf_counter_ns()
         cleanups: List = []
         out: List[HostBatch] = []
         try:
-            with dm.semaphore.held():
+            with dm.semaphore.held(tenant=tenant, cancel_check=cancel), \
+                    um.NamedRange("tpu-sql-action", trace=trace):
+                waited_ns = time.perf_counter_ns() - t_admit_ns
+                _tracing.record("serving.admission_wait", "serving",
+                                t_admit_ns, waited_ns, {"tenant": tenant})
+                if query is not None:
+                    query.note_admission_wait(waited_ns / 1e9)
                 # a mesh plan adapts inside its operators (each exchange
                 # counts its sizes before it moves a row), and its gathered
                 # root is one batch: no stage rewrite, no streamed collect
@@ -601,9 +653,11 @@ class DataFrame:
                     from spark_rapids_tpu_torch.plan.adaptive import \
                         adaptive_rewrite
                     stage_ctx = ExecContext(conf, self.session.device, 0, 1,
-                                            dm, cleanups)
+                                            dm, cleanups, query=query)
                     final = adaptive_rewrite(final, stage_ctx)
                     self.session.last_plan = final
+                    for i, nd in enumerate(final.walk()):
+                        nd.plan_id = i      # the rewritten plan's ordinals
                 # decided from the (possibly rewritten) root
                 stream = (isinstance(final, DeviceToHostExec)
                           and conf.get(cfg.TRANSFER_STREAMING_COLLECT)
@@ -613,19 +667,64 @@ class DataFrame:
                 pending: List = []
                 for p in range(final.num_partitions):
                     ctx = ExecContext(conf, self.session.device, p,
-                                      final.num_partitions, dm, cleanups)
+                                      final.num_partitions, dm, cleanups,
+                                      query=query)
                     for b in root.execute(ctx):
+                        ctx.check_cancelled()
                         if not stream:
                             out.append(b)
+                            if emit is not None:
+                                emit(b)
                             continue
                         pending.append(start(b))
                         while len(pending) > max_inflight:
                             out.append(pending.pop(0).result())
-                out.extend(pd.result() for pd in pending)
+                            # a served query's stream gets each batch as
+                            # its download resolves, before the last
+                            # batch exists
+                            if emit is not None:
+                                emit(out[-1])
+                for pd in pending:
+                    out.append(pd.result())
+                    if emit is not None:
+                        emit(out[-1])
         finally:
-            for fn in cleanups:
-                fn()
+            try:
+                for fn in cleanups:
+                    fn()
+            finally:
+                self.session.last_action_wall_s = (time.perf_counter()
+                                                   - t_wall)
+                scopes.close()
+            if query is not None and conf.get(cfg.METRICS_ENABLED):
+                # the served query's record of the action (the session's
+                # last_metrics keeps the cluster action's counters only)
+                after = adaptive.counters()
+                query.record_exec_metrics({
+                    "memory": um.memory_delta(
+                        memory_before, recursion_peak=depth_holder.peak),
+                    "serving": um.serving_delta(serving_before),
+                    "shuffle": um.recompute_delta(recompute_before),
+                    "adaptive": {k: after[k] - adaptive_before.get(k, 0)
+                                 for k in after}})
+            if trace:
+                # the action's span window, and its Chrome export (the
+                # file is rewritten per action)
+                records = _tracing.TRACER.since(trace_mark)
+                self.session.last_trace = records
+                export = conf.get(cfg.TRACE_EXPORT_PATH)
+                if export:
+                    _tracing.export_chrome(records, export, metadata={
+                        "action_wall_s": round(
+                            self.session.last_action_wall_s, 6)})
         return final, out
+
+    def _collect(self, query=None, final: Optional[PhysicalExec] = None
+                 ) -> HostBatch:
+        """``collect`` with a serving context: ``query`` is the QueryHandle
+        a scheduler worker drives, ``final`` an already planned plan."""
+        final, out = self._run_action(query=query, final=final)
+        return concat_host_batches(out, final.output)
 
     def _collect_arrow(self):
         """The result rows as one arrow table: each streamed batch's
@@ -1021,6 +1120,12 @@ class TpuSession:
         #: the counters of the last action that recorded any (a cluster
         #: action: ``{"shuffle": its lineage-recompute counters}``)
         self.last_metrics: Dict[str, Dict[str, float]] = {}
+        #: wall seconds of the last action (EXPLAIN ANALYZE's header)
+        self.last_action_wall_s = 0.0
+        #: the span window of the last traced action (trace.enabled)
+        self.last_trace: list = []
+        self._scheduler = None
+        self._scheduler_lock = threading.Lock()
         self._views: Dict[str, DataFrame] = {}
         #: guards the view table: views may be registered while another
         #: thread plans SQL that reads them
@@ -1032,6 +1137,47 @@ class TpuSession:
     def clear_cache(self) -> None:
         """Unpersist every cached DataFrame of this session."""
         self.cache_manager.clear()
+
+    def explain_analyze(self, print_out: bool = False) -> str:
+        """EXPLAIN ANALYZE of the last action: the physical plan with each
+        node's observed rows, batches, wall and self time and spills. The
+        action must have run with ``trace.enabled``; without it the tree
+        renders without them. On a GPU the times are the host's launch
+        times (utils/tracing.py)."""
+        if self.last_plan is None:
+            raise RuntimeError("no action has run yet")
+        text = (f"== Physical plan with observed stats "
+                f"(action wall {self.last_action_wall_s:.3f}s) ==\n"
+                + self.last_plan.tree_string(analyze=True))
+        if print_out:
+            print(text)
+        return text
+
+    # ---- concurrent serving -----------------------------------------------
+    @property
+    def scheduler(self):
+        """The session's query scheduler (serving/scheduler.py), made on
+        first use with the session's serving.* conf."""
+        with self._scheduler_lock:
+            if self._scheduler is None:
+                from spark_rapids_tpu_torch.serving.scheduler import \
+                    SessionScheduler
+                self._scheduler = SessionScheduler(self)
+            return self._scheduler
+
+    def submit(self, query, tenant: str = "default",
+               timeout: Optional[float] = None, label: Optional[str] = None):
+        """Submit a DataFrame or a SQL string for concurrent execution on
+        the session's device; returns its QueryHandle at once (QUEUED).
+        ``handle.result()`` blocks for the collected rows (a HostBatch, as
+        ``collect`` returns); ``handle.cancel()`` asks for cooperative
+        cancellation; the query's metrics are ``handle.snapshot()``."""
+        return self.scheduler.submit(query, tenant=tenant, timeout=timeout,
+                                     label=label)
+
+    @staticmethod
+    def builder() -> "TpuSessionBuilder":
+        return TpuSessionBuilder()
 
     def table(self, name: str) -> DataFrame:
         with self._views_lock:
@@ -1072,3 +1218,22 @@ class TpuSession:
         if not isinstance(data, HostBatch):
             data = HostBatch.from_arrow(data, self.conf.string_max_bytes)
         return DataFrame(lp.LocalRelation(data), self)
+
+
+class TpuSessionBuilder:
+    """``TpuSession.builder().config(k, v).device("cpu").getOrCreate()``."""
+
+    def __init__(self):
+        self._conf: Dict[str, Any] = {}
+        self._device: device_mod.DeviceLike = None
+
+    def config(self, key: str, value) -> "TpuSessionBuilder":
+        self._conf[key] = value
+        return self
+
+    def device(self, device: device_mod.DeviceLike) -> "TpuSessionBuilder":
+        self._device = device
+        return self
+
+    def getOrCreate(self) -> TpuSession:
+        return TpuSession(self._conf, device=self._device)

@@ -7,6 +7,7 @@ This is the port's host representation: the engine takes and returns
 from __future__ import annotations
 
 import datetime
+import functools
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -69,12 +70,14 @@ class HostBatch:
                          tuple(self.columns[i] for i in idx), self.num_rows,
                          self.batch_ends)
 
-    @property
+    @functools.cached_property
     def nbytes(self) -> int:
         """The bytes of the same table in arrow's layout, as pyarrow's
         ``Table.nbytes`` counts them (the JAX package's scan size estimate):
         a validity bitmap where a column has nulls, fixed-width values, and
-        for strings 4 offset bytes per row plus the string bytes."""
+        for strings 4 offset bytes per row plus the string bytes. Counted
+        once per batch (it reads every row's validity and length, and a
+        plan's size estimates ask for it from every node above the scan)."""
         n = self.num_rows
         total = 0
         for f, c in zip(self.schema, self.columns):

@@ -433,8 +433,10 @@ SHUFFLE_TRANSPORT_CLASS = _conf(
     "spark_rapids_tpu_torch.shuffle.inprocess.InProcessTransport",
     "Fully qualified class of the shuffle transport for peer-to-peer "
     "fetches: InProcessTransport serves executors within one process, "
-    "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport executors in "
-    "processes of their own, FaultInjectingTransport wraps either "
+    "spark_rapids_tpu_torch.shuffle.tcp_port.TcpTransport executors in "
+    "processes of their own (tcp.TcpTransport is the reference's text, "
+    "whose kill leaves a socket open and whose server send can beat the "
+    "peer's hello), FaultInjectingTransport wraps any "
     "(spark.rapids.shuffle.transport.class).")
 
 SHUFFLE_TCP_PORT = _conf(
@@ -533,6 +535,452 @@ SERVING_SHAPE_BUCKETS = _conf(
     "Bucket row-count estimates to powers of two in plan keys "
     "(serving/program_cache.py ``plan_key``), so one plan shape keeps one "
     "key whatever its exact row counts.")
+
+SERVING_MAX_CONCURRENT = _conf(
+    "serving.maxConcurrentQueries", int, 4,
+    "How many submitted queries the session scheduler runs concurrently "
+    "(the shared worker-pool size). Queries past the bound wait in their "
+    "tenant's FIFO queue under fair-share admission; device admission "
+    "within a running query is still gated by sql.concurrentTpuTasks.",
+    checker=_positive("serving.maxConcurrentQueries"))
+
+SERVING_TENANT_WEIGHTS = _conf(
+    "serving.tenantWeights", str, "",
+    "Per-tenant fair-share weights as 'tenant:weight,...' (e.g. "
+    "'etl:3,adhoc:1'). Admission picks the queued tenant with the lowest "
+    "served/weight deficit (FIFO within a tenant); unlisted tenants weigh "
+    "1. The same weights drive the device-admission semaphore so a heavy "
+    "tenant cannot starve the rest at either layer.")
+
+SERVING_QUERY_TIMEOUT = _conf(
+    "serving.queryTimeoutSeconds", float, 0.0,
+    "Default per-query deadline for submitted queries, enforced "
+    "cooperatively at exec boundaries and in the pipeline producer; a "
+    "query past its deadline fails with QueryTimeoutError and releases "
+    "its device-semaphore hold and catalog buffers. 0 disables; "
+    "session.submit(timeout=...) overrides per query.",
+    checker=_non_negative("serving.queryTimeoutSeconds"))
+
+SERVING_CACHE_DIR = _conf(
+    "serving.cache.dir", str, "",
+    "Directory of the serving program-cache's on-disk key index: a "
+    "restarted server counts a program an earlier process built there "
+    "(a kernel library already in the build directory) as a disk hit "
+    "instead of a cold build. Empty uses the kernel build directory "
+    "(cuda_build.BUILD_DIR); 'off' disables the index.")
+
+SERVING_CACHE_MAX_PROGRAMS = _conf(
+    "serving.cache.maxPrograms", int, 4096,
+    "Upper bound on compiled programs the in-memory cross-query cache "
+    "retains; least-recently-used programs are dropped past it (their "
+    "on-disk compilation-cache entries survive, so a re-miss recompiles "
+    "warm).", checker=_positive("serving.cache.maxPrograms"))
+
+# --------------------------------------------------------------------------------------
+# Serving: network wire protocol, footprint admission, preemption
+# --------------------------------------------------------------------------------------
+SERVING_NET_PORT = _conf(
+    "serving.net.listenPort", int, 0,
+    "Listen port of the query service's wire transport (Arrow IPC over the "
+    "TCP shuffle framing); 0 picks an ephemeral port, printed by the server "
+    "process at startup.")
+
+SERVING_NET_TRANSPORT = _conf(
+    "serving.net.transportClass", str,
+    "spark_rapids_tpu_torch.shuffle.tcp_port.TcpTransport",
+    "Transport class the query service speaks over — the shuffle's "
+    "framing/checksum/retry stack, NOT new plumbing. Any ShuffleTransport "
+    "implementation works; tests swap in the in-process fabric.")
+
+SERVING_NET_FAULTS_PLAN = _conf(
+    "serving.net.faults.plan", str, "",
+    "Deterministic wire-chaos plan for the query service (empty = none): "
+    "the shuffle FaultPlan grammar (drop_conn / corrupt_frame / "
+    "delay_frame / dup_frame / fail_request) injected by wrapping the "
+    "serving transport in the FaultInjectingTransport — corrupted result "
+    "frames must surface as retryable checksum failures, dropped "
+    "connections as failed handles with a batches-delivered count.")
+
+SERVING_NET_FAULTS_SEED = _conf(
+    "serving.net.faults.seed", int, 0,
+    "Seed for the serving wire-chaos plan's random choices; a fixed seed "
+    "replays the same schedule (mirrors shuffle.faults.seed).")
+
+SERVING_NET_POLL_MS = _conf(
+    "serving.net.nextPollMs", int, 20,
+    "How long a serve.next handler waits (bounded — the R010 discipline) "
+    "for the query's next streamed batch before answering WAIT and "
+    "releasing its transport worker thread; the client re-polls "
+    "immediately, so this bounds handler occupancy, not stream latency.",
+    checker=_positive("serving.net.nextPollMs"))
+
+SERVING_NET_STREAM_DEPTH = _conf(
+    "serving.net.streamQueueDepth", int, 4,
+    "Bound on result batches buffered server-side per streaming query "
+    "between the scheduler worker (producer) and the wire layer "
+    "(consumer); a full queue backpressures the producer at its next "
+    "batch boundary — bounded buffering, never an unbounded queue.",
+    checker=_positive("serving.net.streamQueueDepth"))
+
+SERVING_NET_MAX_STREAM_ROWS = _conf(
+    "serving.net.maxStreamBatchRows", int, 1 << 20,
+    "Result batches larger than this many rows are sliced into multiple "
+    "wire frames before streaming, bounding per-frame memory on both ends "
+    "(slices concatenate client-side to the bit-identical table). "
+    "0 streams every exec batch whole.",
+    checker=_non_negative("serving.net.maxStreamBatchRows"))
+
+SERVING_NET_RPC_TIMEOUT = _conf(
+    "serving.net.rpcTimeoutSeconds", float, 60.0,
+    "Client-side bound on any single wire RPC (submit / next / fetch / "
+    "cancel) and on each posted batch receive; an expired wait surfaces "
+    "as a failed handle with its batches-delivered count, never a hang.",
+    checker=_positive("serving.net.rpcTimeoutSeconds"))
+
+SERVING_ADMIT_FOOTPRINT = _conf(
+    "serving.admission.byFootprint.enabled", bool, True,
+    "Admit RUNNING queries against the device budget using the plan's "
+    "working_set_estimate (the footprint contract) instead of a "
+    "bare query count: a query whose estimate does not fit the free "
+    "budget waits (cancellable, visible in "
+    "serving.admission_rejections_footprint) until running queries "
+    "release their share. A query larger than the whole budget is "
+    "admitted under a grace hint, charged the out-of-core HEADROOM "
+    "share of the budget — the grace/spill layer completes it within "
+    "that share, and the remaining fraction stays free so interactive "
+    "queries still reach the device semaphore (where preemption can "
+    "see them) alongside a whale.")
+
+SERVING_PREEMPT_ENABLED = _conf(
+    "serving.preemption.enabled", bool, False,
+    "Batch-granularity preemption of RUNNING queries: when another "
+    "tenant's query has starved on device admission past "
+    "preemption.starvationMs, a preemptible running query yields its "
+    "device-semaphore permit at its next exec-boundary checkpoint "
+    "(check_cancelled sites), optionally parks spillable device state "
+    "down the grace/spill tiers, and re-acquires under fair share — so a "
+    "whale cannot starve interactive tenants between its batches.")
+
+SERVING_PREEMPT_STARVATION_MS = _conf(
+    "serving.preemption.starvationMs", int, 50,
+    "How long another tenant's head-of-line device-admission waiter must "
+    "have been blocked before a running preemptible query yields at its "
+    "next batch boundary.",
+    checker=_positive("serving.preemption.starvationMs"))
+
+SERVING_PREEMPT_PARK = _conf(
+    "serving.preemption.parkSpillable", bool, True,
+    "On yield, shed the device store down to the out-of-core headroom "
+    "watermark (memory.outOfCore.headroomFraction) — coldest-first, so "
+    "the overage parked down the host/disk tiers is in practice the "
+    "yielding whale's grace partitions, and the admitted tenant gets "
+    "immediate HBM headroom; parked state re-admits on next access. "
+    "Disabling leaves parking to the store's reactive pressure path.")
+
+# --------------------------------------------------------------------------------------
+# Serving: replica health, failover, routing (the fleet-resilience layer)
+# --------------------------------------------------------------------------------------
+
+SERVING_NET_REGISTRY = _conf(
+    "serving.net.registryDir", str, "",
+    "Registry directory for serving-replica discovery (the shuffle "
+    "registry-dir rendezvous applied to the query service): each replica "
+    "publishes <dir>/<executor_id> containing host:port and refreshes the "
+    "file's mtime as a liveness heartbeat; clients scan the directory to "
+    "discover replicas, skipping (and garbage-collecting) entries whose "
+    "heartbeat is older than serving.health.livenessWindowSeconds. Empty "
+    "disables discovery — clients then need explicit addresses.")
+
+SERVING_HEALTH_HEARTBEAT = _conf(
+    "serving.health.heartbeatSeconds", float, 1.0,
+    "How often a serving replica refreshes its registry-file mtime (the "
+    "liveness heartbeat). A SIGKILL'd replica stops heartbeating, so its "
+    "entry ages out of the liveness window and clients stop routing to "
+    "it even though the process never removed its file.",
+    checker=_positive("serving.health.heartbeatSeconds"))
+
+SERVING_HEALTH_LIVENESS_WINDOW = _conf(
+    "serving.health.livenessWindowSeconds", float, 5.0,
+    "Registry entries whose heartbeat mtime is older than this are "
+    "considered dead: discovery scans skip them and remove the stale "
+    "file (a crashed replica cannot retract its own entry). Keep this "
+    "a few multiples of serving.health.heartbeatSeconds so a slow "
+    "heartbeat is not mistaken for a death.",
+    checker=_positive("serving.health.livenessWindowSeconds"))
+
+SERVING_HEALTH_PROBE_INTERVAL = _conf(
+    "serving.health.probeIntervalSeconds", float, 2.0,
+    "How often the client re-probes each replica's serve.health RPC "
+    "(liveness + the serve.stats snapshot load-aware routing scores). "
+    "Probes run on the routing path when the last snapshot is older "
+    "than this; 0 probes before every routing decision (tests).",
+    checker=_non_negative("serving.health.probeIntervalSeconds"))
+
+SERVING_HEALTH_PROBE_TIMEOUT = _conf(
+    "serving.health.probeTimeoutSeconds", float, 5.0,
+    "Bound on one serve.health probe RPC — probes must fail fast so a "
+    "hung replica costs the router one bounded wait, not the full "
+    "serving.net.rpcTimeoutSeconds.",
+    checker=_positive("serving.health.probeTimeoutSeconds"))
+
+SERVING_FAILOVER_ENABLED = _conf(
+    "serving.failover.enabled", bool, True,
+    "Resubmit a mid-stream query to a healthy replica when its replica "
+    "dies (connection lost / RPC timeout / exhausted frame retries), "
+    "resuming the result stream from the last delivered batch sequence "
+    "number: the new replica re-runs the query and skips already-"
+    "delivered frames (dedup by seq — exactly-once delivery to the "
+    "caller). Only queries marked idempotent fail over (the default for "
+    "pure SELECTs); non-idempotent queries surface WireQueryError with "
+    "batches_delivered as before.")
+
+SERVING_FAILOVER_MAX_ATTEMPTS = _conf(
+    "serving.failover.maxAttempts", int, 3,
+    "How many times one query may fail over to another replica before "
+    "the client gives up and surfaces the failure.",
+    checker=_positive("serving.failover.maxAttempts"))
+
+SERVING_BREAKER_THRESHOLD = _conf(
+    "serving.failover.breakerFailureThreshold", int, 3,
+    "Consecutive probe/submit/stream failures against one replica that "
+    "flip its client-side circuit breaker OPEN. An OPEN replica receives "
+    "ZERO submissions; only health probes (on the exponential-backoff "
+    "schedule) go there, and one probe success closes the breaker.",
+    checker=_positive("serving.failover.breakerFailureThreshold"))
+
+SERVING_BREAKER_BACKOFF_MS = _conf(
+    "serving.failover.breakerBackoffMs", int, 200,
+    "Base backoff between an OPEN breaker's health probes; successive "
+    "failed probes back off exponentially with deterministic jitter "
+    "(the shuffle/retry.py schedule, seeded by serving.net.faults.seed).",
+    checker=_positive("serving.failover.breakerBackoffMs"))
+
+SERVING_ROUTING_POLICY = _conf(
+    "serving.routing.policy", str, "loadaware",
+    "How the client picks a replica for a new submission: 'loadaware' "
+    "scores each healthy replica's latest serve.health snapshot (free "
+    "device budget after footprint charges, queue depth + running "
+    "count, p99 wall over the stats window) and routes to the best — "
+    "the whale lands on the replica with free budget; 'roundrobin' is "
+    "a plain rotation. Replicas behind an OPEN breaker or DRAINING "
+    "are excluded under either policy.",
+    checker=lambda v: (None if v in ("loadaware", "roundrobin") else
+                       f"serving.routing.policy must be 'loadaware' or "
+                       f"'roundrobin', got {v!r}"))
+
+# --------------------------------------------------------------------------------------
+# Serving: elastic fleet (supervisor + autoscaler) and overload shedding
+# --------------------------------------------------------------------------------------
+
+SERVING_FLEET_MIN_REPLICAS = _conf(
+    "serving.fleet.minReplicas", int, 1,
+    "Lower bound on supervised replica slots: the autoscaler never "
+    "scales the fleet below this many (DEGRADED crash-looping slots "
+    "still count toward the bound — the controller cannot drain its "
+    "way to an empty fleet).",
+    checker=_positive("serving.fleet.minReplicas"))
+
+SERVING_FLEET_MAX_REPLICAS = _conf(
+    "serving.fleet.maxReplicas", int, 4,
+    "Upper bound on supervised replica slots: scale-up stops here no "
+    "matter the pressure — past it the front door sheds "
+    "(serving.maxQueuedPerTenant / OverloadedError) instead of growing.",
+    checker=_positive("serving.fleet.maxReplicas"))
+
+SERVING_FLEET_SUPERVISE_INTERVAL = _conf(
+    "serving.fleet.superviseIntervalSeconds", float, 0.2,
+    "Supervisor sweep period: each tick polls every slot's process for "
+    "exit, checks registry heartbeats against the liveness window, and "
+    "restarts due slots on the deterministic backoff schedule.",
+    checker=_positive("serving.fleet.superviseIntervalSeconds"))
+
+SERVING_FLEET_RESTART_BACKOFF_MS = _conf(
+    "serving.fleet.restartBackoffMs", int, 200,
+    "Base delay before restarting a dead replica slot; successive "
+    "deaths of the same slot back off exponentially with deterministic "
+    "jitter (the shuffle/retry.py schedule, keyed by slot index), and "
+    "the attempt counter resets after "
+    "serving.fleet.stableUptimeSeconds of healthy uptime.",
+    checker=_positive("serving.fleet.restartBackoffMs"))
+
+SERVING_FLEET_STABLE_UPTIME = _conf(
+    "serving.fleet.stableUptimeSeconds", float, 30.0,
+    "A replica that stays up this long is considered stable: its slot's "
+    "restart-backoff attempt counter resets, so the next (unrelated) "
+    "death restarts fast instead of inheriting an old slow schedule.",
+    checker=_positive("serving.fleet.stableUptimeSeconds"))
+
+SERVING_FLEET_CRASH_LOOP_THRESHOLD = _conf(
+    "serving.fleet.crashLoopThreshold", int, 3,
+    "Crash-loop breaker: this many deaths of one slot within "
+    "serving.fleet.crashLoopWindowSeconds stops the restart storm — the "
+    "slot is marked DEGRADED (no further restarts, surfaced in fleet "
+    "stats and excluded from the autoscaler's healthy count) instead of "
+    "burning CPU forever. reset_slot() re-arms it after the operator "
+    "fixes the cause.",
+    checker=_positive("serving.fleet.crashLoopThreshold"))
+
+SERVING_FLEET_CRASH_LOOP_WINDOW = _conf(
+    "serving.fleet.crashLoopWindowSeconds", float, 10.0,
+    "Sliding window the crash-loop breaker counts slot deaths over: "
+    "deaths older than this no longer count toward the threshold.",
+    checker=_positive("serving.fleet.crashLoopWindowSeconds"))
+
+SERVING_FLEET_CONTROL_INTERVAL = _conf(
+    "serving.fleet.controlIntervalSeconds", float, 1.0,
+    "Autoscaler control-loop period: each tick aggregates serve.health "
+    "snapshots across the fleet and makes one scaling decision "
+    "(watermarks + hysteresis + cooldowns).",
+    checker=_positive("serving.fleet.controlIntervalSeconds"))
+
+SERVING_FLEET_SCALE_UP_WATERMARK = _conf(
+    "serving.fleet.scaleUpWatermark", float, 0.8,
+    "High watermark on the fleet pressure signal (max of normalized "
+    "admission queue depth and device-budget fraction across healthy "
+    "replicas): pressure at or above this for "
+    "serving.fleet.scaleUpStableTicks consecutive ticks requests one "
+    "more replica (bounded by maxReplicas and the up-cooldown).",
+    checker=_fraction("serving.fleet.scaleUpWatermark"))
+
+SERVING_FLEET_SCALE_DOWN_WATERMARK = _conf(
+    "serving.fleet.scaleDownWatermark", float, 0.25,
+    "Low watermark on the fleet pressure signal: pressure at or below "
+    "this for serving.fleet.scaleDownStableTicks consecutive ticks "
+    "retires one replica through the graceful-drain path (bounded by "
+    "minReplicas and the down-cooldown). Keep it well under the high "
+    "watermark — the dead band between them is the hysteresis that "
+    "stops flapping.",
+    checker=_fraction("serving.fleet.scaleDownWatermark"))
+
+SERVING_FLEET_SCALE_UP_STABLE_TICKS = _conf(
+    "serving.fleet.scaleUpStableTicks", int, 2,
+    "Consecutive control ticks the pressure must hold at/above the high "
+    "watermark before a scale-up fires (a one-tick spike is noise, not "
+    "a trend).", checker=_positive("serving.fleet.scaleUpStableTicks"))
+
+SERVING_FLEET_SCALE_DOWN_STABLE_TICKS = _conf(
+    "serving.fleet.scaleDownStableTicks", int, 5,
+    "Consecutive control ticks the pressure must hold at/below the low "
+    "watermark before a scale-down fires — longer than the up "
+    "requirement on purpose: growing late queues work, shrinking early "
+    "sheds it.", checker=_positive("serving.fleet.scaleDownStableTicks"))
+
+SERVING_FLEET_SCALE_UP_COOLDOWN = _conf(
+    "serving.fleet.scaleUpCooldownSeconds", float, 5.0,
+    "Minimum wall time between two scale-ups: a freshly started replica "
+    "needs time to register and absorb load before the controller may "
+    "conclude the fleet is still too small.",
+    checker=_non_negative("serving.fleet.scaleUpCooldownSeconds"))
+
+SERVING_FLEET_SCALE_DOWN_COOLDOWN = _conf(
+    "serving.fleet.scaleDownCooldownSeconds", float, 30.0,
+    "Minimum wall time between two scale-downs, and after any scale-up "
+    "before the first scale-down — the asymmetry (longer than the up "
+    "cooldown) biases the fleet toward capacity under oscillating load.",
+    checker=_non_negative("serving.fleet.scaleDownCooldownSeconds"))
+
+SERVING_FLEET_P99_OBJECTIVE = _conf(
+    "serving.fleet.p99ObjectiveSeconds", float, 0.0,
+    "Latency objective the autoscaler folds into fleet pressure: a "
+    "replica's rolling-window p99 query wall divided by this objective "
+    "becomes a pressure component alongside footprint and queue depth, "
+    "so a fleet that is slow (not just full) still scales up. 0 "
+    "disables the latency component.",
+    checker=_non_negative("serving.fleet.p99ObjectiveSeconds"))
+
+SERVING_MAX_QUEUED_PER_TENANT = _conf(
+    "serving.maxQueuedPerTenant", int, 256,
+    "Bound on one tenant's scheduler queue depth: a submission past it "
+    "is shed at the front door with a structured RETRYABLE "
+    "OverloadedError carrying a retry-after hint (counted in "
+    "serving.sheds) instead of queueing without limit — one flooding "
+    "tenant cannot OOM the scheduler. 0 disables the bound.",
+    checker=_non_negative("serving.maxQueuedPerTenant"))
+
+SERVING_QUOTA_MAX_PER_CLIENT = _conf(
+    "serving.quota.maxConcurrentPerClient", int, 0,
+    "Per-client concurrent-query quota at the serving wire: a client "
+    "(wire peer) with this many open queries on a replica gets further "
+    "submits rejected with a structured RETRYABLE QuotaExceededError "
+    "(counted in serving.quota_rejections). 0 disables the quota.",
+    checker=_non_negative("serving.quota.maxConcurrentPerClient"))
+
+SERVING_OVERLOAD_RETRY_AFTER = _conf(
+    "serving.overload.retryAfterSeconds", float, 0.25,
+    "Base retry-after hint shipped inside OverloadedError / "
+    "QuotaExceededError rejections; the server scales it with how far "
+    "past the bound the tenant's queue is, and the client honors the "
+    "hint (floored by its deterministic backoff schedule) before "
+    "retrying.", checker=_positive("serving.overload.retryAfterSeconds"))
+
+SERVING_OVERLOAD_CLIENT_RETRIES = _conf(
+    "serving.overload.clientRetries", int, 2,
+    "How many full rotation passes the client retries a submission that "
+    "EVERY replica shed (each pass sleeps the max of the replicas' "
+    "retry-after hints and the deterministic backoff for that attempt) "
+    "before surfacing the OverloadedError to the caller.",
+    checker=_non_negative("serving.overload.clientRetries"))
+
+# --------------------------------------------------------------------------------------
+# Observability (SQLMetrics / NVTX analog)
+# --------------------------------------------------------------------------------------
+TRACE_ENABLED = _conf(
+    "trace.enabled", bool, False,
+    "Structured query tracing (utils/tracing.py): record per-operator "
+    "execute() spans (rows/batches/bytes, wall + self time, keyed by plan "
+    "node id) and the serving lifecycle/admission/preemption/wire spans "
+    "into a bounded ring buffer, and open a named torch.profiler range "
+    "per operator pull (the NVTX ranges' analog). Timestamps are taken "
+    "on the host at boundaries that exist anyway and no span waits on "
+    "the device, so an operator's span on a GPU is the time its launches "
+    "took on the host, not its device time. Feeds EXPLAIN ANALYZE "
+    "(tree_string(analyze=True) / QueryHandle.explain_analyze()) and the "
+    "Chrome/Perfetto trace export. Off: every hook reduces to one "
+    "boolean read.")
+
+TRACE_EXPORT_PATH = _conf(
+    "trace.export.path", str, "",
+    "When set (and trace.enabled), each action writes its span window as "
+    "Chrome trace-event JSON to this path on completion — loadable in "
+    "ui.perfetto.dev / chrome://tracing to inspect overlapped pipelines "
+    "(chunked upload vs compute, streaming D2H). The file is rewritten "
+    "per action (last-action semantics, like session.last_metrics); use "
+    "QueryHandle.export_trace(path) for one specific query's spans.")
+
+TRACE_BUFFER_SPANS = _conf(
+    "trace.maxBufferedSpans", int, 65536,
+    "Capacity of the tracing ring buffer: a long-running traced server "
+    "overwrites its oldest spans past this bound instead of growing "
+    "without limit. Exports and EXPLAIN ANALYZE see at most this many "
+    "trailing spans.", checker=_positive("trace.maxBufferedSpans"))
+
+SERVING_STATS_WINDOW = _conf(
+    "serving.stats.windowSeconds", float, 300.0,
+    "Rolling window of the serve.stats time-series (serving/stats.py): "
+    "per-replica gauge samples (device budget in use, admission queue "
+    "depth, running/queued per tenant) and query wall times older than "
+    "this are dropped; p50/p99 query wall is computed over the window. "
+    "The feed load-aware replica routing consumes (ROADMAP item 4).",
+    checker=_positive("serving.stats.windowSeconds"))
+
+SERVING_STATS_SAMPLE_INTERVAL = _conf(
+    "serving.stats.sampleIntervalSeconds", float, 1.0,
+    "Period of the scheduler's background gauge-sampler tick: before it, "
+    "gauges were sampled only at terminal queries and stats requests, so "
+    "an idle or wedged replica reported a stale time-series exactly when "
+    "the autoscaler most needed truth. The daemon tick keeps the series "
+    "fresh and snapshot() stamps its age (age_s) so consumers can treat "
+    "a stalled sampler as unhealthy. 0 disables the tick (tests).",
+    checker=_non_negative("serving.stats.sampleIntervalSeconds"))
+
+SERVING_STATS_STALE_AFTER = _conf(
+    "serving.stats.staleAfterSeconds", float, 10.0,
+    "Snapshot age (serve_stats age_s — seconds since the last sampler "
+    "tick) past which the autoscaler treats a replica's stats as stale: "
+    "a stale replica is excluded from the pressure signal AND from the "
+    "healthy count, so a wedged replica flat-lining its gauges cannot "
+    "read as idle and trigger a scale-down.",
+    checker=_positive("serving.stats.staleAfterSeconds"))
 
 
 # ------------------------------------------------------------- file scans

@@ -5,6 +5,7 @@ leaf and the download transition, ``DeviceBatch`` for everything between.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -12,6 +13,22 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.utils import tracing as _tracing
+
+
+def _traced_execute(raw):
+    """Span hook around one exec class's ``execute``: with tracing off the
+    only cost is one bool read; on, each pull is timed (self against child
+    time) and shows as a named ``torch.profiler`` range, and the observed
+    rows, batches and bytes accumulate for EXPLAIN ANALYZE. On a GPU the
+    times are the host's launch times (utils/tracing.py)."""
+    @functools.wraps(raw)
+    def execute(self, ctx):
+        if not _tracing.TRACER.on:
+            return raw(self, ctx)
+        return _tracing.trace_exec(self, ctx, raw)
+    execute._tpu_trace_hook = True
+    return execute
 
 
 class ExecContext:
@@ -22,7 +39,7 @@ class ExecContext:
                  device_manager=None, cleanups: Optional[List] = None,
                  task_id: Optional[int] = None, host_engine: bool = False,
                  session_device: Optional[torch.device] = None,
-                 cluster_shuffle=None):
+                 cluster_shuffle=None, query=None):
         self.conf = conf
         self.device = device
         #: set while a CPU engine operator runs its device form on the
@@ -52,6 +69,22 @@ class ExecContext:
         #: (parallel/cluster.py ``ClusterTaskContext``), which its shuffle
         #: reads fetch through; None outside the cluster
         self.cluster_shuffle = cluster_shuffle
+        #: the serving QueryHandle driving this execution (None for a
+        #: direct action): its cancellation and deadline, its tenant for
+        #: the semaphore, its metrics
+        self.query = query
+
+    def check_cancelled(self) -> None:
+        """The cooperative checkpoint at batch boundaries: raises
+        QueryCancelledError / QueryTimeoutError once the owning query was
+        cancelled or passed its deadline (a no-op for a direct action), so
+        a cancelled query unwinds through the normal finally chain. The
+        same sites are the preemption points: a preemptible query yields
+        its permit here to a starved tenant (``QueryHandle.
+        check_preempt``, a no-op unless serving.preemption.enabled)."""
+        if self.query is not None:
+            self.query.check_cancelled()
+            self.query.check_preempt(self)
 
     @property
     def string_max_bytes(self) -> int:
@@ -62,7 +95,8 @@ class ExecContext:
         return ExecContext(self.conf, self.device, partition_id,
                            num_partitions, self.device_manager, self.cleanups,
                            self.task_id, self.host_engine,
-                           self.session_device, self.cluster_shuffle)
+                           self.session_device, self.cluster_shuffle,
+                           self.query)
 
     def on_host(self) -> "ExecContext":
         """This context for the CPU engine: the CPU device, host batches as
@@ -70,14 +104,16 @@ class ExecContext:
         return ExecContext(self.conf, torch.device("cpu"), self.partition_id,
                            self.num_partitions, self.device_manager,
                            self.cleanups, self.task_id, True,
-                           self.session_device, self.cluster_shuffle)
+                           self.session_device, self.cluster_shuffle,
+                           self.query)
 
     def on_session(self) -> "ExecContext":
         """This context for the session's device operators."""
         return ExecContext(self.conf, self.session_device, self.partition_id,
                            self.num_partitions, self.device_manager,
                            self.cleanups, self.task_id, False,
-                           self.session_device, self.cluster_shuffle)
+                           self.session_device, self.cluster_shuffle,
+                           self.query)
 
 
 class PhysicalExec:
@@ -109,6 +145,17 @@ class PhysicalExec:
     #: "placement=cpu", "re-fused"), shown as ``[adaptive: …]`` by
     #: ``tree_string``
     adaptive_tag: str = ""
+
+    #: the node's ordinal within one executed plan (pre-order, stamped by
+    #: the action before it runs): the key its spans and EXPLAIN ANALYZE
+    #: join on
+    plan_id: Optional[int] = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        raw = cls.__dict__.get("execute")
+        if raw is not None and not getattr(raw, "_tpu_trace_hook", False):
+            cls.execute = _traced_execute(raw)
 
     def __init__(self, children: Sequence["PhysicalExec"], output: Schema):
         self.children: Tuple[PhysicalExec, ...] = tuple(children)
@@ -142,7 +189,11 @@ class PhysicalExec:
         estimates."""
         return None
 
-    def tree_string(self, indent: int = 0) -> str:
+    def tree_string(self, indent: int = 0, analyze: bool = False) -> str:
+        """The plan tree. ``analyze=True`` appends each node's observed
+        rows, batches, wall and self time and grace spills, collected by
+        the span hooks (EXPLAIN ANALYZE: the action must have run with
+        trace.enabled)."""
         tag = ""
         if self.placement is not None:
             from spark_rapids_tpu_torch.parallel.placement import \
@@ -150,8 +201,11 @@ class PhysicalExec:
             tag = f" @{placement_label(self.placement)}"
         if self.adaptive_tag:
             tag += f" [adaptive: {self.adaptive_tag}]"
+        if analyze:
+            tag += _tracing.analyze_annotation(self)
         lines = ["  " * indent + f"{self.name} [{self.output}]{tag}"]
-        lines += [c.tree_string(indent + 1) for c in self.children]
+        lines += [c.tree_string(indent + 1, analyze=analyze)
+                  for c in self.children]
         return "\n".join(lines)
 
     def with_children(self, children: Sequence["PhysicalExec"]

@@ -41,6 +41,7 @@ from spark_rapids_tpu_torch.exprs.core import Expression
 from spark_rapids_tpu_torch.exprs.cse import (add_shared_columns,
                                               common_subexpressions)
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
+from spark_rapids_tpu_torch.utils import tracing as _tracing
 
 #: one variant of a fused stage: (output expressions, optional predicate),
 #: both over the stage's input schema. A chain without Expand has exactly
@@ -97,14 +98,17 @@ class FusedStageExec(PhysicalExec):
         # a narrowing chain: the child's estimate is an upper bound
         return self.children[0].size_estimate()
 
-    def tree_string(self, indent: int = 0) -> str:
-        # the adaptive tag attaches to the stage's head
+    def tree_string(self, indent: int = 0, analyze: bool = False) -> str:
+        # the adaptive tag and the observed stats attach to the stage's
+        # head (the fused interior never materializes)
         lines = ["  " * (indent + i) + f"*({self.stage_id}) {name} [{schema}]"
                  + (f" [adaptive: {self.adaptive_tag}]"
                     if self.adaptive_tag and i == 0 else "")
+                 + (_tracing.analyze_annotation(self)
+                    if analyze and i == 0 else "")
                  for i, (name, schema) in enumerate(self.fused_ops)]
-        lines.append(self.children[0].tree_string(indent
-                                                  + len(self.fused_ops)))
+        lines.append(self.children[0].tree_string(
+            indent + len(self.fused_ops), analyze=analyze))
         return "\n".join(lines)
 
     def _coalesced(self, source, ctx: ExecContext):
@@ -127,6 +131,7 @@ class FusedStageExec(PhysicalExec):
         if self.coalesce is not None:
             source = self._coalesced(source, ctx)
         for batch in source:
+            ctx.check_cancelled()
             cap = batch.capacity
             ectx = te.eval_ctx(batch, ctx)
             add_shared_columns(ectx, self._shared)
@@ -171,14 +176,16 @@ class FusedAggregateStageExec(te.TpuHashAggregateExec):
         self.fused_ops = tuple(fused_ops)   # folded ops below the aggregate
         self.batches_not_materialized = 0
 
-    def tree_string(self, indent: int = 0) -> str:
+    def tree_string(self, indent: int = 0, analyze: bool = False) -> str:
         # the folded ops are not rendered: their expressions live inside the
         # aggregate now
         tag = f" [adaptive: {self.adaptive_tag}]" if self.adaptive_tag else ""
+        if analyze:
+            tag += _tracing.analyze_annotation(self)
         return "\n".join([
             "  " * indent + f"*({self.stage_id}) TpuHashAggregateExec "
                             f"[{self.output}]{tag}",
-            self.children[0].tree_string(indent + 1)])
+            self.children[0].tree_string(indent + 1, analyze=analyze)])
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         counted = _Counted(self.children[0].execute(ctx))

@@ -179,6 +179,7 @@ class TpuShuffledHashJoinExec(PhysicalExec):
         try:
             degenerate = lparts.degenerate and rparts.degenerate
             for pid in range(lparts.n):
+                ctx.check_cancelled()
                 nbytes = lparts.bytes_of(pid) + rparts.bytes_of(pid)
                 if nbytes == 0:
                     continue

@@ -69,7 +69,8 @@ def _shard_ctx(ctx: ExecContext, mesh: Mesh, d: int) -> ExecContext:
     """Shard ``d``'s context: its device, and its index as the partition."""
     dev = mesh.devices[d]
     return ExecContext(ctx.conf, dev, d, mesh.size, ctx.device_manager,
-                       ctx.cleanups, ctx.task_id, False, dev)
+                       ctx.cleanups, ctx.task_id, False, dev,
+                       query=ctx.query)
 
 
 class _ShardSource(PhysicalExec):

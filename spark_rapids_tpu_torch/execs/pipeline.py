@@ -39,15 +39,19 @@ _POLL_S = 0.05
 _LIVENESS_S = 1.0
 
 
-def _get_live(q: "queue.Queue", worker: threading.Thread):
+def _get_live(q: "queue.Queue", worker: threading.Thread,
+              cancel_check=None):
     """The producer's next item. The producer puts an item, an error or
     its end before it returns, so a producer thread that is gone with the
     queue empty is a fault: it raises here instead of blocking the
-    consumer forever."""
+    consumer forever. ``cancel_check`` runs between polls, so a cancelled
+    consumer unwinds even while its producer is wedged."""
     while True:
         try:
             return q.get(timeout=_LIVENESS_S)
         except queue.Empty:
+            if cancel_check is not None:
+                cancel_check()
             if worker.is_alive():
                 continue
             try:
@@ -91,18 +95,30 @@ class PipelinedExec(PhysicalExec):
         dm = ctx.device_manager
 
         def produce() -> None:
+            from spark_rapids_tpu_torch.serving.lifecycle import bind_query
+            query = ctx.query
             src = None
             try:
                 with ExitStack() as scope:
+                    # the consumer's query on this thread too: the kernel
+                    # launches and cache lookups of the producer's work are
+                    # attributed to it, and a cancel stops the producer at
+                    # its next batch
+                    scope.enter_context(bind_query(query))
                     if ctx.device.type == "cuda":
                         scope.enter_context(torch.cuda.device(ctx.device))
                     if dm is not None:
                         # the owning task's hold: the same task id nests
                         # instead of taking a second permit
-                        scope.enter_context(
-                            dm.semaphore.held(task_id=ctx.task_id))
+                        scope.enter_context(dm.semaphore.held(
+                            task_id=ctx.task_id,
+                            tenant=(query.tenant if query is not None
+                                    else "default"),
+                            cancel_check=(query.check_cancelled
+                                          if query is not None else None)))
                     src = self.children[0].execute(ctx)
                     for b in src:
+                        ctx.check_cancelled()
                         if not _put_abortable(q, ("b", b), stop):
                             return
             except BaseException as e:  # noqa: BLE001 - re-raised by consumer
@@ -119,7 +135,7 @@ class PipelinedExec(PhysicalExec):
         worker.start()
         try:
             while True:
-                kind, val = _get_live(q, worker)
+                kind, val = _get_live(q, worker, ctx.check_cancelled)
                 if kind == "end":
                     return
                 if kind == "e":

@@ -137,9 +137,11 @@ class HostToDeviceExec(PhysicalExec):
             # share one upload
             yield cache.get_or_put(
                 child.batch, ctx.string_max_bytes, ctx.device,
-                lambda: upload_table_conf(child.batch, ctx.device, ctx.conf))
+                lambda: upload_table_conf(child.batch, ctx.device, ctx.conf),
+                cancel_check=ctx.check_cancelled)
             return
         for hb in child.execute(ctx):
+            ctx.check_cancelled()   # before each upload: the costliest step
             yield upload_table_conf(hb, ctx.device, ctx.conf)
 
 
@@ -163,6 +165,7 @@ class DeviceToHostExec(PhysicalExec):
                 yield engine_batch(download(db))
             return
         for db in self.children[0].execute(ctx):
+            ctx.check_cancelled()   # before each download
             yield download(db)
 
 
@@ -351,6 +354,7 @@ class TpuHashAggregateExec(PhysicalExec):
         try:
             degenerate = parts.degenerate
             for pid in parts.nonempty():
+                ctx.check_cancelled()
                 if not degenerate and ooc.should_recurse(
                         parts.bytes_of(pid), parts.depth):
                     # drain() feeds the re-split one piece at a time
@@ -467,6 +471,7 @@ class TpuSortExec(PhysicalExec):
         try:
             degenerate = parts.degenerate
             for pid in parts.nonempty():
+                ctx.check_cancelled()
                 sub = None
                 if not degenerate and ooc.should_recurse(
                         parts.bytes_of(pid), parts.depth):

@@ -88,6 +88,16 @@ def _count(key: str, value: int, peak: bool = False) -> None:
     with _COUNTERS_LOCK:
         COUNTERS[key] = (max(COUNTERS[key], value) if peak
                          else COUNTERS[key] + value)
+    # the same events in the serving layer's memory section, the depth
+    # also on the action's scope and the running query's handle
+    from spark_rapids_tpu_torch.serving.lifecycle import current_query
+    from spark_rapids_tpu_torch.utils import metrics as um
+    if key == "recursion_depth_peak":
+        um.note_recursion_depth(value, current_query())
+    else:
+        um.MEMORY_METRICS[{"pressure_events": um.MEM_PRESSURE_EVENTS,
+                           "spill_partitions": um.MEM_SPILL_PARTITIONS}[key]
+                          ].add(value)
 
 
 def _depth_seed(depth: int) -> int:

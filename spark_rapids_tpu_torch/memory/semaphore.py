@@ -11,8 +11,10 @@ Callers that pass no tenant share the default tenant: plain FIFO. A waiter
 may pass ``cancel_check``; it runs periodically while blocked and whatever
 it raises unwinds the wait.
 
-The serving layer's batch-granularity preemption (``yield_to_waiters``)
-is not ported.
+Batch-granularity preemption (the serving layer's): a running query polls
+``has_starved_waiter`` at its exec-boundary checkpoints and, when another
+tenant's head-of-line waiter has starved, ``yield_to_waiters`` hands its
+permit over and takes it back under fair share.
 """
 from __future__ import annotations
 
@@ -37,9 +39,16 @@ class TpuSemaphore:
         self._cond = threading.Condition()
         self._holders: Set[int] = set()
         self._nesting: Dict[int, int] = {}
+        #: tasks mid-yield (yield_to_waiters): not holding a permit, but
+        #: their nesting ledger stays live so sibling threads entering or
+        #: exiting scoped holds during the yield keep it balanced
+        self._yielding: Set[int] = set()
         self._seq = 0
         #: tenant -> FIFO of waiting ticket ids
         self._waiters: Dict[str, deque] = {}
+        #: ticket -> monotonic enqueue time (starvation detection for the
+        #: preemption checkpoints; removed with the ticket)
+        self._wait_since: Dict[int, float] = {}
         #: weighted admission counters and weights (fair-share state)
         self._served: Dict[str, float] = {}
         self._weights: Dict[str, float] = {}
@@ -78,10 +87,12 @@ class TpuSemaphore:
         ticket = self._seq
         self._seq += 1
         self._waiters.setdefault(tenant, deque()).append(ticket)
+        self._wait_since[ticket] = time.monotonic()
         return ticket
 
     def _dequeue_locked(self, ticket: int, tenant: str) -> None:
         q = self._waiters.get(tenant)
+        self._wait_since.pop(ticket, None)
         if q is not None:
             try:
                 q.remove(ticket)
@@ -167,7 +178,10 @@ class TpuSemaphore:
         exits."""
         tid = self._task_id(task_id)
         with self._cond:
-            if tid in self._holders:
+            if tid in self._holders or tid in self._yielding:
+                # held, or mid-preemption-yield: join the task's live
+                # nesting ledger instead of queueing for a permit the
+                # task takes back anyway
                 self._nesting[tid] = self._nesting.get(tid, 1) + 1
             else:
                 ticket = self._enqueue_locked(tenant)
@@ -201,6 +215,66 @@ class TpuSemaphore:
                         self._cond.notify_all()
                 else:
                     self._nesting[tid] = n
+
+    # ---- batch-granularity preemption -------------------------------------
+    def holds_permit(self, task_id: Optional[int] = None) -> bool:
+        """Whether the task holds a permit now: a non-holder has nothing
+        to yield (and must not park the device store for other
+        holders)."""
+        tid = self._task_id(task_id)
+        with self._cond:
+            return tid in self._holders
+
+    def has_starved_waiter(self, exclude_tenant: str = _DEFAULT_TENANT,
+                           min_wait_s: float = 0.05) -> bool:
+        """True when another tenant's head-of-line waiter has waited for
+        admission at least ``min_wait_s``."""
+        now = time.monotonic()
+        with self._cond:
+            for tenant, q in self._waiters.items():
+                if tenant == exclude_tenant or not q:
+                    continue
+                since = self._wait_since.get(q[0])
+                if since is not None and now - since >= min_wait_s:
+                    return True
+        return False
+
+    def yield_to_waiters(self, task_id: Optional[int] = None,
+                         tenant: str = _DEFAULT_TENANT,
+                         cancel_check: Optional[Callable[[], None]] = None
+                         ) -> bool:
+        """Release this task's permit, let fair-share admission hand it to
+        the starved head of line, then take it back. The nesting ledger
+        stays live through the yield (``_yielding`` marks the task), so
+        producer threads sharing the hold may enter or exit their scoped
+        holds meanwhile and the last exit still releases once. False when
+        the task held no permit. Cancelled mid-yield, the permit is not
+        taken back; the unwinding scopes find no hold to release."""
+        tid = self._task_id(task_id)
+        with self._cond:
+            if tid not in self._holders:
+                return False
+            self._holders.remove(tid)
+            self._yielding.add(tid)
+            ticket = self._enqueue_locked(tenant)
+            self._cond.notify_all()
+            try:
+                self._wait_turn_locked(tid, ticket, tenant, None,
+                                       cancel_check)
+            except BaseException:
+                self._yielding.discard(tid)
+                self._dequeue_locked(ticket, tenant)
+                self._cond.notify_all()
+                raise
+            self._yielding.discard(tid)
+            self._dequeue_locked(ticket, tenant)
+            if tid not in self._holders:
+                # an acquire_if_necessary sibling may have taken the hold
+                # back while we queued; otherwise the permit is ours again
+                self._holders.add(tid)
+                self._served[tenant] = self._served.get(tenant, 0.0) + 1.0
+            self._cond.notify_all()
+            return True
 
     @property
     def active_holders(self) -> int:

@@ -54,7 +54,7 @@ from spark_rapids_tpu_torch.shuffle.manager import (CachingShuffleReader,
 from spark_rapids_tpu_torch.utils import errors as uerr
 from spark_rapids_tpu_torch.utils import metrics as mt
 
-_TCP_TRANSPORT = "spark_rapids_tpu_torch.shuffle.tcp.TcpTransport"
+_TCP_TRANSPORT = "spark_rapids_tpu_torch.shuffle.tcp_port.TcpTransport"
 
 #: seconds a daemon has to connect back to its driver
 _START_TIMEOUT_S = 60.0

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -261,7 +262,30 @@ def reorder_tile_rows(L: int) -> int:
     return rows
 
 
-class _ReorderKernel:
+class _Counted:
+    """Launch counters safe under concurrent queries: each bump is one
+    step under a lock, and lands on the query bound to the launching
+    thread too (``QueryHandle`` metrics ``<prefix>_launches`` /
+    ``<prefix>_kept``), so a served query reads its own launches."""
+
+    PREFIX = ""
+
+    def __init__(self):
+        self._count_lock = threading.Lock()
+        self.launches = 0
+        self.kept = 0
+
+    def _bump(self, what: str) -> None:
+        from spark_rapids_tpu_torch.serving.lifecycle import current_query
+        q = current_query()
+        with self._count_lock:
+            setattr(self, what, getattr(self, what) + 1)
+            if q is not None:
+                key = f"{self.PREFIX}_{what}"
+                q.note_metric(key, q.metric(key, 0) + 1)
+
+
+class _ReorderKernel(_Counted):
     """ctypes binding of csrc/partition_reorder.cu. ``launches`` counts the
     calls of its entry point (and nothing else); each call runs two device
     kernels, the pids pre-pass and the reorder. ``kept`` counts the
@@ -269,22 +293,18 @@ class _ReorderKernel:
     did not hand the batch to the sort path)."""
 
     SOURCE = "partition_reorder.cu"
+    PREFIX = "reorder"
 
-    def __init__(self):
-        self.launches = 0
-        self.kept = 0
-        self._lib = None
+    @staticmethod
+    def _bind(lib: ctypes.CDLL) -> None:
+        lib.partition_reorder.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.partition_reorder.restype = ctypes.c_int
+        lib.partition_reorder_error.argtypes = [ctypes.c_int]
+        lib.partition_reorder_error.restype = ctypes.c_char_p
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = cuda_build.load(self.SOURCE)
-            lib.partition_reorder.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            lib.partition_reorder.restype = ctypes.c_int
-            lib.partition_reorder_error.argtypes = [ctypes.c_int]
-            lib.partition_reorder_error.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+        return cuda_build.load(self.SOURCE, self._bind)
 
     def __call__(self, pids: torch.Tensor, data: torch.Tensor,
                  geom: KernelGeom, tile_rows: Optional[int] = None
@@ -318,7 +338,7 @@ class _ReorderKernel:
             msg = lib.partition_reorder_error(err).decode()
             raise RuntimeError(f"partition_reorder launch failed: CUDA error "
                                f"{err} ({msg})")
-        self.launches += 1
+        self._bump("launches")
         return out, stats
 
 
@@ -360,7 +380,7 @@ def split_batch_kernel(batch: DeviceBatch, pids: torch.Tensor,
                                    geom)
     res = finalize_split(out, stats, spec, geom)
     if res is not None and out.device.type != "cpu":
-        REORDER_KERNEL.kept += 1
+        REORDER_KERNEL._bump("kept")
     return res
 
 
@@ -531,26 +551,23 @@ def dma_compact_plain(out: torch.Tensor, plan: CompactPlan,
     return compact
 
 
-class _CompactKernel:
+class _CompactKernel(_Counted):
     """ctypes binding of csrc/dma_compact.cu. ``launches`` counts the
     launches of the kernel (and nothing else)."""
 
     SOURCE = "dma_compact.cu"
+    PREFIX = "compact"
 
-    def __init__(self):
-        self.launches = 0
-        self._lib = None
+    @staticmethod
+    def _bind(lib: ctypes.CDLL) -> None:
+        lib.dma_compact.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.dma_compact.restype = ctypes.c_int
+        lib.dma_compact_error.argtypes = [ctypes.c_int]
+        lib.dma_compact_error.restype = ctypes.c_char_p
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = cuda_build.load(self.SOURCE)
-            lib.dma_compact.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            lib.dma_compact.restype = ctypes.c_int
-            lib.dma_compact_error.argtypes = [ctypes.c_int]
-            lib.dma_compact_error.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+        return cuda_build.load(self.SOURCE, self._bind)
 
     def __call__(self, out: torch.Tensor, plan: CompactPlan,
                  geom: KernelGeom) -> torch.Tensor:
@@ -571,7 +588,7 @@ class _CompactKernel:
             msg = lib.dma_compact_error(err).decode()
             raise RuntimeError(f"dma_compact launch failed: CUDA error {err} "
                                f"({msg})")
-        self.launches += 1
+        self._bump("launches")
         return compact
 
 

@@ -2,8 +2,8 @@
 
 The engine escalates a failure in three rungs: transfer retry
 (shuffle/retry.py), then a lineage-scoped stage recompute
-(parallel/cluster.py), then a whole-query failover (the serving layer,
-not ported yet). This module is the one place that writes down how each
+(parallel/cluster.py), then a whole-query failover (the serving
+client, serving/client.py). This module is the one place that writes down how each
 error class travels that ladder (retryable, permanent, cancellation or a
 signal a higher rung triages) and how it crosses a process boundary. The
 JAX package's linter (its rules R013-R015) reads the same markers
@@ -104,8 +104,6 @@ TAXONOMY: Tuple[ErrorSpec, ...] = (
               fields=("path", "expected", "actual"), ctor="fields",
               ladder_signal=True,
               doc="spill file failed checksum on unspill; buffer is lost"),
-    # the serving classes come with the serving layer: until its modules
-    # exist, a payload of theirs decodes as OpaqueWireError
     ErrorSpec("spark_rapids_tpu_torch.serving.client:WireQueryError",
               ESCALATION_SIGNAL, "WIRE_QUERY",
               fields=("batches_delivered", "retryable"), ctor="message+fields",

@@ -1345,3 +1345,114 @@ def test_cuda_executor_daemons_equal_cpu(cuda):
     assert all(p["peak_bytes"] > 0 for p in pongs), pongs
     want, _ = _cluster_q3("cpu", {})
     _same_rows(want, got)
+
+
+# ---------------------------------------------------------------- serving
+def _served_q1_session(extra=None):
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    return TpuSession({**BENCH_CONF, **(extra or {})})
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_submits_count_their_own_launches(cuda):
+    """Eight Q1 submits over lineitem hash 8 from four scheduler workers:
+    each result equals the single collect bit for bit, and each query's
+    reorder launches (counted on its handle) equal the single run's."""
+    from spark_rapids_tpu_torch.benchmarks.tpch import q1
+    sess = _served_q1_session(
+        {"spark.rapids.tpu.serving.maxConcurrentQueries": "4",
+         "spark.rapids.tpu.sql.concurrentTpuTasks": "2"})
+    li = sess.create_dataframe(gen_lineitem(0.05, 3)).repartition(
+        8, "l_orderkey")
+    before = tpk.REORDER_KERNEL.launches
+    want = q1(li).collect()
+    single = tpk.REORDER_KERNEL.launches - before
+    assert single >= 1
+    try:
+        handles = [sess.submit(q1(li), tenant=f"t{i % 2}")
+                   for i in range(8)]
+        for h in handles:
+            got = h.result(timeout=300)
+            assert got.num_rows == want.num_rows
+            for a, b in zip(got.columns, want.columns):
+                assert np.array_equal(a.data, b.data)
+            assert h.metric("reorder_launches") == single
+        assert tpk.REORDER_KERNEL.launches - before == 9 * single
+        dm = DeviceManager.peek()
+        assert dm.semaphore.active_holders == 0
+        assert list(dm.catalog.ids()) == []
+    finally:
+        sess.scheduler.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_first_kernel_load_from_two_threads_runs_nvcc_once(
+        cuda, tmp_path, monkeypatch):
+    """A fresh build directory and a fresh program cache: two threads load
+    the compact kernel's library at once, ``nvcc`` runs once, and both
+    get the same bound library."""
+    import subprocess
+    import threading
+    from spark_rapids_tpu_torch import cuda_build
+    from spark_rapids_tpu_torch.serving import program_cache as ppc
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_PATHS", {})
+    monkeypatch.setattr(ppc, "_GLOBAL", ppc.ProgramCache(index_path="off"))
+    runs, real = [], subprocess.run
+
+    def counted(cmd, **kw):
+        runs.append(cmd)
+        return real(cmd, **kw)
+    monkeypatch.setattr(cuda_build.subprocess, "run", counted)
+    libs = []
+    ths = [threading.Thread(
+        target=lambda: libs.append(tpk.COMPACT_KERNEL.load()))
+        for _ in range(2)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(300)
+    assert len(runs) == 1 and len(libs) == 2 and libs[0] is libs[1]
+    assert libs[0].dma_compact.restype is not None
+
+
+@pytest.mark.cuda
+def test_cuda_preemption_parks_and_admits_the_starved_tenant(cuda):
+    """One permit, preemption and parking on: a whale of many batches over
+    lineitem hash 8 yields to an interactive tenant's Q6, which finishes
+    first; both equal their single runs; nothing is left held."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.benchmarks.tpch import q1
+    sess = _served_q1_session(
+        {"spark.rapids.tpu.sql.concurrentTpuTasks": "1",
+         "spark.rapids.tpu.serving.maxConcurrentQueries": "2",
+         "spark.rapids.tpu.serving.preemption.enabled": "true",
+         "spark.rapids.tpu.serving.preemption.starvationMs": "5",
+         "spark.rapids.tpu.serving.preemption.parkSpillable": "true"})
+    li = sess.create_dataframe(gen_lineitem(0.2, 5))
+    whale = q1(li.repartition(64).repartition(8, "l_orderkey"))
+    inter = li.filter(F.col("l_quantity") < 24).agg(
+        F.sum(F.col("l_extendedprice") * F.col("l_discount")).alias("r"))
+    want_w, want_i = whale.collect(), inter.collect()
+    try:
+        import time
+        wh = sess.submit(whale, tenant="whale")
+        deadline = time.monotonic() + 60
+        while (DeviceManager.peek() is None
+               or DeviceManager.peek().semaphore.active_holders == 0):
+            assert time.monotonic() < deadline, "the whale never ran"
+            time.sleep(0.001)
+        ih = sess.submit(inter, tenant="interactive")
+        got_i = ih.result(timeout=300)
+        got_w = wh.result(timeout=300)
+        for got, want in ((got_w, want_w), (got_i, want_i)):
+            for a, b in zip(got.columns, want.columns):
+                assert np.array_equal(a.data, b.data)
+        assert wh.snapshot()["preemptions"] >= 1
+        assert ih.snapshot()["wall_s"] < wh.snapshot()["wall_s"]
+        dm = DeviceManager.peek()
+        assert dm.semaphore.active_holders == 0
+        assert list(dm.catalog.ids()) == []
+    finally:
+        sess.scheduler.shutdown()

@@ -23,9 +23,13 @@ import importlib, pkgutil, sys
 import spark_rapids_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__,
                                               port.__name__ + ".")]
-# the file-scan package and the test-data generator read through pyarrow:
-# imported last, below
-PA = ("spark_rapids_tpu_torch.io.", "spark_rapids_tpu_torch.datagen")
+# the file-scan package, the test-data generator and the serving wire's
+# modules (Arrow IPC) read through pyarrow: imported last, below
+PA = ("spark_rapids_tpu_torch.io.", "spark_rapids_tpu_torch.datagen",
+      "spark_rapids_tpu_torch.serving.wire",
+      "spark_rapids_tpu_torch.serving.client",
+      "spark_rapids_tpu_torch.serving.server",
+      "spark_rapids_tpu_torch.serving.controller")
 for m in mods:
     if not m.startswith(PA):
         importlib.import_module(m)
@@ -48,6 +52,11 @@ import os
 assert FusedAggregateStageExec in kinds, kinds
 assert PipelinedExec in kinds or (os.cpu_count() or 1) < 2, kinds
 assert peek_cache().hits >= 1
+# serving in process: two tenants' submits of Q1 through the scheduler
+handles = [sess.submit(q1(li), tenant=t) for t in ("a", "b")]
+assert [h.result(60).num_rows for h in handles] == [6, 6]
+assert all(h.snapshot()["state"] == "DONE" for h in handles)
+sess.scheduler.shutdown()
 from spark_rapids_tpu_torch.benchmarks import tpch_data as td
 from spark_rapids_tpu_torch.benchmarks.tpch_queries import q3
 dfs = {k: sess.create_dataframe(g(0.002, 1)) for k, g in (
@@ -202,7 +211,8 @@ def _clean_env():
 
 def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     """Every module imports, and TPC-H Q1 (also through the default path's
-    fused aggregate, pipelined upload and scan cache), Q3, Q13 and Q22,
+    fused aggregate, pipelined upload and scan cache, and submitted by two
+    tenants through the session's scheduler), Q3, Q13 and Q22,
     the TPCx-BB queries through the slice-7 modules (q2, q18, q20, q22,
     q23, q28), TPC-H Q6's SQL text through ``TpuSession.sql``, Q3 forced
     out of core (memory/grace.py), Q1 over a cached DataFrame
@@ -212,8 +222,9 @@ def test_port_imports_and_runs_q1_without_jax_or_pyarrow():
     two cluster executors in the process over TCP and on two executor
     daemons (neither daemon loading jax or the JAX package) run, with
     no jax, nothing of the JAX package and no pyarrow loaded; the file
-    modules (io/: the scans and the writers) and the test-data generator
-    (datagen.py), imported after, load pyarrow but neither jax nor the JAX
+    modules (io/: the scans and the writers), the test-data generator
+    (datagen.py) and the serving wire's modules (wire, client, server,
+    controller), imported after, load pyarrow but neither jax nor the JAX
     package, while Q1 runs from parquet, from partitioned ORC and from CSV
     files the port wrote."""
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
@@ -247,8 +258,12 @@ def test_no_jax_or_reference_imports(path):
     mods = list(_imports(path))
     assert not [m for m, _ in mods if m in FORBIDDEN], path
     # pyarrow only inside the functions that convert at the edge, and in
-    # the file-scan package and the test-data generator, which build on it
-    if PORT / "io" not in path.parents and path != PORT / "datagen.py":
+    # the file-scan package, the test-data generator and the serving
+    # wire's modules, which build on it
+    wire = {PORT / "serving" / f"{m}.py"
+            for m in ("wire", "client", "server", "controller")}
+    if PORT / "io" not in path.parents and path != PORT / "datagen.py" \
+            and path not in wire:
         assert not [m for m, top in mods if m == "pyarrow" and top], path
 
 

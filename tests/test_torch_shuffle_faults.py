@@ -369,23 +369,29 @@ def test_connect_retries_until_peer_registers(tmp_path):
 
 
 def test_killed_tcp_transport_leaves_a_dialed_socket_open(tmp_path):
-    """ROADMAP queue 3 item 11, in both packages (``shuffle/tcp.py`` is the
-    reference's text): when two TCP executors dialed each other, ``kill``
-    closes only the socket its peer table holds for the other, so a
-    receive the other posted on its own connection stays pending, and a
-    reader notices the death only at its fetch timeout."""
+    """ROADMAP queue 3 item 11: when two TCP executors dialed each other,
+    the reference's ``kill`` (``shuffle/tcp.py``, kept byte-equal in the
+    port) closes only the socket its peer table holds for the other, so a
+    receive the other posted on its own connection stays pending until
+    the fetch timeout. It still does in the JAX package and in the copy.
+    The port's transport (``shuffle/tcp_port.py``) closes every socket it
+    holds, and the pending receive fails at once with peer-lost."""
     from spark_rapids_tpu.config import TpuConf as JaxConf
     from spark_rapids_tpu.shuffle.tcp import TcpTransport as JaxTcp
     from spark_rapids_tpu.shuffle.transport import \
         AddressLengthTag as JaxAlt
-    from spark_rapids_tpu_torch.shuffle.tcp import TcpTransport
+    from spark_rapids_tpu_torch.shuffle import tcp, tcp_port
     from spark_rapids_tpu_torch.shuffle.transport import (AddressLengthTag,
                                                           TransactionStatus)
-    for tcp, conf, alt in ((TcpTransport, TpuConf, AddressLengthTag),
-                           (JaxTcp, JaxConf, JaxAlt)):
+    for transport, conf, alt in ((JaxTcp, JaxConf, JaxAlt),
+                                 (tcp.TcpTransport, TpuConf,
+                                  AddressLengthTag),
+                                 (tcp_port.TcpTransport, TpuConf,
+                                  AddressLengthTag)):
+        repaired = transport is tcp_port.TcpTransport
         c = conf({"spark.rapids.tpu.shuffle.tcp.registryDir":
-                  str(tmp_path / tcp.__module__)})
-        a, b = tcp("exec-a", c), tcp("exec-b", c)
+                  str(tmp_path / f"{transport.__module__}")})
+        a, b = transport("exec-a", c), transport("exec-b", c)
         try:
             ab = a.connect("exec-b")          # a dials b; b registers a
             deadline = time.monotonic() + 10
@@ -394,9 +400,17 @@ def test_killed_tcp_transport_leaves_a_dialed_socket_open(tmp_path):
                 time.sleep(0.01)
             b.connect("exec-a")               # b dials a: the entry b keeps
             rx = ab.receive(alt(bytearray(4), 4, tag=9), lambda t: None)
+            t0 = time.monotonic()
             b.kill()
-            with pytest.raises(TimeoutError):
+            if repaired:
                 rx.wait(1.0)
-            assert rx.status.value == TransactionStatus.IN_PROGRESS.value
+                assert time.monotonic() - t0 < 1.0
+                assert rx.status.value == TransactionStatus.ERROR.value
+                assert "lost" in rx.error_message
+            else:
+                with pytest.raises(TimeoutError):
+                    rx.wait(1.0)
+                assert rx.status.value == \
+                    TransactionStatus.IN_PROGRESS.value
         finally:
             a.shutdown()
