@@ -300,9 +300,9 @@ Phases:
      (counted on its handle), printing its queue and admission waits,
      wall, launches and those kept; a Q3 cancelled while RUNNING; a query
      with a 1 ms deadline (QueryTimeoutError); preemption on one device
-     permit (an interactive tenant's Q1 reaches the card before the
-     whale's running Q3 ends; the whale yields at least once; both
-     equal); a traced Q3 whose EXPLAIN ANALYZE names every executed exec
+     permit with the pipeline on (tenant "z-interactive"'s Q1 reaches the
+     card before tenant "a-whale"'s running Q3 ends, though its name
+     sorts last; the whale yields at least once; both equal); a traced Q3 whose EXPLAIN ANALYZE names every executed exec
      with rows and batches and whose Chrome export holds a span per exec;
      after each part no semaphore holder and an empty shuffle catalog.
      22b, two in-process QueryServers over one session with
@@ -317,6 +317,15 @@ Phases:
      process's run, its kernel counts read through serve.stats, then
      SIGKILL; it restarts on its backoff while 22a and 22b run, and Q1
      again is equal.
+ 23. The runtime around the card (phase_runtime, at most 15 s):
+     ``python -m spark_rapids_tpu_torch.discovery`` lists the card's
+     address, two exclusive claims in a temporary lock directory do not
+     collide, the store's arena and spill queue are the native C++ ones
+     built by g++ on this host, Q1 over phase 9's lineitem with the scan
+     cache off publishes session.last_metrics with the query's rows at its
+     root, the lineitem's at its scans and a non-zero
+     transfer.upload_bytes, and both kernel libraries' names (their
+     program-cache keys) carry shims.get().identity().
 
 Phases 9-11 and 13 print, per query, the operators that went out of core
 and the bytes spilled to the host and to disk. TPC-DS q72, which ran out
@@ -359,8 +368,9 @@ Q1 output write's, phase 21's cluster launches, phase 22's served
 queries' (22a's counted on each query's handle, 22b's around each wire
 query; the replica process's under its paths), phase 7's reading on Q3's
 inputs, phase 3's at Q1's
-lineitem shape, and every path's launches under launches_by_path; then as its last
-line
+lineitem shape, and every path's launches under launches_by_path; then
+the phases' total beside the card's name and power limit, the card's
+line, and as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line.
 
@@ -5519,9 +5529,13 @@ def serving_in_process(specs, wants, singles):
                       "spark.rapids.tpu.sql.concurrentTpuTasks": "1",
                       "spark.rapids.tpu.serving.preemption.enabled": "true",
                       "spark.rapids.tpu.serving.preemption.starvationMs":
-                          "10"})
+                          "10",
+                      "spark.rapids.tpu.transfer.pipeline.enabled": "true"})
     from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
-    wh = pre.submit(q3(pre), tenant="whale", label="q3 whale")
+    # the starved tenant's name sorts last: the yield hands it the permit
+    # all the same (a yielder loses the fair-share tie), and the pipeline
+    # is on, so the whale's consumer yields while it waits on its producer
+    wh = pre.submit(q3(pre), tenant="a-whale", label="q3 whale")
     deadline = time.monotonic() + 120
     while DeviceManager.peek() is None or \
             DeviceManager.peek().semaphore.max_concurrent != 1 or \
@@ -5530,7 +5544,8 @@ def serving_in_process(specs, wants, singles):
             raise AssertionError("the whale finished before it was "
                                  "preempted")
         time.sleep(0.0005)
-    ih = pre.submit(q1(pre), tenant="interactive", label="q1 interactive")
+    ih = pre.submit(q1(pre), tenant="z-interactive",
+                    label="q1 interactive")
     _served("serving 22a preemption q1 interactive", ih, wants["q1"], False)
     _served("serving 22a preemption q3 whale", wh, wants["q3"], q3_ties)
     ws, is_ = wh.snapshot(), ih.snapshot()
@@ -5702,6 +5717,107 @@ def replica_query(addr, want, label):
           f"serve.stats: reorder_launches={n[0]} launches_kept={n[1]} "
           f"compact_launches={n[2]}; equal to this process's run")
     return n
+
+
+# ------------------------------------------------------------------ phase 23
+#: phase 23's bound: it adds no depth, only checks of the runtime
+PHASE23_BOUND_S = 15.0
+
+
+def phase_runtime(tables, tpch_results):
+    """Phase 23, the runtime around the card: the discovery script lists
+    the card, two claims in a temporary lock directory do not collide, the
+    store runs on the native C++ runtime built by g++ here, Q1 over phase
+    9's lineitem (scan cache off, so it uploads) publishes
+    ``last_metrics`` with the query's rows at its root and the lineitem's
+    at its scans and a non-zero upload, and both kernel libraries' names
+    (their program-cache keys) carry this toolchain's identity."""
+    import hashlib
+    import torch
+    from spark_rapids_tpu_torch import cuda_build, discovery, native, shims
+    from spark_rapids_tpu_torch.api import TpuSession
+    from spark_rapids_tpu_torch.benchmarks.tpch import BENCH_CONF
+    from spark_rapids_tpu_torch.memory.device_manager import DeviceManager
+    from spark_rapids_tpu_torch.serving.program_cache import \
+        global_program_cache
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "spark_rapids_tpu_torch.discovery"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    doc = json.loads(out.stdout.strip().splitlines()[-1]) \
+        if out.returncode == 0 else None
+    want = {"name": "gpu",
+            "addresses": [str(i) for i in range(torch.cuda.device_count())]}
+    if doc != want:
+        raise AssertionError(f"discovery printed {out.stdout!r} "
+                             f"{out.stderr!r}, not {want}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_locks_") as d:
+        a = discovery.acquire_exclusive(lock_dir=d)
+        b = discovery.acquire_exclusive(lock_dir=d)
+        try:
+            if a is None or (b is not None and b.address == a.address) or \
+                    (b is None) != (len(want["addresses"]) == 1):
+                raise AssertionError(f"claims collided: {a} {b}")
+        finally:
+            for c in (a, b):
+                if c is not None:
+                    c.release()
+    print(f"runtime 23 discovery: {json.dumps(doc)}; claims {a.address} "
+          f"and {None if b is None else b.address}")
+    sess = TpuSession({**BENCH_CONF,
+                       "spark.rapids.tpu.sql.scanCache.enabled": "false"})
+    build = next(s[1] for s in tpch_specs(tables) if s[0] == "q1")
+    res = build(sess).collect()
+    torch.cuda.synchronize()
+    m = sess.last_metrics
+    execs = {k: v for k, v in m.items() if ":" in k}
+    root = execs[next(iter(execs))]["numOutputRows"]
+    scans = sum(v["numOutputRows"] for k, v in execs.items()
+                if k.endswith(":CpuLocalScanExec"))
+    upload = m["transfer"]["transfer.upload_bytes"]
+    if res.num_rows != tpch_results["q1"].num_rows or \
+            root != res.num_rows or \
+            scans != tables["lineitem"].num_rows or upload <= 0:
+        raise AssertionError(f"q1 metrics: rows {res.num_rows}, root "
+                             f"{root}, scans {scans} of "
+                             f"{tables['lineitem'].num_rows}, upload "
+                             f"{upload} B")
+    dm = DeviceManager.peek()
+    host, dev = dm.host_store, dm.device_store
+    lib = native.library_path()
+    if not (isinstance(host.arena, native.AddressSpaceAllocator)
+            and isinstance(dev._spill_queue, native.HashedPriorityQueue)
+            and lib.exists()):
+        raise AssertionError(f"the store's runtime: {type(host.arena)} "
+                             f"{type(dev._spill_queue)} {lib}")
+    print(f"runtime 23 q1 (scan cache off): {res.num_rows} rows at the "
+          f"root, {scans} at the scans, {len(execs)} execs, "
+          f"{upload} B uploaded in "
+          f"{m['transfer']['transfer.upload_chunks']} chunks at "
+          f"{m['transfer']['transfer.upload_gb_per_sec']} GB/s, "
+          f"{m['transfer']['transfer.download_bytes']} B downloaded; the "
+          f"store's arena and spill queue from {lib.name}")
+    ident = shims.get().identity()
+    keys = set(global_program_cache()._programs)
+    for src in ("partition_reorder.cu", "dma_compact.cu"):
+        h = hashlib.sha256((cuda_build.CSRC_DIR / src).read_bytes())
+        h.update("\0".join(cuda_build.NVCC_FLAGS).encode())
+        h.update(b"\0" + ident.encode())
+        name = f"{src.rsplit('.', 1)[0]}-{h.hexdigest()[:16]}.so"
+        if cuda_build.library_path(src).name != name or \
+                ("cuda_library", src, name) not in keys:
+            raise AssertionError(f"{src}: library "
+                                 f"{cuda_build.library_path(src).name}, "
+                                 f"not {name} for {ident}")
+    print(f"runtime 23 kernel libraries keyed by {ident}")
+    del sess
+    release_device()
+    secs = time.perf_counter() - t0
+    print(f"phase 23 runtime: {secs:.2f} s against the bound of "
+          f"{PHASE23_BOUND_S:.0f} s")
+    if secs > PHASE23_BOUND_S:
+        raise AssertionError(f"phase 23 took {secs:.2f} s")
 
 
 def phase_serving(tables, tpch_nums, tpch_results, sup, seed):
@@ -6099,6 +6215,7 @@ def main() -> int:
         print(f"gpu: {gpu_line()}")
         return 0
     clock = [time.perf_counter()]
+    phases_t0 = clock[0]
 
     def phase_done(name):
         now = time.perf_counter()
@@ -6299,12 +6416,14 @@ def main() -> int:
     phase_done("21 cluster")
     serving = phase_serving(tpch_sf_tables, tpch, tpch_results, replica,
                             args.seed)
-    del tpch_sf_tables
     for path, n in serving.items():
         by_path[path] = {"reorder": n[0]}
         if n[2]:
             by_path[path]["compact"] = n[2]
     phase_done("22 serving")
+    phase_runtime(tpch_sf_tables, tpch_results)
+    del tpch_sf_tables
+    phase_done("23 runtime")
     # this slice's main path is the 99 TPC-DS queries and q5 (phase 10):
     # the reorder's launches summed over their cold runs (launches_kept:
     # those whose output the exchange used) and the compact kernel's in
@@ -6394,7 +6513,9 @@ def main() -> int:
             ("launches", "launches_kept"), readings[name]["serving"]))
         records.append(record)
     print(json.dumps({"kernels": records}))
-    print(f"gpu: {gpu_line()}")
+    gpu = gpu_line()
+    print(f"phases 2-23: {time.perf_counter() - phases_t0:.2f} s on {gpu}")
+    print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

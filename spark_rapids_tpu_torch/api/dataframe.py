@@ -627,11 +627,11 @@ class DataFrame:
         if trace:
             scopes.enter_context(_tracing.TRACER.activate())
         trace_mark = _tracing.TRACER.mark()
+        transfer_before = um.transfer_snapshot()
         memory_before = um.memory_snapshot()
         serving_before = um.serving_snapshot()
         recompute_before = um.recompute_snapshot()
-        from spark_rapids_tpu_torch.plan import adaptive
-        adaptive_before = adaptive.counters()
+        adaptive_before = um.adaptive_snapshot()
         t_wall = time.perf_counter()
         t_admit_ns = time.perf_counter_ns()
         cleanups: List = []
@@ -676,6 +676,9 @@ class DataFrame:
                             if emit is not None:
                                 emit(b)
                             continue
+                        # the download transition is not executed: its
+                        # output is each batch the streamed downloads take
+                        final.count_output(b.num_rows)
                         pending.append(start(b))
                         while len(pending) > max_inflight:
                             out.append(pending.pop(0).result())
@@ -696,17 +699,25 @@ class DataFrame:
                 self.session.last_action_wall_s = (time.perf_counter()
                                                    - t_wall)
                 scopes.close()
-            if query is not None and conf.get(cfg.METRICS_ENABLED):
-                # the served query's record of the action (the session's
-                # last_metrics keeps the cluster action's counters only)
-                after = adaptive.counters()
-                query.record_exec_metrics({
-                    "memory": um.memory_delta(
-                        memory_before, recursion_peak=depth_holder.peak),
-                    "serving": um.serving_delta(serving_before),
-                    "shuffle": um.recompute_delta(recompute_before),
-                    "adaptive": {k: after[k] - adaptive_before.get(k, 0)
-                                 for k in after}})
+            if conf.get(cfg.METRICS_ENABLED):
+                # the whole record is built first and published with one
+                # store, so a reader never sees another action's half: one
+                # entry per exec of the executed plan (pre-order, the keys
+                # of plan_id), then the action's deltas of the
+                # process-global sections (under concurrent actions a
+                # delta includes an overlapping action's traffic; the
+                # recursion peak is the action's own)
+                snap = {f"{i}:{nd.name}": nd.metrics.snapshot()
+                        for i, nd in enumerate(final.walk())}
+                snap["transfer"] = um.transfer_delta(transfer_before)
+                snap["memory"] = um.memory_delta(
+                    memory_before, recursion_peak=depth_holder.peak)
+                snap["serving"] = um.serving_delta(serving_before)
+                snap["shuffle"] = um.recompute_delta(recompute_before)
+                snap["adaptive"] = um.adaptive_delta(adaptive_before)
+                if query is not None:
+                    query.record_exec_metrics(snap)
+                self.session.last_metrics = snap
             if trace:
                 # the action's span window, and its Chrome export (the
                 # file is rewritten per action)

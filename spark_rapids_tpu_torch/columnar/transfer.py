@@ -26,6 +26,12 @@ CUDA event; ``PendingDownload.result()`` waits for that event only.
 ``download_arrow`` lays a batch out for arrow on the device first (validity
 and booleans bit-packed, strings compacted to offsets and bytes), so the
 host only wraps the copied buffers: the file writers' download.
+
+Both directions count into the process's ``transfer.*`` counters
+(``utils/metrics.py``), as the JAX package's do: the device bytes, the
+host's seconds in the call (an upload's wall does not wait for its copies;
+a download's is its wait for them), the chunks and the in-flight peak, and
+the staged bytes beside their decoded equivalent.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.columnar.dtypes import DType, bucket_capacity
 from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+from spark_rapids_tpu_torch.utils import metrics as um
 
 
 def to_device(arr: np.ndarray, cap: int, device: torch.device) -> torch.Tensor:
@@ -79,6 +86,22 @@ def _columns(hb: HostBatch, tensors: List[List[torch.Tensor]]
              ) -> DeviceBatch:
     cols = [DeviceColumn(f.dtype, *ts) for f, ts in zip(hb.schema, tensors)]
     return DeviceBatch(hb.schema, tuple(cols), hb.num_rows)
+
+
+def _count_upload(outs: List[torch.Tensor], t_start: float, chunks: int,
+                  peak: int) -> None:
+    m = um.TRANSFER_METRICS
+    m[um.TRANSFER_UPLOAD_BYTES].add(sum(t.numel() * t.element_size()
+                                        for t in outs))
+    m[um.TRANSFER_UPLOAD_SECONDS].add(time.perf_counter() - t_start)
+    m[um.TRANSFER_UPLOAD_CHUNKS].add(chunks)
+    m[um.TRANSFER_INFLIGHT_PEAK].set_max(peak)
+
+
+def _count_staged(encoded: int, decoded: int) -> None:
+    m = um.TRANSFER_METRICS
+    m[um.TRANSFER_ENCODED_BYTES].add(encoded)
+    m[um.TRANSFER_DECODED_EQUIV_BYTES].add(decoded)
 
 
 def upload(hb: HostBatch, device: torch.device,
@@ -169,8 +192,13 @@ def upload_table(hb: HostBatch, device: torch.device, chunk_rows: int = 0,
     every copy hides behind the staging) and inflight_high_water."""
     t_start = time.perf_counter()
     bounds = chunk_bounds(hb, chunk_rows)
+    staged = sum(a.nbytes for bufs in _host_buffers(hb) for a in bufs)
+    _count_staged(staged, staged)
     if len(bounds) < 2:
         out = upload(hb, device, capacity)
+        _count_upload([t for c in out.columns
+                       for t in (c.data, c.validity, c.lengths)
+                       if t is not None], t_start, 1, 1)
         if stats is not None:
             _finish(device)
             wall = time.perf_counter() - t_start
@@ -198,6 +226,7 @@ def _upload_rows(host: List[np.ndarray], n: int, cap: int,
     t_start = time.perf_counter() if t_start is None else t_start
     if len(bounds) < 2 and device.type != "cuda":
         outs = [to_device(a, cap, device) for a in host]
+        _count_upload(outs, t_start, 1, 1)
         if stats is not None:
             _finish(device)
             wall = time.perf_counter() - t_start
@@ -242,6 +271,7 @@ def _upload_rows(host: List[np.ndarray], n: int, cap: int,
             events[k].record()
             inflight += 1
             peak = max(peak, inflight)
+    _count_upload(outs, t_start, len(bounds), max(peak, 1))
     if stats is not None:
         _finish(device)
         wall = time.perf_counter() - t_start
@@ -382,6 +412,7 @@ def upload_arrow(table, device: torch.device, string_max_bytes: int = 256,
         dec_bytes += nb
     ce.count("encoded_bytes", enc_bytes)
     ce.count("decoded_equivalent_bytes", dec_bytes)
+    _count_staged(enc_bytes, dec_bytes)
     outs = _upload_rows(rows, n, cap, device,
                         _bounds(n, ends_at, chunk_rows), max_inflight)
     alive = torch.arange(cap, device=device) < n
@@ -436,14 +467,24 @@ def upload_arrow_conf(table, device: torch.device, conf) -> DeviceBatch:
                         max_inflight=conf.get(cfg.TRANSFER_MAX_INFLIGHT))
 
 
+def _count_download(nbytes: int, t0: float) -> None:
+    m = um.TRANSFER_METRICS
+    m[um.TRANSFER_DOWNLOAD_BYTES].add(nbytes)
+    m[um.TRANSFER_DOWNLOAD_SECONDS].add(time.perf_counter() - t0)
+
+
 def download(batch: DeviceBatch) -> HostBatch:
     """DeviceBatch -> HostBatch of the live rows."""
+    t0 = time.perf_counter()
     n = batch.num_rows
     cols = []
     for c in batch.columns:
         lengths = c.lengths[:n].cpu().numpy() if c.lengths is not None else None
         cols.append(HostColumn(c.dtype, c.data[:n].cpu().numpy(),
                                c.validity[:n].cpu().numpy(), lengths))
+    _count_download(sum(a.nbytes for c in cols
+                        for a in (c.data, c.validity, c.lengths)
+                        if a is not None), t0)
     return HostBatch(batch.schema, tuple(cols), n)
 
 
@@ -479,8 +520,10 @@ class PendingDownload:
         return self._num_rows
 
     def result(self) -> HostBatch:
+        t0 = time.perf_counter()
         if self._event is not None:
             self._event.synchronize()
+        _count_download(self.nbytes, t0)
         cols = [HostColumn(f.dtype, d.numpy(), v.numpy(),
                            None if ln is None else ln.numpy())
                 for f, (d, v, ln) in zip(self._schema, self._cols)]
@@ -561,8 +604,12 @@ class PendingArrowDownload:
         import pyarrow as pa
 
         from spark_rapids_tpu_torch.columnar.host import _arrow_type
+        t0 = time.perf_counter()
         if self._event is not None:
             self._event.synchronize()
+        _count_download(sum(t.numel() * t.element_size()
+                            for bufs in self._host for t in bufs
+                            if t is not None), t0)
         n = self._num_rows
 
         def wrap(t):

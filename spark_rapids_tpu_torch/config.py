@@ -391,8 +391,11 @@ CONCURRENT_TPU_TASKS = _conf(
 
 METRICS_ENABLED = _conf(
     "metrics.enabled", bool, True,
-    "Record an action's counters in ``session.last_metrics`` (on the "
-    "cluster path: its lineage-recompute counters).")
+    "Publish an action's counters as ``session.last_metrics`` (and on a "
+    "served query's handle): each exec's output rows and batches, then the "
+    "action's transfer, memory, serving, shuffle and adaptive sections; on "
+    "the cluster path its lineage-recompute counters only. The analog of "
+    "SQLMetrics.")
 
 
 # ------------------------------------------------------------- the cluster
@@ -1176,3 +1179,39 @@ class TpuConf:
     @property
     def shuffle_faults_transport_class(self) -> str:
         return self.get(SHUFFLE_FAULTS_TRANSPORT)
+
+
+def all_entries():
+    return sorted(_REGISTRY.values(), key=lambda e: e.key)
+
+
+def generate_docs() -> str:
+    """The markdown reference of every key the port declares (the JAX
+    package's ``config.generate_docs``, RapidsConf.help's analog):
+    ``python -m spark_rapids_tpu_torch.config docs/configs-torch.md``
+    writes it, and ``python -m spark_rapids_tpu_torch.analysis
+    --check-configs`` fails while that file differs."""
+    lines = [
+        "# Configuration of the PyTorch/CUDA port",
+        "",
+        "The keys `spark_rapids_tpu_torch` reads, under the JAX package's "
+        "names. Generated by `python -m spark_rapids_tpu_torch.config`.",
+        "",
+        "| Name | Description | Default |",
+        "|---|---|---|",
+    ]
+    for entry in all_entries():
+        doc = " ".join(entry.doc.split()).replace("|", "\\|")
+        lines.append(f"| {entry.key} | {doc} | {entry.default} |")
+    lines.append("")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    import sys
+    text = generate_docs()
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w", encoding="utf-8") as f:
+            f.write(text)
+    else:
+        print(text)

@@ -14,6 +14,9 @@ import torch
 from spark_rapids_tpu_torch.columnar.dtypes import Schema
 from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.utils import tracing as _tracing
+from spark_rapids_tpu_torch.utils.metrics import (MetricSet,
+                                                  NUM_OUTPUT_BATCHES,
+                                                  NUM_OUTPUT_ROWS, TOTAL_TIME)
 
 
 def _traced_execute(raw):
@@ -21,14 +24,36 @@ def _traced_execute(raw):
     only cost is one bool read; on, each pull is timed (self against child
     time) and shows as a named ``torch.profiler`` range, and the observed
     rows, batches and bytes accumulate for EXPLAIN ANALYZE. On a GPU the
-    times are the host's launch times (utils/tracing.py)."""
+    times are the host's launch times (utils/tracing.py).
+
+    The hook also counts the exec's output (``numOutputRows``,
+    ``numOutputBatches``): every batch its ``execute`` yields, the JAX
+    package's ``count_output`` at each of its yields. Only the class's own
+    ``execute`` counts: a subclass's that delegates to this one through
+    ``super()`` is counted once, by its own hook."""
     @functools.wraps(raw)
     def execute(self, ctx):
-        if not _tracing.TRACER.on:
-            return raw(self, ctx)
-        return _tracing.trace_exec(self, ctx, raw)
+        it = (raw(self, ctx) if not _tracing.TRACER.on
+              else _tracing.trace_exec(self, ctx, raw))
+        if type(self).execute is not execute:
+            return it
+        return _counted(self, it)
     execute._tpu_trace_hook = True
     return execute
+
+
+def _counted(node: "PhysicalExec", it) -> Iterator:
+    try:
+        for b in it:
+            node.count_output(b.num_rows)
+            yield b
+    finally:
+        # a consumer that stops early closes this generator; close the
+        # inner one now too, so its finally blocks (producer joins,
+        # semaphore releases) run at once and not when gc frees it
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 class ExecContext:
@@ -160,6 +185,12 @@ class PhysicalExec:
     def __init__(self, children: Sequence["PhysicalExec"], output: Schema):
         self.children: Tuple[PhysicalExec, ...] = tuple(children)
         self.output = output
+        self.metrics = MetricSet(NUM_OUTPUT_ROWS, NUM_OUTPUT_BATCHES,
+                                 TOTAL_TIME)
+
+    def count_output(self, num_rows: int) -> None:
+        self.metrics[NUM_OUTPUT_ROWS].add(num_rows)
+        self.metrics[NUM_OUTPUT_BATCHES].add(1)
 
     @property
     def name(self) -> str:

@@ -62,6 +62,7 @@ from spark_rapids_tpu_torch.shuffle.table_meta import (DevicePackLayout,
                                                        batch_string_max,
                                                        layout_to_meta,
                                                        uniform_string_batch)
+from spark_rapids_tpu_torch.utils import metrics as um
 
 
 # ------------------------------------------------------------------ partitionings
@@ -273,6 +274,18 @@ def _compute_pids(part: Partitioning, cap: int, offset: int,
     raise NotImplementedError(type(part).__name__)
 
 
+def _host_colv(v: ColV) -> ColV:
+    """A sampled key column's copy on the host: the designed read of a
+    range partitioning's sample (at most ``_SAMPLE_TARGET`` rows in all),
+    whose bounds are picked there."""
+    lengths = v.lengths
+    if lengths is not None:
+        # the sample's rows only  # tpu-lint: disable=R002
+        lengths = lengths.cpu()
+    # the sample's rows only  # tpu-lint: disable=R002
+    return ColV(v.dtype, v.data.cpu(), v.validity.cpu(), lengths)
+
+
 # ------------------------------------------------------------------ sort path
 def pid_order(pids: torch.Tensor, num_rows: int,
               n: int) -> Tuple[torch.Tensor, List[int]]:
@@ -282,6 +295,9 @@ def pid_order(pids: torch.Tensor, num_rows: int,
     key = torch.where(bk.alive_mask(cap, num_rows, pids.device), pids, n)
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key.to(torch.int64), minlength=n + 1)[:n]
+    # the designed one read of n counts per split: the pieces are sliced
+    # at host offsets
+    # tpu-lint: disable=R002
     return order, counts.tolist()
 
 
@@ -458,6 +474,9 @@ class ShuffleExchangeExecBase(PhysicalExec):
 
     def _init_map_state(self) -> None:
         self._lock = threading.Lock()
+        #: guards what the map side's splits count and sketch: a cluster's
+        #: task slots split one exchange's batches on several threads
+        self._stats_lock = threading.Lock()
         self._map_done = False
         #: rows written per reduce partition
         self._part_rows: Dict[int, int] = {}
@@ -472,7 +491,8 @@ class ShuffleExchangeExecBase(PhysicalExec):
         # cluster tasks receive pickled exchanges: the map state (its lock,
         # its statistics, the sketches still on the device) is per process
         state = dict(self.__dict__)
-        for k in ("_lock", "_map_done", "_part_rows", "_map_part_rows",
+        for k in ("_lock", "_stats_lock", "_map_done", "_part_rows",
+                  "_map_part_rows",
                   "_key_sketches", "_pending_sketches"):
             state.pop(k, None)
         return state
@@ -547,15 +567,21 @@ class ShuffleExchangeExecBase(PhysicalExec):
         map side has run). The batch's live rows are the union of its
         pieces, so this equals sketching every piece."""
         if num_rows > 0 and hashes:
-            self._pending_sketches.append(torch.stack(
-                [_kmv_candidates(h[:num_rows]) for h in hashes]))
+            cand = torch.stack([_kmv_candidates(h[:num_rows])
+                                for h in hashes])
+            with self._stats_lock:
+                self._pending_sketches.append(cand)
 
     def _fold_sketches(self) -> None:
         """One download of every batch's candidates, merged per key."""
-        if not self._pending_sketches:
+        with self._stats_lock:
+            pending, self._pending_sketches = self._pending_sketches, []
+        if not pending:
             return
-        cand = torch.stack(self._pending_sketches).cpu().numpy()
-        self._pending_sketches = []
+        # the designed read: every batch's candidates in one download, once
+        # per map side
+        # tpu-lint: disable=R002
+        cand = torch.stack(pending).cpu().numpy()
         pools = self._key_sketches or [np.zeros(0, dtype=np.uint32)
                                        for _ in range(cand.shape[1])]
         for ki, pool in enumerate(pools):
@@ -707,9 +733,7 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
             ectx = eval_ctx(db, ctx)
             keys = [bk.as_column(o.child.eval(ectx), db.capacity)
                     for o in part.orders]
-            sampled.append([ColV(v.dtype, v.data.cpu(), v.validity.cpu(),
-                                 None if v.lengths is None
-                                 else v.lengths.cpu())
+            sampled.append([_host_colv(v)
                             for v in _sample_rows(keys, db.num_rows, per)])
         bounds = _sample_bounds(part.orders, sampled, part.num_partitions)
         if bounds is None:
@@ -762,16 +786,20 @@ class TpuShuffleExchangeExec(ShuffleExchangeExecBase):
         enc = _exchange_encodings(ctx, db)
         if enc and _encoded_split_preferred(ctx, part, db, enc):
             from spark_rapids_tpu_torch.columnar.encoding import count
-            self.encoded_splits += 1
+            with self._stats_lock:
+                self.encoded_splits += 1
             count("exchange_encoded_ops")
+            um.TRANSFER_METRICS[um.TRANSFER_EXCHANGE_ENCODED_OPS].add(1)
             return _split_encoded(db, pids, n, enc)
         if ctx.conf.get(cfg.SHUFFLE_KERNEL_MODE) != "off" and \
                 not isinstance(part, RangePartitioning):
             pieces = self._kernel_split(ctx, db, pids, n)
             if pieces is not None:
-                self.kernel_splits += 1
+                with self._stats_lock:
+                    self.kernel_splits += 1
                 return pieces
-        self.sort_path_splits += 1
+        with self._stats_lock:
+            self.sort_path_splits += 1
         sorted_cols, counts = split_by_pid(ectx.columns, pids, db.num_rows, n)
         pieces, start = [], 0
         for j, cnt in enumerate(counts):

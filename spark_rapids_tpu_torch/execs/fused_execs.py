@@ -25,9 +25,10 @@ XLA's common-subexpression pass does for the JAX package.
 
 Where the input batches kept dictionary encodings (plan/encoded.py marks
 ``encoded_domain_ok``), each variant's predicate is rewritten per batch onto
-the dictionaries (exprs/encoded.py), as a filter's is. The stages keep
-their ``fused_ops`` and a ``batches_not_materialized`` count as plain
-attributes (the JAX package's metrics are not ported).
+the dictionaries (exprs/encoded.py), as a filter's is. Each stage's
+metrics carry the JAX package's ``fusedOps`` (the operators collapsed into
+it) and ``batchesNotMaterialized`` (the intermediate batches the unfused
+chain would have built) beside every exec's output rows and batches.
 """
 from __future__ import annotations
 
@@ -42,6 +43,12 @@ from spark_rapids_tpu_torch.exprs.cse import (add_shared_columns,
                                               common_subexpressions)
 from spark_rapids_tpu_torch.ops import batch_kernels as bk
 from spark_rapids_tpu_torch.utils import tracing as _tracing
+
+#: per-stage metric: operators collapsed into this stage
+FUSED_OPS = "fusedOps"
+#: per-stage metric: intermediate batches that never materialized (one per
+#: interior operator output the unfused chain would have built)
+FUSED_BATCHES_SAVED = "batchesNotMaterialized"
 
 #: one variant of a fused stage: (output expressions, optional predicate),
 #: both over the stage's input schema. A chain without Expand has exactly
@@ -74,8 +81,7 @@ class FusedStageExec(PhysicalExec):
         #: to the stage's input batches; None without one
         self.coalesce = coalesce
         self.saved_per_batch = saved_per_batch
-        #: intermediate batches the unfused chain would have built
-        self.batches_not_materialized = 0
+        self.metrics[FUSED_OPS].add(len(self.fused_ops))
         # the subtrees the substitution repeated, evaluated once per batch
         flat = [x for exprs, pred in self.variants for x in exprs + (pred,)]
         self._shared, flat = common_subexpressions(flat,
@@ -145,7 +151,7 @@ class FusedStageExec(PhysicalExec):
                     self.encoded_batches += 1
                     te._count_encoded_op()
             alive = None
-            self.batches_not_materialized += self.saved_per_batch
+            self.metrics[FUSED_BATCHES_SAVED].add(self.saved_per_batch)
             for exprs, pred in evaluated:
                 outs = [bk.as_column(e.eval(ectx), cap) for e in exprs]
                 if pred is None:
@@ -174,7 +180,7 @@ class FusedAggregateStageExec(te.TpuHashAggregateExec):
         super().__init__(grouping, aggregates, child, output,
                          pre_filter=pre_filter)
         self.fused_ops = tuple(fused_ops)   # folded ops below the aggregate
-        self.batches_not_materialized = 0
+        self.metrics[FUSED_OPS].add(len(self.fused_ops) + 1)
 
     def tree_string(self, indent: int = 0, analyze: bool = False) -> str:
         # the folded ops are not rendered: their expressions live inside the
@@ -193,8 +199,8 @@ class FusedAggregateStageExec(te.TpuHashAggregateExec):
             yield from self._aggregate(ctx, counted)
         finally:
             # each folded op would have built one batch per input batch
-            self.batches_not_materialized += \
-                max(counted.n, 1) * len(self.fused_ops)
+            self.metrics[FUSED_BATCHES_SAVED].add(
+                max(counted.n, 1) * len(self.fused_ops))
 
 
 class _Counted:

@@ -224,9 +224,13 @@ class MeshFileScatterExec(MeshExec):
                 table = (pa.concat_tables(parts) if parts
                          else self.output.to_pa().empty_table())
                 from spark_rapids_tpu_torch.columnar.host import HostBatch
-                yield scatter_host_batch(
+                mb = scatter_host_batch(
                     HostBatch.from_arrow(table, ctx.string_max_bytes),
                     self.mesh, ctx.conf)
+                # the file scan is read here, not executed: its output is
+                # the scattered rows, as the JAX package counts them
+                scan.count_output(mb.num_rows)
+                yield mb
                 return
             assign = _lpt(counts, n_dev)
             tables = [lambda d=d: scan.iter_tables_for_files(
@@ -243,7 +247,9 @@ class MeshFileScatterExec(MeshExec):
                     f"shard {d} read {db.num_rows} rows but the metadata "
                     f"said {expect[d]}")
             shards.append(db)
-        yield MeshBatch(self.output, tuple(shards), self.mesh)
+        mb = MeshBatch(self.output, tuple(shards), self.mesh)
+        scan.count_output(mb.num_rows)
+        yield mb
 
 
 class MeshFromDeviceExec(MeshExec):

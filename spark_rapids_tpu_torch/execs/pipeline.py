@@ -34,8 +34,12 @@ import torch
 
 from spark_rapids_tpu_torch.execs.base import ExecContext, PhysicalExec
 
+#: per-exec metric: the most batches the queue held ahead of the consumer
+PIPELINE_INFLIGHT_PEAK = "pipelineInflightPeak"
+
 _POLL_S = 0.05
-#: how often a consumer waiting for its producer checks that it still runs
+#: how often a reader waiting on a worker it cannot cancel checks that the
+#: worker still runs (io/orc.py)
 _LIVENESS_S = 1.0
 
 
@@ -44,11 +48,14 @@ def _get_live(q: "queue.Queue", worker: threading.Thread,
     """The producer's next item. The producer puts an item, an error or
     its end before it returns, so a producer thread that is gone with the
     queue empty is a fault: it raises here instead of blocking the
-    consumer forever. ``cancel_check`` runs between polls, so a cancelled
-    consumer unwinds even while its producer is wedged."""
+    consumer forever. ``cancel_check`` runs between polls, every
+    ``_POLL_S``: a cancelled consumer unwinds even while its producer is
+    wedged, and a consumer's ``ExecContext.check_cancelled`` is also the
+    task thread's preemption checkpoint, so a query whose work runs on its
+    producer thread still yields its permit to a starved tenant."""
     while True:
         try:
-            return q.get(timeout=_LIVENESS_S)
+            return q.get(timeout=_POLL_S)
         except queue.Empty:
             if cancel_check is not None:
                 cancel_check()
@@ -93,6 +100,7 @@ class PipelinedExec(PhysicalExec):
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
         dm = ctx.device_manager
+        peak = self.metrics[PIPELINE_INFLIGHT_PEAK]
 
         def produce() -> None:
             from spark_rapids_tpu_torch.serving.lifecycle import bind_query
@@ -119,6 +127,7 @@ class PipelinedExec(PhysicalExec):
                     src = self.children[0].execute(ctx)
                     for b in src:
                         ctx.check_cancelled()
+                        peak.set_max(q.qsize() + 1)
                         if not _put_abortable(q, ("b", b), stop):
                             return
             except BaseException as e:  # noqa: BLE001 - re-raised by consumer

@@ -108,7 +108,9 @@ def _carried_encoding(parts: List[DeviceColumn], batches: List[DeviceBatch],
 
 def _count_encoded_op() -> None:
     from spark_rapids_tpu_torch.columnar import encoding as cenc
+    from spark_rapids_tpu_torch.utils import metrics as um
     cenc.count("encoded_domain_ops")
+    um.TRANSFER_METRICS[um.TRANSFER_ENCODED_DOMAIN_OPS].add(1)
 
 
 # ---------------------------------------------------------------- transitions
@@ -135,10 +137,14 @@ class HostToDeviceExec(PhysicalExec):
             cache = get_cache(ctx.conf.get(cfg.SCAN_CACHE_BYTES))
             # per-key latch: actions missing on the same table at once
             # share one upload
-            yield cache.get_or_put(
+            b = cache.get_or_put(
                 child.batch, ctx.string_max_bytes, ctx.device,
                 lambda: upload_table_conf(child.batch, ctx.device, ctx.conf),
                 cancel_check=ctx.check_cancelled)
+            # the scan is read from the cache, not executed: its output is
+            # the cached batch's rows, as the JAX package counts them
+            child.count_output(b.num_rows)
+            yield b
             return
         for hb in child.execute(ctx):
             ctx.check_cancelled()   # before each upload: the costliest step

@@ -58,6 +58,7 @@ from spark_rapids_tpu_torch.exprs.core import ColV
 from spark_rapids_tpu_torch.memory.buffer import BufferId
 from spark_rapids_tpu_torch.memory.faults import plan_for_conf
 from spark_rapids_tpu_torch.memory.store import GRACE_PARTITION_PRIORITY
+from spark_rapids_tpu_torch.utils import metrics as um
 
 #: table-id namespace for grace partition buffers, apart from the shuffle
 #: catalog's (from 1 << 20) and the DataFrame cache's (1 << 28)
@@ -88,16 +89,12 @@ def _count(key: str, value: int, peak: bool = False) -> None:
     with _COUNTERS_LOCK:
         COUNTERS[key] = (max(COUNTERS[key], value) if peak
                          else COUNTERS[key] + value)
-    # the same events in the serving layer's memory section, the depth
-    # also on the action's scope and the running query's handle
-    from spark_rapids_tpu_torch.serving.lifecycle import current_query
-    from spark_rapids_tpu_torch.utils import metrics as um
+    # the depth also on the action's scope and the running query's handle
+    # (the other two events are bumped in the memory section at their
+    # sites)
     if key == "recursion_depth_peak":
+        from spark_rapids_tpu_torch.serving.lifecycle import current_query
         um.note_recursion_depth(value, current_query())
-    else:
-        um.MEMORY_METRICS[{"pressure_events": um.MEM_PRESSURE_EVENTS,
-                           "spill_partitions": um.MEM_SPILL_PARTITIONS}[key]
-                          ].add(value)
 
 
 def _depth_seed(depth: int) -> int:
@@ -314,6 +311,7 @@ class GraceController:
 
     def _record_pressure(self) -> None:
         _count("pressure_events", 1)
+        um.MEMORY_METRICS[um.MEM_PRESSURE_EVENTS].add(1)
         self.triggered = True
         _note(self.exec, "trigger", "reactive")
 
@@ -483,6 +481,7 @@ class GraceController:
             batches = itertools.chain(_consume(head), batches)
         parts = SpillablePartitions(self.store, self.catalog, n, depth)
         _count("spill_partitions", n)
+        um.MEMORY_METRICS[um.MEM_SPILL_PARTITIONS].add(n)
         _count("recursion_depth_peak", depth + 1, peak=True)
         _note(self.exec, "partitions", n)
         _note(self.exec, "depth", depth + 1, peak=True)

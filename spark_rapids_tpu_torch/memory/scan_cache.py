@@ -64,7 +64,11 @@ class DeviceScanCache:
                 ev = self._inflight.get(key)
                 if ev is None:
                     ev = threading.Event()
-                    self._inflight[key] = ev
+                    # released in the mine-branch finally below: the store
+                    # and the release correlate through `mine` (set True in
+                    # this branch only), one hop beyond what path-
+                    # insensitive dataflow can prove
+                    self._inflight[key] = ev  # tpu-lint: disable=R008
                     mine = True
                     self.misses += 1
             if mine:

@@ -14,7 +14,11 @@ it raises unwinds the wait.
 Batch-granularity preemption (the serving layer's): a running query polls
 ``has_starved_waiter`` at its exec-boundary checkpoints and, when another
 tenant's head-of-line waiter has starved, ``yield_to_waiters`` hands its
-permit over and takes it back under fair share.
+permit over and takes it back under fair share. While it waits, the
+yielding tenant loses every fair-share tie, so the starved waiter is
+admitted whatever the two tenants are named (in the JAX package the tie
+goes to the name that sorts first, and a yielder named first takes its
+permit straight back).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from contextlib import contextmanager
 from typing import Callable, Dict, Optional, Set
 
 from spark_rapids_tpu_torch.utils.fair_share import (activation_reset,
-                                                     pick_tenant)
+                                                     weight_of)
 
 _DEFAULT_TENANT = "default"
 _POLL_S = 0.05
@@ -43,6 +47,9 @@ class TpuSemaphore:
         #: their nesting ledger stays live so sibling threads entering or
         #: exiting scoped holds during the yield keep it balanced
         self._yielding: Set[int] = set()
+        #: the tenants of the tasks mid-yield, each with its count of such
+        #: tasks: they lose fair-share ties while they wait
+        self._yield_tenants: Dict[str, int] = {}
         self._seq = 0
         #: tenant -> FIFO of waiting ticket ids
         self._waiters: Dict[str, deque] = {}
@@ -65,8 +72,16 @@ class TpuSemaphore:
             self._cond.notify_all()
 
     def _next_tenant_locked(self) -> Optional[str]:
-        return pick_tenant((t for t, q in self._waiters.items() if q),
-                           self._served, self._weights)
+        active = [t for t, q in self._waiters.items() if q]
+        # fair_share.pick_tenant's order, with one tie-break before the
+        # name: a tenant mid-yield loses every tie to one that is not, and
+        # of two mid-yield the later yielder loses. Its activation reset
+        # gave the yielder the waiter's deficit, and the name order would
+        # otherwise hand the permit straight back to it, also when the
+        # waiter is itself a query that yielded to it earlier.
+        return min(active, default=None, key=lambda t: (
+            self._served.get(t, 0.0) / weight_of(self._weights, t),
+            self._waiters[t][0] if t in self._yield_tenants else -1, t))
 
     def _may_admit_locked(self, ticket: int, tenant: str) -> bool:
         if len(self._holders) >= self.max_concurrent:
@@ -256,17 +271,19 @@ class TpuSemaphore:
                 return False
             self._holders.remove(tid)
             self._yielding.add(tid)
+            self._yield_tenants[tenant] = self._yield_tenants.get(tenant,
+                                                                  0) + 1
             ticket = self._enqueue_locked(tenant)
             self._cond.notify_all()
             try:
                 self._wait_turn_locked(tid, ticket, tenant, None,
                                        cancel_check)
             except BaseException:
-                self._yielding.discard(tid)
+                self._end_yield_locked(tid, tenant)
                 self._dequeue_locked(ticket, tenant)
                 self._cond.notify_all()
                 raise
-            self._yielding.discard(tid)
+            self._end_yield_locked(tid, tenant)
             self._dequeue_locked(ticket, tenant)
             if tid not in self._holders:
                 # an acquire_if_necessary sibling may have taken the hold
@@ -275,6 +292,14 @@ class TpuSemaphore:
                 self._served[tenant] = self._served.get(tenant, 0.0) + 1.0
             self._cond.notify_all()
             return True
+
+    def _end_yield_locked(self, tid: int, tenant: str) -> None:
+        self._yielding.discard(tid)
+        n = self._yield_tenants.get(tenant, 0) - 1
+        if n > 0:
+            self._yield_tenants[tenant] = n
+        else:
+            self._yield_tenants.pop(tenant, None)
 
     @property
     def active_holders(self) -> int:

@@ -11,8 +11,11 @@ tier's admission also counts the scan cache's bytes and shrinks the cache
 before it spills (``DeviceMemoryStore.ensure_capacity``), and it tells
 its pressure listeners whenever it had to spill (memory/grace.py
 subscribes while an operator stages its input). Each store counts the
-bytes it spilled by the tier they landed on (``spilled_to``), as plain
-counters: the JAX package's metrics registry is not ported.
+bytes it spilled by the tier they landed on (``spilled_to``), and the same
+bytes in the memory section's per-tier counters (``utils/metrics.py``).
+The spill order queue and the host arena are the JAX package's C++
+``HashedPriorityQueue`` and ``AddressSpaceAllocator`` (``native/``), built
+by ``g++`` at first use.
 """
 from __future__ import annotations
 
@@ -25,8 +28,9 @@ from typing import Dict, List, Optional
 
 from spark_rapids_tpu_torch.memory.buffer import (BufferId, SpillableBuffer,
                                                   StorageTier)
-from spark_rapids_tpu_torch.native import (PyAddressSpaceAllocator,
-                                           PyHashedPriorityQueue)
+from spark_rapids_tpu_torch.native import (AddressSpaceAllocator,
+                                           HashedPriorityQueue)
+from spark_rapids_tpu_torch.utils import metrics as um
 
 #: user-cached DataFrame batches (df.cache()): colder than working
 #: batches, warmer than grace partitions and shuffle buffers
@@ -105,7 +109,7 @@ class BufferStore:
         self.budget_bytes = budget_bytes
         self._lock = threading.RLock()
         self._buffers: Dict[int, SpillableBuffer] = {}      # key -> buffer
-        self._spill_queue = PyHashedPriorityQueue()
+        self._spill_queue = HashedPriorityQueue()
         self._used = 0
         self.spill_store: Optional["BufferStore"] = None
         #: bytes this store spilled, by the tier they landed on
@@ -170,6 +174,9 @@ class BufferStore:
         if moved.owner_store is not None:
             with self._lock:
                 self.spilled_to[moved.tier] += buf.size_bytes
+            um.MEMORY_METRICS[um.MEM_SPILLED_TO_HOST
+                              if moved.tier == StorageTier.HOST
+                              else um.MEM_SPILLED_TO_DISK].add(buf.size_bytes)
         self.catalog.unregister(buf)
         buf.close()
 
@@ -298,7 +305,7 @@ class HostMemoryStore(BufferStore):
 
     def __init__(self, catalog: BufferCatalog, budget_bytes: int):
         super().__init__(catalog, budget_bytes)
-        self.arena = PyAddressSpaceAllocator(budget_bytes)
+        self.arena = AddressSpaceAllocator(budget_bytes)
         self._offsets: Dict[int, int] = {}
 
     def add_buffer(self, buf: SpillableBuffer) -> None:
@@ -323,6 +330,7 @@ class HostMemoryStore(BufferStore):
                 self.spill_store.add_buffer(self._move_down(buf))
                 with self._lock:
                     self.spilled_to[StorageTier.DISK] += buf.size_bytes
+                um.MEMORY_METRICS[um.MEM_SPILLED_TO_DISK].add(buf.size_bytes)
                 buf.close()
                 return
         super().add_buffer(buf)
@@ -347,6 +355,10 @@ class HostMemoryStore(BufferStore):
 
     def close(self) -> None:
         super().close()
+        with self._lock:
+            # a late remove() of a buffer finds no offset and leaves the
+            # closed arena alone
+            self._offsets.clear()
         self.arena.close()
 
 

@@ -1,9 +1,12 @@
-"""The spill order queue and the host arena's allocator, in pure Python.
+"""The plain versions of the native runtime: the spill order queue and the
+host arena's allocator in pure Python, the port's copy of the JAX package's
+twins. The store runs the C++ library (``native/__init__.py``); the tests
+hold it against these.
 
-The JAX package builds these as a C++ library bound with ctypes and keeps
-pure-Python twins for hosts without a toolchain; the port keeps its own copy
-of those twins (same semantics: first-fit with coalescing; lowest priority
-polls first, first in first out among equals).
+Same semantics as the C++: first-fit with coalescing; lowest priority polls
+first, first in first out among equals. One difference, in both packages:
+an ``offer`` that updates a queued key gives it a new place among equal
+priorities here, while the C++ keeps its first insertion's place.
 """
 from __future__ import annotations
 

@@ -51,6 +51,7 @@ from spark_rapids_tpu_torch.shuffle.manager import (CachingShuffleReader,
                                                     MapOutputTracker,
                                                     MapStatus, ShuffleEnv,
                                                     ShuffleFetchFailedError)
+from spark_rapids_tpu_torch.shuffle.table_meta import ChecksumError
 from spark_rapids_tpu_torch.utils import errors as uerr
 from spark_rapids_tpu_torch.utils import metrics as mt
 
@@ -573,6 +574,13 @@ class ProcessExecutor:
         resp = self._request({"type": "cache_put", "tid": table_id,
                               "gen": generation, "parts": parts})
         if resp.get("type") == "error":
+            payload = resp.get("error")
+            decoded = (uerr.decode_error(payload) if payload is not None
+                       else None)
+            if isinstance(decoded, ChecksumError):
+                # a shipped partition arrived corrupt: the signal goes on
+                # to the caller's rung, as a fetch's does
+                raise decoded
             raise RuntimeError(f"cache push to {self.executor_id} failed: "
                                f"{resp['message']}")
 

@@ -20,6 +20,19 @@ import tempfile
 import threading
 import traceback
 
+from spark_rapids_tpu_torch.utils import errors as uerr
+
+
+@uerr.triage_boundary
+def _reply_error(send, rid, exc: BaseException) -> None:
+    """A failed request's reply: its error through the wire codec
+    (utils/errors.py), which the driver's side of the request decodes and
+    re-raises, so a ladder signal (a shipped blob's ``ChecksumError``)
+    reaches the rung that triages it instead of ending here."""
+    send({"type": "error", "id": rid,
+          "error": uerr.encode_error(exc, message=traceback.format_exc()),
+          "message": traceback.format_exc()})
+
 
 def _cache_put(conf, device, cached_parts, tid: int, parts) -> None:
     """Register a shipped df.cache() entry's partitions in this executor's
@@ -98,7 +111,6 @@ def main() -> int:
     from spark_rapids_tpu_torch.parallel.cluster import (_recv_msg, _run_task,
                                                          _send_msg)
     from spark_rapids_tpu_torch.shuffle.manager import ShuffleEnv
-    from spark_rapids_tpu_torch.utils import errors as uerr
 
     env = None
     cached_parts: dict = {}      # df.cache() table_id -> [BufferId...]
@@ -163,9 +175,8 @@ def main() -> int:
                     _cache_put(conf, device, cached_parts, msg["tid"],
                                msg["parts"])
                     send({"type": "ok", "id": rid})
-                except Exception:
-                    send({"type": "error", "id": rid,
-                          "message": traceback.format_exc()})
+                except Exception as e:
+                    _reply_error(send, rid, e)
                 continue
             if kind == "cache_remove":
                 _cache_remove(cached_parts, msg["tid"])

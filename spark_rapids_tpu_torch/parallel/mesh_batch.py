@@ -27,7 +27,6 @@ shard tensor of every mesh batch made since the last reset.
 """
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -40,21 +39,21 @@ from spark_rapids_tpu_torch.columnar.dtypes import Schema, bucket_capacity
 from spark_rapids_tpu_torch.columnar.host import (HostBatch, HostColumn,
                                                   concat_host_batches)
 from spark_rapids_tpu_torch.parallel.mesh import Mesh
+from spark_rapids_tpu_torch.utils import metrics as um
 
-_COUNTERS: Dict[str, int] = {"host_hop_bytes": 0}
-_COUNTERS_LOCK = threading.Lock()
 _DEVICE_KINDS: set = set()
 
 
 def counters() -> Dict:
-    """The mesh's counters: ``host_hop_bytes`` and
-    ``shard_device_kinds``."""
-    return {**_COUNTERS, "shard_device_kinds": sorted(_DEVICE_KINDS)}
+    """The mesh's counters: ``host_hop_bytes`` (the transfer section's
+    ``transfer.host_hop_bytes``) and ``shard_device_kinds``."""
+    hops = um.TRANSFER_METRICS[um.TRANSFER_HOST_HOP_BYTES].value
+    return {"host_hop_bytes": hops,
+            "shard_device_kinds": sorted(_DEVICE_KINDS)}
 
 
 def reset_counters() -> None:
-    for k in _COUNTERS:
-        _COUNTERS[k] = 0
+    um.TRANSFER_METRICS[um.TRANSFER_HOST_HOP_BYTES].reset()
     _DEVICE_KINDS.clear()
 
 
@@ -132,8 +131,7 @@ def scatter_arrow(table, mesh: Mesh, string_max_bytes: int,
 def count_host_hop(nbytes: int) -> None:
     """Count ``nbytes`` of exchange data that went through the host (from
     any thread: the shuffle client counts on its transports' threads)."""
-    with _COUNTERS_LOCK:
-        _COUNTERS["host_hop_bytes"] += int(nbytes)
+    um.TRANSFER_METRICS[um.TRANSFER_HOST_HOP_BYTES].add(int(nbytes))
 
 
 def count_crossing(src: torch.device, dst: torch.device,

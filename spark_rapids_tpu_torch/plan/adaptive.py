@@ -32,14 +32,13 @@ and per (map, reduce) pair, KMV distinct sketches):
   engine (download, CpuHashJoinExec, upload).
 
 Every decision sets ``adaptive_tag`` on the rewritten node, shown as
-``[adaptive: …]`` by ``tree_string``, and adds to ``counters()``. The JAX
-package keeps these in ``utils/metrics.ADAPTIVE_METRICS``, which the port
-has not ported; the counters here carry the same four values.
+``[adaptive: …]`` by ``tree_string``, and adds to its counter in
+``utils/metrics.ADAPTIVE_METRICS``, as in the JAX package; ``counters()``
+reads the four of them.
 """
 from __future__ import annotations
 
 import dataclasses
-import threading
 from collections import Counter
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple, Union
@@ -51,30 +50,28 @@ from spark_rapids_tpu_torch.execs.exchange_execs import (
     CpuBroadcastExchangeExec, CpuShuffleExchangeExec, HashPartitioning,
     RoundRobinPartitioning, ShuffleExchangeExecBase, SinglePartitioning,
     TpuBroadcastExchangeExec)
+from spark_rapids_tpu_torch.utils import metrics as um
 
 # ------------------------------------------------------------------ counters
-COUNTERS = {"skew_splits": 0, "coalesced_partitions": 0,
-            "broadcast_switches": 0, "refused_stages": 0}
-_COUNTERS_LOCK = threading.Lock()
+#: counter key -> its name in the adaptive section of utils/metrics.py,
+#: where the decisions are counted (``session.last_metrics["adaptive"]``)
+_METRIC = {"skew_splits": um.ADAPTIVE_SKEW_SPLITS,
+           "coalesced_partitions": um.ADAPTIVE_COALESCED_PARTITIONS,
+           "broadcast_switches": um.ADAPTIVE_BROADCAST_SWITCHES,
+           "refused_stages": um.ADAPTIVE_REFUSED_STAGES}
 
 
 def reset_counters() -> None:
-    with _COUNTERS_LOCK:
-        for k in COUNTERS:
-            COUNTERS[k] = 0
+    for name in _METRIC.values():
+        um.ADAPTIVE_METRICS[name].reset()
 
 
 def counters() -> dict:
     """Decisions since the last reset: skew splits (join partitions split
     plus skewed aggregate partitions), reduce partitions coalesced away,
     broadcast switches and re-fused stages."""
-    with _COUNTERS_LOCK:
-        return dict(COUNTERS)
-
-
-def _count(key: str, value: int) -> None:
-    with _COUNTERS_LOCK:
-        COUNTERS[key] += value
+    snap = um.ADAPTIVE_METRICS.snapshot()
+    return {key: snap[name] for key, name in _METRIC.items()}
 
 
 def _is_exchange(node: PhysicalExec) -> bool:
@@ -254,7 +251,8 @@ def adaptive_rewrite(plan: PhysicalExec, ctx: ExecContext) -> PhysicalExec:
             if est is not None:
                 tag += f" est~{est // max(_row_width(c.output), 1)}"
         reader.adaptive_tag = tag
-        _count("coalesced_partitions", c.num_partitions - len(specs))
+        um.ADAPTIVE_METRICS[um.ADAPTIVE_COALESCED_PARTITIONS].add(
+            c.num_partitions - len(specs))
         if c.is_device and isinstance(c.partitioning, (HashPartitioning,
                                                        RoundRobinPartitioning)):
             # GpuCoalesceBatches after a shuffle: the group's fragments
@@ -340,7 +338,7 @@ def _refuse_stages(plan: PhysicalExec, conf) -> PhysicalExec:
             if seen[sig(n)] > before.get(sig(n), 0):
                 prior = n.adaptive_tag
                 n.adaptive_tag = f"{prior} | re-fused" if prior else "re-fused"
-        _count("refused_stages", delta)
+        um.ADAPTIVE_METRICS[um.ADAPTIVE_REFUSED_STAGES].add(delta)
     return refused
 
 
@@ -455,7 +453,7 @@ def _try_broadcast_switch(join, stats, threshold: int):
                   join.right_keys, join.output, join.condition,
                   build_side="left" if bi == 0 else "right")
         out.adaptive_tag = f"broadcast-switch build={sum(sz)}B"
-        _count("broadcast_switches", 1)
+        um.ADAPTIVE_METRICS[um.ADAPTIVE_BROADCAST_SWITCHES].add(1)
         return out
     return None
 
@@ -576,7 +574,7 @@ def _try_skew_split(join, stats, conf, target: int):
         readers.append(r)
     out = join.with_children(readers)
     out.adaptive_tag = "skew-split " + " ".join(split_tags)
-    _count("skew_splits", len(split_tags))
+    um.ADAPTIVE_METRICS[um.ADAPTIVE_SKEW_SPLITS].add(len(split_tags))
     return out
 
 
@@ -612,5 +610,5 @@ def _try_skew_repartition(node, stats, conf, target: int):
         out._form = out.device_form().with_children(out.children)
         out._form.grace_partitions = parts
     out.adaptive_tag = f"skew-repartition×{parts}"
-    _count("skew_splits", n_skewed)
+    um.ADAPTIVE_METRICS[um.ADAPTIVE_SKEW_SPLITS].add(n_skewed)
     return out

@@ -6,7 +6,9 @@ has no jitted programs: what it builds once per process and then reuses is
 its ``nvcc``-built kernel libraries (``cuda_build.load``). They go through
 this cache:
 
-- the key is the library's source digest (``cuda_build.library_path``);
+- the key is the library's name (``cuda_build.library_path``): a digest
+  of its source, ``NVCC_FLAGS`` and the toolchain identity
+  (``shims.get().identity()``);
 - a miss runs the builder (``nvcc``, or a load of a library already
   built), and its seconds are the bound query's ``compile_s``;
 - a ``disk_hit`` is a miss whose key the on-disk index already holds: an

@@ -70,6 +70,7 @@ class ShuffleBufferCatalog:
         with self._lock:
             entries = list(self._blocks.get(block, []))
         out: List[Tuple[SpillableBuffer, TableMeta]] = []
+        buf = None
         try:
             for buffer_id, meta in entries:
                 buf = self._catalog.acquire(buffer_id)
@@ -77,8 +78,12 @@ class ShuffleBufferCatalog:
                     raise KeyError(
                         f"shuffle buffer {buffer_id} vanished for {block}")
                 out.append((buf, meta))
+                buf = None      # handed off to `out`; the except owns it not
         except BaseException:
-            # a later acquire failing must not strand the earlier refcounts
+            # a later acquire failing must not strand the refcounts the
+            # earlier ones already took
+            if buf is not None:
+                buf.close()
             for b, _m in out:
                 b.close()
             raise

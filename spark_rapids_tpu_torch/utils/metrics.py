@@ -7,12 +7,16 @@ GPU the range is ``torch.profiler.record_function``, which also emits an
 NVTX range when the profiler runs under ``emit_nvtx``; it is a host-side
 range and never synchronizes the device.
 
-The port bumps the shuffle, recompute and serving counters, and the memory
-section's pressure events, grace partitions and recursion depth (from the
-grace layer, ``memory/grace.py::_count``). Its transfer path and
-spill tiers keep their own counters (``columnar/transfer.py``, the store's
-``spilled_bytes``), so the transfer section and the spill-tier bytes stay 0
-here; the names keep the JAX package's keys.
+Every dotted counter here has its bump sites in the port, at the
+counterparts of the JAX package's: the transfer section in
+``columnar/transfer.py`` (uploads, downloads, staged bytes), the encoded
+operators and splits, and the mesh's and the network shuffle's host hops
+(``parallel/mesh_batch.py::count_host_hop``); the memory section in the
+grace layer and the stores' spills; the adaptive section in
+``plan/adaptive.py``; the shuffle, recompute and serving sections in their
+layers. Each exec carries a ``MetricSet`` of output rows, output batches
+and total time (``execs/base.py``), and every action with
+``metrics.enabled`` publishes all of them as ``session.last_metrics``.
 """
 from __future__ import annotations
 
@@ -464,8 +468,9 @@ class NamedRange:
     """Timed, profiler-visible range tied to a metric (NvtxWithMetrics analog).
 
     Adds elapsed nanoseconds to ``metric`` on exit and, with ``trace``, opens
-    a ``torch.profiler.record_function`` range: a host-side range that a
-    profiler run shows and that never synchronizes the device.
+    the profiler's named range (``shims.get().record_function``): a
+    host-side range that a profiler run shows and that never synchronizes
+    the device.
     """
 
     def __init__(self, name: str, metric: Optional[Metric] = None, trace: bool = False):
@@ -477,8 +482,8 @@ class NamedRange:
 
     def __enter__(self) -> "NamedRange":
         if self._trace:
-            import torch.profiler
-            self._ctx = torch.profiler.record_function(self._name)
+            from spark_rapids_tpu_torch import shims
+            self._ctx = shims.get().record_function(self._name)
             self._ctx.__enter__()
         self._t0 = time.perf_counter_ns()
         return self

@@ -348,17 +348,12 @@ def note_exec_spill(node, partitions: int, depth: int) -> None:
 
 
 def _profiler_annotation(name: str):
-    """A ``torch.profiler.record_function`` range for ``name`` (the
-    per-exec named range trace.enabled promises, NvtxWithMetrics' analog):
-    a host-side range that never synchronizes the device."""
-    global _RECORD_FUNCTION
-    if _RECORD_FUNCTION is None:
-        import torch.profiler
-        _RECORD_FUNCTION = torch.profiler.record_function
-    return _RECORD_FUNCTION(name)
-
-
-_RECORD_FUNCTION = None
+    """The profiler's named range for ``name`` through the version shim
+    (``shims.get().record_function``; the per-exec named range
+    trace.enabled promises, NvtxWithMetrics' analog): a host-side range
+    that never synchronizes the device."""
+    from spark_rapids_tpu_torch import shims
+    return shims.get().record_function(name)
 
 
 def trace_exec(node, ctx, raw) -> Iterator:

@@ -1,6 +1,7 @@
 """The PyTorch port's hand-written CUDA kernels on the card, against their
-plain PyTorch versions, and the exchange through them. Every test here needs
-an NVIDIA GPU: it carries the ``cuda`` marker and skips without one.
+plain PyTorch versions, and the exchange through them. Every test here but
+the kernel libraries' key test (which builds nothing) needs an NVIDIA GPU:
+it carries the ``cuda`` marker and skips without one.
 
 This file imports neither jax nor pyarrow, so it also runs where only the
 port's dependencies are installed:
@@ -26,6 +27,46 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     yield torch.device("cuda")
     DeviceManager.shutdown()
+
+
+def test_library_key_covers_flags_and_toolchain(monkeypatch):
+    """A kernel library's name, which is also its program-cache key,
+    carries a digest of its source, ``NVCC_FLAGS`` and the toolchain
+    identity (``shims.get().identity()``): a change of flags or toolchain
+    names another library, so one built before is not loaded as current
+    (ROADMAP queue 3 item 17). Nothing is built here."""
+    from spark_rapids_tpu_torch import cuda_build, shims
+    from spark_rapids_tpu_torch.serving import program_cache as ppc
+
+    class Keys:
+        def __init__(self):
+            self.seen = []
+
+        def get_or_build(self, key, builder):
+            self.seen.append(key)
+            return type("Entry", (), {"fn": None})
+
+    def no_build(*a, **kw):
+        raise AssertionError("nothing may be built here")
+    keys = Keys()
+    monkeypatch.setattr(ppc, "_GLOBAL", keys)
+    monkeypatch.setattr(cuda_build.subprocess, "run", no_build)
+    src = "partition_reorder.cu"
+
+    def path_and_key():
+        cuda_build.load(src)
+        return cuda_build.library_path(src), keys.seen[-1]
+    base = path_and_key()
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
+                        cuda_build.NVCC_FLAGS + ("-lineinfo",))
+    flags = path_and_key()
+    monkeypatch.setattr(shims.Torch2Shims, "identity",
+                        lambda self: "Torch2Shims-cuda12.9-nvcc12.9-sm_90a")
+    ident = path_and_key()
+    paths, ks = zip(base, flags, ident)
+    assert len(set(paths)) == 3 and len(set(ks)) == 3
+    assert all(k == ("cuda_library", src, p.name) for p, k in
+               (base, flags, ident))
 
 
 def _reorder_case(dev, rows, n, L, dead, seed=0):

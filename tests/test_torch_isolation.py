@@ -330,3 +330,22 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_analyzer_loads_neither_torch_nor_jax():
+    """The port's analyzer is pure ``ast``: listing its rules and linting
+    a subtree (every rule but R005, whose parity check imports the exec
+    modules it compares) load neither torch nor jax nor the JAX package."""
+    child = (
+        "import sys\n"
+        "from spark_rapids_tpu_torch.analysis.__main__ import main\n"
+        "main(['--list-rules'])\n"
+        "rc = main(['spark_rapids_tpu_torch/native', '--strict'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'spark_rapids_tpu'))\n"
+        "print('RC', rc, 'LOADED', bad)\n")
+    res = subprocess.run([sys.executable, "-c", child], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "RC 0 LOADED []" in res.stdout, res.stdout

@@ -16,7 +16,7 @@ from spark_rapids_tpu.memory import store as jstore
 from spark_rapids_tpu.memory.buffer import BufferId as JBufferId
 from spark_rapids_tpu.shuffle import catalog as jcatalog
 from spark_rapids_tpu.shuffle import table_meta as jmeta
-from spark_rapids_tpu_torch import native as tnative
+from spark_rapids_tpu_torch.native import plain as tnative
 from spark_rapids_tpu_torch.columnar import dtypes as tdt
 from spark_rapids_tpu_torch.columnar.interop import batch_from_numpy
 from spark_rapids_tpu_torch.config import TpuConf

@@ -349,6 +349,66 @@ def test_early_limit_does_not_leak_the_producer():
     assert src.closed and src.produced < 10_000
 
 
+def test_closing_a_query_early_unwinds_its_pipeline_without_gc():
+    """A consumer that stops after one batch and closes its iterator: the
+    producer is joined, its permit released and its source closed by the
+    close itself, with the cycle collector off, since the counting hook
+    around every exec closes the generator it wraps."""
+    conf = TpuConf({"spark.rapids.tpu.sql.concurrentTpuTasks": "1",
+                    "spark.rapids.tpu.memory.tpu.poolSizeBytes":
+                        str(1 << 30)})
+    dm = DeviceManager.initialize(conf, CPU)
+    src = _Source(10_000)
+    plan = tte.TpuLimitExec(5, PipelinedExec(tte.TpuLimitExec(
+        9_000, src), 2))
+    gc.collect()
+    gc.disable()
+    try:
+        it = plan.execute(ExecContext(conf, CPU, 0, 1, dm, task_id=7))
+        assert next(it).num_rows == 1
+        it.close()
+        assert not _pipeline_threads()
+        assert src.closed and src.produced < 10_000
+        assert dm.semaphore.active_holders == 0
+        assert dm.semaphore.waiting == 0
+    finally:
+        gc.enable()
+
+
+class _HeldIterator:
+    """An exec's iterator that something else keeps alive, so that only an
+    explicit close() runs its cleanup."""
+
+    def __init__(self, batches):
+        self._it = iter(batches)
+        self.closed = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+    def close(self):
+        self.closed = True
+
+
+def test_counting_hook_closes_the_iterator_it_wraps():
+    hb = HostBatch.from_arrow(pa.table({"x": pa.array([0])}))
+    inner = _HeldIterator([ttransfer.upload(hb, CPU) for _ in range(3)])
+
+    class Held(PhysicalExec):
+        def execute(self, ctx):
+            return inner
+
+    node = Held((), hb.schema)
+    it = node.execute(_ctx())
+    assert next(it).num_rows == 1
+    it.close()
+    assert inner.closed
+    assert node.metrics["numOutputRows"].value == 1
+
+
 def test_nested_pipeline_under_one_permit_finishes():
     """Two pipelines nested under a task holding the only permit: the
     producers join the task's hold by its id instead of queueing."""

@@ -267,38 +267,77 @@ def test_footprint_admission_charges_equal_between_packages(sessions, pool):
 
 
 # ------------------------------------------------------------- preemption
-@pytest.mark.parametrize("pkg", ["jax", "port"])
-def test_semaphore_preemption_matches_the_reference(pkg):
+@pytest.mark.parametrize("pkg,whale,starved", [
+    pytest.param("jax", "whale", "fast", id="jax"),
+    pytest.param("port", "whale", "fast", id="port"),
+    pytest.param("jax", "a", "b", id="jax-starved-sorts-last"),
+    pytest.param("port", "a", "b", id="port-starved-sorts-last")])
+def test_semaphore_preemption_matches_the_reference(pkg, whale, starved):
     """A holder sees another tenant's waiter starve, yields its permit,
     the waiter runs, and the holder takes it back: the same steps in both
-    semaphores."""
+    semaphores while the starved tenant's name sorts first. When it sorts
+    last, the port's yielder loses the fair-share tie and the waiter still
+    runs in the yield; the JAX package's yielder wins the tie by its name
+    and takes the permit straight back, so the waiter runs only after the
+    whale's hold ends (ROADMAP queue 3 item 15, kept there)."""
     if pkg == "jax":
         from spark_rapids_tpu.memory.semaphore import TpuSemaphore
     else:
         from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+    in_the_yield = pkg == "port" or starved < whale
     sem = TpuSemaphore(1)
     steps = []
     waiter_in = threading.Event()
 
     def waiter():
-        with sem.held(tenant="fast"):
-            steps.append("fast admitted")
+        with sem.held(tenant=starved):
+            steps.append("starved admitted")
             waiter_in.set()
-    with sem.held(tenant="whale"):
+    with sem.held(tenant=whale):
         assert sem.holds_permit()
-        assert not sem.yield_to_waiters(task_id=-1, tenant="whale")
+        assert not sem.yield_to_waiters(task_id=-1, tenant=whale)
         th = threading.Thread(target=waiter)
         th.start()
         wait_until(lambda: sem.waiting == 1)
-        assert not sem.has_starved_waiter(exclude_tenant="fast",
+        assert not sem.has_starved_waiter(exclude_tenant=starved,
                                           min_wait_s=0.0)
-        wait_until(lambda: sem.has_starved_waiter(exclude_tenant="whale",
+        wait_until(lambda: sem.has_starved_waiter(exclude_tenant=whale,
                                                   min_wait_s=0.02))
-        assert sem.yield_to_waiters(tenant="whale")
+        assert sem.yield_to_waiters(tenant=whale)
         steps.append("whale back")
-        assert waiter_in.is_set() and sem.holds_permit()
-        th.join(WAIT_S)
-    assert steps == ["fast admitted", "whale back"]
+        assert waiter_in.is_set() == in_the_yield and sem.holds_permit()
+    th.join(WAIT_S)
+    assert steps == (["starved admitted", "whale back"] if in_the_yield
+                     else ["whale back", "starved admitted"])
+    assert sem.active_holders == 0 and sem.waiting == 0
+
+
+def test_semaphore_mutual_yields_alternate():
+    """Two queries that yield to each other in turn: the one admitted in a
+    yield yields back once the first has starved, and the first, yielding
+    again, hands the permit to the earlier yielder instead of winning the
+    tie by its name (the later yielder loses; ROADMAP queue 3 item 15)."""
+    from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+    sem = TpuSemaphore(1)
+    steps = []
+
+    def interactive():
+        with sem.held(tenant="z"):
+            steps.append("z admitted")
+            wait_until(lambda: sem.waiting == 1)    # the whale's yield
+            assert sem.yield_to_waiters(tenant="z")
+            steps.append("z back")
+    with sem.held(tenant="a"):
+        th = threading.Thread(target=interactive)
+        th.start()
+        wait_until(lambda: sem.waiting == 1)
+        assert sem.yield_to_waiters(tenant="a")
+        steps.append("a back")
+        wait_until(lambda: sem.waiting == 1)        # z's yield
+        assert sem.yield_to_waiters(tenant="a")
+        steps.append("a back again")
+    th.join(WAIT_S)
+    assert steps == ["z admitted", "a back", "z back", "a back again"]
     assert sem.active_holders == 0 and sem.waiting == 0
 
 
@@ -306,18 +345,27 @@ def test_starved_tenant_admitted_before_the_whale_finishes(sessions):
     """One device permit, preemption on: an interactive tenant's query
     submitted behind a running many-batch whale finishes first, the whale
     yields at least once, both results equal their single runs, and
-    nothing is left held or registered."""
-    # the pipeline off: the whale's UDF and uploads run on its task thread,
-    # whose checkpoints may yield (a producer thread's may not), so it
-    # yields between its 16 batches; with the pipeline on its first
-    # task-thread checkpoint came after the UDF stage, and the two queries
-    # then ended within a millisecond of each other
+    nothing is left held or registered. The pipeline is on (the default):
+    the whale's UDF stage runs on its producer thread, whose checkpoints
+    may not yield, so the yield comes from the consumer's checkpoints
+    while it waits on the producer's queue."""
+    _starved_before_whale(sessions, {})
+
+
+def test_starved_tenant_admitted_before_the_whale_finishes_pipeline_off(
+        sessions):
+    """The same with the pipeline off: the whale's UDF and uploads run on
+    its task thread and yield at its own checkpoints."""
+    _starved_before_whale(
+        sessions, {"spark.rapids.tpu.transfer.pipeline.enabled": "false"})
+
+
+def _starved_before_whale(sessions, extra):
     sess = sessions("port", {
         "spark.rapids.tpu.sql.concurrentTpuTasks": "1",
         "spark.rapids.tpu.serving.maxConcurrentQueries": "2",
         "spark.rapids.tpu.serving.preemption.enabled": "true",
-        "spark.rapids.tpu.serving.preemption.starvationMs": "20",
-        "spark.rapids.tpu.transfer.pipeline.enabled": "false"})
+        "spark.rapids.tpu.serving.preemption.starvationMs": "20", **extra})
     F, DT = PKGS["port"][:2]
     started = threading.Event()
     # the whale's rows wait until the starved query's worker runs it, so
@@ -338,9 +386,11 @@ def test_starved_tenant_admitted_before_the_whale_finishes(sessions):
     want_whale, want_inter = whale.collect(), inter.collect()
     started.clear()
     running.clear()
-    wh = sess.submit(whale, tenant="whale")
+    # the starved tenant's name sorts last: the yield must hand it the
+    # permit all the same
+    wh = sess.submit(whale, tenant="a-whale")
     assert started.wait(WAIT_S)
-    ih = sess.submit(inter, tenant="interactive")
+    ih = sess.submit(inter, tenant="z-interactive")
     deadline = time.monotonic() + WAIT_S
     while ih.state.value in ("QUEUED", "ADMITTED") \
             and time.monotonic() < deadline:
